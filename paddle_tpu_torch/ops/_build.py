@@ -1,0 +1,112 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` has a plain `extern "C"` interface and is compiled
+on its own, at first use, into `build/paddle_tpu_torch/` at the root of
+the checkout:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/paddle_tpu_torch/<name>-<hash>.so
+         paddle_tpu_torch/csrc/<name>.cu
+
+The library name carries a hash of the source and the flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is. A
+library that includes no PyTorch header builds in seconds, where
+`torch.utils.cpp_extension.load` takes minutes. `build(names)` starts
+one nvcc per source, all at once.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["build", "load", "build_dir", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def build_dir():
+    return _PKG.parent / "build" / "paddle_tpu_torch"
+
+
+def nvcc_path():
+    """nvcc from PATH, else from the CUDA toolkit under CUDA_HOME or its
+    usual install prefix."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (looked on PATH and under "
+                       f"{home}/bin); the CUDA toolkit is needed to "
+                       "build the port's kernels")
+
+
+def _target(name):
+    src = _CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name):
+    """Start nvcc for `name` unless its library exists; returns
+    (process or None, temporary output, final path)."""
+    src, so = _target(name)
+    if so.exists():
+        return None, None, so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so
+
+
+def _finish(name, proc, tmp, so):
+    if proc is None:
+        return
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, so)
+
+
+def build(names):
+    """Compile every named kernel source that is not built yet, one
+    nvcc process per source, all running at once."""
+    with _lock:
+        started = [(n, *_start(n)) for n in names]
+        errors = []
+        for name, proc, tmp, so in started:
+            try:
+                _finish(name, proc, tmp, so)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name):
+    """The ctypes library of kernel `name`, building it first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _finish(name, *_start(name))
+            lib = ctypes.CDLL(str(_target(name)[1]))
+            _loaded[name] = lib
+        return lib

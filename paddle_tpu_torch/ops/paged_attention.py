@@ -1,0 +1,225 @@
+"""Attention over the paged KV arenas: the serving path's two kernels.
+
+- `paged_decode_attention` (registry "paged_decode") — q_len == 1
+  attention for every decode slot, through per-slot block tables;
+  CUDA source `csrc/paged_decode.cu`.
+- `flash_prefill_chunk` (registry "flash_prefill_chunk") — one request's
+  prefill chunk at positions p0.., causal, over its blocks; CUDA source
+  `csrc/flash_prefill_chunk.cu`.
+
+Each keeps the JAX signature (paddle_tpu/ops/pallas_decode.py) minus
+`use_kernel`. On a CPU tensor it runs its plain version; on a CUDA
+tensor it launches its kernel or raises — there is no path that runs the
+plain version on the card. The plain versions copy the JAX gather+dense
+fallbacks exactly (pallas_decode.py:329-345 and :522-538): gather the
+pages into a dense view and run `attention.composed_attention` over it.
+"""
+import ctypes
+import math
+import operator
+
+import torch
+
+from . import _build
+from .attention import composed_attention
+from .kernel_registry import get_kernel, register_kernel
+
+__all__ = ["paged_decode_attention", "flash_prefill_chunk",
+           "paged_decode_plain", "flash_prefill_plain"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)      # the kernels' template instances
+# f32: the JAX registry's declared kernel tolerance; bf16: probs and
+# outputs round to bf16 (8-bit mantissa, relative step 2^-8) where the
+# kernels keep f32 until the single final store
+_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
+
+
+def paged_decode_plain(q, k_pages, v_pages, block_tables, ctx_lens,
+                       n_heads):
+    """Gather+dense decode attention: q [S, 1, N*H]; pages
+    [num_blocks, bs, N*H]; block_tables [S, mb]; ctx_lens [S] — keys at
+    logical positions 0..ctx_lens[s] (inclusive) are valid."""
+    S, one, nh = q.shape
+    if one != 1:
+        raise ValueError("paged_decode_attention is q_len==1 only")
+    N = n_heads
+    H = nh // N
+    L = block_tables.shape[1] * k_pages.shape[1]
+    tab = block_tables.long()
+    key_pos = torch.arange(L, device=q.device)[None, None, None, :]
+    out = composed_attention(
+        q.reshape(S, 1, N, H), k_pages[tab].reshape(S, L, N, H),
+        v_pages[tab].reshape(S, L, N, H),
+        key_pos <= ctx_lens.long()[:, None, None, None])
+    return out.reshape(S, 1, nh)
+
+
+def flash_prefill_plain(q, k_pages, v_pages, table_row, p0, n_heads):
+    """Gather+dense chunked-prefill attention: q [1, C, N*H] at positions
+    p0..p0+C-1; table_row [mb]; key j is valid for query i when
+    j <= p0 + i."""
+    one, C, nh = q.shape
+    if one != 1:
+        raise ValueError("flash_prefill_chunk takes one request's chunk")
+    N = n_heads
+    H = nh // N
+    L = table_row.shape[0] * k_pages.shape[1]
+    tab = table_row.long()
+    key_pos = torch.arange(L, device=q.device)[None, None, None, :]
+    q_pos = (p0 + torch.arange(C, device=q.device))[None, None, :, None]
+    out = composed_attention(
+        q.reshape(1, C, N, H), k_pages[tab].reshape(1, L, N, H),
+        v_pages[tab].reshape(1, L, N, H), key_pos <= q_pos)
+    return out.reshape(1, C, nh)
+
+
+def _library(name, launch, error_string, argtypes):
+    lib = _build.load(name)
+    fn = getattr(lib, launch)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, error_string)
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return fn, getattr(lib, error_string)
+
+
+def _check_cuda(name, tensors, dtypes):
+    """Device, dtype and contiguity checks shared by both wrappers."""
+    dev = tensors[0][1].device
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors are on {dev} but the current "
+                         f"CUDA device is {torch.cuda.current_device()}")
+    for arg, t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    for arg, t in tensors:
+        want = dtypes.get(arg)
+        if want is not None and t.dtype != want:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
+                            f"expected {want}")
+
+
+def _check_pages(name, q, k_pages, v_pages, n_heads):
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 "
+                        "or bfloat16)")
+    nh = q.shape[-1]
+    if nh % n_heads or nh // n_heads not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {nh / n_heads} not in "
+                         f"{_HEAD_DIMS}")
+    if k_pages.dim() != 3 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[2] != nh:
+        raise ValueError(f"{name}: pages must both be [num_blocks, "
+                         f"block_size, {nh}], got {tuple(k_pages.shape)} "
+                         f"and {tuple(v_pages.shape)}")
+    return nh // n_heads
+
+
+@register_kernel(
+    "paged_decode", plain=paged_decode_plain, tol=_TOL,
+    source="paddle_tpu_torch/csrc/paged_decode.cu",
+    replaces="paddle_tpu/ops/pallas_decode.py:296")
+def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens,
+                           n_heads):
+    """Decode attention (q_len == 1) over a paged KV cache.
+
+    q [S, 1, N*H]; k_pages/v_pages [num_blocks, block_size, N*H];
+    block_tables [S, max_blocks] int32 (unallocated entries point at the
+    null block 0); ctx_lens [S] int32 — keys at logical positions
+    0..ctx_lens[s] are valid. Returns [S, 1, N*H] in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, block_tables,
+                                  ctx_lens, n_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    S, one, nh = q.shape
+    if one != 1:
+        raise ValueError("paged_decode_attention is q_len==1 only")
+    H = _check_pages("paged_decode_attention", q, k_pages, v_pages,
+                     n_heads)
+    _check_cuda("paged_decode_attention",
+                [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                 ("block_tables", block_tables), ("ctx_lens", ctx_lens)],
+                {"k_pages": q.dtype, "v_pages": q.dtype,
+                 "block_tables": torch.int32, "ctx_lens": torch.int32})
+    if block_tables.dim() != 2 or block_tables.shape[0] != S \
+            or tuple(ctx_lens.shape) != (S,):
+        raise ValueError("paged_decode_attention: block_tables must be "
+                         f"[{S}, max_blocks] and ctx_lens [{S}]")
+    fn, err = _library(
+        "paged_decode", "paged_decode_launch", "paged_decode_error_string",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+            S, n_heads, H, k_pages.shape[1], block_tables.shape[1],
+            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(H),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    get_kernel("paged_decode").launches += 1
+    return out
+
+
+@register_kernel(
+    "flash_prefill_chunk", plain=flash_prefill_plain, tol=_TOL,
+    source="paddle_tpu_torch/csrc/flash_prefill_chunk.cu",
+    replaces="paddle_tpu/ops/pallas_decode.py:485")
+def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
+    """Chunked-prefill attention over a paged KV cache.
+
+    q [1, C, N*H] — the chunk's queries at positions p0..p0+C-1;
+    k_pages/v_pages [num_blocks, block_size, N*H], already holding this
+    chunk's own K/V (callers write before attending); table_row
+    [max_blocks] int32 — one request's logical->physical block map; p0 —
+    the chunk's first position, a host integer. Returns [1, C, N*H] in
+    q's dtype."""
+    p0 = operator.index(p0)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k_pages, v_pages, table_row, p0,
+                                   n_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill_chunk: unsupported device "
+                         f"{q.device}")
+    one, C, nh = q.shape
+    if one != 1:
+        raise ValueError("flash_prefill_chunk takes one request's chunk")
+    H = _check_pages("flash_prefill_chunk", q, k_pages, v_pages, n_heads)
+    _check_cuda("flash_prefill_chunk",
+                [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                 ("table_row", table_row)],
+                {"k_pages": q.dtype, "v_pages": q.dtype,
+                 "table_row": torch.int32})
+    bs = k_pages.shape[1]
+    if bs % 8 or 2 * bs * H * 4 > 48 * 1024:
+        raise ValueError(f"flash_prefill_chunk: block_size {bs} must be a "
+                         "multiple of 8 with 2*block_size*head_dim f32 "
+                         "values within 48 KB of shared memory")
+    if table_row.dim() != 1 or p0 < 0:
+        raise ValueError("flash_prefill_chunk: table_row must be "
+                         "[max_blocks] and p0 >= 0")
+    fn, err = _library(
+        "flash_prefill_chunk", "flash_prefill_chunk_launch",
+        "flash_prefill_chunk_error_string",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table_row.data_ptr(), out.data_ptr(), C, n_heads, H, bs,
+            table_row.shape[0], p0, _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(H),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_prefill_chunk launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    get_kernel("flash_prefill_chunk").launches += 1
+    return out

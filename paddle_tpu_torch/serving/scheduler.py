@@ -1,0 +1,507 @@
+"""Token-granular continuous-batching scheduler (Orca, OSDI '22).
+
+The port of paddle_tpu/serving/scheduler.py: the pure-host half of the
+engine — request lifecycle, slot assignment, chunked-prefill
+bookkeeping, KV-block accounting against the `BlockPool`, prefix-cache
+matching at admission, and preemption by recompute (the youngest
+block-holder frees its blocks and re-queues at the front; its streamed
+tokens are kept and re-prefilled, so the stream replays identically).
+Copied from the JAX package with its logic unchanged; the per-request
+RNG key, the request tracer and the per-class admission/eviction ledger
+(read only by the memory observatory) stay behind until sampling,
+tracing and telemetry are ported. Device work lives in engine.py.
+"""
+import itertools
+import queue
+import threading
+import time
+
+import numpy as np
+
+from .kv_cache import PagedKVCache
+from .resilience import PRIORITIES, expired_reason
+
+__all__ = ["SamplingParams", "Request", "RequestHandle", "Scheduler",
+           "WAITING", "PREFILL", "RUNNING", "FINISHED", "FAILED",
+           "CANCELLED", "EXPIRED"]
+
+WAITING = "waiting"
+PREFILL = "prefill"
+RUNNING = "running"
+FINISHED = "finished"
+FAILED = "failed"
+CANCELLED = "cancelled"
+EXPIRED = "expired"
+
+# a request in any of these states has released its slot + blocks and
+# closed its stream; nothing may finalize it again
+TERMINAL_STATES = (FINISHED, FAILED, CANCELLED, EXPIRED)
+
+_SENTINEL = object()
+
+
+class SamplingParams:
+    """Per-request decode controls (the run_generate knobs, minus beam
+    search — a serving slot holds one stream)."""
+
+    def __init__(self, max_new_tokens=32, decode_strategy="greedy",
+                 top_k=0, top_p=1.0, temperature=1.0, eos_token_id=None,
+                 seed=None):
+        if decode_strategy not in ("greedy", "sampling"):
+            raise ValueError(
+                f"unknown decode_strategy {decode_strategy!r} (the "
+                "serving engine decodes one stream per slot; use "
+                "run_generate for beam search)")
+        if temperature <= 0:
+            raise ValueError("temperature must be > 0")
+        self.max_new_tokens = int(max_new_tokens)
+        self.decode_strategy = decode_strategy
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.temperature = float(temperature)
+        self.eos_token_id = eos_token_id
+        self.seed = seed
+
+    @property
+    def greedy(self):
+        return self.decode_strategy == "greedy"
+
+
+class Request:    # guarded by: ServingEngine._mu
+    """One in-flight generation. `tokens_all` = prompt + generated; the
+    positions 0..n_prefilled-1 have K/V in the paged cache. A decode
+    step consumes tokens_all[n_prefilled] (writing its K/V at that
+    position) and appends the next sampled token. Preemption resets
+    n_prefilled to 0 and frees the blocks — nothing else — so recompute
+    replays the identical stream."""
+
+    _ids = itertools.count()
+
+    def __init__(self, prompt_ids, params, submit_time=None,
+                 deadlines=None, priority="normal", request_id=None):
+        self.rid = next(Request._ids)
+        # the stable client-visible id (`rid` is a per-process counter)
+        self.request_id = None if request_id is None else str(request_id)
+        self.prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        if not self.prompt:
+            raise ValueError("empty prompt")
+        self.params = params
+        self.state = WAITING
+        self.out_tokens = []                # streamed tokens, in order
+        self.n_prefilled = 0                # cache positions written
+        self.blocks = []                    # physical block ids (in order)
+        self.prefix_cached_tokens = 0       # positions covered by a hit
+        self.slot = None                    # decode batch slot, when RUNNING
+        self.preemptions = 0
+        self.error = None
+        self.failure = None                 # typed exception for the stream
+        self.deadlines = deadlines          # resilience.Deadlines or None
+        if isinstance(priority, str):
+            if priority not in PRIORITIES:
+                raise ValueError(
+                    f"unknown priority {priority!r} (expected one of "
+                    f"{sorted(PRIORITIES)})")
+            self.priority_class = priority
+            self.priority = PRIORITIES[priority]
+        else:
+            self.priority = int(priority)
+            self.priority_class = str(priority)
+        self.cancel_requested = False
+        self.submit_time = submit_time if submit_time is not None \
+            else time.monotonic()
+        self.admit_time = None              # first admission out of the queue
+        self.first_token_time = None
+        self.finish_time = None
+        self._stream = queue.Queue()
+
+    # -- sequence accounting ------------------------------------------------
+    @property
+    def tokens_all(self):
+        return self.prompt + self.out_tokens
+
+    @property
+    def total_len(self):
+        return len(self.prompt) + self.params.max_new_tokens
+
+    def max_blocks_needed(self, block_size):
+        return PagedKVCache.blocks_for_tokens(self.total_len, block_size)
+
+    @property
+    def done(self):
+        if len(self.out_tokens) >= self.params.max_new_tokens:
+            return True
+        eos = self.params.eos_token_id
+        return (eos is not None and self.out_tokens
+                and self.out_tokens[-1] == int(eos))
+
+    # -- streaming ----------------------------------------------------------
+    def push_token(self, tok, now=None):
+        if self.first_token_time is None:
+            self.first_token_time = now if now is not None \
+                else time.monotonic()
+        self.out_tokens.append(int(tok))
+        self._stream.put(int(tok))
+
+    def close_stream(self):
+        self._stream.put(_SENTINEL)
+
+    # -- latency ------------------------------------------------------------
+    def queue_wait_ms(self):
+        """Time spent in the waiting queue before first admission; None
+        until admitted (a shed or queue-expired request never was)."""
+        if self.admit_time is None:
+            return None
+        return (self.admit_time - self.submit_time) * 1000.0
+
+    def ttft_ms(self):
+        if self.first_token_time is None:
+            return None
+        return (self.first_token_time - self.submit_time) * 1000.0
+
+    def tpot_ms(self):
+        """Mean time-per-output-token after the first."""
+        if self.finish_time is None or self.first_token_time is None \
+                or len(self.out_tokens) < 2:
+            return None
+        return (self.finish_time - self.first_token_time) * 1000.0 \
+            / (len(self.out_tokens) - 1)
+
+
+class RequestHandle:
+    """Client-side view of a submitted request: a blocking token stream
+    plus a gather-all result, and `cancel()` to give the slot back."""
+
+    def __init__(self, request, engine=None):
+        self._req = request
+        self._engine = engine
+
+    @property
+    def rid(self):
+        return self._req.rid
+
+    def cancel(self):
+        """Cancel the request: its slot and KV blocks are released
+        immediately (the engine finalizes between steps) and the stream
+        terminates with `RequestCancelledError`. Returns True when the
+        cancel landed, False when the request was already terminal."""
+        if self._engine is not None:
+            return self._engine.cancel(self._req)
+        # no engine attached (direct construction): mark the flag; a
+        # scheduler reap at the next step boundary picks it up
+        if self._req.state in TERMINAL_STATES:
+            return False
+        self._req.cancel_requested = True
+        return True
+
+    @property
+    def status(self):
+        return self._req.state
+
+    def tokens(self, timeout=None):
+        """Yield generated token ids as the engine streams them.
+        `timeout` bounds the TOTAL wall time across the whole stream
+        (not per token); expiry raises TimeoutError."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            try:
+                tok = self._req._stream.get(
+                    timeout=None if deadline is None else
+                    max(0.001, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError(
+                    f"request {self._req.rid}: no token within "
+                    f"{timeout}s (got {len(self._req.out_tokens)} so "
+                    "far)") from None
+            if tok is _SENTINEL:
+                if self._req.failure is not None:
+                    # typed terminal: cancelled / expired — both
+                    # RuntimeError subtypes
+                    raise self._req.failure
+                if self._req.error is not None:
+                    raise RuntimeError(
+                        f"request {self._req.rid} failed: {self._req.error}")
+                return
+            yield tok
+
+    def result(self, timeout=None):
+        """Block until the request finishes; returns the full generated
+        token list. `timeout` is the total deadline."""
+        return list(self.tokens(timeout=timeout))
+
+    @property
+    def finished(self):
+        return self._req.state in TERMINAL_STATES
+
+    @property
+    def request_id(self):
+        """The stable client-visible id."""
+        return self._req.request_id
+
+    @property
+    def output_tokens(self):
+        return list(self._req.out_tokens)
+
+    @property
+    def stats(self):
+        r = self._req
+        return {"ttft_ms": r.ttft_ms(), "tpot_ms": r.tpot_ms(),
+                "queue_wait_ms": r.queue_wait_ms(),
+                "preemptions": r.preemptions,
+                "n_tokens": len(r.out_tokens), "state": r.state}
+
+
+class Scheduler:    # guarded by: ServingEngine._mu
+    """Slot + block bookkeeping for the continuous-batching loop.
+
+    Invariants:
+    - `running[slot]` is None or a Request with state RUNNING and
+      n_prefilled == len(tokens_all) (its next decode consumes its own
+      last token... see Request docstring);
+    - a PREFILL request holds blocks for positions < n_prefilled plus
+      whatever the next chunk needs, but no slot until prefill is done;
+    - preemption frees ALL of a victim's blocks and re-queues it at the
+      FRONT of the waiting line (it already paid for its progress once);
+    - the waiting queue is ordered by priority class (FIFO within a
+      class); a TERMINAL request (finished/failed/cancelled/expired)
+      holds no slot and no blocks — every terminal transition goes
+      through `finish`, which releases both.
+    """
+
+    def __init__(self, pool, block_size, max_slots, max_model_len,
+                 prefix_index=None):
+        self.pool = pool
+        self.block_size = int(block_size)
+        self.max_slots = int(max_slots)
+        self.max_model_len = int(max_model_len)
+        self.prefix_index = prefix_index   # kv_cache.PrefixIndex or None
+        self.waiting = []                  # by class, FIFO within a class
+        self.prefilling = []               # admitted, mid-prefill
+        self.running = [None] * self.max_slots
+        self.admit_order = []              # running/prefilling, oldest first
+        self.preemptions = 0
+
+    # -- queries ------------------------------------------------------------
+    def free_slots(self):
+        return [i for i, r in enumerate(self.running) if r is None]
+
+    def num_running(self):
+        return sum(1 for r in self.running if r is not None)
+
+    def has_work(self):
+        return bool(self.waiting or self.prefilling
+                    or self.num_running())
+
+    # -- admission ----------------------------------------------------------
+    def validate(self, request):
+        """Reject requests that could NEVER be served at these shapes
+        (client error, not load): too many positions, too many blocks."""
+        if request.total_len > self.max_model_len:
+            raise ValueError(
+                f"request needs {request.total_len} positions "
+                f"(prompt {len(request.prompt)} + max_new_tokens "
+                f"{request.params.max_new_tokens}) > max_model_len "
+                f"{self.max_model_len}")
+        if request.max_blocks_needed(self.block_size) > self.pool.capacity:
+            raise ValueError(
+                f"request needs {request.max_blocks_needed(self.block_size)}"
+                f" KV blocks > pool capacity {self.pool.capacity}")
+
+    def submit(self, request):
+        self.validate(request)
+        self.enqueue(request)
+
+    def enqueue(self, request):
+        """Queue an ALREADY-VALIDATED request at the back of its
+        priority class: after every request of the same-or-more-urgent
+        class, before less urgent ones (the engine validates before
+        admission control so a malformed request is a client error,
+        never a shed — then enqueues without re-validating)."""
+        idx = len(self.waiting)
+        while idx > 0 and self.waiting[idx - 1].priority > request.priority:
+            idx -= 1
+        self.waiting.insert(idx, request)
+
+    def admit(self, now=None):
+        """Move waiting requests into prefill while a slot could
+        eventually take them: admission is bounded by slots (running +
+        prefilling) so the prefill pipeline never overfills the batch."""
+        admitted = []
+        while self.waiting and \
+                self.num_running() + len(self.prefilling) < self.max_slots:
+            req = self.waiting[0]
+            blocks, cached = [], 0
+            if self.prefix_index is not None:
+                # match the FULL replay sequence (prompt + any streamed
+                # tokens a preempted request must re-prefill) so a
+                # recompute-replay rides the cache exactly like a fresh
+                # admission; the index caps the hit at len-1 so at
+                # least one position is computed live for the logits.
+                # Matched BEFORE the pop: if the index is stale
+                # (StaleIndexError — an arena rebuild forgot to flush)
+                # the request stays queued, reapable and requeue-able,
+                # instead of vanishing from every queue mid-admission
+                blocks, cached = self.prefix_index.match(
+                    req.tokens_all, self.pool)
+            self.waiting.pop(0)
+            req.state = PREFILL
+            req.n_prefilled = 0
+            req.blocks = []
+            req.prefix_cached_tokens = 0
+            if cached:
+                self.pool.incref(blocks, owner=req.rid)
+                req.blocks = list(blocks)
+                req.n_prefilled = cached
+                req.prefix_cached_tokens = cached
+            if req.admit_time is None:      # requeues keep the first
+                req.admit_time = now if now is not None \
+                    else time.monotonic()
+            self.prefilling.append(req)
+            self.admit_order.append(req)
+            admitted.append(req)
+        return admitted
+
+    # -- step-boundary enforcement ------------------------------------------
+    def reap(self, now=None):
+        """Collect requests the engine must finalize at this step
+        boundary: cancelled ones and deadline-blown ones. Returns
+        [(request, why)] with why in ('cancelled', 'queue_wait',
+        'ttft', 'total'); the caller finalizes (this method only
+        observes, so the engine owns the record/counter emission)."""
+        now = time.monotonic() if now is None else now
+        out = []
+        for req in (list(self.waiting) + list(self.prefilling)
+                    + [r for r in self.running if r is not None]):
+            if req.state in TERMINAL_STATES:
+                continue
+            if req.cancel_requested:
+                out.append((req, "cancelled"))
+                continue
+            why = expired_reason(req, now)
+            if why is not None:
+                out.append((req, why))
+        return out
+
+    # -- block growth + preemption ------------------------------------------
+    def ensure_blocks(self, req, n_positions, evict=True):
+        """Grow `req.blocks` to cover positions [0, n_positions).
+        Returns True when covered. With evict=True (decode growth —
+        the request is mid-stream and MUST make progress) an exhausted
+        pool preempts the youngest other block-holder and retries;
+        with evict=False (prefill growth — the request has streamed
+        nothing yet) it simply returns False and the chunk waits for
+        blocks to free naturally, so a preempted request can never
+        ping-pong-evict the running batch on its way back in."""
+        need = PagedKVCache.blocks_for_tokens(n_positions, self.block_size)
+        while len(req.blocks) < need:
+            got = self.pool.alloc(need - len(req.blocks), owner=req.rid)
+            if got is not None:
+                req.blocks.extend(got)
+                return True
+            # reclaim prefix-cache before touching anyone's work: LRU
+            # refcount-0 index leaves are pure cache (recomputable from
+            # tokens), while preemption throws away live progress
+            if self.prefix_index is not None and \
+                    self.prefix_index.evict(
+                        need - len(req.blocks) - self.pool.num_free,
+                        self.pool):
+                continue
+            if not evict:
+                return False
+            victim = self._pick_victim(exclude=req)
+            if victim is None:
+                # req is the only block-holder left; it cannot shrink
+                # itself, so it yields and retries after others finish
+                self.preempt(req)
+                return False
+            self.preempt(victim)
+        return True
+
+    def _pick_victim(self, exclude):
+        """Youngest admitted block-holder other than `exclude` — the
+        request that has sunk the least work (Orca/vLLM recompute
+        preemption policy)."""
+        for req in reversed(self.admit_order):
+            if req is not exclude and req.blocks:
+                return req
+        return None
+
+    def _release(self, req):
+        """Give back everything `req` holds: blocks, slot, pipeline
+        membership. The single reclaim point — finish and preemption
+        both go through it, which is what makes
+        `BlockPool.assert_quiesced` a meaningful invariant."""
+        if req.blocks:
+            # drops THIS request's reference only: a prefix-shared
+            # block survives at refcount > 0, a cached one parks at
+            # refcount 0 under the index (preemption touches private
+            # blocks, never the shared cache)
+            self.pool.free(req.blocks, owner=req.rid)
+            req.blocks = []
+        if req.slot is not None:
+            self.running[req.slot] = None
+            req.slot = None
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+        if req in self.admit_order:
+            self.admit_order.remove(req)
+
+    def requeue(self, req):
+        """Release blocks/slot and put `req` back at the waiting FRONT
+        of its priority class for recompute-replay (streamed tokens are
+        kept — they are already on the wire — and re-prefill recomputes
+        their K/V, so the stream replays identically). No preemption
+        accounting."""
+        if req in self.waiting:
+            return
+        self._release(req)
+        req.n_prefilled = 0
+        req.state = WAITING
+        idx = 0
+        while idx < len(self.waiting) and \
+                self.waiting[idx].priority < req.priority:
+            idx += 1
+        self.waiting.insert(idx, req)
+
+    def preempt(self, req):
+        """Evict-by-recompute: `requeue` plus the preemption ledger."""
+        self.requeue(req)
+        req.preemptions += 1
+        self.preemptions += 1
+
+    def note_prefill_done(self, req):
+        """Prefill covered the whole sequence: register the request's
+        FULL prompt blocks with the prefix index (only positions
+        < len(prompt) are prompt K/V, and only full blocks are
+        immutable from here on — decode writes continue past them)."""
+        if self.prefix_index is None:
+            return
+        n_full = len(req.prompt) // self.block_size
+        if n_full:
+            self.prefix_index.insert(
+                req.prompt, req.blocks[:n_full], self.pool)
+
+    def place(self, req):
+        """Prefill complete -> take a decode slot."""
+        slot = self.free_slots()[0]
+        req.slot = slot
+        req.state = RUNNING
+        self.running[slot] = req
+        self.prefilling.remove(req)
+        return slot
+
+    def finish(self, req, error=None, status=None, failure=None):
+        """Reclaim everything; close the stream. `status` is the
+        terminal state (default FAILED when an error is given, else
+        FINISHED); `failure` is the typed exception the stream raises
+        (cancelled/expired/engine-stopped...)."""
+        if req.state in TERMINAL_STATES:
+            return
+        if req in self.waiting:
+            self.waiting.remove(req)
+        self._release(req)
+        req.error = error
+        req.failure = failure
+        req.state = status if status is not None \
+            else (FAILED if error is not None else FINISHED)
+        req.finish_time = time.monotonic()
+        req.close_stream()

@@ -1,0 +1,82 @@
+"""paddle_tpu_torch stands alone: it never imports `jax` or anything of
+the JAX package, and its entry points refuse to run on the CPU unless
+asked to."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_ROOT, "paddle_tpu_torch")
+
+
+def _package_files():
+    for dirpath, _, files in os.walk(_PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def _forbidden(module):
+    """`jax`, `jax.*`, `paddle_tpu`, `paddle_tpu.*` — but not the port,
+    which shares the `paddle_tpu` prefix."""
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "paddle_tpu")
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    offenders = []
+    files = list(_package_files())
+    assert len(files) >= 10
+    for path in files:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, _ROOT)}: {n}"
+                          for n in names if _forbidden(n)]
+    assert offenders == []
+
+
+def test_forbidden_matches_prefixes_not_the_port():
+    assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.serving")
+    assert not _forbidden("paddle_tpu_torch.serving")
+
+
+def test_importing_every_submodule_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import paddle_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(len(mods), bad)\n"
+        "assert len(mods) >= 10 and not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                    num_heads=1, max_seq_len=16)
+    model = GPTForPretraining(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForPretraining(cfg)
+    # asked for explicitly, the CPU works
+    assert ServingEngine(model, device="cpu").device.type == "cpu"

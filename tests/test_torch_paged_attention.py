@@ -1,0 +1,169 @@
+"""The port's paged-attention functions (paddle_tpu_torch.ops.
+paged_attention) against the JAX package's, on the same numpy inputs.
+
+On the CPU the port's wrappers run their plain versions, which copy the
+JAX gather+dense fallbacks: they must match the fallback
+(`use_kernel=False`) at 1e-5 in f32, and the JAX Pallas kernels
+(`use_kernel=True`, interpret mode off the TPU) at the JAX registry's
+declared tolerance, over the registry's own example generators and at
+GPT-3 125M head geometry (N=12, H=64, block 16) with the edge cases:
+ctx 0, ctx on a block boundary, an inactive slot with an all-null
+table, p0 = 0, p0 inside a block, p0 on a block boundary.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from paddle_tpu.ops import pallas_decode as jax_pd
+from paddle_tpu.ops.kernel_registry import get_kernel as jax_kernel
+
+from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
+from paddle_tpu_torch.ops.paged_attention import (flash_prefill_chunk,
+                                                  paged_decode_attention)
+
+_EXACT = dict(rtol=1e-5, atol=1e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _decode_both(q, kp, vp, tables, ctx, n_heads, use_kernel):
+    ref = jax_pd.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(ctx), n_heads,
+        use_kernel=use_kernel)
+    got = paged_decode_attention(_t(q), _t(kp), _t(vp), _t(tables), _t(ctx),
+                                 n_heads)
+    return np.asarray(ref), got.numpy()
+
+
+def _prefill_both(q, kp, vp, row, p0, n_heads, use_kernel):
+    ref = jax_pd.flash_prefill_chunk(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(row),
+        np.int32(p0), n_heads, use_kernel=use_kernel)
+    got = flash_prefill_chunk(_t(q), _t(kp), _t(vp), _t(row), p0, n_heads)
+    return np.asarray(ref), got.numpy()
+
+
+@pytest.fixture(autouse=True)
+def _no_launches_on_cpu():
+    reset_launches()
+    yield
+    assert get_kernel("paged_decode").launches == 0
+    assert get_kernel("flash_prefill_chunk").launches == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("name", ["paged_decode", "flash_prefill_chunk"])
+def test_registry_examples_match_jax(name, seed):
+    """The JAX registry's `example(rng)` inputs through both packages."""
+    jk = jax_kernel(name)
+    args, _ = jk.example(np.random.default_rng(seed))
+    both = _decode_both if name == "paged_decode" else _prefill_both
+    ref, got = both(*args, use_kernel=False)
+    np.testing.assert_allclose(got, ref, **_EXACT)
+    ref, got = both(*args, use_kernel=True)
+    rtol, atol = jk.tol
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol)
+
+
+def _arena(rng, num_blocks, bs, nh, dtype=np.float32):
+    kp = rng.standard_normal((num_blocks, bs, nh)).astype(dtype)
+    vp = rng.standard_normal((num_blocks, bs, nh)).astype(dtype)
+    return kp, vp
+
+
+# GPT-3 125M head geometry at a few blocks
+_N, _H, _BS, _MB = 12, 64, 16, 4
+
+
+def _decode_case(seed, ctx):
+    """Slot s owns distinct physical blocks for positions 0..ctx[s];
+    ctx < 0 marks an inactive slot: ctx 0 and an all-null table."""
+    rng = np.random.default_rng(seed)
+    S = len(ctx)
+    kp, vp = _arena(rng, S * _MB + 1, _BS, _N * _H)
+    tables = np.zeros((S, _MB), np.int32)
+    perm = rng.permutation(np.arange(1, S * _MB + 1)).astype(np.int32)
+    for s, c in enumerate(ctx):
+        if c >= 0:
+            n_alloc = c // _BS + 1
+            tables[s, :n_alloc] = perm[s * _MB:s * _MB + n_alloc]
+    q = rng.standard_normal((S, 1, _N * _H)).astype(np.float32)
+    ctx_arr = np.maximum(np.asarray(ctx, np.int32), 0)
+    return q, kp, vp, tables, ctx_arr
+
+
+@pytest.mark.parametrize("ctx", [
+    [0, 15, 16, 63],         # ctx 0, last row of block 0, block boundary
+    [17, -1, 40, -1],        # inactive slots with all-null tables
+    [5, 31, 32, 48],
+], ids=["edges", "inactive", "mixed"])
+def test_decode_125m_geometry(ctx):
+    args = _decode_case(len(ctx) + sum(ctx), ctx)
+    ref, got = _decode_both(*args, _N, use_kernel=False)
+    np.testing.assert_allclose(got, ref, **_EXACT)
+    assert np.isfinite(got).all()
+    ref, got = _decode_both(*args, _N, use_kernel=True)
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("p0", [0, 7, 16, 29])
+def test_prefill_125m_geometry(p0):
+    """A 16-query chunk at p0 over a 4-block table; rows past the last
+    allocated block see null-block keys, which stay finite."""
+    rng = np.random.default_rng(100 + p0)
+    C = 16
+    kp, vp = _arena(rng, _MB + 3, _BS, _N * _H)
+    n_alloc = (p0 + C - 1) // _BS + 1
+    row = np.zeros((_MB,), np.int32)
+    row[:n_alloc] = rng.permutation(np.arange(1, _MB + 3))[:n_alloc]
+    q = rng.standard_normal((1, C, _N * _H)).astype(np.float32)
+    ref, got = _prefill_both(q, kp, vp, row, p0, _N, use_kernel=False)
+    np.testing.assert_allclose(got, ref, **_EXACT)
+    assert np.isfinite(got).all()
+    ref, got = _prefill_both(q, kp, vp, row, p0, _N, use_kernel=True)
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_plain_versions_in_bf16_match_jax_fallback():
+    """bf16 inputs: both packages round probs and outputs to bf16 at the
+    same points; the remaining difference is summation order."""
+    q, kp, vp, tables, ctx = _decode_case(7, [3, 20, 47])
+    bf = jnp.bfloat16
+    ref = jax_pd.paged_decode_attention(
+        jnp.asarray(q, bf), jnp.asarray(kp, bf), jnp.asarray(vp, bf),
+        jnp.asarray(tables), jnp.asarray(ctx), _N, use_kernel=False)
+    got = paged_decode_attention(
+        _t(q).bfloat16(), _t(kp).bfloat16(), _t(vp).bfloat16(), _t(tables),
+        _t(ctx), _N)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    row = tables[2]
+    qc = np.random.default_rng(8).standard_normal((1, 16, _N * _H))
+    ref = jax_pd.flash_prefill_chunk(
+        jnp.asarray(qc, bf), jnp.asarray(kp, bf), jnp.asarray(vp, bf),
+        jnp.asarray(row), np.int32(9), _N, use_kernel=False)
+    got = flash_prefill_chunk(_t(qc).bfloat16(), _t(kp).bfloat16(),
+                              _t(vp).bfloat16(), _t(row), 9, _N)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_wrappers_refuse_devices_they_have_no_kernel_for():
+    """Only a CPU tensor takes the plain version; any other non-CUDA
+    device raises instead of computing somewhere else."""
+    q = torch.empty((2, 1, 128), device="meta")
+    pages = torch.empty((3, 8, 128), device="meta")
+    tab = torch.empty((2, 1), dtype=torch.int32, device="meta")
+    ctx = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_decode_attention(q, pages, pages, tab, ctx, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_prefill_chunk(q.reshape(1, 2, 128), pages, pages,
+                            tab.reshape(2), 0, 4)
