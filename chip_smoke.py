@@ -6,18 +6,23 @@
 Phases, each fatal on failure (a traceback and a non-zero exit, never the
 ok line):
 
-1. build   — compile every CUDA kernel of the serving path from
+1. build   — compile every CUDA kernel of the port from
              paddle_tpu_torch/csrc with nvcc, all sources at once, into
              build/paddle_tpu_torch/, and print the build time;
 2. kernels — hold each kernel against its plain PyTorch version on the
-             card at the serving shapes of GPT-3 125M (12 heads of 64,
-             block 16, 32 blocks per sequence, 16 slots, chunk 128), in
-             f32 (TF32 off) and bf16, with random block tables, context
-             lengths 0..511 including 0 and block edges, and chunk starts
-             p0 in {0, 7, 128, 384}; then time kernel, plain version and
-             one PyTorch library call (scaled_dot_product_attention over
-             the gathered pages, a yardstick the port never calls) with
-             CUDA events, the L2 flushed before each launch;
+             card, in f32 (TF32 off) and bf16. The serving kernels at the
+             serving shapes of GPT-3 125M (12 heads of 64, block 16, 32
+             blocks per sequence, 16 slots, chunk 128) with random block
+             tables, context lengths 0..511 including 0 and block edges,
+             and chunk starts p0 in {0, 7, 128, 384}; the training
+             kernels at [2, 1024, 12, 64] (flash forward and backward,
+             causal, non-causal, and causal with sq 512 < sk 1024, plus
+             a ragged length and head_dim 128) and at 24576 x 768 and
+             16 x 768 (add + LayerNorm). Then time kernel, plain version
+             and one PyTorch library call (a yardstick the port never
+             calls: scaled_dot_product_attention, F.layer_norm) with CUDA
+             events, the L2 flushed before each launch, at the serving
+             shapes and at the training shape (batch 24, seq 1024);
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -26,11 +31,21 @@ ok line):
              16..384 prompt tokens, half sharing a 96-token template, 32
              new tokens each. Every stream must complete; the launch
              counters, zeroed just before, must equal layers x decode steps
-             (paged_decode) and layers x prefill chunks
-             (flash_prefill_chunk); every stream is teacher-forced
-             through the port's dense f32 forward on the card;
+             (paged_decode), layers x prefill chunks
+             (flash_prefill_chunk) and layers x both (layernorm_fused);
+             every stream is teacher-forced through the port's dense f32
+             forward on the card (flash_fwd and layernorm_fused in f32);
 4. profile — device time by kernel over 10 full-batch decode steps
-             (torch.profiler, CUDA activity only).
+             (torch.profiler, CUDA activity only);
+5. train   — GPT-3 125M at full width (seed 0, init 0.02) through
+             TrainStep with AdamW(1e-4, weight decay 0.01): first 3 steps
+             in f32 at batch 2, seq 256 on the card and on the CPU (plain
+             versions) from the same weights, losses within 1e-4
+             relative; then the training shape of the JAX package's
+             bench, batch 24 x seq 1024 under bf16 amp, 3 warm-up and 10
+             timed steps (tokens/s, step ms, MFU, finite loss; the launch
+             counters must equal layers x steps for flash_fwd, flash_bwd
+             and layernorm_fwd_saved), and a 10-step profile.
 
 Prints the card's name and power limit (nvidia-smi), a JSON line with
 every kernel's launches, error and times, and as its last line
@@ -47,9 +62,25 @@ import subprocess
 import sys
 import time
 
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core bf16
                   "float32": 67e12}     # f32 outside the tensor cores
+
+# training shape of GPT-3 125M (the JAX package's gpt_train_bench)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 24, 1024, 3, 10
+# f32 parity of the training step, card against CPU
+PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_RTOL = 2, 256, 3, 1e-4
+# flash checks: (batch, sq, sk, heads, head_dim, causal)
+FLASH_CHECKS = ((2, 1024, 1024, 12, 64, True), (2, 1024, 1024, 12, 64, False),
+                (2, 512, 1024, 12, 64, True), (1, 200, 200, 12, 64, True),
+                (1, 256, 384, 4, 128, True))
+# add + LayerNorm checks: (rows, d, x dtype, residual dtype)
+LN_CHECKS = ((24576, 768, "float32", "bfloat16"), (24576, 768, "bfloat16",
+                                                    "bfloat16"),
+             (16, 768, "bfloat16", "bfloat16"), (16, 768, "float32",
+                                                 "float32"),
+             (24576, 768, "float32", "float32"))
 
 # serving shapes of GPT-3 125M in the engine configuration below
 N_HEADS, HEAD_DIM, BLOCK, MAX_BLOCKS, SLOTS, CHUNK = 12, 64, 16, 32, 16, 128
@@ -77,6 +108,21 @@ TF_MARGIN_STD = 0.25
 # little: at most a quarter constant, >= 4 distinct tokens on average
 MAX_CONSTANT_FRAC = 0.25
 MIN_MEAN_DISTINCT = 4.0
+
+
+# device kernels by what they do, matched on a substring of their name
+PROFILE_CATEGORIES = (
+    ("port: flash attention", ("fwd_bf16", "dkdv_bf16", "dq_bf16",
+                               "fwd_f32", "dkdv_f32", "dq_f32")),
+    ("port: add + LayerNorm", ("add_ln",)),
+    ("port: paged attention", ("paged_decode", "flash_prefill")),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy",)),
+    ("indexing", ("index", "gather", "scatter")),
+    ("other elementwise", ("elementwise",)),
+)
 
 
 def card_line():
@@ -284,6 +330,188 @@ def kernels_phase(torch, seed):
     return rows
 
 
+def flash_inputs(torch, gen, dtype, dev, b, sq, sk, n, h):
+    """q, k, v and a random dout; for self-attention q, k, v are the
+    `unbind` views of one [b, s, 3, n, h] tensor, as the GPT's fused qkv
+    projection hands them to the kernels."""
+    to = dict(device=dev, dtype=dtype)
+    dout = torch.randn((b, sq, n, h), generator=gen).to(**to)
+    if sq == sk:
+        q, k, v = torch.randn((b, sq, 3, n, h), generator=gen).to(
+            **to).unbind(dim=2)
+    else:
+        q = torch.randn((b, sq, n, h), generator=gen).to(**to)
+        k, v = (torch.randn((b, sk, n, h), generator=gen).to(**to)
+                for _ in range(2))
+    return q, k, v, dout
+
+
+def flash_work(b, sq, sk, n, h, causal, itemsize, backward):
+    """Bytes and operations of attention over these shapes: each input
+    read once, each output written once; 4h flops per visible (query,
+    key) pair forward, 10h backward (S and dP recomputed, dV, dK, dQ)."""
+    pairs = sq * sk if not causal else sum(
+        min(i + sk - sq + 1, sk) for i in range(sq))
+    pairs *= b * n
+    qo = b * sq * n * h * itemsize
+    kv = b * sk * n * h * itemsize
+    lse = b * n * sq * 4
+    if backward:    # q, k, v, out, dout, lse in; dq, dk, dv out
+        return 4 * qo + 4 * kv + lse, 10 * h * pairs
+    return 2 * qo + 2 * kv + lse, 4 * h * pairs
+
+
+def ln_work(rows, d, x_size, r_size, w_size, save):
+    """Bytes and operations of add + LayerNorm: x, r, w, b in, out (and
+    the f32 sum and rstd) out; ~8 flops per element."""
+    nbytes = rows * d * (2 * x_size + r_size) + 2 * d * w_size
+    if save:
+        nbytes += rows * d * 4 + rows * 4
+    return nbytes, 8 * rows * d
+
+
+def train_kernels_phase(torch, seed):
+    """The training path's kernels against their plain versions, then
+    timed at the training shape (batch 24, seq 1024, 12 heads of 64)."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain, flash_bwd,
+        flash_fwd)
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    from paddle_tpu_torch.ops.layernorm import (
+        layernorm_fused, layernorm_fused_plain, layernorm_fwd_saved,
+        layernorm_plain)
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 7)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    errs = {}
+
+    def note(name, dname, e):
+        errs[(name, dname)] = max(errs.get((name, dname), 0.0), e)
+
+    for b, sq, sk, n, h, causal in FLASH_CHECKS:
+        scale = 1.0 / math.sqrt(h)
+        for dname, dtype in dts.items():
+            tol = get_kernel("flash_fwd").tol[dname]
+            tag = (f"[{dname}, b={b} sq={sq} sk={sk} n={n} h={h} "
+                   f"causal={causal}]")
+            q, k, v, dout = flash_inputs(torch, gen, dtype, dev, b, sq, sk,
+                                         n, h)
+            out, lse = flash_fwd(q, k, v, causal, scale)
+            rout, rlse = flash_attention_fwd_plain(q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            note("flash_fwd", dname, max(
+                hold("flash_fwd out" + tag, out, rout, tol),
+                hold("flash_fwd lse" + tag, lse, rlse, tol)))
+            # both backwards from the same (plain) forward outputs
+            got = flash_bwd(q, k, v, rout, rlse, dout, causal, scale)
+            ref = flash_attention_bwd_plain(q, k, v, rout, rlse, dout,
+                                            causal, scale)
+            torch.cuda.synchronize()
+            note("flash_bwd", dname, max(
+                hold(f"flash_bwd d{nm}" + tag, g, r, tol)
+                for nm, g, r in zip("qkv", got, ref)))
+    for rows, d, xd, rd in LN_CHECKS:
+        tag = f"[{rows}x{d}, x {xd}, residual {rd}]"
+        x = torch.randn((rows, d), generator=gen).to(dev, dts[xd])
+        r = torch.randn((rows, d), generator=gen).to(dev, dts[rd])
+        w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, dts[xd])
+        bb = (0.1 * torch.randn((d,), generator=gen)).to(dev, dts[xd])
+        tol = get_kernel("layernorm_fwd_saved").tol[xd]
+        f32tol = get_kernel("layernorm_fwd_saved").tol["float32"]
+        got = layernorm_fwd_saved(x, r, w, bb)
+        ref = layernorm_plain(x, r, w, bb)
+        got_o = layernorm_fused(x, r, w, bb)
+        ref_o = layernorm_fused_plain(x, r, w, bb)
+        torch.cuda.synchronize()
+        note("layernorm_fwd_saved", xd, max(
+            hold("layernorm_fwd_saved out" + tag, got[0], ref[0], tol),
+            hold("layernorm_fwd_saved sum" + tag, got[1], ref[1], f32tol),
+            hold("layernorm_fwd_saved rstd" + tag, got[2], ref[2], f32tol)))
+        note("layernorm_fused", xd,
+             hold("layernorm_fused" + tag, got_o, ref_o, tol))
+    for (name, dname), e in sorted(errs.items()):
+        print(f"kernels: {name} {dname} max_abs_err {e:.3e} "
+              f"(tol rtol, atol = {get_kernel(name).tol[dname]})")
+
+    # timing at the training shape, in bf16 as the amp step runs it
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    b, s, n, h = TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM
+    scale = 1.0 / math.sqrt(h)
+    q, k, v, dout = flash_inputs(torch, gen, torch.bfloat16, dev, b, s, s,
+                                 n, h)
+    out, lse = flash_fwd(q, k, v, True, scale)
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True), flush)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    go = dout.transpose(1, 2).contiguous()
+    rows["flash_fwd"] = dict(
+        ms=median_ms(torch, lambda: flash_fwd(q, k, v, True, scale), flush),
+        plain_ms=median_ms(torch, lambda: flash_attention_fwd_plain(
+            q, k, v, True, scale), flush, reps=20),
+        library_ms=lib_fwd,
+        bound=bound(*flash_work(b, s, s, n, h, True, 2, False), "bfloat16"),
+        max_abs_err=errs[("flash_fwd", "bfloat16")])
+    rows["flash_bwd"] = dict(
+        ms=median_ms(torch, lambda: flash_bwd(q, k, v, out, lse, dout, True,
+                                              scale), flush),
+        plain_ms=median_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, True, scale), flush, reps=10),
+        library_ms=median_ms(torch, lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), go, retain_graph=True), flush),
+        bound=bound(*flash_work(b, s, s, n, h, True, 2, True), "bfloat16"),
+        max_abs_err=errs[("flash_bwd", "bfloat16")])
+    del lo, lq, lk, lv, go, q, k, v, dout, out, lse
+
+    # add + LayerNorm: the saving form at the training step's dtypes (f32
+    # residual stream, bf16 branch output, f32 weights); the output-only
+    # form in bf16 (the serving engine's), at the training rows and at a
+    # decode step's 16 rows
+    rows_t, d = TRAIN_BATCH * TRAIN_SEQ, N_HEADS * HEAD_DIM
+
+    def ln_args(nrows, xdt, rdt):
+        return (torch.randn((nrows, d), generator=gen).to(dev, xdt),
+                torch.randn((nrows, d), generator=gen).to(dev, rdt),
+                (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, xdt),
+                (0.1 * torch.randn((d,), generator=gen)).to(dev, xdt))
+
+    def ln_library(a):
+        return lambda: F.layer_norm(a[0] + a[1], (d,), a[2], a[3])
+
+    a = ln_args(rows_t, torch.float32, torch.bfloat16)
+    rows["layernorm_fwd_saved"] = dict(
+        ms=median_ms(torch, lambda: layernorm_fwd_saved(*a), flush),
+        plain_ms=median_ms(torch, lambda: layernorm_plain(*a), flush),
+        library_ms=median_ms(torch, ln_library(a), flush),
+        bound=bound(*ln_work(rows_t, d, 4, 2, 4, True), "bfloat16"),
+        max_abs_err=errs[("layernorm_fwd_saved", "float32")])
+    for nrows in (rows_t, SLOTS):
+        a = ln_args(nrows, torch.bfloat16, torch.bfloat16)
+        row = dict(
+            ms=median_ms(torch, lambda: layernorm_fused(*a), flush),
+            plain_ms=median_ms(torch, lambda: layernorm_fused_plain(*a),
+                               flush),
+            library_ms=median_ms(torch, ln_library(a), flush),
+            bound=bound(*ln_work(nrows, d, 2, 2, 2, False), "bfloat16"),
+            max_abs_err=errs[("layernorm_fused", "bfloat16")])
+        print(f"kernels: layernorm_fused {nrows}x{d} bf16: "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+              f"F.layer_norm(x + r) {row['library_ms']:.4f}, bound "
+              f"{row['bound'][0]:.5f} by {row['bound'][1]})")
+        rows.setdefault("layernorm_fused", row)
+    for name in ("flash_fwd", "flash_bwd", "layernorm_fwd_saved"):
+        r = rows[name]
+        print(f"kernels: {name} at the training shape: {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+              f"bound {r['bound'][0]:.5f} by {r['bound'][1]})")
+    del flush
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve GPT-3 125M
 # ---------------------------------------------------------------------------
@@ -361,7 +589,9 @@ def serve_phase(torch, seed, init_range, dtype):
         raise AssertionError("serve: a stream did not complete")
     eng.pool.assert_quiesced()
     L = cfg.num_layers
-    want = {"paged_decode": L * steps, "flash_prefill_chunk": L * chunks}
+    want = {**{name: 0 for name in launches},
+            "paged_decode": L * steps, "flash_prefill_chunk": L * chunks,
+            "layernorm_fused": L * (steps + chunks)}
     if launches != want:
         raise AssertionError(f"serve: launches {launches} != layers x "
                              f"steps/chunks {want}")
@@ -419,6 +649,13 @@ def profile_phase(torch, eng, vocab, seed, steps=10):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     eng.run_until_idle()
+    print_profile(prof, steps, wall_ms, f"decode steps of {SLOTS} slots",
+                  top=12)
+
+
+def print_profile(prof, steps, wall_ms, what, top):
+    """Device busy share and the `top` kernels by device time, per step."""
+    from torch.autograd import DeviceType
     dev = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) == DeviceType.CUDA]
     if not dev:
@@ -426,12 +663,184 @@ def profile_phase(torch, eng, vocab, seed, steps=10):
               "measured)")
         return
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
-    print(f"profile: {steps} decode steps of {SLOTS} slots: wall "
-          f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
-          f"(share {busy_ms / wall_ms:.3f})")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
+    print(f"profile: {steps} {what}: wall {wall_ms:.3f} ms/step, device "
+          f"busy {busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f})")
+    split = {}
+    for e in dev:
+        cat = next((c for c, keys in PROFILE_CATEGORIES
+                    if any(k in e.key for k in keys)), "other")
+        ms, n = split.get(cat, (0.0, 0))
+        split[cat] = (ms + e.self_device_time_total / 1e3 / steps,
+                      n + e.count / steps)
+    for cat, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile:   {ms:8.4f} ms/step {n:6.1f} launches/step  "
+              f"[{cat}]")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"profile:   {e.self_device_time_total / 1e3 / steps:8.4f} "
               f"ms/step {e.count / steps:6.1f} launches/step  {e.key[:80]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train GPT-3 125M
+# ---------------------------------------------------------------------------
+
+def make_train_step(torch, model, amp_on):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+
+    def loss_fn(ids, labels):
+        with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
+            return model.loss(ids, labels)
+
+    return TrainStep(model, loss_fn, opt)
+
+
+def train_batch(torch, vocab, batch, seq, seed, dev):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+    labels = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def check_train_launches(launches, L, steps, what):
+    train = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
+    want = {name: L * steps if name in train else 0 for name in launches}
+    if launches != want:
+        raise AssertionError(f"train {what}: launches {launches} != layers "
+                             f"x steps {want}")
+
+
+def train_phase(torch, seed):
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.telemetry import (device_peak_flops,
+                                            gpt_train_flops_per_token, mfu)
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024, dropout=0.0)
+    L = cfg.num_layers
+
+    # f32 parity: the card with its kernels against the CPU with the
+    # plain versions, from the same weights and batch
+    cpu_model = GPTForPretraining(cfg, device="cpu", seed=seed)
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    runs = {}
+    reset_launches()
+    for name, model in (("cuda", card_model), ("cpu", cpu_model)):
+        step = make_train_step(torch, model, amp_on=False)
+        batch = train_batch(torch, cfg.vocab_size, PARITY_BATCH, PARITY_SEQ,
+                            seed, model.gpt.wte.weight.device)
+        t0 = time.perf_counter()
+        runs[name] = [float(step(*batch)) for _ in range(PARITY_STEPS)]
+        print(f"train: f32 b={PARITY_BATCH} s={PARITY_SEQ} on {name}: "
+              f"losses {runs[name]} in {time.perf_counter() - t0:.1f} s")
+    check_train_launches({k.name: k.launches for k in kernels()}, L,
+                         PARITY_STEPS, "f32 parity")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    if not rel <= PARITY_RTOL:
+        raise AssertionError(f"train: card losses {runs['cuda']} vs CPU "
+                             f"{runs['cpu']}: relative {rel:.2e} > "
+                             f"{PARITY_RTOL}")
+    del cpu_model, card_model, step
+
+    # the bench shape under bf16 amp
+    model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
+    step = make_train_step(torch, model, amp_on=True)
+    ids, labels = train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                              0, DEVICE)
+    first = float(step(ids, labels))
+    for _ in range(TRAIN_WARMUP - 1):
+        step(ids, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(TRAIN_STEPS):
+        loss = step(ids, labels)
+        ev[i + 1].record()
+    final = loss.item()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels()}
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
+    n_params = sum(p.numel() for p in model.parameters())
+    fpt = gpt_train_flops_per_token(cfg, TRAIN_SEQ, n_params)
+    tps = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    stats = dict(tokens_per_s=tps, step_ms=wall * 1e3 / TRAIN_STEPS,
+                 step_p50_ms=statistics.median(step_ms),
+                 step_max_ms=max(step_ms),
+                 mfu=mfu(tps, fpt, device_peak_flops(
+                     torch.cuda.get_device_name(0))),
+                 loss_first=first, loss=final, n_params=n_params,
+                 flops_per_token=fpt,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches)
+    print(f"train[bf16 amp, b={TRAIN_BATCH} s={TRAIN_SEQ}]: "
+          + json.dumps(stats))
+    check_train_launches(launches, L, TRAIN_STEPS, "bench shape")
+    if not math.isfinite(final) or not final < first:
+        raise AssertionError(f"train: loss {final} after "
+                             f"{TRAIN_WARMUP + TRAIN_STEPS} steps on one "
+                             f"batch (first step {first}): not finite or "
+                             "not falling")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            loss = step(ids, labels)
+        loss.item()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    print_profile(prof, TRAIN_STEPS, wall_ms,
+                  f"train steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens", top=20)
+    train_regions(torch, cfg, step, labels)
+    return stats
+
+
+def region_ms(torch, fn, reps=3):
+    """Device time of `fn` (CUDA events around `reps` calls, after one
+    warm-up call)."""
+    fn()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def train_regions(torch, cfg, step, labels):
+    """Time the step's plain-PyTorch regions alone, at its shapes: the
+    AdamW update, the cross entropy over the bf16 logits and the
+    composed tanh-gelu of the 12 MLPs, forward and backward each."""
+    from paddle_tpu_torch import amp, nn
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    grads = [p.grad for p in step.params]
+    logits = torch.randn((rows, cfg.vocab_size), device=DEVICE,
+                         dtype=torch.bfloat16, requires_grad=True)
+    flat = labels.reshape(-1)
+    x = torch.randn((rows, cfg.ffn_hidden_size), device=DEVICE,
+                    dtype=torch.bfloat16, requires_grad=True)
+    gx = torch.randn_like(x)
+
+    def ce():
+        with amp.auto_cast(dtype="bfloat16"):
+            nn.functional.cross_entropy(logits, flat).backward()
+
+    regions = {
+        "adamw update": region_ms(
+            torch, lambda: step.optimizer.update(step.params, grads)),
+        "cross entropy fwd+bwd": region_ms(torch, ce),
+        "gelu fwd+bwd x layers": cfg.num_layers * region_ms(
+            torch, lambda: nn.gelu(x).backward(gx)),
+    }
+    print("train regions (ms per step): " + json.dumps(regions))
 
 
 def main(argv=None):
@@ -466,21 +875,28 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     regs = kernels()
+    sources = sorted({os.path.basename(k.source)[:-3] for k in regs})
     t0 = time.perf_counter()
-    _build.build([os.path.basename(k.source)[:-3] for k in regs])
-    print(f"build: {len(regs)} kernels in {time.perf_counter() - t0:.1f} s")
+    _build.build(sources)
+    print(f"build: {len(regs)} kernels from {len(sources)} sources in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     rows = kernels_phase(torch, args.seed)
+    rows.update(train_kernels_phase(torch, args.seed))
     stats, eng, vocab = serve_phase(torch, args.seed, args.init_range,
                                     args.dtype)
     profile_phase(torch, eng, vocab, args.seed)
+    del eng
+    torch.cuda.empty_cache()
+    train = train_phase(torch, args.seed)
 
     out = []
     for k in regs:
         r = rows[k.name]
+        # each kernel runs on one main path: serving or training
+        launches = stats["launches"][k.name] + train["launches"][k.name]
         out.append({"name": k.name, "route": "cuda", "source": k.source,
-                    "replaces": k.replaces,
-                    "launches": stats["launches"][k.name],
+                    "replaces": k.replaces, "launches": launches,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],

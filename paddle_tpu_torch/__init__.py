@@ -1,20 +1,28 @@
 """paddle_tpu_torch — the PyTorch + CUDA port of `paddle_tpu`.
 
 The JAX package stays the reference; this package is its counterpart for
-an NVIDIA H100, ported slice by slice along the system's main paths. The
-first slice is the serving path: GPT served through the continuous-
-batching engine over the paged KV cache, with hand-written CUDA kernels
-for the two attention kernels that path runs (`ops/paged_attention.py`).
+an NVIDIA H100, ported slice by slice along the system's main paths:
+GPT served through the continuous-batching engine over the paged KV
+cache (the paged attention kernels, `ops/paged_attention.py`), and the
+GPT training step under bf16 amp with AdamW (the flash attention forward
+and backward, `ops/flash_attention.py`, and the residual-add +
+LayerNorm, `ops/layernorm.py`), each kernel written by hand in CUDA.
 
 Layout mirrors the JAX package so a reader finds each counterpart:
 
 - `device`        — default-device resolution (CUDA, or raise);
+- `amp`           — auto_cast with the JAX package's white/black lists;
 - `nn`            — Linear ([in, out] weights), Embedding, LayerNorm,
-                    Dropout, tanh-gelu, fused residual-add + LayerNorm;
-- `models.gpt`    — GPTConfig presets and the GPT decoder;
+                    Dropout, tanh-gelu, fused residual-add + LayerNorm,
+                    cross entropy;
+- `models.gpt`    — GPTConfig presets, the GPT decoder and its loss;
+- `optimizer`     — Adam and AdamW with the JAX update rule;
+- `jit`           — TrainStep (one eager step: loss, backward, update);
+- `telemetry`     — peak FLOP/s and the train FLOPs per token (MFU);
 - `convert`       — load JAX-package parameters into a port model;
-- `ops`           — the kernel registry, the nvcc/ctypes build step and the
-                    paged-attention kernels with their plain versions;
+- `ops`           — the kernel registry, the nvcc/ctypes build step, the
+                    attention entry points and every kernel with its
+                    plain version;
 - `serving`       — BlockPool/PrefixIndex/PagedKVCache, the scheduler,
                     admission control and `ServingEngine`.
 

@@ -7,26 +7,31 @@ moves weights over by name and the two agree in f32.
 
 The large products (qkv, out_proj, fc1/fc2, the tied head) are
 `torch.matmul`: the JAX package leaves them to XLA outside any Pallas
-kernel. `GPTModel.forward` is a dense causal forward over a whole
-sequence; the serving engine drives the blocks itself over the paged
-cache (serving/engine.py) and uses this forward only as a reference.
+kernel. Attention is `ops.attention.flash_attention` and the residual
+add + ln2 site `nn.fused_add_layer_norm`, which reach the flash and
+add+LayerNorm kernels on the card. `GPTModel.forward` is a dense causal
+forward over a whole sequence, the training path (`loss`); the serving
+engine drives the blocks itself over the paged cache
+(serving/engine.py).
 """
 import math
 
 import torch
 
 from .. import nn
+from ..amp import amp_state, maybe_cast_to_compute
 from ..device import resolve_device, resolve_dtype
-from ..ops.attention import composed_attention
+from ..ops.attention import flash_attention
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "GPTForPretraining", "causal_attention"]
+           "GPTForPretraining"]
 
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, ffn_hidden_size=None, max_seq_len=1024,
-                 dropout=0.0, initializer_range=0.02, dtype="float32"):
+                 dropout=0.0, attn_dropout=0.0, initializer_range=0.02,
+                 dtype="float32"):
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
@@ -37,6 +42,7 @@ class GPTConfig:
         self.ffn_hidden_size = ffn_hidden_size or 4 * hidden_size
         self.max_seq_len = max_seq_len
         self.dropout = dropout
+        self.attn_dropout = attn_dropout
         self.initializer_range = initializer_range
         self.dtype = dtype
 
@@ -65,13 +71,6 @@ class GPTConfig:
             dict(hidden_size=5120, num_layers=40, num_heads=40), kw)
 
 
-def causal_attention(q, k, v):
-    """Dense causal attention, q/k/v [b, s, n, h] -> [b, s, n, h]."""
-    s = q.shape[1]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    return composed_attention(q, k, v, mask)
-
-
 class GPTAttention(torch.nn.Module):
     def __init__(self, config, device=None, dtype=torch.float32):
         super().__init__()
@@ -79,6 +78,7 @@ class GPTAttention(torch.nn.Module):
         self.num_heads = c.num_heads
         self.head_dim = c.hidden_size // c.num_heads
         self.hidden_size = c.hidden_size
+        self.attn_dropout = c.attn_dropout
         self.qkv_proj = nn.Linear(c.hidden_size, 3 * c.hidden_size,
                                   device=device, dtype=dtype)
         self.out_proj = nn.Linear(c.hidden_size, c.hidden_size,
@@ -95,8 +95,9 @@ class GPTAttention(torch.nn.Module):
     def forward(self, x):
         b, s = x.shape[0], x.shape[1]
         q, k, v = self.project_qkv(x)
-        out = causal_attention(q, k, v).reshape(b, s, self.hidden_size)
-        return self.out_proj(out)
+        out = flash_attention(q, k, v, dropout=self.attn_dropout,
+                              causal=True, training=self.training)
+        return self.out_proj(out.reshape(b, s, self.hidden_size))
 
 
 class GPTMLP(torch.nn.Module):
@@ -195,9 +196,28 @@ class GPTForPretraining(torch.nn.Module):
 
     def lm_head(self, h):
         """Vocab projection of hidden states [b, s, d] over the tied
-        `wte` table -> f32 logits [b, s, vocab]. The JAX head emits its
-        f32 accumulator (`preferred_element_type=f32`); products of
-        bf16 values are exact in f32, so the f32 product below is the
-        same arithmetic."""
+        `wte` table -> logits [b, s, vocab]. Under amp: a bf16 product
+        accumulated in f32 and emitted in bf16 (an f32 [b, s, vocab]
+        tensor would double the head's and the loss's traffic; the loss
+        accumulates its log-sum-exp in f32 anyway). Otherwise f32
+        logits: the JAX head emits its f32 accumulator
+        (`preferred_element_type=f32`), and products of bf16 values are
+        exact in f32, so the f32 product below is the same arithmetic."""
         w = self.gpt.wte.weight
+        if amp_state().enabled:
+            return torch.matmul(maybe_cast_to_compute(h, "matmul"),
+                                maybe_cast_to_compute(w, "matmul").t())
         return torch.matmul(h.float(), w.float().t())
+
+    def loss(self, input_ids, labels, loss_mask=None):
+        """Mean next-token cross entropy of the logits against `labels`
+        (the JAX model's non-fused branch), over the positions
+        `loss_mask` keeps when it is given."""
+        logits = self(input_ids)
+        losses = nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+            reduction="none")
+        if loss_mask is not None:
+            m = loss_mask.reshape(-1)
+            return (losses * m).sum() / m.sum()
+        return losses.mean()

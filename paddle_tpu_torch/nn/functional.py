@@ -1,20 +1,26 @@
 """Functionals of the port's nn layer, numerically the JAX package's.
 
 Counterparts: `paddle_tpu/nn/functional/common.py` (linear, embedding),
-`activation.py` (gelu) and `norm.py` (layer_norm, fused_add_layer_norm).
+`activation.py` (gelu), `norm.py` (layer_norm, fused_add_layer_norm) and
+`loss.py` (cross_entropy).
 """
 import math
 
 import torch
 
+from ..amp import amp_op_dtype, amp_state, maybe_cast_to_compute
+from ..ops.layernorm import FusedAddLayerNormPair, layernorm_fused
+
 __all__ = ["linear", "embedding", "gelu", "layer_norm",
-           "fused_add_layer_norm", "dropout"]
+           "fused_add_layer_norm", "dropout", "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
-    """y = x @ W + b with W shaped [in, out] (the paddle convention)."""
-    y = torch.matmul(x, weight)
-    return y if bias is None else y + bias
+    """y = x @ W + b with W shaped [in, out] (the paddle convention).
+    Under amp the operands are cast to the compute dtype first."""
+    y = torch.matmul(maybe_cast_to_compute(x, "linear"),
+                     maybe_cast_to_compute(weight, "linear"))
+    return y if bias is None else y + maybe_cast_to_compute(bias, "linear")
 
 
 def embedding(ids, weight):
@@ -52,12 +58,55 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
 
 def fused_add_layer_norm(x, residual, weight, bias, epsilon=1e-5):
     """(LayerNorm(x + residual), x + residual): the pre-LN residual site
-    in one call, the composed math of nn/functional/norm.py:256-263."""
-    h = x + residual
-    return _scale_shift(_normalize(h, epsilon), weight, bias), h
+    in one call, through the add+LayerNorm kernels of `ops/layernorm.py`
+    (the counterpart of the JAX package's `use_pallas_layernorm` route,
+    norm.py:248-252). With a gradient wanted it runs the saving kernel
+    inside `FusedAddLayerNormPair`; otherwise the output-only kernel, and
+    the carry is one add. f32 moments, one rounding of the output."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    r2 = residual.reshape(-1, d).contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, residual, weight, bias)):
+        y, h = FusedAddLayerNormPair.apply(x2, r2, weight, bias, epsilon)
+        return y.reshape(*lead, d), h.reshape(*lead, d)
+    y = layernorm_fused(x2, r2, weight, bias, epsilon)
+    return y.reshape(*lead, d), (x + residual).to(x.dtype)
 
 
 def dropout(x, p=0.5, training=True):
     if not training or p == 0.0:
         return x
     return torch.nn.functional.dropout(x, p=p, training=True)
+
+
+def _log_softmax_amp(logits, dim, op):
+    """log_softmax whose sum accumulates in the amp dtype for `op` (f32
+    for the black-listed losses) without an f32 copy of the logits."""
+    acc = amp_op_dtype(op, logits.dtype)
+    if not amp_state().enabled or acc == logits.dtype:
+        return torch.log_softmax(logits, dim=dim)
+    m = logits.amax(dim=dim, keepdim=True).detach()
+    s = torch.sum(torch.exp(logits - m), dim=dim, keepdim=True, dtype=acc)
+    return logits - m - torch.log(s).to(logits.dtype)
+
+
+def cross_entropy(input, label, ignore_index=-100, reduction="mean",  # noqa: A002
+                  axis=-1):
+    """Hard-label softmax cross entropy (nn/functional/loss.py): labels
+    equal to `ignore_index` contribute 0 and are left out of the mean.
+    Per-token losses are f32 whatever the logits' dtype."""
+    ax = axis % input.dim()
+    logp = _log_softmax_amp(input, ax, "cross_entropy")
+    idx = label.long()
+    if idx.dim() == input.dim() and idx.shape[ax] == 1:
+        idx = idx.squeeze(ax)
+    valid = idx != ignore_index
+    safe = torch.where(valid, idx, 0)
+    picked = logp.gather(ax, safe.unsqueeze(ax)).squeeze(ax)
+    loss = torch.where(valid, -picked.float(), 0.0)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+    if reduction == "sum":
+        return loss.sum()
+    return loss

@@ -23,7 +23,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "build_dir", "nvcc_path"]
+__all__ = ["build", "load", "launcher", "check_launch", "build_dir",
+           "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -110,3 +111,25 @@ def load(name):
             lib = ctypes.CDLL(str(_target(name)[1]))
             _loaded[name] = lib
         return lib
+
+
+def launcher(name, symbol, argtypes):
+    """(launch function `symbol` of library `name`, the library's
+    `<name>_error_string`). Every launch function returns a cudaError_t
+    as an int; its argument types are declared on first use."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    err = getattr(lib, f"{name}_error_string")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def check_launch(kernel, rc, err):
+    """Raise unless the launch returned cudaSuccess (0)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: {err(rc).decode()} "
+                           f"(cudaError {rc})")

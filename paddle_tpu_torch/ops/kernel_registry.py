@@ -48,8 +48,9 @@ def get_kernel(name):
 
 
 def kernels():
-    """Every registered kernel (importing the modules that define them)."""
-    from . import paged_attention  # noqa: F401 — registers on import
+    """Every registered kernel (importing the modules that define them,
+    which registers them)."""
+    from . import flash_attention, layernorm, paged_attention  # noqa: F401
     return list(_KERNELS.values())
 
 

@@ -74,18 +74,6 @@ def flash_prefill_plain(q, k_pages, v_pages, table_row, p0, n_heads):
     return out.reshape(1, C, nh)
 
 
-def _library(name, launch, error_string, argtypes):
-    lib = _build.load(name)
-    fn = getattr(lib, launch)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, error_string)
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-    return fn, getattr(lib, error_string)
-
-
 def _check_cuda(name, tensors, dtypes):
     """Device, dtype and contiguity checks shared by both wrappers."""
     dev = tensors[0][1].device
@@ -153,8 +141,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens,
             or tuple(ctx_lens.shape) != (S,):
         raise ValueError("paged_decode_attention: block_tables must be "
                          f"[{S}, max_blocks] and ctx_lens [{S}]")
-    fn, err = _library(
-        "paged_decode", "paged_decode_launch", "paged_decode_error_string",
+    fn, err = _build.launcher(
+        "paged_decode", "paged_decode_launch",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
@@ -163,9 +151,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens,
             S, n_heads, H, k_pages.shape[1], block_tables.shape[1],
             _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(H),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode launch failed: "
-                           f"{err(rc).decode()} (cudaError {rc})")
+    _build.check_launch("paged_decode", rc, err)
     get_kernel("paged_decode").launches += 1
     return out
 
@@ -207,9 +193,8 @@ def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
     if table_row.dim() != 1 or p0 < 0:
         raise ValueError("flash_prefill_chunk: table_row must be "
                          "[max_blocks] and p0 >= 0")
-    fn, err = _library(
+    fn, err = _build.launcher(
         "flash_prefill_chunk", "flash_prefill_chunk_launch",
-        "flash_prefill_chunk_error_string",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
@@ -218,8 +203,6 @@ def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
             table_row.shape[0], p0, _DTYPE_CODES[q.dtype],
             1.0 / math.sqrt(H),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_prefill_chunk launch failed: "
-                           f"{err(rc).decode()} (cudaError {rc})")
+    _build.check_launch("flash_prefill_chunk", rc, err)
     get_kernel("flash_prefill_chunk").launches += 1
     return out
