@@ -18,11 +18,19 @@ ok line):
              kernels at [2, 1024, 12, 64] (flash forward and backward,
              causal, non-causal, and causal with sq 512 < sk 1024, plus
              a ragged length and head_dim 128) and at 24576 x 768 and
-             16 x 768 (add + LayerNorm). Then time kernel, plain version
-             and one PyTorch library call (a yardstick the port never
-             calls: scaled_dot_product_attention, F.layer_norm) with CUDA
-             events, the L2 flushed before each launch, at the serving
-             shapes and at the training shape (batch 24, seq 1024);
+             16 x 768 (add + LayerNorm); the decode kernels at generate's
+             shapes: decode_fused at batch 8, cache 256, 12 heads of 64,
+             off in {0, 7, 127, 128, 200, 255} (and head_dim 128, and
+             bf16 q over the f32 cache), int8_matvec at D 768, V 51200,
+             rows {1, 8, 16, 64, 65}, V 3072 at 3 rows, and a bf16
+             scale at 8 rows (generate's bf16 decode). Then time
+             kernel, plain version and one PyTorch library call (a
+             yardstick the port never calls: scaled_dot_product_attention,
+             F.layer_norm, a dequantized bf16 matmul) with CUDA events,
+             the L2 flushed before each launch, at the serving shapes, at
+             the training shape (batch 24, seq 1024) and at the decode
+             shape (batch 8, mean position 191); int8_matvec also against
+             the composed head at 8, 16, 64 and 128 rows;
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -36,8 +44,26 @@ ok line):
              every stream is teacher-forced through the port's dense f32
              forward on the card (flash_fwd and layernorm_fused in f32);
 4. profile — device time by kernel over 10 full-batch decode steps
-             (torch.profiler, CUDA activity only);
-5. train   — GPT-3 125M at full width (seed 0, init 0.02) through
+             (torch.profiler, CUDA activity only); then 16 requests
+             served with weights="wo8" over a model quantized with its
+             embeddings: every stream completes and int8_matvec launches
+             once per decode step and once per prefill chunk;
+5. decode  — `generate` on GPT-3 125M (the JAX bench's decode_wo8 shape:
+             batch 8, prompt 128 from RandomState(--seed), 128 new tokens,
+             greedy, bf16), for three recipes of one model: native,
+             quantize_for_decode (int8 linears), and int8 linears +
+             embeddings on a copy. Per recipe a warm call and 3 timed
+             calls (tokens/s); the launch counters, zeroed before the
+             timed calls, must equal layers x 128 x calls (decode_fused),
+             128 x calls (int8_matvec, third recipe; 0 otherwise) and
+             layers x 129 x calls (layernorm_fused); every stream is
+             teacher-forced through the same model's dense f32 forward;
+             a 10-step decode profile (native and int8-head recipes; the
+             latter's holds the int8 linears' copies too). On the native
+             model one beam
+             search (4 beams, 32 tokens) and one top-k/top-p sampling
+             call must give valid ids;
+6. train   — GPT-3 125M at full width (seed 0, init 0.02) through
              TrainStep with AdamW(1e-4, weight decay 0.01): first 3 steps
              in f32 at batch 2, seq 256 on the card and on the CPU (plain
              versions) from the same weights, losses within 1e-4
@@ -47,7 +73,8 @@ ok line):
              counters must equal layers x steps for flash_fwd, flash_bwd
              and layernorm_fwd_saved), and a 10-step profile.
 
-Prints the card's name and power limit (nvidia-smi), a JSON line with
+Prints the card's name and power limit (nvidia-smi), the seconds each
+phase took, a JSON line with
 every kernel's launches, error and times, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is unavailable or when run
@@ -89,6 +116,17 @@ P0S = (0, 7, 128, 384)
 TIMED_P0 = 128
 ENGINE = dict(max_slots=SLOTS, block_size=BLOCK, prefill_chunk=CHUNK,
               max_model_len=BLOCK * MAX_BLOCKS)
+# generate's shapes on GPT-3 125M (the JAX bench's decode_wo8): a step
+# at position p attends keys 0..p; the timed kernel sits at the mean
+# position of the 128 steps
+DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_CALLS = 8, 128, 128, 3
+DEC_LEN = DEC_PROMPT + DEC_NEW
+DEC_OFFS = (0, 7, 127, 128, 200, 255)
+DEC_TIMED_OFF = DEC_PROMPT + (DEC_NEW - 1) // 2
+# the int8 head: GPT-3 125M's vocab 50304 padded to a multiple of 1024
+I8_V, I8_D = 51200, 768
+I8_ROWS = (1, 8, 16, 64, 65)
+I8_PREFER_ROWS = (8, 16, 64, 128)
 # Random weights: GPT's initializer at this std. At width 768 the
 # attention logits' spread grows with the square of the std: at the
 # default 0.02 attention is near uniform and greedy streams repeat one
@@ -116,6 +154,8 @@ PROFILE_CATEGORIES = (
                                "fwd_f32", "dkdv_f32", "dq_f32")),
     ("port: add + LayerNorm", ("add_ln",)),
     ("port: paged attention", ("paged_decode", "flash_prefill")),
+    ("port: decode attention", ("decode_attention",)),
+    ("port: int8 matvec", ("int8_matvec",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -512,6 +552,136 @@ def train_kernels_phase(torch, seed):
     return rows
 
 
+def decode_kernels_phase(torch, seed):
+    """The decode path's kernels against their plain versions, then
+    timed at generate's shapes (batch 8 on GPT-3 125M)."""
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from paddle_tpu_torch.ops.int8_matvec import (int8_matvec,
+                                                  int8_matvec_plain)
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def table(V):
+        return (torch.randint(-127, 128, (V, I8_D), generator=gen,
+                              dtype=torch.int8).to(dev),
+                ((0.01 + torch.rand((V,), generator=gen)) * 0.01).to(dev))
+
+    def note(key, e):
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    # decode_fused: (q dtype, cache dtype) -> (b, heads, head_dim, offs)
+    k8 = get_kernel("decode_fused")
+    for qd, cd in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        dname = str(qd).split(".")[1]
+        tol = k8.tol[dname]
+        for b, n, h, offs in ((DEC_BATCH, N_HEADS, HEAD_DIM, DEC_OFFS),
+                              (2, 4, 128, (100,))):
+            q = randn((b, 1, n * h), qd)
+            k, v = (randn((b, DEC_LEN, n * h), cd) for _ in range(2))
+            for off in offs:
+                got = decode_attention(q, k, v, off, n)
+                ref = decode_attention_plain(q, k, v, off, n)
+                torch.cuda.synchronize()
+                note(("decode_fused", dname, str(cd)), hold(
+                    f"decode_fused[q {qd}, cache {cd}, b={b} n={n} h={h} "
+                    f"off={off}]", got, ref, tol))
+    # int8_matvec: h in f32 and bf16, the 125M head and a ragged table
+    k9 = get_kernel("int8_matvec")
+    big, ragged = table(I8_V), table(2048 + 1024)
+    for hd in (f32, bf16):
+        dname = str(hd).split(".")[1]
+        for B, (wq, sc) in [(r, big) for r in I8_ROWS] + [(3, ragged)]:
+            hh = randn((B, I8_D), hd)
+            got = int8_matvec(hh, wq, sc)
+            ref = int8_matvec_plain(hh, wq, sc)
+            torch.cuda.synchronize()
+            note(("int8_matvec", dname), hold(
+                f"int8_matvec[h {dname}, B={B} D={I8_D} V={wq.shape[0]}]",
+                got, ref, k9.tol[dname]))
+    # generate's int8 head: a bf16 decode casts the scale buffer to bf16
+    wq, sc = big
+    sc_bf16 = sc.to(bf16)
+    hh = randn((DEC_BATCH, I8_D), bf16)
+    got = int8_matvec(hh, wq, sc_bf16)
+    ref = int8_matvec_plain(hh, wq, sc_bf16)
+    torch.cuda.synchronize()
+    note(("int8_matvec", "bfloat16"), hold(
+        f"int8_matvec[h bfloat16, scale bfloat16, B={DEC_BATCH} D={I8_D} "
+        f"V={I8_V}]", got, ref, k9.tol["bfloat16"]))
+    for key, e in sorted(errs.items()):
+        print(f"kernels: {' '.join(key)} max_abs_err {e:.3e} (tol rtol, "
+              f"atol = {get_kernel(key[0]).tol[key[1]]})")
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    # decode_fused as generate runs it: bf16 q over the f32 cache (the
+    # cache keeps the config's dtype), at the mean step position
+    B, n, h, off = DEC_BATCH, N_HEADS, HEAD_DIM, DEC_TIMED_OFF
+    nh = n * h
+    q = randn((B, 1, nh), bf16)
+    k, v = (randn((B, DEC_LEN, nh), f32) for _ in range(2))
+    sq = q.float().reshape(B, 1, n, h).transpose(1, 2)
+    sk, sv = (t[:, :off + 1].reshape(B, off + 1, n, h).transpose(1, 2)
+              for t in (k, v))
+    nbytes = 2 * B * (off + 1) * nh * 4 + B * nh * (2 + 4)
+    rows["decode_fused"] = dict(
+        ms=median_ms(torch, lambda: decode_attention(q, k, v, off, n),
+                     flush),
+        plain_ms=median_ms(
+            torch, lambda: decode_attention_plain(q, k, v, off, n), flush),
+        library_ms=median_ms(
+            torch, lambda: F.scaled_dot_product_attention(sq, sk, sv),
+            flush),
+        bound=bound(nbytes, 4 * B * n * (off + 1) * h, "float32"),
+        max_abs_err=errs[("decode_fused", "bfloat16", str(f32))])
+    kb, vb = k.to(bf16), v.to(bf16)
+    ms_bf16 = median_ms(torch, lambda: decode_attention(q, kb, vb, off, n),
+                        flush)
+    r = rows["decode_fused"]
+    print(f"kernels: decode_fused B={B} off={off} bf16 q, f32 cache: "
+          f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa over the "
+          f"prefix {r['library_ms']:.4f}, bound {r['bound'][0]:.5f} by "
+          f"{r['bound'][1]}; {nbytes} bytes); bf16 cache {ms_bf16:.4f} ms")
+
+    # int8_matvec at generate's decode batch, bf16 h
+    wq, sc = big
+    wb = randn((I8_V, I8_D), bf16)      # an unquantized bf16 table
+
+    def head_rows(B):
+        hh = randn((B, I8_D), bf16)
+        nbytes = I8_V * I8_D + B * I8_D * 2 + I8_V * 4 + B * I8_V * 4
+        return dict(
+            ms=median_ms(torch, lambda: int8_matvec(hh, wq, sc), flush),
+            plain_ms=median_ms(torch, lambda: int8_matvec_plain(hh, wq, sc),
+                               flush),
+            library_ms=median_ms(torch, lambda: torch.matmul(
+                hh, wq.to(bf16).t()) * sc, flush),
+            bf16_table_ms=median_ms(torch, lambda: torch.matmul(hh, wb.t()),
+                                    flush),
+            bound=bound(nbytes, 2 * B * I8_V * I8_D, "bfloat16"),
+            max_abs_err=errs[("int8_matvec", "bfloat16")])
+
+    for B in I8_PREFER_ROWS:
+        r = head_rows(B)
+        print(f"kernels: int8_matvec B={B} D={I8_D} V={I8_V}: "
+              f"{r['ms']:.4f} ms; composed head (f32 product, the plain "
+              f"version) {r['plain_ms']:.4f}; dequantized bf16 matmul "
+              f"{r['library_ms']:.4f}; bf16 table {r['bf16_table_ms']:.4f};"
+              f" bound {r['bound'][0]:.5f} by {r['bound'][1]}")
+        if B == DEC_BATCH:
+            rows["int8_matvec"] = r
+    del flush
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve GPT-3 125M
 # ---------------------------------------------------------------------------
@@ -536,7 +706,7 @@ def teacher_forced(torch, model, prompt, out):
     """The dense f32 forward over prompt + output; per generated token,
     whether it is the f32 argmax and how far its logit trails the best,
     in units of that position's logit standard deviation."""
-    ids = torch.tensor([prompt + out], device=model.gpt.wte.weight.device)
+    ids = torch.tensor([prompt + out], device=model.gpt.ln_f.weight.device)
     with torch.inference_mode():
         logits = model(ids)[0, len(prompt) - 1:len(prompt) + len(out) - 1]
     tok = torch.tensor(out, device=logits.device)
@@ -680,8 +850,172 @@ def print_profile(prof, steps, wall_ms, what, top):
               f"ms/step {e.count / steps:6.1f} launches/step  {e.key[:80]}")
 
 
+def serve_wo8_phase(torch, seed, init_range, n=16):
+    """16 requests with weights="wo8" over a model quantized with its
+    embeddings: the head runs int8_matvec once per decode step (16
+    rows) and once per prefill chunk (the chunk's last row)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.quant import quantize_weights_int8
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
+                              initializer_range=init_range)
+    model = GPTForPretraining(cfg, seed=seed)
+    quantize_weights_int8(model, embeddings=True)
+    eng = ServingEngine(model, **{**ENGINE, "dtype": "bfloat16",
+                                  "weights": "wo8"})
+    for p in make_requests(seed + 1, cfg.vocab_size, n=2):
+        eng.submit(p[:40], SamplingParams(max_new_tokens=4))
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    d0, c0 = eng.decode_steps, eng.prefill_chunks
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, SamplingParams(max_new_tokens=16))
+               for p in make_requests(seed + 3, cfg.vocab_size, n=n)]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels()}
+    steps, chunks = eng.decode_steps - d0, eng.prefill_chunks - c0
+    if not all(h.finished and len(h.output_tokens) == 16 for h in handles):
+        raise AssertionError("serve wo8: a stream did not complete")
+    eng.pool.assert_quiesced()
+    L = cfg.num_layers
+    want = {**{name: 0 for name in launches},
+            "paged_decode": L * steps, "flash_prefill_chunk": L * chunks,
+            "layernorm_fused": L * (steps + chunks),
+            "int8_matvec": steps + chunks}
+    stats = dict(tokens_per_s=16 * n / wall, decode_steps=steps,
+                 prefill_chunks=chunks, launches=launches)
+    print("serve[wo8 + int8 embeddings, bf16]: " + json.dumps(stats))
+    if launches != want:
+        raise AssertionError(f"serve wo8: launches {launches} != {want}")
+    return stats
+
+
 # ---------------------------------------------------------------------------
-# phase 5: train GPT-3 125M
+# phase 5: decode (generate) GPT-3 125M, native and weight-only int8
+# ---------------------------------------------------------------------------
+
+def decode_profile(torch, model, ids, what, steps=10):
+    """Device time by kernel over `steps` bf16 decode steps of `model`
+    (after its prefill), the one-token forward and the greedy pick."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.generation import _decode_weights
+    with _decode_weights(model, torch.bfloat16), torch.inference_mode():
+        caches = model.gpt.init_cache(DEC_BATCH, DEC_LEN)
+        logits, caches = model(ids, caches=caches, offset=0)
+        tok = logits[:, -1].float().argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, caches = model(tok[:, None], caches=caches,
+                                       offset=DEC_PROMPT + i)
+                tok = logits[:, -1].float().argmax(-1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    print_profile(prof, steps, wall_ms, f"decode steps of {DEC_BATCH} rows, "
+                  f"{what}", top=8)
+
+
+def decode_phase(torch, seed, init_range):
+    import copy
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.quant import (quantize_for_decode,
+                                        quantize_weights_int8)
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
+                              initializer_range=init_range)
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    model = GPTForPretraining(cfg, seed=seed)          # on the card
+    copy_for_embeddings = copy.deepcopy(model)
+    prompt = np.random.RandomState(seed).randint(
+        0, vocab, (DEC_BATCH, DEC_PROMPT))
+    ids = torch.from_numpy(prompt).to(DEVICE)
+    recipes = (
+        ("bf16", model, lambda m: None),
+        ("wo8", model, quantize_for_decode),
+        ("wo8 + int8 embeddings", copy_for_embeddings,
+         lambda m: quantize_weights_int8(m, embeddings=True)))
+    total = {k.name: 0 for k in kernels()}
+    stats = {}
+    for name, m, quantize in recipes:
+        quantize(m)
+        m.generate(ids, max_new_tokens=DEC_NEW)         # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(DEC_CALLS):
+            out, _ = m.generate(ids, max_new_tokens=DEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels()}
+        head = DEC_NEW * DEC_CALLS if "embeddings" in name else 0
+        want = {**{k: 0 for k in launches},
+                "decode_fused": L * DEC_NEW * DEC_CALLS,
+                "int8_matvec": head,
+                "layernorm_fused": L * (DEC_NEW + 1) * DEC_CALLS}
+        if launches != want:
+            raise AssertionError(f"decode {name}: launches {launches} != "
+                                 f"{want}")
+        for k, c in launches.items():
+            total[k] += c
+        streams = out[:, DEC_PROMPT:].tolist()
+        if out.shape != (DEC_BATCH, DEC_LEN) or not all(
+                0 <= t < vocab for s in streams for t in s):
+            raise AssertionError(f"decode {name}: bad ids {out.shape}")
+        agree, trail = [], []
+        for p, s in zip(prompt.tolist(), streams):
+            a, t = teacher_forced(torch, m, p, s)
+            agree += a
+            trail += t
+        distinct = [len(set(s)) for s in streams]
+        rate = sum(agree) / len(agree)
+        st = dict(tokens_per_s=DEC_BATCH * DEC_NEW * DEC_CALLS / wall,
+                  call_s=wall / DEC_CALLS,
+                  step_ms=wall * 1e3 / (DEC_CALLS * DEC_NEW),
+                  tf_agree=rate, tf_max_trail_std=max(trail),
+                  distinct=distinct, launches=launches)
+        print(f"decode[{name}, b={DEC_BATCH} prompt={DEC_PROMPT} "
+              f"new={DEC_NEW}]: " + json.dumps(st))
+        if sum(1 for d in distinct if d == 1) > \
+                MAX_CONSTANT_FRAC * len(distinct) or \
+                sum(distinct) / len(distinct) < MIN_MEAN_DISTINCT:
+            raise AssertionError(f"decode {name}: the streams barely vary "
+                                 f"(distinct tokens per stream {distinct})")
+        if rate < TF_AGREE or max(trail) > TF_MARGIN_STD:
+            raise AssertionError(
+                f"decode {name}: teacher-forced check failed: agreement "
+                f"{rate:.3f} (need {TF_AGREE}), worst trail "
+                f"{max(trail):.3f} std (limit {TF_MARGIN_STD})")
+        if name == "bf16":
+            for kw in (dict(decode_strategy="beam_search", num_beams=4,
+                            length_penalty=0.6),
+                       dict(decode_strategy="sampling", top_k=40, top_p=0.9,
+                            temperature=0.8, seed=seed)):
+                t0 = time.perf_counter()
+                o, sc = m.generate(ids, max_new_tokens=32, **kw)
+                torch.cuda.synchronize()
+                ok = (o.shape == (DEC_BATCH, DEC_PROMPT + 32)
+                      and bool(((o >= 0) & (o < vocab)).all())
+                      and bool(sc.isfinite().all())
+                      and torch.equal(o[:, :DEC_PROMPT], ids))
+                print(f"decode[{kw['decode_strategy']}]: 32 tokens in "
+                      f"{time.perf_counter() - t0:.2f} s, valid {ok}")
+                if not ok:
+                    raise AssertionError(f"decode {kw}: invalid output")
+        if name != "wo8":   # the int8-head recipe's trace holds its copies
+            decode_profile(torch, m, ids, name)
+        stats[name] = st
+    stats["launches"] = total
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train GPT-3 125M
 # ---------------------------------------------------------------------------
 
 def make_train_step(torch, model, amp_on):
@@ -881,20 +1215,40 @@ def main(argv=None):
     print(f"build: {len(regs)} kernels from {len(sources)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def lap(name):
+        phase_s[name] = time.perf_counter() - t0 - sum(phase_s.values())
+
     rows = kernels_phase(torch, args.seed)
+    lap("kernels: serving")
     rows.update(train_kernels_phase(torch, args.seed))
+    lap("kernels: training")
+    rows.update(decode_kernels_phase(torch, args.seed))
+    lap("kernels: decode")
     stats, eng, vocab = serve_phase(torch, args.seed, args.init_range,
                                     args.dtype)
+    lap("serve")
     profile_phase(torch, eng, vocab, args.seed)
     del eng
+    lap("serve profile")
+    wo8 = serve_wo8_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
+    lap("serve wo8")
+    decode = decode_phase(torch, args.seed, args.init_range)
+    torch.cuda.empty_cache()
+    lap("decode")
     train = train_phase(torch, args.seed)
+    lap("train")
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
 
     out = []
     for k in regs:
         r = rows[k.name]
-        # each kernel runs on one main path: serving or training
-        launches = stats["launches"][k.name] + train["launches"][k.name]
+        # the launches of every main path's counted run
+        launches = sum(run["launches"][k.name]
+                       for run in (stats, wo8, decode, train))
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -10,18 +10,28 @@ The large products (qkv, out_proj, fc1/fc2, the tied head) are
 kernel. Attention is `ops.attention.flash_attention` and the residual
 add + ln2 site `nn.fused_add_layer_norm`, which reach the flash and
 add+LayerNorm kernels on the card. `GPTModel.forward` is a dense causal
-forward over a whole sequence, the training path (`loss`); the serving
-engine drives the blocks itself over the paged cache
+forward over a whole sequence, the training path (`loss`), or, given
+`caches=` and `offset=`, an incremental step over fixed-shape KV buffers
+(`init_cache`), the decode path of `generate`: a one-token step attends
+through the `decode_fused` kernel, a prompt through the composed
+attention. Under weight-only int8 (`quant.wo8`) the tied head reads the
+int8 table, through the `int8_matvec` kernel at decode sizes on the
+card. The serving engine drives the blocks itself over the paged cache
 (serving/engine.py).
 """
 import math
+import operator
 
 import torch
 
 from .. import nn
 from ..amp import amp_state, maybe_cast_to_compute
 from ..device import resolve_device, resolve_dtype
-from ..ops.attention import flash_attention
+from ..ops.attention import composed_attention, flash_attention
+from ..ops.decode_attention import (decode_attention,
+                                    decode_attention_supported)
+from ..ops.int8_matvec import int8_matvec, int8_matvec_preferred
+from ..quant.wo8 import WeightOnlyInt8Embedding
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForPretraining"]
@@ -92,12 +102,43 @@ class GPTAttention(torch.nn.Module):
                                        self.head_dim)
         return qkv.unbind(dim=2)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, offset=None):
+        """cache: optional (k_buf, v_buf) of fixed shape from
+        `GPTModel.init_cache` — flat [b, max_len, n*h]; offset: how many
+        positions are filled (a host integer). With a cache, returns
+        (out, (k_buf, v_buf))."""
         b, s = x.shape[0], x.shape[1]
         q, k, v = self.project_qkv(x)
+        if cache is not None:
+            out, k_buf, v_buf = _cached_attention(
+                q, k, v, cache[0], cache[1],
+                0 if offset is None else operator.index(offset))
+            return (self.out_proj(out.reshape(b, s, self.hidden_size)),
+                    (k_buf, v_buf))
         out = flash_attention(q, k, v, dropout=self.attn_dropout,
                               causal=True, training=self.training)
         return self.out_proj(out.reshape(b, s, self.hidden_size))
+
+
+def _cached_attention(q, k_new, v_new, k_buf, v_buf, off):
+    """Incremental attention: write k/v at positions off..off+s-1 (in
+    place: the buffers are the decode loop's own), then attend q (s
+    tokens at those positions) over the valid prefix of the FLAT
+    [b, L, n*h] buffers: a one-token step runs the `decode_fused` kernel,
+    a prompt the composed attention over a [b, L, n, h] view. Neither
+    path copies the buffers."""
+    b, s, n, h = q.shape
+    L = k_buf.shape[1]
+    k_buf[:, off:off + s] = k_new.reshape(b, s, n * h)
+    v_buf[:, off:off + s] = v_new.reshape(b, s, n * h)
+    if s == 1:
+        out = decode_attention(q.reshape(b, 1, n * h).contiguous(),
+                               k_buf, v_buf, off, n).to(q.dtype)
+        return out.reshape(b, 1, n, h), k_buf, v_buf
+    k4, v4 = k_buf.view(b, L, n, h), v_buf.view(b, L, n, h)
+    key_pos = torch.arange(L, device=q.device)[None, None, None, :]
+    q_pos = (off + torch.arange(s, device=q.device))[None, None, :, None]
+    return composed_attention(q, k4, v4, key_pos <= q_pos), k_buf, v_buf
 
 
 class GPTMLP(torch.nn.Module):
@@ -123,7 +164,11 @@ class GPTBlock(torch.nn.Module):
         self.mlp = GPTMLP(config, device=device, dtype=dtype)
         self.dropout = nn.Dropout(config.dropout)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, offset=None):
+        if cache is not None:
+            a, new_cache = self.attn(self.ln1(x), cache=cache, offset=offset)
+            y, h = self._add_ln2(x, self.dropout(a))
+            return h + self.dropout(self.mlp(y)), new_cache
         y, h = self._add_ln2(x, self.dropout(self.attn(self.ln1(x))))
         return h + self.dropout(self.mlp(y))
 
@@ -147,11 +192,39 @@ class GPTModel(torch.nn.Module):
              for _ in range(c.num_layers)])
         self.ln_f = nn.LayerNorm(c.hidden_size, device=device, dtype=dtype)
 
-    def forward(self, input_ids):
-        """Dense causal forward over positions 0..s-1 -> ln_f(h)."""
+    def init_cache(self, batch_size, max_len, dtype=None):
+        """Fixed-shape KV buffers, one (k, v) pair per block, zeroed, in
+        `dtype` (default: the config's dtype, as in the JAX package), FLAT
+        [b, max_len, n*h]: the layout of `decode_fused`, which runs every
+        one-token step. Off the CPU (where the plain version takes any
+        head dim) a head dim the kernel has no instance for raises."""
+        c = self.config
+        dev = self.ln_f.weight.device
+        dt = resolve_dtype(dtype or c.dtype)
+        if dev.type != "cpu" and not decode_attention_supported(
+                c.hidden_size, c.num_heads):
+            raise ValueError(
+                f"init_cache: head_dim {c.hidden_size / c.num_heads} has no "
+                "decode_fused kernel on the card (head_dim 64 or 128)")
+        shape = (batch_size, max_len, c.hidden_size)
+        return [(torch.zeros(shape, dtype=dt, device=dev),
+                 torch.zeros(shape, dtype=dt, device=dev))
+                for _ in self.blocks]
+
+    def forward(self, input_ids, caches=None, offset=None):
+        """Dense causal forward over positions 0..s-1 -> ln_f(h); with
+        `caches` an incremental forward at positions offset..offset+s-1
+        -> (ln_f(h), caches)."""
         s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        off = 0 if offset is None else operator.index(offset)
+        pos = (off + torch.arange(s, device=input_ids.device))[None, :]
         h = self.drop(self.wte(input_ids) + self.wpe(pos))
+        if caches is not None:
+            new_caches = []
+            for block, cache in zip(self.blocks, caches):
+                h, nc = block(h, cache=cache, offset=off)
+                new_caches.append(nc)
+            return self.ln_f(h), new_caches
         for block in self.blocks:
             h = block(h)
         return self.ln_f(h)
@@ -191,7 +264,10 @@ class GPTForPretraining(torch.nn.Module):
                 p.normal_(0.0, out_std if name.endswith("fc2.weight")
                           else std, generator=gen)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, caches=None, offset=None):
+        if caches is not None:
+            h, new_caches = self.gpt(input_ids, caches=caches, offset=offset)
+            return self.lm_head(h), new_caches
         return self.lm_head(self.gpt(input_ids))
 
     def lm_head(self, h):
@@ -202,12 +278,57 @@ class GPTForPretraining(torch.nn.Module):
         accumulates its log-sum-exp in f32 anyway). Otherwise f32
         logits: the JAX head emits its f32 accumulator
         (`preferred_element_type=f32`), and products of bf16 values are
-        exact in f32, so the f32 product below is the same arithmetic."""
-        w = self.gpt.wte.weight
+        exact in f32, so the f32 product below is the same arithmetic.
+        A weight-only-int8 table takes `_head_q`."""
+        wte = self.gpt.wte
+        if isinstance(wte, WeightOnlyInt8Embedding):
+            return self._head_q(h, wte)
+        w = wte.weight
         if amp_state().enabled:
             return torch.matmul(maybe_cast_to_compute(h, "matmul"),
                                 maybe_cast_to_compute(w, "matmul").t())
         return torch.matmul(h.float(), w.float().t())
+
+    @staticmethod
+    def _head_q(h, wte):
+        """The head over an int8 table padded to a multiple of 1024 rows:
+        `int8_matvec` (h rounded to bf16, f32 sums, scaled per row) for
+        decode-sized row counts on the card when no gradient can flow
+        (the kernel has no backward); otherwise the composed product
+        (h·wq^T)·scale accumulated in f32, h in the compute dtype. Logits
+        are sliced to the true vocab, and cast to bf16 under amp."""
+        b, s, d = h.shape
+        amp_on = amp_state().enabled
+        grad_live = torch.is_grad_enabled() and h.requires_grad
+        if int8_matvec_preferred(b * s, h.device) and not grad_live:
+            out = int8_matvec(h.reshape(b * s, d).contiguous(), wte.wq,
+                              wte.w_scale).reshape(b, s, -1)
+        else:
+            cdt = torch.bfloat16 if amp_on else h.dtype
+            out = torch.matmul(h.to(cdt).float(), wte.wq.float().t()) \
+                * wte.w_scale.float()
+        out = out[..., :wte.num_embeddings]
+        return out.to(torch.bfloat16) if amp_on else out
+
+    def generate(self, input_ids, max_new_tokens=32,
+                 decode_strategy="greedy", top_k=0, top_p=1.0,
+                 temperature=1.0, num_beams=1, length_penalty=0.0,
+                 eos_token_id=None, pad_token_id=0, seed=None,
+                 dtype="bfloat16", device=None):
+        """Autoregressive decoding over a static KV cache: one prefill,
+        then one token per step. decode_strategy "greedy" | "sampling"
+        (top_k/top_p/temperature) | "beam_search" (num_beams,
+        length_penalty). dtype: decode compute dtype ("bfloat16", or
+        None for the parameters' own). device=None decodes on the card
+        (raises without one). Returns (ids [b, prompt + max_new_tokens],
+        scores [b]); see `generation.run_generate`."""
+        from ..generation import run_generate
+        return run_generate(
+            self, input_ids, max_new_tokens=max_new_tokens,
+            decode_strategy=decode_strategy, top_k=top_k, top_p=top_p,
+            temperature=temperature, num_beams=num_beams,
+            length_penalty=length_penalty, eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id, seed=seed, dtype=dtype, device=device)
 
     def loss(self, input_ids, labels, loss_mask=None):
         """Mean next-token cross entropy of the logits against `labels`

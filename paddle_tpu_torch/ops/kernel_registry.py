@@ -50,7 +50,8 @@ def get_kernel(name):
 def kernels():
     """Every registered kernel (importing the modules that define them,
     which registers them)."""
-    from . import flash_attention, layernorm, paged_attention  # noqa: F401
+    from . import (decode_attention, flash_attention, int8_matvec,  # noqa: F401
+                   layernorm, paged_attention)
     return list(_KERNELS.values())
 
 

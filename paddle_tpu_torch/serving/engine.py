@@ -19,9 +19,16 @@ Device state: the arenas are updated in place (`index_put_`); PyTorch
 runs eagerly, so the JAX engine's compiled programs, donation and
 compile observatory have no counterpart here.
 
-This slice serves greedy requests. Sampled decoding, `weights="wo8"`,
-the background serve loop (start/stop/drain/restart), the HTTP front,
-metrics gauges and request tracing come in later slices.
+Weight-only int8 (`weights="wo8"`) quantizes the caller's model in
+place with `quant.quantize_for_decode` (linears) before the compute-dtype
+copy is made, as the JAX engine does, so the int8 codes come from the
+model's own weights and never from bf16-rounded ones. A model quantized
+beforehand with `quantize_weights_int8(model, embeddings=True)` serves
+its tied head through the `int8_matvec` kernel on the card.
+
+This slice serves greedy requests. Sampled decoding, the background
+serve loop (start/stop/drain/restart), the HTTP front, metrics gauges
+and request tracing come in later slices.
 """
 import copy
 import threading
@@ -32,6 +39,7 @@ import torch
 
 from ..device import resolve_device, resolve_dtype
 from ..ops.paged_attention import flash_prefill_chunk, paged_decode_attention
+from ..quant import quantize_for_decode
 from .kv_cache import NULL_BLOCK, BlockPool, PagedKVCache, PrefixIndex
 from .resilience import (AdmissionController, DeadlineExceededError,
                          RequestCancelledError)
@@ -47,18 +55,16 @@ class EngineConfig:
 
     `device=None` serves from the CUDA card (raises without one);
     `dtype=None` computes in the model's own dtype, "bfloat16" casts a
-    copy of the weights and the KV arenas to bf16."""
+    copy of the weights and the KV arenas to bf16. `weights="wo8"`
+    serves weight-only int8 linears (the model is quantized in place)."""
 
     def __init__(self, max_slots=4, block_size=16, num_blocks=None,
                  max_model_len=None, prefill_chunk=32, dtype="bfloat16",
                  weights="native", device=None, max_queue=None,
                  enable_prefix_cache=True):
-        if weights == "wo8":
-            raise NotImplementedError(
-                "weights='wo8' (weight-only int8 with the int8_matvec "
-                "kernel) comes in the next slice of the port")
-        if weights != "native":
-            raise ValueError(f"weights must be 'native', got {weights!r}")
+        if weights not in ("native", "wo8"):
+            raise ValueError(f"weights must be 'native' or 'wo8', got "
+                             f"{weights!r}")
         self.max_slots = int(max_slots)
         self.block_size = int(block_size)
         self.num_blocks = num_blocks
@@ -123,6 +129,8 @@ class ServingEngine:
         self.max_blocks_per_seq = PagedKVCache.blocks_for_tokens(
             self.max_model_len, self.block_size)
         self._compute_dtype = resolve_dtype(cfg.dtype or mcfg.dtype)
+        if cfg.weights == "wo8":
+            quantize_for_decode(model)
         self._net = _serving_copy(model, self.device, self._compute_dtype)
 
         num_blocks = self._resolve_num_blocks()

@@ -78,5 +78,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ServingEngine(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForPretraining(cfg)
+    ids = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.generate(ids, max_new_tokens=2)
     # asked for explicitly, the CPU works
     assert ServingEngine(model, device="cpu").device.type == "cpu"
+    assert model.generate(ids, max_new_tokens=2,
+                          device="cpu")[0].shape == (1, 5)

@@ -150,8 +150,8 @@ def test_engine_refuses_what_is_not_ported(models):
     eng = ServingEngine(tm, device="cpu", **_ENGINE)
     with pytest.raises(NotImplementedError, match="later slice"):
         eng.submit([1, 2, 3], SamplingParams(decode_strategy="sampling"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(tm, device="cpu", weights="wo8")
+    with pytest.raises(ValueError, match="'native' or 'wo8'"):
+        ServingEngine(tm, device="cpu", weights="int4")
     with pytest.raises(ValueError):
         eng.submit(list(range(60)), SamplingParams(max_new_tokens=10))
 
