@@ -23,14 +23,21 @@ ok line):
              off in {0, 7, 127, 128, 200, 255} (and head_dim 128, and
              bf16 q over the f32 cache), int8_matvec at D 768, V 51200,
              rows {1, 8, 16, 64, 65}, V 3072 at 3 rows, and a bf16
-             scale at 8 rows (generate's bf16 decode). Then time
+             scale at 8 rows (generate's bf16 decode); the MoE kernels
+             on maps from the port's own router at 8192 tokens, E 8,
+             k 2, C 2560 (dropped choices and empty slots both real) at
+             d in {64, 768, 1024, 2048}, plus all sentinels, 1001 rows,
+             k 1 and an f32 weight over bf16 rows (moe_gather exact,
+             moe_combine within the registry's tolerance). Then time
              kernel, plain version and one PyTorch library call (a
              yardstick the port never calls: scaled_dot_product_attention,
-             F.layer_norm, a dequantized bf16 matmul) with CUDA events,
-             the L2 flushed before each launch, at the serving shapes, at
-             the training shape (batch 24, seq 1024) and at the decode
-             shape (batch 8, mean position 191); int8_matvec also against
-             the composed head at 8, 16, 64 and 128 rows;
+             F.layer_norm, a dequantized bf16 matmul, F.embedding,
+             F.embedding_bag) with CUDA events, the L2 flushed before
+             each launch, at the serving shapes, at the training shape
+             (batch 24, seq 1024), at the decode shape (batch 8, mean
+             position 191) and at the MoE training shape (f32 rows of
+             768); int8_matvec also against the composed head at 8, 16,
+             64 and 128 rows;
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -71,7 +78,20 @@ ok line):
              bench, batch 24 x seq 1024 under bf16 amp, 3 warm-up and 10
              timed steps (tokens/s, step ms, MFU, finite loss; the launch
              counters must equal layers x steps for flash_fwd, flash_bwd
-             and layernorm_fwd_saved), and a 10-step profile.
+             and layernorm_fwd_saved), and a 10-step profile;
+7. moe train — the JAX bench's moe_train: GPT-3 125M with every MLP an
+             8-expert top-2 MoEFFN at capacity factor 1.25 (GPTMoE, seed
+             0, init 0.02), TrainStep with AdamW(1e-4, weight decay 0.01)
+             over GPTMoE.loss (LM + aux + z). First 3 f32 steps at full
+             width but 2 layers, batch 2, seq 256, on the card and on the
+             CPU from the same weights: losses within 1e-4 relative, the
+             tokens whose routing map differs printed (expected 0). Then
+             batch 8 x seq 1024 under bf16 amp, 3 warm-up and 10 timed
+             steps (tokens/s, step ms, MFU over the active FLOPs, peak
+             memory, finite loss, the routing stats; the launch counters
+             must equal layers x steps for moe_gather, moe_combine,
+             flash_fwd, flash_bwd and layernorm_fwd_saved), a 3-step
+             profile and the MoE regions timed alone.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, a JSON line with
@@ -81,6 +101,7 @@ Exits non-zero without a result when CUDA is unavailable or when run
 outside a checkout of the repository.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -127,6 +148,16 @@ DEC_TIMED_OFF = DEC_PROMPT + (DEC_NEW - 1) // 2
 I8_V, I8_D = 51200, 768
 I8_ROWS = (1, 8, 16, 64, 65)
 I8_PREFER_ROWS = (8, 16, 64, 128)
+# the MoE training shape (the JAX bench's moe_train, bench.py:712-771):
+# GPT-3 125M with every MLP an 8-expert top-2 MoEFFN at capacity factor
+# 1.25, batch 8 x seq 1024 under bf16 amp
+MOE_E, MOE_K, MOE_CF = 8, 2, 1.25
+MOE_BATCH, MOE_SEQ, MOE_WARMUP, MOE_STEPS = 8, 1024, 3, 10
+MOE_PROFILE_STEPS = 3
+# f32 parity of the MoE step, card against CPU: full width, 2 layers
+MOE_PARITY_LAYERS = 2
+# row widths the kernels are held at (768 is GPT-3 125M's)
+MOE_WIDTHS = (64, 768, 1024, 2048)
 # Random weights: GPT's initializer at this std. At width 768 the
 # attention logits' spread grows with the square of the std: at the
 # default 0.02 attention is near uniform and greedy streams repeat one
@@ -156,6 +187,10 @@ PROFILE_CATEGORIES = (
     ("port: paged attention", ("paged_decode", "flash_prefill")),
     ("port: decode attention", ("decode_attention",)),
     ("port: int8 matvec", ("int8_matvec",)),
+    ("port: moe gather (K12)", ("moe_gather",)),
+    ("port: moe combine (K13)", ("moe_combine",)),
+    ("index_add (moe backward scatters)", ("indexFunc",)),
+    ("sorts and scans (router)", ("sort", "Sort", "scan", "Scan")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -682,6 +717,132 @@ def decode_kernels_phase(torch, seed):
     return rows
 
 
+def moe_maps(torch, gen, dev):
+    """The router's maps at the MoE training shape (8192 tokens, E 8,
+    k 2, C 2560) from random gate logits that favour the low experts
+    (a 1 to -1 ramp), so that both sentinels are real: choices dropped
+    at capacity and slots left empty."""
+    from paddle_tpu_torch.moe.router import capacity_for, route_top_k
+    n = MOE_BATCH * MOE_SEQ
+    C = capacity_for(n, MOE_E, MOE_K, MOE_CF)
+    logits = (torch.randn((n, MOE_E), generator=gen)
+              + torch.linspace(1.0, -1.0, MOE_E)).to(dev)
+    comb_w, comb_slot, slot_token = route_top_k(logits, MOE_K, C)[:3]
+    return n, C, comb_w, comb_slot, slot_token
+
+
+def moe_work(torch, n, d, slot_token, comb_slot, itemsize):
+    """Bytes each kernel must move for these maps, each distinct byte
+    once: the gather reads every distinct kept token row and writes all
+    E*C rows (and reads the map); the combine reads every kept slot row
+    and writes n rows (and reads the maps and weights, f32)."""
+    n_slots = slot_token.numel()
+    kept_tokens = int(torch.unique(slot_token[slot_token < n]).numel())
+    kept_slots = int((comb_slot < n_slots).sum())
+    gather = (kept_tokens + n_slots) * d * itemsize + n_slots * 4
+    combine = (kept_slots + n) * d * itemsize + comb_slot.numel() * 8
+    return gather, combine, kept_tokens, kept_slots
+
+
+def moe_kernels_phase(torch, seed):
+    """moe_gather and moe_combine against their plain versions on maps
+    from the port's own router (and edge cases), in f32 and bf16, then
+    timed at the MoE training shape in f32 (the layer's dtype there)."""
+    from paddle_tpu_torch.moe.kernels import (combine_plain, gather_plain,
+                                              moe_combine_fwd, moe_gather_fwd)
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 13)
+    n, C, comb_w, comb_slot, slot_token = moe_maps(torch, gen, dev)
+    n_slots = MOE_E * C
+    kg, kc = get_kernel("moe_gather"), get_kernel("moe_combine")
+    errs = {}
+
+    def note(key, e):
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    dropped = int((comb_slot == n_slots).sum())
+    empty = int((slot_token == n).sum())
+    print(f"kernels: moe maps n={n} E={MOE_E} k={MOE_K} C={C}: {dropped} "
+          f"dropped choices, {empty} empty slots")
+    if not dropped or not empty:
+        raise AssertionError("moe kernels: the maps hold no sentinels")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for d in MOE_WIDTHS:
+            tokens = torch.randn((n, d), generator=gen).to(dev, dtype)
+            eo = torch.randn((n_slots, d), generator=gen).to(dev, dtype)
+            w = comb_w.to(dtype)
+            cases = [("gather", f"d={d}", (tokens, slot_token)),
+                     ("combine", f"d={d}", (eo, comb_slot, w))]
+            if d == 768:
+                cases += [
+                    ("gather", "all sentinels",
+                     (tokens, torch.full_like(slot_token, n))),
+                    ("gather", "1001 rows", (tokens, slot_token[:1001])),
+                    ("combine", "all sentinels",
+                     (eo, torch.full_like(comb_slot, n_slots), w)),
+                    ("combine", "1001 rows",
+                     (eo, comb_slot[:1001].contiguous(),
+                      w[:1001].contiguous())),
+                    ("combine", "k=1", (eo, comb_slot[:, :1].contiguous(),
+                                        w[:, :1].contiguous())),
+                    ("combine", "f32 w", (eo, comb_slot, comb_w))]
+            for which, tag, args in cases:
+                kern = kg if which == "gather" else kc
+                got = kern.wrapper(*args)
+                ref = kern.plain(*args)
+                torch.cuda.synchronize()
+                note((kern.name, dname), hold(
+                    f"{kern.name}[{dname}, {tag}]", got, ref,
+                    kern.tol[dname]))
+            del tokens, eo
+    for key, e in sorted(errs.items()):
+        print(f"kernels: {' '.join(key)} max_abs_err {e:.3e} (tol rtol, "
+              f"atol = {get_kernel(key[0]).tol[key[1]]})")
+
+    # timing at the main path's shape and dtype: f32 rows of 768
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    d = N_HEADS * HEAD_DIM
+    tokens = torch.randn((n, d), generator=gen).to(dev)
+    eo = torch.randn((n_slots, d), generator=gen).to(dev)
+    tok_pad = torch.cat([tokens, tokens.new_zeros((1, d))])
+    eo_pad = torch.cat([eo, eo.new_zeros((1, d))])
+    g_bytes, c_bytes, kept_tokens, kept_slots = moe_work(
+        torch, n, d, slot_token, comb_slot, 4)
+    rows = {
+        "moe_gather": dict(
+            ms=median_ms(torch, lambda: moe_gather_fwd(tokens, slot_token),
+                         flush),
+            plain_ms=median_ms(torch, lambda: gather_plain(tokens,
+                                                           slot_token), flush),
+            library_ms=median_ms(torch, lambda: F.embedding(slot_token,
+                                                            tok_pad), flush),
+            bound=bound(g_bytes, 0, "float32"),
+            max_abs_err=errs[("moe_gather", "float32")]),
+        "moe_combine": dict(
+            ms=median_ms(torch, lambda: moe_combine_fwd(eo, comb_slot,
+                                                        comb_w), flush),
+            plain_ms=median_ms(torch, lambda: combine_plain(eo, comb_slot,
+                                                            comb_w), flush),
+            library_ms=median_ms(torch, lambda: F.embedding_bag(
+                comb_slot, eo_pad, per_sample_weights=comb_w, mode="sum"),
+                flush),
+            bound=bound(c_bytes, 2 * kept_slots * d, "float32"),
+            max_abs_err=errs[("moe_combine", "float32")])}
+    print(f"kernels: moe maps: {kept_tokens} distinct kept tokens, "
+          f"{kept_slots} kept slots of {n_slots}")
+    for name, what, nbytes in (("moe_gather", "F.embedding", g_bytes),
+                               ("moe_combine", "F.embedding_bag", c_bytes)):
+        r = rows[name]
+        print(f"kernels: {name} f32 d={d}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, {what} {r['library_ms']:.4f}, bound "
+              f"{r['bound'][0]:.5f} by {r['bound'][1]}; {nbytes} bytes)")
+    del flush
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve GPT-3 125M
 # ---------------------------------------------------------------------------
@@ -823,15 +984,20 @@ def profile_phase(torch, eng, vocab, seed, steps=10):
                   top=12)
 
 
-def print_profile(prof, steps, wall_ms, what, top):
-    """Device busy share and the `top` kernels by device time, per step."""
+def device_events(prof):
     from torch.autograd import DeviceType
-    dev = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def print_profile(prof, steps, wall_ms, what, top):
+    """Device busy share and the `top` kernels by device time, per step;
+    returns the busy ms per step (None when nothing was recorded)."""
+    dev = device_events(prof)
     if not dev:
         print("profile: the profiler recorded no device time (not "
               "measured)")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
     print(f"profile: {steps} {what}: wall {wall_ms:.3f} ms/step, device "
           f"busy {busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f})")
@@ -848,6 +1014,7 @@ def print_profile(prof, steps, wall_ms, what, top):
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"profile:   {e.self_device_time_total / 1e3 / steps:8.4f} "
               f"ms/step {e.count / steps:6.1f} launches/step  {e.key[:80]}")
+    return busy_ms
 
 
 def serve_wo8_phase(torch, seed, init_range, n=16):
@@ -1040,8 +1207,13 @@ def train_batch(torch, vocab, batch, seq, seed, dev):
     return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
 
 
-def check_train_launches(launches, L, steps, what):
-    train = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
+MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("moe_gather", "moe_combine")
+
+
+def check_train_launches(launches, L, steps, what, train=TRAIN_KERNELS):
+    """Each kernel of `train` launched once per layer and step, no
+    other kernel at all."""
     want = {name: L * steps if name in train else 0 for name in launches}
     if launches != want:
         raise AssertionError(f"train {what}: launches {launches} != layers "
@@ -1050,11 +1222,9 @@ def check_train_launches(launches, L, steps, what):
 
 def train_phase(torch, seed):
     import copy
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
-    from paddle_tpu_torch.telemetry import (device_peak_flops,
-                                            gpt_train_flops_per_token, mfu)
+    from paddle_tpu_torch.telemetry import gpt_train_flops_per_token
     cfg = GPTConfig.gpt3_125m(max_seq_len=1024, dropout=0.0)
     L = cfg.num_layers
 
@@ -1086,54 +1256,74 @@ def train_phase(torch, seed):
     step = make_train_step(torch, model, amp_on=True)
     ids, labels = train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
                               0, DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    stats = timed_train(torch, step, ids, labels, TRAIN_WARMUP, TRAIN_STEPS,
+                        gpt_train_flops_per_token(cfg, TRAIN_SEQ, n_params))
+    stats["n_params"] = n_params
+    print(f"train[bf16 amp, b={TRAIN_BATCH} s={TRAIN_SEQ}]: "
+          + json.dumps(stats))
+    check_train_launches(stats["launches"], L, TRAIN_STEPS, "bench shape")
+    check_falling("train", stats, TRAIN_WARMUP + TRAIN_STEPS)
+    profile_steps(torch, step, ids, labels, TRAIN_STEPS,
+                  f"train steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens", top=20)
+    train_regions(torch, cfg, step, labels)
+    return stats
+
+
+def timed_train(torch, step, ids, labels, warmup, steps, fpt):
+    """`warmup` steps (the first one's loss kept), then the launch
+    counters and the peak memory reset and `steps` timed steps on one
+    batch: tokens/s and mean step ms on the host clock (ending in
+    `.item()`), p50 and max step ms from CUDA events, MFU at `fpt` FLOPs
+    per token, peak memory, the first and last losses and the launches
+    of the timed steps."""
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.telemetry import device_peak_flops, mfu
     first = float(step(ids, labels))
-    for _ in range(TRAIN_WARMUP - 1):
+    for _ in range(warmup - 1):
         step(ids, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    ev = [torch.cuda.Event(enable_timing=True)
-          for _ in range(TRAIN_STEPS + 1)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     t0 = time.perf_counter()
     ev[0].record()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         loss = step(ids, labels)
         ev[i + 1].record()
     final = loss.item()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels()}
-    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
-    n_params = sum(p.numel() for p in model.parameters())
-    fpt = gpt_train_flops_per_token(cfg, TRAIN_SEQ, n_params)
-    tps = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
-    stats = dict(tokens_per_s=tps, step_ms=wall * 1e3 / TRAIN_STEPS,
-                 step_p50_ms=statistics.median(step_ms),
-                 step_max_ms=max(step_ms),
-                 mfu=mfu(tps, fpt, device_peak_flops(
-                     torch.cuda.get_device_name(0))),
-                 loss_first=first, loss=final, n_params=n_params,
-                 flops_per_token=fpt,
-                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-                 launches=launches)
-    print(f"train[bf16 amp, b={TRAIN_BATCH} s={TRAIN_SEQ}]: "
-          + json.dumps(stats))
-    check_train_launches(launches, L, TRAIN_STEPS, "bench shape")
-    if not math.isfinite(final) or not final < first:
-        raise AssertionError(f"train: loss {final} after "
-                             f"{TRAIN_WARMUP + TRAIN_STEPS} steps on one "
-                             f"batch (first step {first}): not finite or "
-                             "not falling")
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    tps = ids.numel() * steps / wall
+    return dict(tokens_per_s=tps, step_ms=wall * 1e3 / steps,
+                step_p50_ms=statistics.median(step_ms),
+                step_max_ms=max(step_ms),
+                mfu=mfu(tps, fpt, device_peak_flops(
+                    torch.cuda.get_device_name(0))),
+                loss_first=first, loss=final, flops_per_token=fpt,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=launches)
 
+
+def check_falling(what, stats, steps):
+    first, final = stats["loss_first"], stats["loss"]
+    if not math.isfinite(final) or not final < first:
+        raise AssertionError(f"{what}: loss {final} after {steps} steps on "
+                             f"one batch (first step {first}): not finite "
+                             "or not falling")
+
+
+def profile_steps(torch, step, ids, labels, steps, what, top):
+    """Device time by kernel over `steps` steps (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             loss = step(ids, labels)
         loss.item()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-    print_profile(prof, TRAIN_STEPS, wall_ms,
-                  f"train steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens", top=20)
-    train_regions(torch, cfg, step, labels)
-    return stats
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return print_profile(prof, steps, wall_ms, what, top)
 
 
 def region_ms(torch, fn, reps=3):
@@ -1177,6 +1367,205 @@ def train_regions(torch, cfg, step, labels):
     print("train regions (ms per step): " + json.dumps(regions))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train the GPT-3 125M mixture-of-experts
+# ---------------------------------------------------------------------------
+
+def moe_config(num_layers=12):
+    from paddle_tpu_torch.moe import GPTMoEConfig
+    return GPTMoEConfig(vocab_size=50304, hidden_size=768,
+                        num_layers=num_layers, num_heads=12,
+                        max_seq_len=1024, dropout=0.0, num_experts=MOE_E,
+                        expert_top_k=MOE_K, capacity_factor=MOE_CF)
+
+
+def record_routes(torch, model, maps):
+    """Hook every MoEFFN to append its routing map (comb_slot) of each
+    forward to `maps`, recomputed from the layer's input and gate."""
+    from paddle_tpu_torch.moe import MoEFFN
+    from paddle_tpu_torch.moe.router import capacity_for, route_top_k
+
+    def hook(mod, args):
+        with torch.no_grad():
+            t = args[0].reshape(-1, args[0].shape[-1])
+            C = capacity_for(t.shape[0], mod.num_experts, mod.k,
+                             mod.capacity_factor)
+            maps.append(route_top_k(t @ mod.w_gate.to(t.dtype), mod.k,
+                                    C)[1].cpu())
+
+    return [m.register_forward_pre_hook(hook) for m in model.modules()
+            if isinstance(m, MoEFFN)]
+
+
+def moe_train_phase(torch, seed):
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.moe import GPTMoE, note_step_stats
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.telemetry import gpt_train_flops_per_token
+
+    # f32 parity: the card with its kernels against the CPU with the
+    # plain versions, from the same weights and batch; full width, 2 layers
+    cfg = moe_config(MOE_PARITY_LAYERS)
+    cpu_model = GPTMoE(cfg, device="cpu", seed=seed)
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    runs, maps = {}, {}
+    reset_launches()
+    for name, model in (("cuda", card_model), ("cpu", cpu_model)):
+        maps[name] = []
+        hooks = record_routes(torch, model, maps[name])
+        step = make_train_step(torch, model, amp_on=False)
+        batch = train_batch(torch, cfg.vocab_size, PARITY_BATCH, PARITY_SEQ,
+                            seed, model.gpt.wte.weight.device)
+        t0 = time.perf_counter()
+        runs[name] = [float(step(*batch)) for _ in range(PARITY_STEPS)]
+        for h in hooks:
+            h.remove()
+        dropped = float(step._last_moe[1])
+        print(f"moe train: f32 {MOE_PARITY_LAYERS} layers b={PARITY_BATCH} "
+              f"s={PARITY_SEQ} on {name}: losses {runs[name]}, dropped_frac "
+              f"{dropped:.4f} in {time.perf_counter() - t0:.1f} s")
+    check_train_launches({k.name: k.launches for k in kernels()},
+                         MOE_PARITY_LAYERS, PARITY_STEPS, "moe f32 parity",
+                         MOE_TRAIN_KERNELS)
+    moved = sum(int((a != b).any(dim=1).sum())
+                for a, b in zip(maps["cuda"], maps["cpu"]))
+    print(f"moe train: routing maps card vs CPU over {len(maps['cpu'])} "
+          f"layer forwards: {moved} tokens with a different comb_slot")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    if not rel <= PARITY_RTOL:
+        raise AssertionError(f"moe train: card losses {runs['cuda']} vs CPU "
+                             f"{runs['cpu']}: relative {rel:.2e} > "
+                             f"{PARITY_RTOL}")
+    del cpu_model, card_model, step
+
+    # the bench shape under bf16 amp; MFU over the active FLOPs (the top-k
+    # of E experts), as the JAX bench counts them (bench.py:757-763)
+    cfg = moe_config()
+    L = cfg.num_layers
+    model = GPTMoE(cfg, device=DEVICE, seed=seed)
+    step = make_train_step(torch, model, amp_on=True)
+    ids, labels = train_batch(torch, cfg.vocab_size, MOE_BATCH, MOE_SEQ, 0,
+                              DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    active = n_params - L * (MOE_E - MOE_K) * 2 * cfg.hidden_size \
+        * cfg.ffn_hidden_size
+    stats = timed_train(torch, step, ids, labels, MOE_WARMUP, MOE_STEPS,
+                        gpt_train_flops_per_token(cfg, MOE_SEQ, active))
+    stats.update(n_params=n_params, active_params=active,
+                 moe=note_step_stats(None, step._last_moe, MOE_E))
+    print(f"moe train[bf16 amp, b={MOE_BATCH} s={MOE_SEQ} E={MOE_E} "
+          f"k={MOE_K} cf={MOE_CF}]: " + json.dumps(stats))
+    check_train_launches(stats["launches"], L, MOE_STEPS, "moe bench shape",
+                         MOE_TRAIN_KERNELS)
+    check_falling("moe train", stats, MOE_WARMUP + MOE_STEPS)
+    if stats["moe"] is None:
+        raise AssertionError(f"moe train: routing stats {step._last_moe} "
+                             "not finite")
+    busy = profile_steps(torch, step, ids, labels, MOE_PROFILE_STEPS,
+                         f"moe train steps of {MOE_BATCH}x{MOE_SEQ} tokens",
+                         top=24)
+    # again with CPU activity (slower on the host, the same kernels) to
+    # tell the MoE layer's parts apart
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with moe_scopes(torch), profile(activities=activities) as prof:
+        for _ in range(MOE_PROFILE_STEPS):
+            loss = step(ids, labels)
+        loss.item()
+    print("moe train device ms per step by part: " + json.dumps(
+        moe_step_parts(prof, MOE_PROFILE_STEPS, busy or 0.0)))
+    return stats
+
+
+@contextlib.contextmanager
+def moe_scopes(torch):
+    """Profiler ranges around the parts of the MoE layer, patched into
+    `paddle_tpu_torch.moe.layer` for the duration: its forward ops carry
+    the range, and its backward ops are found through the autograd
+    sequence numbers (`moe_step_parts`)."""
+    from torch.profiler import record_function
+    from paddle_tpu_torch.moe import layer
+
+    def scoped(part, fn):
+        def call(*args, **kw):
+            with record_function("moe: " + part):
+                return fn(*args, **kw)
+        return call
+
+    class ScopedTorch:
+        bmm = staticmethod(scoped("expert products", torch.bmm))
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    parts = {"moe_ffn_values": "gate product and casts",
+             "route_top_k": "router", "gelu": "gelu chain",
+             "moe_gather": "moe_gather", "moe_combine": "moe_combine"}
+    saved = {name: getattr(layer, name) for name in [*parts, "torch"]}
+    for name, part in parts.items():
+        setattr(layer, name, scoped(part, saved[name]))
+    layer.torch = ScopedTorch()
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(layer, name, fn)
+
+
+def moe_step_parts(prof, steps, busy_ms):
+    """Device ms per step by part of the MoE layer, from a profile with
+    CPU and CUDA activity under `moe_scopes`: a kernel counts for the
+    CPU op it is attached to; an op inside a range belongs to that
+    range's part; an op inside an autograd node belongs to the part of
+    the forward op whose sequence number the node carries ("... bwd").
+    The port's own kernels go by name. The rest of the step (the dense
+    part, the loss, the optimizer) is `busy_ms`, the busy time of a
+    profile with CUDA activity only, less the parts: with CPU activity
+    the device also records the ranges' own spans, and the kernels of
+    the ops outside the MoE layer summed to more than the busy time."""
+    from torch.autograd import DeviceType
+
+    def scope(e):
+        while e is not None:
+            if e.name.startswith("moe: "):
+                return e.name[5:]
+            e = e.cpu_parent
+        return None
+
+    def part_of(op):
+        part = scope(op)
+        if part is not None:
+            return part
+        while op is not None and not op.name.startswith(
+                "autograd::engine::evaluate_function"):
+            op = op.cpu_parent
+        if op is not None and op.sequence_nr in fwd:
+            return fwd[op.sequence_nr] + " bwd"
+        return None
+
+    def own(name):
+        return next((n for n in ("moe_gather", "moe_combine")
+                     if n + "_kernel" in name), None)
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    fwd = {e.sequence_nr: scope(e) for e in cpu
+           if e.sequence_nr >= 0 and scope(e) is not None}
+    parts = {}
+    for e in cpu:
+        part = part_of(e) if e.kernels else None
+        for k in e.kernels:
+            if part is not None and not own(k.name) \
+                    and not k.name.startswith("moe: "):
+                parts[part] = parts.get(part, 0.0) + k.duration / 1e3 / steps
+    for e in device_events(prof):
+        if own(e.key):
+            key = own(e.key) + " kernel"
+            parts[key] = parts.get(key, 0.0) + (
+                e.self_device_time_total / 1e3 / steps)
+    parts["rest of the step"] = busy_ms - sum(parts.values())
+    return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1201,7 +1590,6 @@ def main(argv=None):
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.kernel_registry import kernels
 
-    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     # f32 references in full f32: no TF32 in matmuls or convolutions
@@ -1226,6 +1614,8 @@ def main(argv=None):
     lap("kernels: training")
     rows.update(decode_kernels_phase(torch, args.seed))
     lap("kernels: decode")
+    rows.update(moe_kernels_phase(torch, args.seed))
+    lap("kernels: moe")
     stats, eng, vocab = serve_phase(torch, args.seed, args.init_range,
                                     args.dtype)
     lap("serve")
@@ -1239,7 +1629,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lap("decode")
     train = train_phase(torch, args.seed)
+    torch.cuda.empty_cache()
     lap("train")
+    moe = moe_train_phase(torch, args.seed)
+    lap("moe train")
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
 
@@ -1248,13 +1641,14 @@ def main(argv=None):
         r = rows[k.name]
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
-                       for run in (stats, wo8, decode, train))
+                       for run in (stats, wo8, decode, train, moe))
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]})
+    print(card_line())
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,13 @@
 The JAX package stays the reference; this package is its counterpart for
 an NVIDIA H100, ported slice by slice along the system's main paths:
 GPT served through the continuous-batching engine over the paged KV
-cache (the paged attention kernels, `ops/paged_attention.py`), and the
-GPT training step under bf16 amp with AdamW (the flash attention forward
+cache (the paged attention kernels, `ops/paged_attention.py`), the GPT
+training step under bf16 amp with AdamW (the flash attention forward
 and backward, `ops/flash_attention.py`, and the residual-add +
-LayerNorm, `ops/layernorm.py`), each kernel written by hand in CUDA.
+LayerNorm, `ops/layernorm.py`), decoding with `generate` and weight-only
+int8 (`ops/decode_attention.py`, `ops/int8_matvec.py`), and the
+mixture-of-experts training step (the dispatch and combine kernels,
+`moe/kernels.py`), each kernel written by hand in CUDA.
 
 Layout mirrors the JAX package so a reader finds each counterpart:
 
@@ -24,7 +27,11 @@ Layout mirrors the JAX package so a reader finds each counterpart:
                     attention entry points and every kernel with its
                     plain version;
 - `serving`       — BlockPool/PrefixIndex/PagedKVCache, the scheduler,
-                    admission control and `ServingEngine`.
+                    admission control and `ServingEngine`;
+- `generation`    — `run_generate` (greedy, sampling, beam search);
+- `quant`         — weight-only int8 linears and embeddings;
+- `moe`           — the router, MoEFFN, GPTMoE and the dispatch and
+                    combine kernels with their plain versions.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU request they raise. This package never

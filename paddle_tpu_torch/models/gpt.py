@@ -155,13 +155,17 @@ class GPTMLP(torch.nn.Module):
 
 
 class GPTBlock(torch.nn.Module):
+    # FFN factory hook: the MoE family (moe.GPTMoEBlock) swaps the dense
+    # MLP for the routed MoEFFN here
+    mlp_cls = GPTMLP
+
     def __init__(self, config, device=None, dtype=torch.float32):
         super().__init__()
         h = config.hidden_size
         self.ln1 = nn.LayerNorm(h, device=device, dtype=dtype)
         self.attn = GPTAttention(config, device=device, dtype=dtype)
         self.ln2 = nn.LayerNorm(h, device=device, dtype=dtype)
-        self.mlp = GPTMLP(config, device=device, dtype=dtype)
+        self.mlp = self.mlp_cls(config, device=device, dtype=dtype)
         self.dropout = nn.Dropout(config.dropout)
 
     def forward(self, x, cache=None, offset=None):
@@ -179,6 +183,9 @@ class GPTBlock(torch.nn.Module):
 
 
 class GPTModel(torch.nn.Module):
+    # block factory hook (the MoE family: moe.GPTMoEModel)
+    block_cls = GPTBlock
+
     def __init__(self, config, device=None, dtype=torch.float32):
         super().__init__()
         c = self.config = config
@@ -188,7 +195,7 @@ class GPTModel(torch.nn.Module):
                                 device=device, dtype=dtype)
         self.drop = nn.Dropout(c.dropout)
         self.blocks = torch.nn.ModuleList(
-            [GPTBlock(c, device=device, dtype=dtype)
+            [self.block_cls(c, device=device, dtype=dtype)
              for _ in range(c.num_layers)])
         self.ln_f = nn.LayerNorm(c.hidden_size, device=device, dtype=dtype)
 
@@ -240,12 +247,15 @@ class GPTForPretraining(torch.nn.Module):
     sqrt(2 * num_layers)) for fc2, zero biases, unit LayerNorm scales.
     """
 
+    # model factory hook (the MoE family: moe.GPTMoE)
+    model_cls = GPTModel
+
     def __init__(self, config, device=None, seed=0):
         super().__init__()
         device = resolve_device(device)
         dtype = resolve_dtype(config.dtype)
         self.config = config
-        self.gpt = GPTModel(config, device=device, dtype=dtype)
+        self.gpt = self.model_cls(config, device=device, dtype=dtype)
         self.init_weights(seed)
 
     @torch.no_grad()

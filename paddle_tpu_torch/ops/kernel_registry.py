@@ -52,6 +52,7 @@ def kernels():
     which registers them)."""
     from . import (decode_attention, flash_attention, int8_matvec,  # noqa: F401
                    layernorm, paged_attention)
+    from ..moe import kernels as moe_kernels  # noqa: F401
     return list(_KERNELS.values())
 
 

@@ -69,6 +69,7 @@ def test_importing_every_submodule_loads_no_jax():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.moe import GPTMoE, gpt_moe_tiny_config
     from paddle_tpu_torch.serving import ServingEngine
     cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                     num_heads=1, max_seq_len=16)
@@ -78,6 +79,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ServingEngine(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForPretraining(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTMoE(gpt_moe_tiny_config())
     ids = torch.zeros((1, 3), dtype=torch.long)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.generate(ids, max_new_tokens=2)
@@ -85,3 +88,4 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert ServingEngine(model, device="cpu").device.type == "cpu"
     assert model.generate(ids, max_new_tokens=2,
                           device="cpu")[0].shape == (1, 5)
+    assert GPTMoE(gpt_moe_tiny_config(), device="cpu").moe_num_experts == 4
