@@ -8,16 +8,21 @@ ok line):
 
 1. build   — compile every CUDA kernel of the port from
              paddle_tpu_torch/csrc with nvcc, all sources at once, into
-             build/paddle_tpu_torch/, and print the build time;
+             build/paddle_tpu_torch/, and print the build time and the
+             registers, spills and static shared memory ptxas reports
+             for the flash backward's and the prefill chunk's kernels;
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, in f32 (TF32 off) and bf16. The serving kernels at the
              serving shapes of GPT-3 125M (12 heads of 64, block 16, 32
              blocks per sequence, 16 slots, chunk 128) with random block
              tables, context lengths 0..511 including 0 and block edges,
-             and chunk starts p0 in {0, 7, 128, 384}; the training
-             kernels at [2, 1024, 12, 64] (flash forward and backward,
-             causal, non-causal, and causal with sq 512 < sk 1024, plus
-             a ragged length and head_dim 128) and at 24576 x 768 and
+             and chunk starts p0 in {0, 7, 128, 384, 400} (at 400 the
+             chunk runs past key 511 and its last rows clamp); the
+             training kernels at [2, 1024, 12, 64] (flash forward and
+             backward, causal, non-causal, and causal with sq 512 < sk
+             1024, plus ragged lengths (sq 200; sq 300 < sk 700) and
+             head_dim 128; every backward run twice and held bitwise
+             equal: no atomics) and at 24576 x 768 and
              16 x 768 (add + LayerNorm); the decode kernels at generate's
              shapes: decode_fused at batch 8, cache 256, 12 heads of 64,
              off in {0, 7, 127, 128, 200, 255} (and head_dim 128, and
@@ -33,7 +38,9 @@ ok line):
              yardstick the port never calls: scaled_dot_product_attention,
              F.layer_norm, a dequantized bf16 matmul, F.embedding,
              F.embedding_bag) with CUDA events, the L2 flushed before
-             each launch, at the serving shapes, at the training shape
+             each launch (flash_bwd and flash_prefill_chunk also with
+             the L2 warm, and flash_bwd by kernel from a trace), at the
+             serving shapes, at the training shape
              (batch 24, seq 1024), at the decode shape (batch 8, mean
              position 191) and at the MoE training shape (f32 rows of
              768); int8_matvec also against the composed head at 8, 16,
@@ -122,7 +129,7 @@ PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_RTOL = 2, 256, 3, 1e-4
 # flash checks: (batch, sq, sk, heads, head_dim, causal)
 FLASH_CHECKS = ((2, 1024, 1024, 12, 64, True), (2, 1024, 1024, 12, 64, False),
                 (2, 512, 1024, 12, 64, True), (1, 200, 200, 12, 64, True),
-                (1, 256, 384, 4, 128, True))
+                (1, 300, 700, 12, 64, True), (1, 256, 384, 4, 128, True))
 # add + LayerNorm checks: (rows, d, x dtype, residual dtype)
 LN_CHECKS = ((24576, 768, "float32", "bfloat16"), (24576, 768, "bfloat16",
                                                     "bfloat16"),
@@ -133,7 +140,7 @@ LN_CHECKS = ((24576, 768, "float32", "bfloat16"), (24576, 768, "bfloat16",
 # serving shapes of GPT-3 125M in the engine configuration below
 N_HEADS, HEAD_DIM, BLOCK, MAX_BLOCKS, SLOTS, CHUNK = 12, 64, 16, 32, 16, 128
 CTX_EDGES = (0, 15, 16, 17, 31, 32, 255, 256, 511)
-P0S = (0, 7, 128, 384)
+P0S = (0, 7, 128, 384, 400)      # 400: the chunk runs past key 511
 TIMED_P0 = 128
 ENGINE = dict(max_slots=SLOTS, block_size=BLOCK, prefill_chunk=CHUNK,
               max_model_len=BLOCK * MAX_BLOCKS)
@@ -181,8 +188,9 @@ MIN_MEAN_DISTINCT = 4.0
 
 # device kernels by what they do, matched on a substring of their name
 PROFILE_CATEGORIES = (
-    ("port: flash attention", ("fwd_bf16", "dkdv_bf16", "dq_bf16",
-                               "fwd_f32", "dkdv_f32", "dq_f32")),
+    ("port: flash attention", ("fwd_bf16", "dkdv_wgmma", "dq_wgmma",
+                               "bwd_delta", "fwd_f32", "dkdv_f32",
+                               "dq_f32")),
     ("port: add + LayerNorm", ("add_ln",)),
     ("port: paged attention", ("paged_decode", "flash_prefill")),
     ("port: decode attention", ("decode_attention",)),
@@ -198,6 +206,11 @@ PROFILE_CATEGORIES = (
     ("indexing", ("index", "gather", "scatter")),
     ("other elementwise", ("elementwise",)),
 )
+
+
+# the kernels whose registers, spills and static shared memory the build
+# prints (their dynamic shared memory is in their source notes)
+PTXAS_SHOWN = ("dkdv_wgmma", "dq_wgmma", "bwd_delta", "flash_prefill_mma")
 
 
 def card_line():
@@ -239,7 +252,7 @@ def decode_inputs(torch, gen, dtype, dev):
 def prefill_inputs(torch, gen, dtype, dev, p0):
     nb = MAX_BLOCKS + 8
     nh = N_HEADS * HEAD_DIM
-    n = (p0 + CHUNK - 1) // BLOCK + 1
+    n = min((p0 + CHUNK - 1) // BLOCK + 1, MAX_BLOCKS)
     row = torch.zeros((MAX_BLOCKS,), dtype=torch.int32)
     row[:n] = (torch.randperm(nb - 1, generator=gen) + 1)[:n]
     q = torch.randn((1, CHUNK, nh), generator=gen)
@@ -264,13 +277,20 @@ def hold(name, got, ref, tol):
 
 def median_ms(torch, fn, flush, reps=60, warmup=5):
     """Median of per-launch CUDA-event times; the L2 is overwritten
-    before every launch so each reads its inputs from device memory."""
+    before every launch so each reads its inputs from device memory.
+    With `flush` None the L2 stays warm, as in a step: the card spins
+    ~0.1 ms instead, so that the host has queued the launch before the
+    first event is reached and the time is the kernel's, not the
+    host's."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if flush is None:
+            torch.cuda._sleep(200_000)
+        else:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -384,6 +404,8 @@ def kernels_phase(torch, seed):
         row = dict(
             ms=median_ms(torch, lambda: flash_prefill_chunk(*pargs, N_HEADS),
                          flush),
+            warm_ms=median_ms(
+                torch, lambda: flash_prefill_chunk(*pargs, N_HEADS), None),
             plain_ms=median_ms(
                 torch, lambda: flash_prefill_plain(*pargs, N_HEADS), flush),
             library_ms=median_ms(
@@ -392,7 +414,8 @@ def kernels_phase(torch, seed):
             bound=bound(nbytes, ops, "bfloat16"),
             max_abs_err=errs[("flash_prefill_chunk", "bfloat16")])
         print(f"kernels: flash_prefill_chunk p0={p0} C={CHUNK}: "
-              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, sdpa "
+              f"{row['ms']:.4f} ms (L2 warm {row['warm_ms']:.4f}; plain "
+              f"{row['plain_ms']:.4f}, sdpa "
               f"{row['library_ms']:.4f}, bound {row['bound'][0]:.5f} by "
               f"{row['bound'][1]}; {nbytes} bytes, {ops} ops)")
         if p0 == TIMED_P0:
@@ -434,6 +457,27 @@ def flash_work(b, sq, sk, n, h, causal, itemsize, backward):
     if backward:    # q, k, v, out, dout, lse in; dq, dk, dv out
         return 4 * qo + 4 * kv + lse, 10 * h * pairs
     return 2 * qo + 2 * kv + lse, 4 * h * pairs
+
+
+def bwd_parts(torch, fn, flush, calls=10):
+    """Device ms a call of each of flash_bwd's three kernels (delta,
+    dK/dV, dQ), from torch.profiler over `calls` calls, the L2 flushed
+    before each."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in device_events(prof):
+        for name in ("bwd_delta", "dkdv_wgmma", "dq_wgmma"):
+            if name in e.key:
+                parts[name] = parts.get(name, 0.0) \
+                    + e.self_device_time_total / 1e3 / calls
+    return parts
 
 
 def ln_work(rows, d, x_size, r_size, w_size, save):
@@ -482,10 +526,16 @@ def train_kernels_phase(torch, seed):
             got = flash_bwd(q, k, v, rout, rlse, dout, causal, scale)
             ref = flash_attention_bwd_plain(q, k, v, rout, rlse, dout,
                                             causal, scale)
+            again = flash_bwd(q, k, v, rout, rlse, dout, causal, scale)
             torch.cuda.synchronize()
             note("flash_bwd", dname, max(
                 hold(f"flash_bwd d{nm}" + tag, g, r, tol)
                 for nm, g, r in zip("qkv", got, ref)))
+            # no atomics: a second call on the same inputs is bitwise equal
+            for nm, g, a in zip("qkv", got, again):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"flash_bwd d{nm}{tag}: two calls "
+                                         "on the same inputs differ")
     for rows, d, xd, rd in LN_CHECKS:
         tag = f"[{rows}x{d}, x {xd}, residual {rd}]"
         x = torch.randn((rows, d), generator=gen).to(dev, dts[xd])
@@ -534,12 +584,18 @@ def train_kernels_phase(torch, seed):
     rows["flash_bwd"] = dict(
         ms=median_ms(torch, lambda: flash_bwd(q, k, v, out, lse, dout, True,
                                               scale), flush),
+        warm_ms=median_ms(torch, lambda: flash_bwd(q, k, v, out, lse, dout,
+                                                   True, scale), None),
         plain_ms=median_ms(torch, lambda: flash_attention_bwd_plain(
             q, k, v, out, lse, dout, True, scale), flush, reps=10),
         library_ms=median_ms(torch, lambda: torch.autograd.grad(
             lo, (lq, lk, lv), go, retain_graph=True), flush),
         bound=bound(*flash_work(b, s, s, n, h, True, 2, True), "bfloat16"),
         max_abs_err=errs[("flash_bwd", "bfloat16")])
+    print("kernels: flash_bwd at the training shape by kernel (L2 flushed, "
+          "ms a call): " + json.dumps(bwd_parts(
+              torch, lambda: flash_bwd(q, k, v, out, lse, dout, True, scale),
+              flush)))
     del lo, lq, lk, lv, go, q, k, v, dout, out, lse
 
     # add + LayerNorm: the saving form at the training step's dtypes (f32
@@ -580,9 +636,11 @@ def train_kernels_phase(torch, seed):
         rows.setdefault("layernorm_fused", row)
     for name in ("flash_fwd", "flash_bwd", "layernorm_fwd_saved"):
         r = rows[name]
-        print(f"kernels: {name} at the training shape: {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
-              f"bound {r['bound'][0]:.5f} by {r['bound'][1]})")
+        warm = f", L2 warm {r['warm_ms']:.4f}" if "warm_ms" in r else ""
+        print(f"kernels: {name} at the training shape: {r['ms']:.4f} ms"
+              f"{warm} (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound'][0]:.5f} by "
+              f"{r['bound'][1]})")
     del flush
     return rows
 
@@ -1602,6 +1660,10 @@ def main(argv=None):
     _build.build(sources)
     print(f"build: {len(regs)} kernels from {len(sources)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
+    for src in ("flash_attention_bwd", "flash_prefill_chunk"):
+        for fn, info in sorted(_build.ptxas_info(src).items()):
+            if any(k in fn for k in PTXAS_SHOWN):
+                print(f"build: ptxas {src}: {fn}: {json.dumps(info)}")
 
     phase_s = {"build": time.perf_counter() - t0}
 

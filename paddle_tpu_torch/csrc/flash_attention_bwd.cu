@@ -6,314 +6,659 @@
 // ::_flash_bwd_merged_tri (triangle grid) and ::_flash_bwd (split dkv +
 // dq, above the dq-scratch cap); registry name "flash_bwd".
 //
-// Inputs q [b, sq, n, H], k/v [b, sk, n, H] and dout [b, sq, n, H] are
-// read through their strides (unit stride along H); lse and
-// delta = rowsum(dout * out) are f32 [b*n, sq]; dq, dk, dv are
-// contiguous and typed like the inputs. With P = exp(S - lse),
-// S = q·k·scale (masked as in the forward):
+// Inputs q [b, sq, n, H], k/v [b, sk, n, H], out and dout [b, sq, n, H]
+// are read through their strides (unit stride along H); lse is f32
+// [b*n, sq]; dq, dk, dv are contiguous and typed like the inputs. With
+// P = exp(S - lse), S = q·k·scale (masked as in the forward) and
+// delta = rowsum(dO * O):
 //   dV = P^T dO,  dS = P ∘ (dO V^T − delta),  dQ = dS K·scale,
 //   dK = dS^T Q·scale.
 //
 // What bounds it: at the training shape (b 24, s 1024, 12 heads of 64,
-// causal) the backward does ~97 GFLOP (five products per visible tile
-// pair; the split below recomputes S and dP once more) against ~300 MB:
-// the tensor cores set the bound.
+// causal) the backward does ~97 GFLOP against ~300 MB: the tensor cores
+// set the bound. Three kernels run on one stream:
 //
-// Design — the FlashAttention-2 split, two kernels on one stream:
-// - dkdv: one CTA of 4 warps per (b·n, 64-key tile); each warp owns 16
-//   keys, holds their K and V fragments in registers and accumulates dK
-//   and dV in f32. The CTA walks the 64-query tiles that see its keys
-//   (from the diagonal down, when causal), staging Q, dO, lse and delta
-//   in shared memory, 16 queries per step: S^T = K Q^T and
-//   dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.
-// - dq: one CTA of 4 warps per (b·n, 64-query tile); each warp owns 16
-//   queries with their q and dO fragments; the CTA walks the key tiles
-//   up to the diagonal, staging K and V: S = Q K^T, dP = dO V^T,
+// - bwd_delta: delta[bn, i] = sum_h dO·O in f32, H/8 lanes per row, one
+//   16-byte load of each input a lane and a shuffle reduction; reads dO
+//   and O once (~75 MB at the training shape, bound by bytes).
+// - dkdv_wgmma: one CTA per (b·n, 64·NC keys), the longest (key tile 0
+//   when causal) launched first. NC consumer warpgroups each own 64 keys;
+//   one producer warp feeds them. The CTA's K and V tiles are loaded once
+//   by TMA and stay in shared memory; the producer streams the Q and dO
+//   tiles that see the keys through a ring of ST stages (TMA into
+//   128-byte-swizzled 64 x 64 panels, completion on an mbarrier, a
+//   stage freed by an mbarrier every consumer thread arrives on) and
+//   writes each tile's lse·log2(e) and delta beside them. The NC
+//   consumers share each streamed tile, so Q and dO cross the L2 once
+//   per 64·NC keys. Per tile a consumer issues S^T = K Q^T and
+//   dP^T = V dO^T as wgmma.m64n64k16 with both operands in shared
+//   memory (K-major), forms P^T and dS^T in registers (the accumulator
+//   fragment of a 64 x 64 wgmma is, 16 columns at a time, the register
+//   A fragment of the next), rounds them to bf16 and issues
+//   dV += P^T dO and dK += dS^T Q with the register A operand and dO,
+//   Q read MN-major through the descriptor's transpose bit.
+// - dq_wgmma: the same skeleton with NC x 64 queries of Q and dO
+//   resident and K, V streamed: S = Q K^T, dP = dO V^T recomputed,
 //   dQ += dS K.
-// Every output element is written by one CTA, so there are no atomics
-// and no scratch cap, and the result is deterministic. All products are
-// mma.sync.m16n8k16 bf16 -> f32; P and dS are rounded to bf16 before
-// their products, as the TPU kernel does. The f32 instances (parity
-// runs only) give one thread a key row (dkdv) or a query row (dq) and
-// use scalar FMA.
+//
+// The causal mask is applied only on tiles that cross the diagonal
+// (some key > some query + offset); tiles wholly masked for the whole
+// CTA are never loaded, and a consumer skips the shared tiles wholly
+// masked for its own rows. Ragged edges need no mask: TMA zero-fills
+// rows past sq or sk, and a query row past sq gets lse = +inf, so its P
+// is 0. Every output element is written by one CTA, with no atomics and
+// no dq scratch: the result is deterministic. P and dS are rounded to
+// bf16 before their products, as the TPU kernel does. Cost: S and dP are
+// computed in both kernels (7 products per visible tile pair where 5 are
+// needed). What holds it back (H100, 700 W): each consumer runs its
+// tile's products, its exponentials and its conversions one after the
+// other, and registers (dK, dV, S and dP take 128 a thread) leave two
+// consumer warpgroups an SM for dK/dV, three for dQ, to overlap them.
+// Issuing tile i + 1's S and dP before tile i's gradient products, so
+// that the exponentials overlap them, needs the packed P and dS of tile
+// i live beside S and dP of tile i + 1; ptxas then serializes the wgmma
+// for lack of registers (also with setmaxnreg giving the consumers 232),
+// and the backward ran slower than this design.
+//
+// The tensor maps are 4-D over (H, n, s, b) with the views' byte
+// strides, encoded on the host for each call through
+// cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"), so the library
+// needs no -lcuda; head_dim 128 loads two 64-column panels per tile.
+// Instances: H 64: ST 4, NC 2 (dK/dV) and 3 (dQ), one CTA an SM; H 128:
+// ST 2, NC 1. Dynamic shared memory a CTA (1,024 bytes of it alignment
+// slack): H 64: 101,448 (dkdv) and 115,784 (dq); H 128: 100,392 and
+// 99,368. ptxas (CUDA 12.9, sm_90a): 166 (dkdv) and 127 (dq) registers
+// at H 64, 236 and 166 at H 128, 24 for bwd_delta; no spills.
+//
+// The f32 instances (parity runs only) give one thread a key row (dkdv)
+// or a query row (dq) and use scalar FMA.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
-constexpr int kTile = 64;       // rows of the CTA's own tile
+constexpr int kTile = 64;       // rows of every tile (keys or queries)
 constexpr int kF32Step = 32;    // rows of the walked tile (f32)
+constexpr int kPanel = 64 * 64; // bf16 elements of one 64 x 64 panel
+constexpr int kPanelBytes = kPanel * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+// launch return codes above this carry a CUresult of the tensor-map
+// encode (cudaError_t values stay below it)
+constexpr int kEncodeError = 100000;
 
 struct Shape {
   int b, sq, sk, n;
   long long q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn,
-      o_sb, o_ss, o_sn;         // o_*: dout strides
+      o_sb, o_ss, o_sn,         // o_*: dout strides
+      y_sb, y_ss, y_sn;         // y_*: out strides
   int causal;
   float scale;
 };
+
+// ---------------------------------------------------------------------------
+// delta = rowsum(dO * O)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b);
+
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a,
+                                              const uint4& b) {
+  const float* x = reinterpret_cast<const float*>(&a);
+  const float* y = reinterpret_cast<const float*>(&b);
+  return (x[0] * y[0] + x[1] * y[1]) + (x[2] * y[2] + x[3] * y[3]);
+}
+
+template <>
+__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a,
+                                                      const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    s += u.x * v.x + u.y * v.y;
+  }
+  return s;
+}
+
+// grid (b*n, row blocks); H / (16 / sizeof(T)) lanes per (b, s, n) row
+template <typename T, int H>
+__global__ void __launch_bounds__(256)
+bwd_delta(const T* __restrict__ dout, const T* __restrict__ out,
+          float* __restrict__ delta, Shape sh) {
+  constexpr int kVec = 16 / sizeof(T), kLanes = H / kVec,
+                kRows = 256 / kLanes;
+  const int bn = blockIdx.x, bi = bn / sh.n, ni = bn % sh.n;
+  const int s = blockIdx.y * kRows + threadIdx.x / kLanes;
+  const int part = threadIdx.x % kLanes;
+  float acc = 0.f;
+  if (s < sh.sq) {
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        dout + bi * sh.o_sb + s * sh.o_ss + ni * sh.o_sn + part * kVec);
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        out + bi * sh.y_sb + s * sh.y_ss + ni * sh.y_sn + part * kVec);
+    acc = dot16<T>(a, c);
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (part == 0 && s < sh.sq) delta[(long long)bn * sh.sq + s] = acc;
+}
+
+template <typename T, int H>
+int launch_delta(const T* dout, const T* out, float* delta, const Shape& sh,
+                 cudaStream_t st) {
+  constexpr int kRows = 256 / (H / (16 / (int)sizeof(T)));
+  bwd_delta<T, H><<<dim3(sh.b * sh.n, (sh.sq + kRows - 1) / kRows), 256, 0,
+                    st>>>(dout, out, delta, sh);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Hopper building blocks: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A barrier that
+// never completes (a wrong count or phase) traps after ~10 s instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// one 64-row x 64-column box of a 4-D (H, n, s, b) map into a 128-byte-
+// swizzled panel, completing `bytes` on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled panel: 8-row
+// groups 1024 bytes apart (SBO); LBO in 16-byte units (K-major: unused,
+// 1; MN-major: the 1024-byte group stride as well, since one 64-column
+// panel is one swizzle atom wide)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo16) {
+  return (uint64_t)(smem_u32(p) >> 4) | ((uint64_t)lbo16 << 16) |
+         ((uint64_t)64 << 32) | (1ull << 62);
+}
+constexpr uint32_t kKMajor = 1, kMNMajor = 64;
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundaries
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WG_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_ACC32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+  "+f"(d[31])
+
+// d (+)= A B, m64n64k16, A and B K-major in shared memory; accumulate
+// 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, m64n64k16, A from registers (the mma.sync A fragment of each
+// warp's 16 rows), B MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// 16 columns (k-step kk) of a 64 x 64 accumulator as a register A
+// fragment, rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&d)[32], int kk) {
+  a[0] = pack_f32(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_f32(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_f32(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_f32(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// rows row0 + g (+ 8) of a warp's 16 x 64 slice of an accumulator (times
+// mul) into columns col0.. of a contiguous [rows, n*H] output
+template <int H>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, int row0,
+                                          int rows, int n, int col0,
+                                          const float (&d)[32], float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long rs = (long long)n * H;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = row0 + g + 8 * ((i >> 1) & 1);
+    const int c = col0 + 8 * (i >> 2) + 2 * t;
+    if (r < rows)
+      *reinterpret_cast<uint32_t*>(base + r * rs + c) =
+          pack_f32(d[i] * mul, d[i + 1] * mul);
+  }
 }
 
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int H, int ST, int NC>
+struct DkdvSmem {
+  __nv_bfloat16 k[NC][H / 64][kPanel], v[NC][H / 64][kPanel];
+  __nv_bfloat16 q[ST][H / 64][kPanel], o[ST][H / 64][kPanel];
+  float lse2[ST][kTile], dl[ST][kTile];
+  uint64_t kv_bar, full[ST], empty[ST];
+};
+
+template <int H, int ST, int NC>
+struct DqSmem {
+  __nv_bfloat16 q[NC][H / 64][kPanel], o[NC][H / 64][kPanel];
+  __nv_bfloat16 k[ST][H / 64][kPanel], v[ST][H / 64][kPanel];
+  uint64_t qo_bar, full[ST], empty[ST];
+};
+
+template <typename S>
+__device__ __forceinline__ S& smem_at_1024() {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t mis = smem_u32(smem_raw) & 1023u;
+  return *reinterpret_cast<S*>(smem_raw + ((1024u - mis) & 1023u));
 }
+
+// ---------------------------------------------------------------------------
+// bf16: dK, dV
+// ---------------------------------------------------------------------------
+
+template <int H, int ST, int NC>
+__global__ void __launch_bounds__(128 * NC + 32, NC == 1 && H == 64 ? 2 : 1)
+dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap to,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+           Shape sh) {
+  constexpr int NP = H / 64;
+  constexpr uint32_t kStageBytes = 2 * NP * kPanelBytes;
+  auto& S = smem_at_1024<DkdvSmem<H, ST, NC>>();
+  const int bn = blockIdx.x, bi = bn / sh.n, ni = bn % sh.n;
+  const int k0 = blockIdx.y * kTile * NC;  // causal: low key tiles work most
+  const int off = sh.sk - sh.sq;
+  const int qt0 = sh.causal ? max(0, k0 - off) / kTile : 0;
+  const int n_tiles = (sh.sq + kTile - 1) / kTile - qt0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(&S.kv_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&S.full[s], 33);      // the TMA issuer + 32 lse writers
+      mbar_init(&S.empty[s], 128 * NC);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NC) {               // producer
+    if (lane == 0) {
+      mbar_expect_tx(&S.kv_bar, NC * kStageBytes);
+      for (int c = 0; c < NC; ++c)
+        for (int p = 0; p < NP; ++p) {
+          tma_load(S.k[c][p], &tk, &S.kv_bar, 64 * p, ni, k0 + 64 * c, bi);
+          tma_load(S.v[c][p], &tv, &S.kv_bar, 64 * p, ni, k0 + 64 * c, bi);
+        }
+    }
+    const float* lb = lse + (long long)bn * sh.sq;
+    const float* db = delta + (long long)bn * sh.sq;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % ST, q0 = (qt0 + it) * kTile;
+      if (it >= ST) mbar_wait(&S.empty[s], ((it / ST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&S.full[s], kStageBytes);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(S.q[s][p], &tq, &S.full[s], 64 * p, ni, q0, bi);
+          tma_load(S.o[s][p], &to, &S.full[s], 64 * p, ni, q0, bi);
+        }
+      }
+      for (int i = lane; i < kTile; i += 32) {
+        const int r = q0 + i;
+        S.lse2[s][i] = r < sh.sq ? lb[r] * kLog2e : INFINITY;
+        S.dl[s][i] = r < sh.sq ? db[r] : 0.f;
+      }
+      mbar_arrive(&S.full[s]);
+    }
+    return;
+  }
+
+  // consumer c: warp w of it owns keys kc0 + 16w .. kc0 + 16w + 15
+  const int c = warp >> 2, w = warp & 3;
+  const int kc0 = k0 + kTile * c;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = sh.scale * kLog2e;
+  float dka[NP][32], dva[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[p][i] = dva[p][i] = 0.f;
+  mbar_wait(&S.kv_bar, 0);
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST, q0 = (qt0 + it) * kTile;
+    mbar_wait(&S.full[s], (it / ST) & 1);
+    // a tile this consumer's keys cannot see (the CTA's first keys can),
+    // or keys wholly past sk
+    if ((sh.causal && kc0 > q0 + kTile - 1 + off) || kc0 >= sh.sk) {
+      mbar_arrive(&S.empty[s]);
+      continue;
+    }
+    float st[32], dp[32];
+    // S^T = K Q^T and dP^T = V dO^T, both operands K-major in smem
+    fence_acc(st);
+    fence_acc(dp);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < H / 16; ++kc)
+      wgmma_ss(st, desc_sw128(S.k[c][kc / 4], kKMajor) + 2 * (kc % 4),
+                  desc_sw128(S.q[s][kc / 4], kKMajor) + 2 * (kc % 4), kc);
+    wg_commit();
+#pragma unroll
+    for (int kc = 0; kc < H / 16; ++kc)
+      wgmma_ss(dp, desc_sw128(S.v[c][kc / 4], kKMajor) + 2 * (kc % 4),
+                  desc_sw128(S.o[s][kc / 4], kKMajor) + 2 * (kc % 4), kc);
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(st);
+    // P^T: rows are keys, columns queries; mask only across the diagonal
+    const bool diag = sh.causal && kc0 + kTile - 1 > q0 + off;
+    const int kr = kc0 + 16 * w + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qc = 8 * j + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(&S.lse2[s][qc]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(st[4 * j + e] * sl2 - ((e & 1) ? l2.y : l2.x));
+        if (diag && kr + 8 * (e >> 1) > q0 + qc + (e & 1) + off) p = 0.f;
+        st[4 * j + e] = p;
+      }
+    }
+    wg_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(&S.dl[s][8 * j + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = st[4 * j + e] * (dp[4 * j + e] -
+                                         ((e & 1) ? d2.y : d2.x));
+    }
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a(pa[kk], st, kk);
+      acc_to_a(sa[kk], dp, kk);
+    }
+    // dV += P^T dO and dK += dS^T Q: dO and Q MN-major (transposed)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      fence_acc(dva[p]);
+      fence_acc(dka[p]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        wgmma_rs_t(dva[p], pa[kk],
+                    desc_sw128(S.o[s][p], kMNMajor) + 128 * kk);
+        wgmma_rs_t(dka[p], sa[kk],
+                    desc_sw128(S.q[s][p], kMNMajor) + 128 * kk);
+      }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      fence_acc(dva[p]);
+      fence_acc(dka[p]);
+    }
+    mbar_arrive(&S.empty[s]);
+  }
+  const long long base = (long long)bi * sh.sk * sh.n * H + (long long)ni * H;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    store_acc<H>(dk + base, kc0 + 16 * w, sh.sk, sh.n, 64 * p, dka[p],
+                 sh.scale);
+    store_acc<H>(dv + base, kc0 + 16 * w, sh.sk, sh.n, 64 * p, dva[p], 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: dQ
+// ---------------------------------------------------------------------------
+
+template <int H, int ST, int NC>
+__global__ void __launch_bounds__(128 * NC + 32, NC == 1 && H == 64 ? 2 : 1)
+dq_wgmma(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv,
+         const __grid_constant__ CUtensorMap to,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         __nv_bfloat16* __restrict__ dq, Shape sh) {
+  constexpr int NP = H / 64;
+  constexpr uint32_t kStageBytes = 2 * NP * kPanelBytes;
+  auto& S = smem_at_1024<DqSmem<H, ST, NC>>();
+  const int bn = blockIdx.x, bi = bn / sh.n, ni = bn % sh.n;
+  // long tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile * NC;
+  const int off = sh.sk - sh.sq;
+  const int kend = sh.causal
+      ? min(min(q0 + kTile * NC - 1, sh.sq - 1) + off, sh.sk - 1) + 1
+      : sh.sk;
+  const int n_tiles = (kend + kTile - 1) / kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(&S.qo_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&S.full[s], 1);
+      mbar_init(&S.empty[s], 128 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NC) {               // producer: one lane issues TMA
+    if (lane == 0) {
+      mbar_expect_tx(&S.qo_bar, NC * kStageBytes);
+      for (int c = 0; c < NC; ++c)
+        for (int p = 0; p < NP; ++p) {
+          tma_load(S.q[c][p], &tq, &S.qo_bar, 64 * p, ni, q0 + 64 * c, bi);
+          tma_load(S.o[c][p], &to, &S.qo_bar, 64 * p, ni, q0 + 64 * c, bi);
+        }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST, k0 = it * kTile;
+        if (it >= ST) mbar_wait(&S.empty[s], ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(&S.full[s], kStageBytes);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(S.k[s][p], &tk, &S.full[s], 64 * p, ni, k0, bi);
+          tma_load(S.v[s][p], &tv, &S.full[s], 64 * p, ni, k0, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer c: warp w of it owns queries qc0 + 16w .. qc0 + 16w + 15
+  const int c = warp >> 2, w = warp & 3;
+  const int qc0 = q0 + kTile * c;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = sh.scale * kLog2e;
+  const int r0 = qc0 + 16 * w + g;
+  const long long lrow = (long long)bn * sh.sq;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    l2[h] = r < sh.sq ? lse[lrow + r] * kLog2e : INFINITY;
+    dl[h] = r < sh.sq ? delta[lrow + r] : 0.f;
+  }
+  float dqa[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[p][i] = 0.f;
+  mbar_wait(&S.qo_bar, 0);
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST, k0 = it * kTile;
+    mbar_wait(&S.full[s], (it / ST) & 1);
+    // a key tile past this consumer's queries (the CTA's last ones see
+    // it), or queries wholly past sq
+    if ((sh.causal && k0 > qc0 + kTile - 1 + off) || qc0 >= sh.sq) {
+      mbar_arrive(&S.empty[s]);
+      continue;
+    }
+    float sc[32], dp[32];
+    fence_acc(sc);
+    fence_acc(dp);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < H / 16; ++kc)
+      wgmma_ss(sc, desc_sw128(S.q[c][kc / 4], kKMajor) + 2 * (kc % 4),
+                  desc_sw128(S.k[s][kc / 4], kKMajor) + 2 * (kc % 4), kc);
+    wg_commit();
+#pragma unroll
+    for (int kc = 0; kc < H / 16; ++kc)
+      wgmma_ss(dp, desc_sw128(S.o[c][kc / 4], kKMajor) + 2 * (kc % 4),
+                  desc_sw128(S.v[s][kc / 4], kKMajor) + 2 * (kc % 4), kc);
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(sc);
+    const bool diag = sh.causal && k0 + kTile - 1 > qc0 + off;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(sc[4 * j + e] * sl2 - l2[e >> 1]);
+        if (diag && k0 + 8 * j + 2 * t + (e & 1) > r0 + 8 * (e >> 1) + off)
+          p = 0.f;
+        sc[4 * j + e] = p;
+      }
+    wg_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(sa[kk], dp, kk);
+    // dQ += dS K: K MN-major (transposed)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_acc(dqa[p]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wgmma_rs_t(dqa[p], sa[kk],
+                    desc_sw128(S.k[s][p], kMNMajor) + 128 * kk);
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_acc(dqa[p]);
+    mbar_arrive(&S.empty[s]);
+  }
+  const long long base = (long long)bi * sh.sq * sh.n * H + (long long)ni * H;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    store_acc<H>(dq + base, qc0 + 16 * w, sh.sq, sh.n, 64 * p, dqa[p],
+                 sh.scale);
+}
+
+// ---------------------------------------------------------------------------
+// f32 (parity runs)
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool visible(const Shape& sh, int qi, int kj) {
   return qi < sh.sq && kj < sh.sk &&
          (!sh.causal || kj <= qi + (sh.sk - sh.sq));
-}
-
-// the A fragment (16 rows x 16 of k) of rows r0/r1 = base rows g, g + 8
-template <int H>
-__device__ __forceinline__ void load_frags(uint32_t f[H / 16][4],
-                                           const __nv_bfloat16* base,
-                                           long long stride, int r0, int r1,
-                                           int rows, int t) {
-#pragma unroll
-  for (int kc = 0; kc < H / 16; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    f[kc][0] = r0 < rows ? ld32(base + r0 * stride + c) : 0u;
-    f[kc][1] = r1 < rows ? ld32(base + r1 * stride + c) : 0u;
-    f[kc][2] = r0 < rows ? ld32(base + r0 * stride + c + 8) : 0u;
-    f[kc][3] = r1 < rows ? ld32(base + r1 * stride + c + 8) : 0u;
-  }
-}
-
-// stage rows [r0, r0 + 64) of a strided [rows, H] slice into smem with
-// row pitch LD, zero past `rows`
-template <int H, int LD>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src,
-                                      long long stride, int r0, int rows) {
-  for (int i = threadIdx.x; i < kTile * H / 8; i += blockDim.x) {
-    const int row = i / (H / 8), col = (i % (H / 8)) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + row < rows)
-      x = *reinterpret_cast<const uint4*>(src + (r0 + row) * stride + col);
-    *reinterpret_cast<uint4*>(dst + row * LD + col) = x;
-  }
-}
-
-template <int H>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int r0,
-                                           int r1, int rows, int n,
-                                           float acc[H / 8][4], float mul,
-                                           int t) {
-  const long long rs = (long long)n * H;
-#pragma unroll
-  for (int nh = 0; nh < H / 8; ++nh) {
-    const int c = nh * 8 + 2 * t;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(base + r0 * rs + c) =
-          pack_f32(acc[nh][0] * mul, acc[nh][1] * mul);
-    if (r1 < rows)
-      *reinterpret_cast<uint32_t*>(base + r1 * rs + c) =
-          pack_f32(acc[nh][2] * mul, acc[nh][3] * mul);
-  }
-}
-
-template <int H>
-__global__ void __launch_bounds__(128)
-dkdv_bf16(const __nv_bfloat16* __restrict__ q,
-          const __nv_bfloat16* __restrict__ k,
-          const __nv_bfloat16* __restrict__ v,
-          const __nv_bfloat16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-          Shape sh) {
-  constexpr int LD = H + 8;
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * LD];
-  __shared__ __align__(16) __nv_bfloat16 ds_[kTile * LD];   // dO tile
-  __shared__ float lse_s[kTile], dl_s[kTile];
-  const int bn = blockIdx.y, bi = bn / sh.n, ni = bn % sh.n;
-  const int k0 = blockIdx.x * kTile;    // causal: low key tiles work most
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-  const __nv_bfloat16* qb = q + bi * sh.q_sb + ni * sh.q_sn;
-  const __nv_bfloat16* ob = dout + bi * sh.o_sb + ni * sh.o_sn;
-  const float* lb = lse + (long long)bn * sh.sq;
-  const float* db = delta + (long long)bn * sh.sq;
-
-  uint32_t kf[H / 16][4], vf[H / 16][4];
-  load_frags<H>(kf, k + bi * sh.k_sb + ni * sh.k_sn, sh.k_ss, kr0, kr1,
-                sh.sk, t);
-  load_frags<H>(vf, v + bi * sh.v_sb + ni * sh.v_sn, sh.v_ss, kr0, kr1,
-                sh.sk, t);
-  float dka[H / 8][4], dva[H / 8][4];
-#pragma unroll
-  for (int nh = 0; nh < H / 8; ++nh)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nh][e] = dva[nh][e] = 0.f;
-
-  // first query that sees key k0: k0 - (sk - sq) when causal
-  const int qfirst = sh.causal ? max(0, k0 - (sh.sk - sh.sq)) : 0;
-  for (int q0 = qfirst / kTile * kTile; q0 < sh.sq; q0 += kTile) {
-    __syncthreads();
-    stage<H, LD>(qs, qb, sh.q_ss, q0, sh.sq);
-    stage<H, LD>(ds_, ob, sh.o_ss, q0, sh.sq);
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      lse_s[i] = q0 + i < sh.sq ? lb[q0 + i] : 0.f;
-      dl_s[i] = q0 + i < sh.sq ? db[q0 + i] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int qc = 0; qc < kTile; qc += 16) {
-      // S^T = K Q^T and dP^T = V dO^T over 16 queries (2 n-tiles)
-      float st[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < H / 16; ++kc) {
-          const __nv_bfloat16* qr = qs + (qc + j * 8 + g) * LD + kc * 16 + 2 * t;
-          mma(st[j], kf[kc], ld32(qr), ld32(qr + 8));
-          const __nv_bfloat16* orow =
-              ds_ + (qc + j * 8 + g) * LD + kc * 16 + 2 * t;
-          mma(dp[j], vf[kc], ld32(orow), ld32(orow + 8));
-        }
-      }
-      // P^T and dS^T (rows: keys kr0 / kr1; columns: queries)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = qc + j * 8 + 2 * t + (e & 1);
-          const bool ok = visible(sh, q0 + ql, e < 2 ? kr0 : kr1);
-          const float p = ok ? __expf(st[j][e] * sh.scale - lse_s[ql]) : 0.f;
-          st[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dl_s[ql]);
-        }
-      }
-      const uint32_t pa[4] = {pack_f32(st[0][0], st[0][1]),
-                              pack_f32(st[0][2], st[0][3]),
-                              pack_f32(st[1][0], st[1][1]),
-                              pack_f32(st[1][2], st[1][3])};
-      const uint32_t sa[4] = {pack_f32(dp[0][0], dp[0][1]),
-                              pack_f32(dp[0][2], dp[0][3]),
-                              pack_f32(dp[1][0], dp[1][1]),
-                              pack_f32(dp[1][2], dp[1][3])};
-      // dV += P^T dO, dK += dS^T Q: B's k-pairs run down the query axis
-#pragma unroll
-      for (int nh = 0; nh < H / 8; ++nh) {
-        const __nv_bfloat16* orow = ds_ + (qc + 2 * t) * LD + nh * 8 + g;
-        mma(dva[nh], pa, pack_bf16(orow[0], orow[LD]),
-            pack_bf16(orow[8 * LD], orow[9 * LD]));
-        const __nv_bfloat16* qr = qs + (qc + 2 * t) * LD + nh * 8 + g;
-        mma(dka[nh], sa, pack_bf16(qr[0], qr[LD]),
-            pack_bf16(qr[8 * LD], qr[9 * LD]));
-      }
-    }
-  }
-  const long long base = (long long)bi * sh.sk * sh.n * H + (long long)ni * H;
-  store_rows<H>(dk + base, kr0, kr1, sh.sk, sh.n, dka, sh.scale, t);
-  store_rows<H>(dv + base, kr0, kr1, sh.sk, sh.n, dva, 1.f, t);
-}
-
-template <int H>
-__global__ void __launch_bounds__(128)
-dq_bf16(const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ k,
-        const __nv_bfloat16* __restrict__ v,
-        const __nv_bfloat16* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        __nv_bfloat16* __restrict__ dq, Shape sh) {
-  constexpr int LD = H + 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * LD];
-  const int bn = blockIdx.y, bi = bn / sh.n, ni = bn % sh.n;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // long tiles first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const __nv_bfloat16* kb = k + bi * sh.k_sb + ni * sh.k_sn;
-  const __nv_bfloat16* vb = v + bi * sh.v_sb + ni * sh.v_sn;
-
-  uint32_t qf[H / 16][4], of[H / 16][4];
-  load_frags<H>(qf, q + bi * sh.q_sb + ni * sh.q_sn, sh.q_ss, r0, r1,
-                sh.sq, t);
-  load_frags<H>(of, dout + bi * sh.o_sb + ni * sh.o_sn, sh.o_ss, r0, r1,
-                sh.sq, t);
-  const long long lrow = (long long)bn * sh.sq;
-  const float lse0 = r0 < sh.sq ? lse[lrow + r0] : 0.f;
-  const float lse1 = r1 < sh.sq ? lse[lrow + r1] : 0.f;
-  const float dl0 = r0 < sh.sq ? delta[lrow + r0] : 0.f;
-  const float dl1 = r1 < sh.sq ? delta[lrow + r1] : 0.f;
-  float dqa[H / 8][4];
-#pragma unroll
-  for (int nh = 0; nh < H / 8; ++nh)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nh][e] = 0.f;
-
-  int kend = sh.sk;
-  if (sh.causal)
-    kend = min(min(q0 + kTile - 1, sh.sq - 1) + (sh.sk - sh.sq), sh.sk - 1) + 1;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();
-    stage<H, LD>(ks, kb, sh.k_ss, k0, sh.sk);
-    stage<H, LD>(vs, vb, sh.v_ss, k0, sh.sk);
-    __syncthreads();
-#pragma unroll 1
-    for (int kc4 = 0; kc4 < kTile && k0 + kc4 < kend; kc4 += 16) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < H / 16; ++kc) {
-          const __nv_bfloat16* kr = ks + (kc4 + j * 8 + g) * LD + kc * 16 + 2 * t;
-          mma(s[j], qf[kc], ld32(kr), ld32(kr + 8));
-          const __nv_bfloat16* vr = vs + (kc4 + j * 8 + g) * LD + kc * 16 + 2 * t;
-          mma(dp[j], of[kc], ld32(vr), ld32(vr + 8));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = k0 + kc4 + j * 8 + 2 * t + (e & 1);
-          const bool ok = visible(sh, e < 2 ? r0 : r1, kj);
-          const float p =
-              ok ? __expf(s[j][e] * sh.scale - (e < 2 ? lse0 : lse1)) : 0.f;
-          dp[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1));
-        }
-      }
-      const uint32_t sa[4] = {pack_f32(dp[0][0], dp[0][1]),
-                              pack_f32(dp[0][2], dp[0][3]),
-                              pack_f32(dp[1][0], dp[1][1]),
-                              pack_f32(dp[1][2], dp[1][3])};
-      // dQ += dS K: B's k-pairs run down the key axis
-#pragma unroll
-      for (int nh = 0; nh < H / 8; ++nh) {
-        const __nv_bfloat16* kr = ks + (kc4 + 2 * t) * LD + nh * 8 + g;
-        mma(dqa[nh], sa, pack_bf16(kr[0], kr[LD]),
-            pack_bf16(kr[8 * LD], kr[9 * LD]));
-      }
-    }
-  }
-  store_rows<H>(dq + (long long)bi * sh.sq * sh.n * H + (long long)ni * H,
-                r0, r1, sh.sq, sh.n, dqa, sh.scale, t);
 }
 
 // f32, dkdv: one thread per key row of the CTA's 64-key tile; its K and
@@ -486,68 +831,172 @@ int launch_f32(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int H>
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the 4-D (H, n, s, b) map of a strided [b, s, n, H] bf16 view, with
+// 64 x 64 boxes (64 columns of one head, 64 rows) in 128-byte swizzle;
+// returns 0 or kEncodeError + CUresult
+int encode_rows(CUtensorMap* map, EncodeTiled enc, const void* base, int H,
+                int n, int s, int b, long long sb, long long ss,
+                long long sn) {
+  const cuuint64_t dims[4] = {(cuuint64_t)H, (cuuint64_t)n, (cuuint64_t)s,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int H, int ST, int NKV, int NQ>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, const __nv_bfloat16* dout,
-                const float* lse, const float* delta, __nv_bfloat16* dq,
-                __nv_bfloat16* dk, __nv_bfloat16* dv, const Shape& sh,
-                cudaStream_t st) {
-  dkdv_bf16<H><<<dim3((sh.sk + kTile - 1) / kTile, sh.b * sh.n), 128, 0,
-                  st>>>(q, k, v, dout, lse, delta, dk, dv, sh);
+                const __nv_bfloat16* v, const __nv_bfloat16* out,
+                const __nv_bfloat16* dout, const float* lse, float* delta,
+                __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                const Shape& sh, cudaStream_t st) {
+  const EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv, to;
+  int rc = encode_rows(&tq, enc, q, H, sh.n, sh.sq, sh.b, sh.q_sb, sh.q_ss,
+                       sh.q_sn);
+  if (!rc) rc = encode_rows(&tk, enc, k, H, sh.n, sh.sk, sh.b, sh.k_sb,
+                            sh.k_ss, sh.k_sn);
+  if (!rc) rc = encode_rows(&tv, enc, v, H, sh.n, sh.sk, sh.b, sh.v_sb,
+                            sh.v_ss, sh.v_sn);
+  if (!rc) rc = encode_rows(&to, enc, dout, H, sh.n, sh.sq, sh.b, sh.o_sb,
+                            sh.o_ss, sh.o_sn);
+  if (rc) return rc;
+  const size_t kv_smem = sizeof(DkdvSmem<H, ST, NKV>) + 1024;
+  const size_t q_smem = sizeof(DqSmem<H, ST, NQ>) + 1024;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = allow_smem(dkdv_wgmma<H, ST, NKV>, kv_smem);
+    if (e == cudaSuccess) e = allow_smem(dq_wgmma<H, ST, NQ>, q_smem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  rc = launch_delta<__nv_bfloat16, H>(dout, out, delta, sh, st);
+  if (rc) return rc;
+  const int kv_rows = kTile * NKV, q_rows = kTile * NQ;
+  dkdv_wgmma<H, ST, NKV><<<dim3(sh.b * sh.n, (sh.sk + kv_rows - 1) / kv_rows),
+                           128 * NKV + 32, kv_smem, st>>>(
+      tq, tk, tv, to, lse, delta, dk, dv, sh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_bf16<H><<<dim3((sh.sq + kTile - 1) / kTile, sh.b * sh.n), 128, 0,
-                st>>>(q, k, v, dout, lse, delta, dq, sh);
+  dq_wgmma<H, ST, NQ><<<dim3(sh.b * sh.n, (sh.sq + q_rows - 1) / q_rows),
+                        128 * NQ + 32, q_smem, st>>>(tq, tk, tv, to, lse,
+                                                     delta, dq, sh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Strides are in
-// elements (b, s, n of q, k, v and dout; the H axis unit-stride and, for
-// bf16, rows 16-byte aligned — the wrapper checks). Causal needs
-// sk >= sq. Launches both kernels on `stream`; returns a cudaError_t.
+// elements (b, s, n of q, k, v, dout and out; the H axis unit-stride,
+// rows and bases 16-byte aligned — the wrapper checks). Causal needs
+// sk >= sq. `delta` is f32 [b*n, sq] scratch the launch fills. Launches
+// the three kernels on `stream`; returns a cudaError_t, or
+// kEncodeError + a CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    int b, int sq, int sk, int n, int head_dim, long long q_sb,
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int b, int sq, int sk, int n, int head_dim, long long q_sb,
     long long q_ss, long long q_sn, long long k_sb, long long k_ss,
     long long k_sn, long long v_sb, long long v_ss, long long v_sn,
-    long long o_sb, long long o_ss, long long o_sn, int causal, int dtype,
-    float scale, void* stream) {
+    long long o_sb, long long o_ss, long long o_sn, long long y_sb,
+    long long y_ss, long long y_sn, int causal, int dtype, float scale,
+    void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || n <= 0) return 0;
   const Shape sh{b, sq, sk, n, q_sb, q_ss, q_sn, k_sb, k_ss, k_sn,
-                 v_sb, v_ss, v_sn, o_sb, o_ss, o_sn, causal, scale};
+                 v_sb, v_ss, v_sn, o_sb, o_ss, o_sn, y_sb, y_ss, y_sn,
+                 causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     const float *qp = static_cast<const float*>(q),
                 *kp = static_cast<const float*>(k),
                 *vp = static_cast<const float*>(v),
+                *yp = static_cast<const float*>(out),
                 *op = static_cast<const float*>(dout);
     float *dqp = static_cast<float*>(dq), *dkp = static_cast<float*>(dk),
           *dvp = static_cast<float*>(dv);
-    if (head_dim == 64)
-      return launch_f32<64>(qp, kp, vp, op, l, dl, dqp, dkp, dvp, sh, st);
-    if (head_dim == 128)
-      return launch_f32<128>(qp, kp, vp, op, l, dl, dqp, dkp, dvp, sh, st);
+    if (head_dim == 64) {
+      const int rc = launch_delta<float, 64>(op, yp, dl, sh, st);
+      return rc ? rc
+                : launch_f32<64>(qp, kp, vp, op, l, dl, dqp, dkp, dvp, sh, st);
+    }
+    if (head_dim == 128) {
+      const int rc = launch_delta<float, 128>(op, yp, dl, sh, st);
+      return rc ? rc
+                : launch_f32<128>(qp, kp, vp, op, l, dl, dqp, dkp, dvp, sh,
+                                  st);
+    }
   } else if (dtype == 1) {
     const __nv_bfloat16 *qp = static_cast<const __nv_bfloat16*>(q),
                         *kp = static_cast<const __nv_bfloat16*>(k),
                         *vp = static_cast<const __nv_bfloat16*>(v),
+                        *yp = static_cast<const __nv_bfloat16*>(out),
                         *op = static_cast<const __nv_bfloat16*>(dout);
     __nv_bfloat16 *dqp = static_cast<__nv_bfloat16*>(dq),
                   *dkp = static_cast<__nv_bfloat16*>(dk),
                   *dvp = static_cast<__nv_bfloat16*>(dv);
     if (head_dim == 64)
-      return launch_bf16<64>(qp, kp, vp, op, l, dl, dqp, dkp, dvp, sh, st);
+      return launch_bf16<64, 4, 2, 3>(qp, kp, vp, yp, op, l, dl, dqp, dkp,
+                                      dvp, sh, st);
     if (head_dim == 128)
-      return launch_bf16<128>(qp, kp, vp, op, l, dl, dqp, dkp, dvp, sh, st);
+      return launch_bf16<128, 2, 1, 1>(qp, kp, vp, yp, op, l, dl, dqp, dkp,
+                                       dvp, sh, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {
+  static char buf[96];
+  if (code >= kEncodeError) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - kEncodeError);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -5,18 +5,22 @@ on its own, at first use, into `build/paddle_tpu_torch/` at the root of
 the checkout:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/paddle_tpu_torch/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v
+         -o build/paddle_tpu_torch/<name>-<hash>.so
          paddle_tpu_torch/csrc/<name>.cu
 
 The library name carries a hash of the source and the flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is. A
 library that includes no PyTorch header builds in seconds, where
 `torch.utils.cpp_extension.load` takes minutes. `build(names)` starts
-one nvcc per source, all at once.
+one nvcc per source, all at once; `ptxas_info(name)` reads back each
+kernel's registers, spills and static shared memory from the build's
+`-Xptxas -v` report.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,15 +28,16 @@ import threading
 from pathlib import Path
 
 __all__ = ["build", "load", "launcher", "check_launch", "build_dir",
-           "nvcc_path"]
+           "nvcc_path", "ptxas_info"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded = {}
+_reports = {}       # name -> nvcc's output of this process's build
 
 
 def build_dir():
@@ -85,6 +90,7 @@ def _finish(name, proc, tmp, so):
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, so)
+    _reports[name] = out
 
 
 def build(names):
@@ -133,3 +139,27 @@ def check_launch(kernel, rc, err):
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: {err(rc).decode()} "
                            f"(cudaError {rc})")
+
+
+def ptxas_info(name):
+    """{kernel function: "N registers, S bytes spill stores, ..."} from
+    `-Xptxas -v` for source `name`, when this process built it (an
+    already built library leaves no report: {})."""
+    info, fn = {}, None
+    for line in _reports.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if fn and m:
+            info.setdefault(fn, {})["spills"] = (int(m.group(1)),
+                                                 int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if fn and m:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            info.setdefault(fn, {}).update(
+                registers=int(m.group(1)),
+                smem=int(smem.group(1)) if smem else 0)
+    return info

@@ -37,7 +37,7 @@ from .kernel_registry import get_kernel, register_kernel
 
 __all__ = ["flash_attention_fwd", "FlashAttention", "flash_fwd",
            "flash_bwd", "flash_attention_fwd_plain",
-           "flash_attention_bwd_plain"]
+           "flash_attention_bwd_plain", "flash_delta_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -74,6 +74,13 @@ def flash_attention_fwd_plain(q, k, v, causal, scale):
     return out.to(q.dtype), lse
 
 
+def flash_delta_plain(out, dout):
+    """delta = rowsum(dO * O) in f32 -> [b*n, sq], laid out like lse."""
+    b, sq, n, _ = out.shape
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .reshape(b * n, sq)
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale):
     """Recompute-from-lse backward -> (dq, dk, dv) in the inputs' dtypes:
     delta = rowsum(dO*O), P = exp(S - lse), dV = P^T dO,
@@ -84,7 +91,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale):
     if causal:
         p = p.masked_fill(~_causal_mask(sq, k.shape[1], q.device), 0.0)
     do = dout.float()
-    delta = (do * out.float()).sum(dim=-1).transpose(1, 2)[..., None]
+    delta = flash_delta_plain(out, dout).reshape(b, n, sq, 1)
     dv = torch.einsum("bnqk,bqnh->bknh", p, do)
     dp = torch.einsum("bqnh,bknh->bnqk", do, v.float())
     ds = p * (dp - delta)
@@ -102,9 +109,12 @@ def _argtypes(n_ptrs, n_strides):
 
 def _aligned(t):
     """`t` itself when the kernels can read it through its strides (unit
-    last stride, 16-byte aligned rows), else a contiguous copy."""
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in t.stride()[:-1]))
+    last stride, 16-byte aligned rows and base, strides falling from the
+    batch axis to the head axis as the backward's TMA maps take them),
+    else a contiguous copy."""
+    st = t.stride()
+    ok = (st[-1] == 1 and t.data_ptr() % 16 == 0
+          and all(s % 8 == 0 for s in st[:-1]) and st[0] >= st[1] >= st[2])
     return t if ok else t.contiguous()
 
 
@@ -189,18 +199,19 @@ def flash_bwd(q, k, v, out, lse, dout, causal, scale):
             or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_bwd: out and dout must be shaped like q and "
                          f"lse a contiguous f32 [{b * n}, {sq}]")
-    q, k, v, dout = _aligned(q), _aligned(k), _aligned(v), _aligned(dout)
-    # delta = rowsum(dO * O) in f32, [b*n, sq] like lse
-    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
-        .contiguous()
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    # delta = rowsum(dO * O), f32 [b*n, sq]: the launch's first kernel
+    # fills it
+    delta = torch.empty((b * n, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
     fn, err = _build.launcher("flash_attention_bwd",
-                              "flash_attention_bwd_launch", _argtypes(9, 12))
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, n, h, *_strides(q, k, v, dout),
+                              "flash_attention_bwd_launch", _argtypes(10, 15))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, n, h,
+            *_strides(q, k, v, dout, out),
             int(bool(causal)), _DTYPE_CODES[q.dtype], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_bwd", rc, err)

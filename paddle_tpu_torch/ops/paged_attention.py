@@ -25,7 +25,8 @@ from .attention import composed_attention
 from .kernel_registry import get_kernel, register_kernel
 
 __all__ = ["paged_decode_attention", "flash_prefill_chunk",
-           "paged_decode_plain", "flash_prefill_plain"]
+           "paged_decode_plain", "flash_prefill_plain",
+           "flash_prefill_split_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)      # the kernels' template instances
@@ -72,6 +73,41 @@ def flash_prefill_plain(q, k_pages, v_pages, table_row, p0, n_heads):
         q.reshape(1, C, N, H), k_pages[tab].reshape(1, L, N, H),
         v_pages[tab].reshape(1, L, N, H), key_pos <= q_pos)
     return out.reshape(1, C, nh)
+
+
+def flash_prefill_split_plain(q, k_pages, v_pages, table_row, p0, n_heads,
+                              splits, step=16):
+    """The bf16 kernel's key split, in f32: the 16-key steps of the keys
+    go round-robin to `splits` partitions (the kernel's warps), each
+    keeps the (m, l, acc) of its own online softmax, and the partials
+    merge with weights exp(m_w - M) / sum_w exp(m_w - M) l_w, where a
+    partition in which a row sees no key (m_w = -inf) weighs 0. Same
+    arguments and result as `flash_prefill_plain`."""
+    one, C, nh = q.shape
+    N = n_heads
+    H = nh // N
+    L = table_row.shape[0] * k_pages.shape[1]
+    tab = table_row.long()
+    k = k_pages[tab].reshape(L, N, H).float()
+    v = v_pages[tab].reshape(L, N, H).float()
+    s = torch.einsum("qnh,knh->nqk", q.reshape(C, N, H).float(), k) \
+        / math.sqrt(H)
+    key = torch.arange(L, device=q.device)
+    seen = key[None, :] <= (p0 + torch.arange(C, device=q.device))[:, None]
+    ms, ls, accs = [], [], []
+    for w in range(splits):
+        sw = s.masked_fill(~(seen & ((key // step) % splits == w)),
+                           -math.inf)
+        m = sw.amax(dim=-1, keepdim=True)
+        p = torch.exp(sw - torch.where(m == -math.inf, 0.0, m))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("nqk,knh->nqh", p, v))
+    M = torch.stack(ms).amax(dim=0)
+    wts = [torch.where(m == -math.inf, 0.0, torch.exp(m - M)) for m in ms]
+    out = sum(w * a for w, a in zip(wts, accs)) \
+        / sum(w * l for w, l in zip(wts, ls))
+    return out.transpose(0, 1).reshape(1, C, nh).to(q.dtype)
 
 
 def _check_cuda(name, tensors, dtypes):
@@ -186,10 +222,15 @@ def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
                 {"k_pages": q.dtype, "v_pages": q.dtype,
                  "table_row": torch.int32})
     bs = k_pages.shape[1]
-    if bs % 8 or 2 * bs * H * 4 > 48 * 1024:
+    if bs % 8:
         raise ValueError(f"flash_prefill_chunk: block_size {bs} must be a "
-                         "multiple of 8 with 2*block_size*head_dim f32 "
-                         "values within 48 KB of shared memory")
+                         "multiple of 8")
+    # the f32 kernel stages a whole block of K and V as f32 in static
+    # shared memory; the bf16 kernel's ring does not depend on bs
+    if q.dtype == torch.float32 and 2 * bs * H * 4 > 48 * 1024:
+        raise ValueError(f"flash_prefill_chunk: block_size {bs} needs "
+                         "2*block_size*head_dim f32 values within 48 KB of "
+                         "shared memory")
     if table_row.dim() != 1 or p0 < 0:
         raise ValueError("flash_prefill_chunk: table_row must be "
                          "[max_blocks] and p0 >= 0")

@@ -7,8 +7,9 @@ plain recompute-from-lse backward; they must match the JAX
 `jax.vjp` at the JAX registry's tolerance in f32 (2e-3) and at 2e-2 in
 bf16, over the three kernel families the training path reaches: the
 rectangular grid at s = 256 with the default blocks (K2 forward, K4
-merged backward), the triangle grid with forced 128 blocks (K1, K3), and
-cross lengths sq 128, sk 256 (causal with offset 128, and non-causal).
+merged backward), the triangle grid with forced 128 blocks (K1, K3),
+cross lengths sq 128, sk 256 (causal with offset 128, and non-causal),
+and ragged cross lengths sq 300, sk 700 (causal with offset 400).
 """
 import math
 
@@ -23,6 +24,7 @@ from paddle_tpu.ops import pallas_attention as jax_pa
 from paddle_tpu_torch.ops import attention as port_attention
 from paddle_tpu_torch.ops.flash_attention import (FlashAttention,
                                                   flash_attention_fwd,
+                                                  flash_delta_plain,
                                                   flash_fwd)
 from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
 
@@ -38,6 +40,7 @@ _CASES = [
     ("cross_offset_128", 1, 128, 256, 2, 64, True, (None, None)),
     ("cross_noncausal", 1, 128, 256, 2, 64, False, (None, None)),
     ("rect_h128", 1, 128, 128, 2, 128, True, (None, None)),
+    ("cross_ragged_300_700", 1, 300, 700, 2, 64, True, (None, None)),
 ]
 
 
@@ -103,6 +106,27 @@ def test_lse_matches_the_rectangular_kernel(causal):
     assert lse.dtype == torch.float32 and tuple(lse.shape) == (b * n, sq)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, 0, :],
                                rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_delta_matches_jax(dtype):
+    """delta = rowsum(dO * O), f32 [b*n, sq], against the JAX backward's
+    own formula over its flat forward output (pallas_attention.py:867)."""
+    b, sq, sk, n, h = 2, 200, 200, 3, 64
+    q, k, v, g = _inputs(13, b, sq, sk, n, h)
+    jdt, tdt = _JDT[dtype], _TDT[dtype]
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    out, _ = jax_pa._flash_fwd(jq, jk, jv, True, 1.0 / math.sqrt(h), 200,
+                               200)
+    gr = jg.transpose(0, 2, 1, 3).reshape(b * n, sq, h)
+    want = jnp.sum(gr.astype(jnp.float32) * out.astype(jnp.float32),
+                   axis=-1)
+    tout = torch.from_numpy(np.array(_f32(out))).to(tdt).reshape(b, n, sq, h) \
+        .transpose(1, 2)
+    got = flash_delta_plain(tout, torch.from_numpy(g).to(tdt))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b * n, sq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_strided_unbind_views_and_noncontiguous_dout():

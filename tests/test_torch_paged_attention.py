@@ -8,7 +8,9 @@ JAX gather+dense fallbacks: they must match the fallback
 declared tolerance, over the registry's own example generators and at
 GPT-3 125M head geometry (N=12, H=64, block 16) with the edge cases:
 ctx 0, ctx on a block boundary, an inactive slot with an all-null
-table, p0 = 0, p0 inside a block, p0 on a block boundary.
+table, p0 = 0, p0 inside a block, p0 on a block boundary, and a chunk
+that runs past its table's last key. The plain mirror of the bf16
+kernel's key split is held against the fallback too.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from paddle_tpu.ops.kernel_registry import get_kernel as jax_kernel
 
 from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
 from paddle_tpu_torch.ops.paged_attention import (flash_prefill_chunk,
+                                                  flash_prefill_split_plain,
                                                   paged_decode_attention)
 
 _EXACT = dict(rtol=1e-5, atol=1e-5)
@@ -110,22 +113,49 @@ def test_decode_125m_geometry(ctx):
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("p0", [0, 7, 16, 29])
-def test_prefill_125m_geometry(p0):
-    """A 16-query chunk at p0 over a 4-block table; rows past the last
-    allocated block see null-block keys, which stay finite."""
+def _prefill_case(p0):
+    """A 16-query chunk at p0 over a 4-block table; from p0 400 a 32-query
+    chunk over a 26-block table (416 keys), whose rows 16.. run past the
+    table's end and clamp to its last key."""
     rng = np.random.default_rng(100 + p0)
-    C = 16
-    kp, vp = _arena(rng, _MB + 3, _BS, _N * _H)
-    n_alloc = (p0 + C - 1) // _BS + 1
-    row = np.zeros((_MB,), np.int32)
-    row[:n_alloc] = rng.permutation(np.arange(1, _MB + 3))[:n_alloc]
+    C, mb = 16, _MB
+    if p0 >= _MB * _BS:
+        C, mb = 32, (p0 + 16) // _BS + 1
+    kp, vp = _arena(rng, mb + 3, _BS, _N * _H)
+    n_alloc = min((p0 + C - 1) // _BS + 1, mb)
+    row = np.zeros((mb,), np.int32)
+    row[:n_alloc] = rng.permutation(np.arange(1, mb + 3))[:n_alloc]
     q = rng.standard_normal((1, C, _N * _H)).astype(np.float32)
+    return q, kp, vp, row
+
+
+@pytest.mark.parametrize("p0", [0, 7, 15, 16, 29, 400])
+def test_prefill_125m_geometry(p0):
+    """A chunk at p0 over its table (`_prefill_case`); rows past the last
+    allocated block see null-block keys, which stay finite."""
+    q, kp, vp, row = _prefill_case(p0)
     ref, got = _prefill_both(q, kp, vp, row, p0, _N, use_kernel=False)
     np.testing.assert_allclose(got, ref, **_EXACT)
     assert np.isfinite(got).all()
     ref, got = _prefill_both(q, kp, vp, row, p0, _N, use_kernel=True)
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("p0", [0, 9, 29, 400])
+def test_prefill_key_split_matches_jax_fallback(p0, splits):
+    """The plain mirror of the bf16 kernel's key split and merge: 16-key
+    steps round-robin over `splits` warps. At p0 0 the whole chunk lies
+    in step 0, so warps 1.. see nothing; at p0 9 and 29 the first rows
+    cannot see the last step; at p0 400 rows clamp to the last key."""
+    q, kp, vp, row = _prefill_case(p0)
+    ref = jax_pd.flash_prefill_chunk(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(row),
+        np.int32(p0), _N, use_kernel=False)
+    got = flash_prefill_split_plain(_t(q), _t(kp), _t(vp), _t(row), p0, _N,
+                                    splits)
+    assert got.shape == q.shape and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **_EXACT)
 
 
 def test_plain_versions_in_bf16_match_jax_fallback():
