@@ -9,19 +9,23 @@ ok line):
 1. build   — compile every CUDA kernel of the port from
              paddle_tpu_torch/csrc with nvcc, all sources at once, into
              build/paddle_tpu_torch/, and print the build time and the
-             registers, spills and static shared memory ptxas reports
-             for the flash backward's and the prefill chunk's kernels;
+             registers, spills, static shared memory and "Potential
+             Performance Loss" notes ptxas reports for the flash
+             forward's and backward's, the prefill chunk's and the paged
+             decode's kernels;
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, in f32 (TF32 off) and bf16. The serving kernels at the
              serving shapes of GPT-3 125M (12 heads of 64, block 16, 32
              blocks per sequence, 16 slots, chunk 128) with random block
-             tables, context lengths 0..511 including 0 and block edges,
+             tables, context lengths 0..511 including 0, block edges and
+             the decode kernel's 32-key chunk edges, an inactive slot,
              and chunk starts p0 in {0, 7, 128, 384, 400} (at 400 the
              chunk runs past key 511 and its last rows clamp); the
              training kernels at [2, 1024, 12, 64] (flash forward and
              backward, causal, non-causal, and causal with sq 512 < sk
-             1024, plus ragged lengths (sq 200; sq 300 < sk 700) and
-             head_dim 128; every backward run twice and held bitwise
+             1024, plus ragged lengths (sq 200; sq 300 < sk 700; sq 130
+             < sk 190, a partial last key tile) and head_dim 128; every
+             backward run twice and held bitwise
              equal: no atomics) and at 24576 x 768 and
              16 x 768 (add + LayerNorm); the decode kernels at generate's
              shapes: decode_fused at batch 8, cache 256, 12 heads of 64,
@@ -38,11 +42,14 @@ ok line):
              yardstick the port never calls: scaled_dot_product_attention,
              F.layer_norm, a dequantized bf16 matmul, F.embedding,
              F.embedding_bag) with CUDA events, the L2 flushed before
-             each launch (flash_bwd and flash_prefill_chunk also with
-             the L2 warm, and flash_bwd by kernel from a trace), at the
-             serving shapes, at the training shape
-             (batch 24, seq 1024), at the decode shape (batch 8, mean
-             position 191) and at the MoE training shape (f32 rows of
+             each launch (flash_bwd, flash_prefill_chunk and
+             paged_decode also with the L2 warm, and flash_bwd by kernel
+             from a trace), at the serving shapes (paged_decode at 16
+             slots with ctx uniform in 0..511), at the training shape
+             (batch 24, seq 1024; flash_fwd also at the K2 shapes,
+             non-causal and sq 512 < sk 1024), at the decode shape
+             (batch 8, mean position 191) and at the MoE training
+             shape (f32 rows of
              768); int8_matvec also against the composed head at 8, 16,
              64 and 128 rows;
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
@@ -127,9 +134,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 24, 1024, 3, 10
 # f32 parity of the training step, card against CPU
 PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_RTOL = 2, 256, 3, 1e-4
 # flash checks: (batch, sq, sk, heads, head_dim, causal)
+# (1, 130, 190): the forward's last key tile is partial (190 = 2 x 64 +
+# 62) and so is its last query tile
 FLASH_CHECKS = ((2, 1024, 1024, 12, 64, True), (2, 1024, 1024, 12, 64, False),
                 (2, 512, 1024, 12, 64, True), (1, 200, 200, 12, 64, True),
-                (1, 300, 700, 12, 64, True), (1, 256, 384, 4, 128, True))
+                (1, 300, 700, 12, 64, True), (1, 256, 384, 4, 128, True),
+                (1, 130, 190, 12, 64, True))
+# the K2 shapes timed beside the training shape: (batch, sq, sk, causal)
+FLASH_K2_TIMED = ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, False),
+                  (TRAIN_BATCH, TRAIN_SEQ // 2, TRAIN_SEQ, True))
 # add + LayerNorm checks: (rows, d, x dtype, residual dtype)
 LN_CHECKS = ((24576, 768, "float32", "bfloat16"), (24576, 768, "bfloat16",
                                                     "bfloat16"),
@@ -139,7 +152,8 @@ LN_CHECKS = ((24576, 768, "float32", "bfloat16"), (24576, 768, "bfloat16",
 
 # serving shapes of GPT-3 125M in the engine configuration below
 N_HEADS, HEAD_DIM, BLOCK, MAX_BLOCKS, SLOTS, CHUNK = 12, 64, 16, 32, 16, 128
-CTX_EDGES = (0, 15, 16, 17, 31, 32, 255, 256, 511)
+# block edges (16 keys) and paged_decode's chunk edges (32 keys)
+CTX_EDGES = (0, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 255, 256, 511)
 P0S = (0, 7, 128, 384, 400)      # 400: the chunk runs past key 511
 TIMED_P0 = 128
 ENGINE = dict(max_slots=SLOTS, block_size=BLOCK, prefill_chunk=CHUNK,
@@ -188,7 +202,7 @@ MIN_MEAN_DISTINCT = 4.0
 
 # device kernels by what they do, matched on a substring of their name
 PROFILE_CATEGORIES = (
-    ("port: flash attention", ("fwd_bf16", "dkdv_wgmma", "dq_wgmma",
+    ("port: flash attention", ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma",
                                "bwd_delta", "fwd_f32", "dkdv_f32",
                                "dq_f32")),
     ("port: add + LayerNorm", ("add_ln",)),
@@ -210,7 +224,9 @@ PROFILE_CATEGORIES = (
 
 # the kernels whose registers, spills and static shared memory the build
 # prints (their dynamic shared memory is in their source notes)
-PTXAS_SHOWN = ("dkdv_wgmma", "dq_wgmma", "bwd_delta", "flash_prefill_mma")
+PTXAS_SHOWN = ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma", "bwd_delta",
+               "flash_prefill_mma", "paged_decode_split",
+               "paged_decode_merge")
 
 
 def card_line():
@@ -225,21 +241,23 @@ def card_line():
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def decode_inputs(torch, gen, dtype, dev):
-    """16 slots over a 513-block arena: the context edges, an inactive
-    slot (ctx 0, all-null table), the rest uniform in 0..511."""
+def decode_inputs(torch, gen, dtype, dev, edges=True):
+    """16 slots over a 513-block arena: with `edges` the context edges,
+    an inactive slot (ctx 0, all-null table) and the rest uniform in
+    0..511; else all 16 uniform in 0..511 (a serving step, timed)."""
     L = BLOCK * MAX_BLOCKS
-    ctx = list(CTX_EDGES) + [0]
+    ctx = list(CTX_EDGES) + [-1] if edges else []
     ctx += torch.randint(0, L, (SLOTS - len(ctx),), generator=gen,
                          device="cpu").tolist()
     nb = SLOTS * MAX_BLOCKS + 1
     perm = torch.randperm(nb - 1, generator=gen, device="cpu") + 1
     tables = torch.zeros((SLOTS, MAX_BLOCKS), dtype=torch.int32)
     for s, c in enumerate(ctx):
-        if s == len(CTX_EDGES):
+        if c < 0:
             continue                            # the inactive slot
         n = c // BLOCK + 1
         tables[s, :n] = perm[s * MAX_BLOCKS:s * MAX_BLOCKS + n]
+    ctx = [max(c, 0) for c in ctx]
     nh = N_HEADS * HEAD_DIM
     q = torch.randn((SLOTS, 1, nh), generator=gen, device="cpu")
     kp = torch.randn((nb, BLOCK, nh), generator=gen, device="cpu")
@@ -379,24 +397,33 @@ def kernels_phase(torch, seed):
         print(f"kernels: {name} {dname} max_abs_err {e:.3e} "
               f"(tol rtol, atol = {get_kernel(name).tol[dname]})")
 
-    # timing at the serving shapes, in the engine's bf16
+    # timing at the serving shapes, in the engine's bf16: paged_decode
+    # at a decode step of 16 slots with ctx uniform in 0..511, L2 flushed
+    # and warm (as in a step, where the arenas' rows were just written)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = {}
-    args = decode_inputs(torch, gen, torch.bfloat16, dev)
+    args = decode_inputs(torch, torch.Generator().manual_seed(seed + 3),
+                         torch.bfloat16, dev, edges=False)
     sd = sdpa_decode(torch, *args)
     nbytes, ops = decode_work(args[4].tolist(), 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sd[0], sd[1], sd[2],
+                                              attn_mask=sd[3])
     rows["paged_decode"] = dict(
         ms=median_ms(torch, lambda: paged_decode_attention(*args, N_HEADS),
                      flush),
+        warm_ms=median_ms(
+            torch, lambda: paged_decode_attention(*args, N_HEADS), None),
         plain_ms=median_ms(torch, lambda: paged_decode_plain(*args, N_HEADS),
                            flush),
-        library_ms=median_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                sd[0], sd[1], sd[2], attn_mask=sd[3]), flush),
+        library_ms=median_ms(torch, sdpa, flush),
+        library_warm_ms=median_ms(torch, sdpa, None),
         bound=bound(nbytes, ops, "bfloat16"),
         max_abs_err=errs[("paged_decode", "bfloat16")])
-    print(f"kernels: paged_decode timed at S={SLOTS}, mean ctx "
-          f"{sum(args[4].tolist()) / SLOTS:.1f}: {nbytes} bytes, {ops} ops")
+    print(f"kernels: paged_decode timed at S={SLOTS}, ctx "
+          f"{args[4].tolist()} (mean {sum(args[4].tolist()) / SLOTS:.1f}): "
+          f"{nbytes} bytes, {ops} ops")
     for p0 in P0S:
         pargs = prefill_inputs(torch, gen, torch.bfloat16, dev, p0)
         sp = sdpa_prefill(torch, *pargs)
@@ -421,8 +448,9 @@ def kernels_phase(torch, seed):
         if p0 == TIMED_P0:
             rows["flash_prefill_chunk"] = row
     r = rows["paged_decode"]
-    print(f"kernels: paged_decode: {r['ms']:.4f} ms (plain "
-          f"{r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, bound "
+    print(f"kernels: paged_decode: {r['ms']:.4f} ms (L2 warm "
+          f"{r['warm_ms']:.4f}; plain {r['plain_ms']:.4f}, sdpa "
+          f"{r['library_ms']:.4f}, warm {r['library_warm_ms']:.4f}; bound "
           f"{r['bound'][0]:.5f} by {r['bound'][1]})")
     del flush
     return rows
@@ -597,6 +625,26 @@ def train_kernels_phase(torch, seed):
               torch, lambda: flash_bwd(q, k, v, out, lse, dout, True, scale),
               flush)))
     del lo, lq, lk, lv, go, q, k, v, dout, out, lse
+    # the forward at the K2 shapes (non-causal; causal with sk > sq,
+    # whose bottom-right mask SDPA takes as an explicit mask)
+    for kb, ksq, ksk, kcausal in FLASH_K2_TIMED:
+        q, k, v, _ = flash_inputs(torch, gen, torch.bfloat16, dev, kb, ksq,
+                                  ksk, n, h)
+        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if kcausal:
+            mask = torch.ones((ksq, ksk), dtype=torch.bool,
+                              device=dev).tril(ksk - ksq)
+        ms = median_ms(torch, lambda: flash_fwd(q, k, v, kcausal, scale),
+                       flush)
+        lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask), flush)
+        kbound = bound(*flash_work(kb, ksq, ksk, n, h, kcausal, 2, False),
+                       "bfloat16")
+        print(f"kernels: flash_fwd (K2) b={kb} sq={ksq} sk={ksk} "
+              f"causal={kcausal}: {ms:.4f} ms (sdpa {lib:.4f}, bound "
+              f"{kbound[0]:.5f} by {kbound[1]})")
+        del q, k, v, lq, lk, lv
 
     # add + LayerNorm: the saving form at the training step's dtypes (f32
     # residual stream, bf16 branch output, f32 weights); the output-only
@@ -1660,7 +1708,8 @@ def main(argv=None):
     _build.build(sources)
     print(f"build: {len(regs)} kernels from {len(sources)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
-    for src in ("flash_attention_bwd", "flash_prefill_chunk"):
+    for src in ("flash_attention_fwd", "flash_attention_bwd",
+                "flash_prefill_chunk", "paged_decode"):
         for fn, info in sorted(_build.ptxas_info(src).items()):
             if any(k in fn for k in PTXAS_SHOWN):
                 print(f"build: ptxas {src}: {fn}: {json.dumps(info)}")

@@ -9,8 +9,10 @@ the checkout:
          -o build/paddle_tpu_torch/<name>-<hash>.so
          paddle_tpu_torch/csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is. A
+The library name carries a hash of the source, of every header it
+includes from `csrc/` (`#include "..."`, followed through the headers'
+own includes) and of the flags, so a changed source or header is
+rebuilt and an unchanged one is loaded as it is. A
 library that includes no PyTorch header builds in seconds, where
 `torch.utils.cpp_extension.load` takes minutes. `build(names)` starts
 one nvcc per source, all at once; `ptxas_info(name)` reads back each
@@ -59,9 +61,28 @@ def nvcc_path():
                        "build the port's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src):
+    """`src` and the local headers it includes, each once, in the order
+    they are first reached."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def _target(name):
     src = _CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in _sources(src):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -142,14 +163,21 @@ def check_launch(kernel, rc, err):
 
 
 def ptxas_info(name):
-    """{kernel function: "N registers, S bytes spill stores, ..."} from
-    `-Xptxas -v` for source `name`, when this process built it (an
-    already built library leaves no report: {})."""
+    """{kernel function: {registers, smem, spills, and the ptxas
+    "Potential Performance Loss" notes if any}} from `-Xptxas -v` for
+    source `name`, when this process built it (an already built library
+    leaves no report: {})."""
     info, fn = {}, None
     for line in _reports.get(name, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
+            continue
+        m = re.search(r"\((C\d+)\) Potential Performance Loss.*function "
+                      r"'(\S+)'", line)
+        if m:
+            info.setdefault(m.group(2), {}).setdefault(
+                "performance_loss", []).append(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)

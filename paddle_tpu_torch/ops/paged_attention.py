@@ -25,11 +25,15 @@ from .attention import composed_attention
 from .kernel_registry import get_kernel, register_kernel
 
 __all__ = ["paged_decode_attention", "flash_prefill_chunk",
-           "paged_decode_plain", "flash_prefill_plain",
-           "flash_prefill_split_plain"]
+           "paged_decode_plain", "paged_decode_split_plain",
+           "flash_prefill_plain", "flash_prefill_split_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)      # the kernels' template instances
+# keys a paged_decode CTA covers, all heads (csrc/paged_decode.cu)
+DECODE_CHUNK_KEYS = 32
+# paged_decode's CTA holds at most 16 warps of 16-byte lanes across a row
+_DECODE_MAX_COLS = {torch.float32: 2048, torch.bfloat16: 4096}
 # f32: the JAX registry's declared kernel tolerance; bf16: probs and
 # outputs round to bf16 (8-bit mantissa, relative step 2^-8) where the
 # kernels keep f32 until the single final store
@@ -54,6 +58,43 @@ def paged_decode_plain(q, k_pages, v_pages, block_tables, ctx_lens,
         v_pages[tab].reshape(S, L, N, H),
         key_pos <= ctx_lens.long()[:, None, None, None])
     return out.reshape(S, 1, nh)
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, block_tables, ctx_lens,
+                             n_heads, chunk_keys=DECODE_CHUNK_KEYS):
+    """The kernel's split over the keys, in f32: each slot's keys
+    0..min(ctx, mb*bs - 1) are cut into chunks of `chunk_keys`; each
+    chunk keeps the (m, l, acc) of its own softmax, and the chunks merge
+    with weights exp(m_c - M) / sum_c exp(m_c - M) l_c, where a chunk
+    that holds no live key (m_c = -inf) weighs 0. Same arguments and
+    result as `paged_decode_plain`."""
+    S, one, nh = q.shape
+    if one != 1:
+        raise ValueError("paged_decode_attention is q_len==1 only")
+    N = n_heads
+    H = nh // N
+    L = block_tables.shape[1] * k_pages.shape[1]
+    tab = block_tables.long()
+    k = k_pages[tab].reshape(S, L, N, H).float()
+    v = v_pages[tab].reshape(S, L, N, H).float()
+    s = torch.einsum("snh,slnh->snl", q.reshape(S, N, H).float(), k) \
+        / math.sqrt(H)
+    key = torch.arange(L, device=q.device)
+    live = key[None, :] <= ctx_lens.long()[:, None]           # [S, L]
+    ms, ls, accs = [], [], []
+    for c0 in range(0, L, chunk_keys):
+        inside = live & (key >= c0)[None, :] & (key < c0 + chunk_keys)[None]
+        sc = s.masked_fill(~inside[:, None, :], -math.inf)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - torch.where(m == -math.inf, 0.0, m))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("snl,slnh->snh", p, v))
+    M = torch.stack(ms).amax(dim=0)
+    wts = [torch.where(m == -math.inf, 0.0, torch.exp(m - M)) for m in ms]
+    out = sum(w * a for w, a in zip(wts, accs)) \
+        / sum(w * l for w, l in zip(wts, ls))
+    return out.reshape(S, 1, nh).to(q.dtype)
 
 
 def flash_prefill_plain(q, k_pages, v_pages, table_row, p0, n_heads):
@@ -177,15 +218,26 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens,
             or tuple(ctx_lens.shape) != (S,):
         raise ValueError("paged_decode_attention: block_tables must be "
                          f"[{S}, max_blocks] and ctx_lens [{S}]")
+    if nh > _DECODE_MAX_COLS[q.dtype]:
+        raise ValueError(f"paged_decode_attention: n_heads * head_dim = "
+                         f"{nh} exceeds {_DECODE_MAX_COLS[q.dtype]} for "
+                         f"{q.dtype}")
     fn, err = _build.launcher(
         "paged_decode", "paged_decode_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_void_p])
+    bs, mb = k_pages.shape[1], block_tables.shape[1]
+    chunks = -(-mb * bs // DECODE_CHUNK_KEYS)
     out = torch.empty_like(q)
+    # the chunks' partials (acc; m and l per head), f32
+    part_acc = torch.empty((S, chunks, nh), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((S, chunks, n_heads, 2), dtype=torch.float32,
+                          device=q.device)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            S, n_heads, H, k_pages.shape[1], block_tables.shape[1],
-            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(H),
+            part_acc.data_ptr(), part_ml.data_ptr(), S, n_heads, H, bs, mb,
+            DECODE_CHUNK_KEYS, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(H),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("paged_decode", rc, err)
     get_kernel("paged_decode").launches += 1

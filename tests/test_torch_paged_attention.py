@@ -9,8 +9,9 @@ declared tolerance, over the registry's own example generators and at
 GPT-3 125M head geometry (N=12, H=64, block 16) with the edge cases:
 ctx 0, ctx on a block boundary, an inactive slot with an all-null
 table, p0 = 0, p0 inside a block, p0 on a block boundary, and a chunk
-that runs past its table's last key. The plain mirror of the bf16
-kernel's key split is held against the fallback too.
+that runs past its table's last key. The plain mirrors of the kernels'
+key splits (the prefill's over warps, the decode's over chunks of keys)
+are held against the fallback and the Pallas kernel too.
 """
 import numpy as np
 import pytest
@@ -21,9 +22,11 @@ from paddle_tpu.ops import pallas_decode as jax_pd
 from paddle_tpu.ops.kernel_registry import get_kernel as jax_kernel
 
 from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
-from paddle_tpu_torch.ops.paged_attention import (flash_prefill_chunk,
+from paddle_tpu_torch.ops.paged_attention import (DECODE_CHUNK_KEYS,
+                                                  flash_prefill_chunk,
                                                   flash_prefill_split_plain,
-                                                  paged_decode_attention)
+                                                  paged_decode_attention,
+                                                  paged_decode_split_plain)
 
 _EXACT = dict(rtol=1e-5, atol=1e-5)
 
@@ -156,6 +159,48 @@ def test_prefill_key_split_matches_jax_fallback(p0, splits):
                                     splits)
     assert got.shape == q.shape and np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **_EXACT)
+
+
+def _split_case(ctx, head_dim):
+    """Two slots over 32 blocks of 16 (512 keys): slot 0 at `ctx`
+    ("inactive": ctx 0 and an all-null table; "overlong": ctx 700, past
+    the table's last key), slot 1 at ctx 200 (13 blocks)."""
+    rng = np.random.default_rng(head_dim + (ctx if isinstance(ctx, int)
+                                            else len(ctx)))
+    mb, bs, n = 32, 16, 256 // head_dim
+    kp, vp = _arena(rng, 2 * mb + 1, bs, n * head_dim)
+    tables = np.zeros((2, mb), np.int32)
+    perm = rng.permutation(np.arange(1, 2 * mb + 1)).astype(np.int32)
+    c0 = {"inactive": 0, "overlong": 700}.get(ctx, ctx)
+    if ctx != "inactive":
+        blocks = min(c0 // bs + 1, mb)
+        tables[0, :blocks] = perm[:blocks]
+    tables[1, :200 // bs + 1] = perm[mb:mb + 200 // bs + 1]
+    q = rng.standard_normal((2, 1, n * head_dim)).astype(np.float32)
+    return q, kp, vp, tables, np.array([c0, 200], np.int32), n
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("ctx", [0, 15, 16, 63, 64, 65, 127, 128, 511,
+                                 "inactive", "overlong"])
+def test_decode_key_split_matches_jax(ctx, head_dim):
+    """The plain mirror of the decode kernel's split over the keys
+    (chunks of 16, DECODE_CHUNK_KEYS and 64 keys, merged with weights
+    exp(m_c - M)) against the JAX fallback (1e-5) and the Pallas kernel
+    in interpret mode (the registry's 1e-3), at and around the chunk
+    edges, for an inactive slot and for a ctx past the table's reach."""
+    q, kp, vp, tables, ctx_arr, n = _split_case(ctx, head_dim)
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, tables, ctx_arr))
+    fallback = np.asarray(jax_pd.paged_decode_attention(*args, n,
+                                                        use_kernel=False))
+    pallas = np.asarray(jax_pd.paged_decode_attention(*args, n,
+                                                      use_kernel=True))
+    for chunk in sorted({16, DECODE_CHUNK_KEYS, 64}):
+        got = paged_decode_split_plain(_t(q), _t(kp), _t(vp), _t(tables),
+                                       _t(ctx_arr), n, chunk).numpy()
+        assert got.shape == q.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, fallback, **_EXACT)
+        np.testing.assert_allclose(got, pallas, rtol=1e-3, atol=1e-3)
 
 
 def test_plain_versions_in_bf16_match_jax_fallback():
