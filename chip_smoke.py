@@ -11,8 +11,9 @@ ok line):
              build/paddle_tpu_torch/, and print the build time and the
              registers, spills, static shared memory and "Potential
              Performance Loss" notes ptxas reports for the flash
-             forward's and backward's, the prefill chunk's and the paged
-             decode's kernels;
+             forward's and backward's, the prefill chunk's, the paged
+             decode's, the decode attention's and the int8 head's
+             kernels;
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, in f32 (TF32 off) and bf16. The serving kernels at the
              serving shapes of GPT-3 125M (12 heads of 64, block 16, 32
@@ -29,9 +30,12 @@ ok line):
              equal: no atomics) and at 24576 x 768 and
              16 x 768 (add + LayerNorm); the decode kernels at generate's
              shapes: decode_fused at batch 8, cache 256, 12 heads of 64,
-             off in {0, 7, 127, 128, 200, 255} (and head_dim 128, and
+             off in {0, 7, 63, 64, 127, 128, 135, 136, 191, 200, 255}
+             (one chunk up to 128 keys, then 8 chunks, full at 136 keys;
+             and head_dim 128, 6 heads of 64 (no group of 4 heads), and
              bf16 q over the f32 cache), int8_matvec at D 768, V 51200,
-             rows {1, 8, 16, 64, 65}, V 3072 at 3 rows, and a bf16
+             rows {1, 8, 16, 24, 40, 64, 65}, V 50257 (no multiple of
+             the kernel's 64-row tile) at rows {3, 16, 64}, and a bf16
              scale at 8 rows (generate's bf16 decode); the MoE kernels
              on maps from the port's own router at 8192 tokens, E 8,
              k 2, C 2560 (dropped choices and empty slots both real) at
@@ -50,8 +54,9 @@ ok line):
              non-causal and sq 512 < sk 1024), at the decode shape
              (batch 8, mean position 191) and at the MoE training
              shape (f32 rows of
-             768); int8_matvec also against the composed head at 8, 16,
-             64 and 128 rows;
+             768); int8_matvec at 1, 8, 16, 64 and 128 rows, each beside
+             the composed head, the dequantized bf16 matmul and a
+             product over an unquantized bf16 table;
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -163,12 +168,13 @@ ENGINE = dict(max_slots=SLOTS, block_size=BLOCK, prefill_chunk=CHUNK,
 # position of the 128 steps
 DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_CALLS = 8, 128, 128, 3
 DEC_LEN = DEC_PROMPT + DEC_NEW
-DEC_OFFS = (0, 7, 127, 128, 200, 255)
+DEC_OFFS = (0, 7, 63, 64, 127, 128, 135, 136, 191, 200, 255)
 DEC_TIMED_OFF = DEC_PROMPT + (DEC_NEW - 1) // 2
 # the int8 head: GPT-3 125M's vocab 50304 padded to a multiple of 1024
 I8_V, I8_D = 51200, 768
-I8_ROWS = (1, 8, 16, 64, 65)
-I8_PREFER_ROWS = (8, 16, 64, 128)
+I8_ROWS = (1, 8, 16, 24, 40, 64, 65)
+I8_RAGGED_V, I8_RAGGED_ROWS = 50257, (3, 16, 64)
+I8_TIMED_ROWS = (1, 8, 16, 64, 128)
 # the MoE training shape (the JAX bench's moe_train, bench.py:712-771):
 # GPT-3 125M with every MLP an 8-expert top-2 MoEFFN at capacity factor
 # 1.25, batch 8 x seq 1024 under bf16 amp
@@ -226,7 +232,8 @@ PROFILE_CATEGORIES = (
 # prints (their dynamic shared memory is in their source notes)
 PTXAS_SHOWN = ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma", "bwd_delta",
                "flash_prefill_mma", "paged_decode_split",
-               "paged_decode_merge")
+               "paged_decode_merge", "decode_attention_split",
+               "int8_matvec_wgmma")
 
 
 def card_line():
@@ -724,7 +731,7 @@ def decode_kernels_phase(torch, seed):
         dname = str(qd).split(".")[1]
         tol = k8.tol[dname]
         for b, n, h, offs in ((DEC_BATCH, N_HEADS, HEAD_DIM, DEC_OFFS),
-                              (2, 4, 128, (100,))):
+                              (2, 4, 128, (100, 200)), (2, 6, 64, (200,))):
             q = randn((b, 1, n * h), qd)
             k, v = (randn((b, DEC_LEN, n * h), cd) for _ in range(2))
             for off in offs:
@@ -736,10 +743,11 @@ def decode_kernels_phase(torch, seed):
                     f"off={off}]", got, ref, tol))
     # int8_matvec: h in f32 and bf16, the 125M head and a ragged table
     k9 = get_kernel("int8_matvec")
-    big, ragged = table(I8_V), table(2048 + 1024)
+    big, ragged = table(I8_V), table(I8_RAGGED_V)
     for hd in (f32, bf16):
         dname = str(hd).split(".")[1]
-        for B, (wq, sc) in [(r, big) for r in I8_ROWS] + [(3, ragged)]:
+        for B, (wq, sc) in [(r, big) for r in I8_ROWS] \
+                + [(r, ragged) for r in I8_RAGGED_ROWS]:
             hh = randn((B, I8_D), hd)
             got = int8_matvec(hh, wq, sc)
             ref = int8_matvec_plain(hh, wq, sc)
@@ -810,7 +818,7 @@ def decode_kernels_phase(torch, seed):
             bound=bound(nbytes, 2 * B * I8_V * I8_D, "bfloat16"),
             max_abs_err=errs[("int8_matvec", "bfloat16")])
 
-    for B in I8_PREFER_ROWS:
+    for B in I8_TIMED_ROWS:
         r = head_rows(B)
         print(f"kernels: int8_matvec B={B} D={I8_D} V={I8_V}: "
               f"{r['ms']:.4f} ms; composed head (f32 product, the plain "
@@ -1709,7 +1717,8 @@ def main(argv=None):
     print(f"build: {len(regs)} kernels from {len(sources)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in ("flash_attention_fwd", "flash_attention_bwd",
-                "flash_prefill_chunk", "paged_decode"):
+                "flash_prefill_chunk", "paged_decode", "decode_attention",
+                "int8_matvec"):
         for fn, info in sorted(_build.ptxas_info(src).items()):
             if any(k in fn for k in PTXAS_SHOWN):
                 print(f"build: ptxas {src}: {fn}: {json.dumps(info)}")

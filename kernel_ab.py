@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time this checkout's flash_fwd and paged_decode kernels against another
-checkout's, in turns, on one CUDA card.
+"""Time this checkout's flash_fwd, paged_decode, decode_fused and
+int8_matvec kernels against another checkout's, in turns, on one CUDA
+card.
 
     python3 kernel_ab.py --base DIR [--seed 0] [--reps 60]
 
@@ -15,16 +16,24 @@ same inputs:
   heads of 64, causal, bf16) and at the K2 shapes (non-causal; causal
   with sq 512 < sk 1024);
 - paged_decode at a serving decode step (16 slots, ctx uniform in
-  0..511 from --seed, 12 heads of 64, block 16, bf16).
+  0..511 from --seed, 12 heads of 64, block 16, bf16);
+- decode_fused at generate's mean step (batch 8, off 191 of a 256-key
+  cache, 12 heads of 64, bf16 q) over an f32 and a bf16 cache;
+- int8_matvec on GPT-3 125M's int8 head (V 51200, D 768) at 8, 16 and
+  64 bf16 rows.
 
 Each kernel's output is held against the plain version of this
 checkout, then both are timed base, change, change, base (median of
---reps launches by CUDA events, the L2 flushed before each; paged_decode
-also with the L2 warm) beside scaled_dot_product_attention on the same
-inputs. Prints the card's name and power limit, one JSON line per
-kernel and shape, and the same timing of one trivial launch (a
-one-element fill), the floor under every number above. Exits non-zero
-without CUDA.
+--reps launches by CUDA events, the L2 flushed before each by writing
+256 MB; paged_decode also with the L2 warm; decode_fused and
+int8_matvec also flushed by reading 256 MB, which leaves the L2 clean,
+where the write flush leaves it dirty and a kernel's reads then pay for
+as many bytes written back) beside one PyTorch call on the same inputs:
+scaled_dot_product_attention, and for int8_matvec the dequantized bf16
+matmul and a product over an unquantized bf16 table. Prints the card's
+name and power limit, one JSON line per kernel and shape, and the same
+timings of one trivial launch (a one-element fill), the floor under
+every number above. Exits non-zero without CUDA.
 """
 import argparse
 import importlib
@@ -32,6 +41,7 @@ import importlib.util
 import json
 import math
 import os
+import statistics
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,13 +59,31 @@ def load_package(root, name):
     return mod
 
 
-def turns(torch, cs, base, change, flush, reps):
+def turns(torch, cs, base, change, flush, reps, timer=None):
     """Base, change, change, base: ([base ms], [change ms])."""
-    b0 = cs.median_ms(torch, base, flush, reps=reps)
-    c0 = cs.median_ms(torch, change, flush, reps=reps)
-    c1 = cs.median_ms(torch, change, flush, reps=reps)
-    b1 = cs.median_ms(torch, base, flush, reps=reps)
+    timer = timer or (lambda fn: cs.median_ms(torch, fn, flush, reps=reps))
+    b0 = timer(base)
+    c0 = timer(change)
+    c1 = timer(change)
+    b1 = timer(base)
     return [b0, b1], [c0, c1]
+
+
+def clean_ms(torch, fn, src, reps=60, warmup=5):
+    """Median of per-launch CUDA-event times with the L2 overwritten by
+    reading `src` (256 MB) before every launch: its lines stay clean, so
+    the timed kernel's reads pay for no write-back."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        src.sum()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
 def main(argv=None):
@@ -72,13 +100,16 @@ def main(argv=None):
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    mods_used = ("flash_attention", "paged_attention", "decode_attention",
+                 "int8_matvec", "_build")
     new = {m: importlib.import_module(f"paddle_tpu_torch.ops.{m}")
-           for m in ("flash_attention", "paged_attention", "_build")}
+           for m in mods_used}
     load_package(os.path.abspath(args.base), "base_paddle_tpu_torch")
     old = {m: importlib.import_module(f"base_paddle_tpu_torch.ops.{m}")
-           for m in ("flash_attention", "paged_attention", "_build")}
+           for m in mods_used}
     for mods in (old, new):
-        mods["_build"].build(["flash_attention_fwd", "paged_decode"])
+        mods["_build"].build(["flash_attention_fwd", "paged_decode",
+                              "decode_attention", "int8_matvec"])
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())
 
@@ -153,11 +184,100 @@ def main(argv=None):
     row["bound_ms"] = cs.bound(*cs.decode_work(dargs[4].tolist(), 2),
                                "bfloat16")[0]
     print(json.dumps(row))
+    src = torch.zeros(64 * 2 ** 20, device=dev)     # 256 MB read flush
+
+    def clean(fn):
+        return clean_ms(torch, fn, src, reps=args.reps)
+
+    # decode_fused at generate's mean step, bf16 q over an f32 and a bf16
+    # cache
+    gen = torch.Generator().manual_seed(args.seed + 11)
+    B, off, L = cs.DEC_BATCH, cs.DEC_TIMED_OFF, cs.DEC_LEN
+    q = torch.randn((B, 1, n * h), generator=gen).to(dev, torch.bfloat16)
+    k32, v32 = (torch.randn((B, L, n * h), generator=gen).to(dev)
+                for _ in range(2))
+    sq = q.float().reshape(B, 1, n, h).transpose(1, 2)
+    for k, v in ((k32, v32), (k32.to(torch.bfloat16),
+                              v32.to(torch.bfloat16))):
+        ref = new["decode_attention"].decode_attention_plain(q, k, v, off, n)
+        errs = {}
+        for tag, mods in (("base", old), ("change", new)):
+            got = mods["decode_attention"].decode_attention(q, k, v, off, n)
+            torch.cuda.synchronize()
+            errs[tag] = cs.hold(f"decode_fused {tag}", got, ref,
+                                (1e-3, 1e-3))
+
+        def base():
+            return old["decode_attention"].decode_attention(q, k, v, off, n)
+
+        def change():
+            return new["decode_attention"].decode_attention(q, k, v, off, n)
+        sk, sv = (t[:, :off + 1].float().reshape(B, off + 1, n, h)
+                  .transpose(1, 2) for t in (k, v))
+        row = {"kernel": "decode_fused", "b": B, "off": off,
+               "cache": str(k.dtype).split(".")[1], "max_abs_err": errs}
+        row["base_ms"], row["change_ms"] = turns(torch, cs, base, change,
+                                                 flush, args.reps)
+        row["clean_base_ms"], row["clean_change_ms"] = turns(
+            torch, cs, base, change, None, args.reps, timer=clean)
+        row["sdpa_ms"] = cs.median_ms(
+            torch, lambda: F.scaled_dot_product_attention(sq, sk, sv),
+            flush, reps=args.reps)
+        nbytes = 2 * B * (off + 1) * n * h * k.element_size() \
+            + B * n * h * (2 + 4)
+        row["bound_ms"] = cs.bound(nbytes, 4 * B * n * (off + 1) * h,
+                                   "float32")[0]
+        print(json.dumps(row))
+
+    # int8_matvec over GPT-3 125M's int8 head, bf16 h
+    wq = torch.randint(-127, 128, (cs.I8_V, cs.I8_D), generator=gen,
+                       dtype=torch.int8).to(dev)
+    sc = ((0.01 + torch.rand((cs.I8_V,), generator=gen)) * 0.01).to(dev)
+    wb = torch.randn((cs.I8_V, cs.I8_D), generator=gen).to(
+        dev, torch.bfloat16)
+    for rows in (8, 16, 64):
+        hh = torch.randn((rows, cs.I8_D), generator=gen).to(
+            dev, torch.bfloat16)
+        ref = new["int8_matvec"].int8_matvec_plain(hh, wq, sc)
+        errs = {}
+        for tag, mods in (("base", old), ("change", new)):
+            got = mods["int8_matvec"].int8_matvec(hh, wq, sc)
+            torch.cuda.synchronize()
+            errs[tag] = cs.hold(f"int8_matvec {tag}", got, ref, (1e-4, 1e-4))
+
+        def base():
+            return old["int8_matvec"].int8_matvec(hh, wq, sc)
+
+        def change():
+            return new["int8_matvec"].int8_matvec(hh, wq, sc)
+
+        def dequant():
+            return torch.matmul(hh, wq.to(torch.bfloat16).t()) * sc
+
+        def bf16_table():
+            return torch.matmul(hh, wb.t())
+        row = {"kernel": "int8_matvec", "rows": rows, "max_abs_err": errs}
+        row["base_ms"], row["change_ms"] = turns(torch, cs, base, change,
+                                                 flush, args.reps)
+        row["clean_base_ms"], row["clean_change_ms"] = turns(
+            torch, cs, base, change, None, args.reps, timer=clean)
+        for name, fn in (("dequant_bf16_matmul", dequant),
+                         ("bf16_table", bf16_table)):
+            row[f"{name}_ms"] = cs.median_ms(torch, fn, flush,
+                                             reps=args.reps)
+            row[f"clean_{name}_ms"] = clean(fn)
+        nbytes = cs.I8_V * cs.I8_D + rows * cs.I8_D * 2 + cs.I8_V * 4 \
+            + rows * cs.I8_V * 4
+        row["bound_ms"] = cs.bound(nbytes, 2 * rows * cs.I8_V * cs.I8_D,
+                                   "bfloat16")[0]
+        print(json.dumps(row))
+
     one = torch.empty(1, device=dev)
     print(json.dumps({"launch_floor_ms": cs.median_ms(
         torch, lambda: one.fill_(1.0), flush, reps=args.reps),
         "warm_launch_floor_ms": cs.median_ms(
-            torch, lambda: one.fill_(1.0), None, reps=args.reps)}))
+            torch, lambda: one.fill_(1.0), None, reps=args.reps),
+        "clean_launch_floor_ms": clean(lambda: one.fill_(1.0))}))
     return 0
 
 

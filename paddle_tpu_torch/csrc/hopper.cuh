@@ -1,8 +1,9 @@
 // hopper.cuh — the Hopper building blocks the flash-attention kernels
-// share (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarriers, TMA
-// tile loads and the 4-D tensor maps they read, wgmma on 128-byte-
-// swizzled 64 x 64 bf16 panels, and the accumulator-to-A-fragment
-// repack. sm_90a only (wgmma).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and the int8 head
+// (int8_matvec.cu) share: mbarriers, TMA tile loads and the 2-D and 4-D
+// tensor maps they read, the generic-to-async proxy fence, wgmma on
+// 128-byte-swizzled 64 x 64 bf16 panels, and the accumulator-to-A-
+// fragment repack. sm_90a only (wgmma).
 //
 // Everything is in an unnamed namespace: each source that includes this
 // header is its own library with a plain C interface.
@@ -83,6 +84,25 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D map (c0 the inner, contiguous coordinate) into shared
+// memory as it lies in the box, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// order this thread's plain shared-memory accesses before later async-
+// proxy ones: writes that wgmma then reads, reads that a TMA refill of
+// the same bytes must not overtake
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -236,6 +256,24 @@ int encode_rows(CUtensorMap* map, EncodeTiled enc, const void* base, int H,
                          const_cast<void*>(base), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+// the 2-D map of a row-major [rows, cols] matrix whose rows lie `ld`
+// elements apart, with unswizzled box_cols x box_rows boxes; cells past
+// the matrix read as zeros. Returns 0 or kEncodeError + CUresult.
+int encode_2d(CUtensorMap* map, EncodeTiled enc, const void* base,
+              CUtensorMapDataType type, int elem_bytes, long long cols,
+              long long rows, long long ld, int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem_bytes)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;

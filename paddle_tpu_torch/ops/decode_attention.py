@@ -6,7 +6,11 @@ every batch row over keys 0..off of a flat [B, L, N*H] cache, with one
 JAX signature (paddle_tpu/ops/pallas_decode.py:606) with `off` a host
 integer, since the port's decode loop runs on the host. On a CPU tensor
 it runs its plain version, `_decode_fallback`'s dense masked attention
-in f32; on a CUDA tensor it launches its kernel or raises.
+in f32; on a CUDA tensor it launches its kernel or raises. The kernel
+splits keys 0..off into `decode_split(off)` chunks, one CTA each for a
+batch row and a group of heads, and merges them in chunk order;
+`decode_attention_split_plain` is that split and merge in f32 on any
+device.
 """
 import ctypes
 import math
@@ -19,12 +23,31 @@ from .kernel_registry import get_kernel, register_kernel
 from .paged_attention import _DTYPE_CODES, _check_cuda
 
 __all__ = ["decode_attention", "decode_attention_plain",
-           "decode_attention_supported"]
+           "decode_attention_split_plain", "decode_attention_supported",
+           "decode_split"]
 
 _HEAD_DIMS = (64, 128)      # the kernel's template instances
 # f32: the JAX registry's declared tolerance; bf16: the port's rule for
 # bf16 inputs (8-bit mantissa) against a plain version in f32
 _TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
+DECODE_ONE_CHUNK = 128      # keys the kernel takes in one chunk
+DECODE_SPLIT_KEYS = 32      # above that, keys a chunk at most...
+_MAX_CHUNKS = 8             # ...in at most this many chunks (a cluster)
+
+
+def decode_split(last):
+    """(chunks, keys a chunk) of the kernel's split of keys 0..last: one
+    chunk up to DECODE_ONE_CHUNK keys, else the fewest chunks, a power of
+    two up to 8, that leave at most DECODE_SPLIT_KEYS keys a chunk, with
+    the keys spread evenly over them. Every chunk holds at least one
+    key."""
+    keys = last + 1
+    if keys <= DECODE_ONE_CHUNK:
+        return 1, keys
+    chunks = 2
+    while chunks < _MAX_CHUNKS and chunks * DECODE_SPLIT_KEYS < keys:
+        chunks *= 2
+    return chunks, -(-keys // chunks)
 
 
 def decode_attention_supported(hidden, n_heads):
@@ -50,6 +73,35 @@ def decode_attention_plain(q, k_buf, v_buf, off, n_heads):
                                   -1e30)[None, None, None, :]
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnqk,bknh->bqnh", probs, v4)
+    return out.reshape(B, 1, nh)
+
+
+def decode_attention_split_plain(q, k_buf, v_buf, off, n_heads, chunk):
+    """The kernel's split over the keys, in f32: keys 0..min(off, L - 1)
+    are cut into chunks of `chunk` keys; each chunk keeps the (m, l, acc)
+    of its own softmax, and the chunks merge in chunk order with weights
+    exp(m_c - M). Same arguments and result as `decode_attention_plain`
+    (plus `chunk`)."""
+    B, _, nh = q.shape
+    N, H = n_heads, nh // n_heads
+    L = k_buf.shape[1]
+    last = min(off, L - 1)
+    k4 = k_buf.reshape(B, L, N, H).float()
+    v4 = v_buf.reshape(B, L, N, H).float()
+    s = torch.einsum("bnh,blnh->bnl", q.reshape(B, N, H).float(), k4) \
+        / math.sqrt(H)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, last + 1, chunk):
+        c1 = min(c0 + chunk, last + 1)
+        m = s[:, :, c0:c1].amax(dim=-1, keepdim=True)
+        p = torch.exp(s[:, :, c0:c1] - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bnl,blnh->bnh", p, v4[:, c0:c1]))
+    M = torch.stack(ms).amax(dim=0)
+    wts = [torch.exp(m - M) for m in ms]
+    out = sum(w * a for w, a in zip(wts, accs)) \
+        / sum(w * l for w, l in zip(wts, ls))
     return out.reshape(B, 1, nh)
 
 
@@ -87,15 +139,22 @@ def decode_attention(q, k_buf, v_buf, off, n_heads):
     _check_cuda("decode_attention",
                 [("q", q), ("k_buf", k_buf), ("v_buf", v_buf)],
                 {"v_buf": k_buf.dtype})
+    if k_buf.data_ptr() % 16 or v_buf.data_ptr() % 16:
+        raise ValueError("decode_attention: k_buf and v_buf must be "
+                         "16-byte aligned")
+    if q.data_ptr() % 16:           # the kernel reads q 16 bytes at a time
+        q = q.clone()
     fn, err = _build.launcher(
         "decode_attention", "decode_attention_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p])
     L = k_buf.shape[1]
     H = nh // n_heads
+    last = min(off, L - 1)
+    chunks, chunk = decode_split(last)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(), out.data_ptr(),
-            B, L, n_heads, H, min(off, L - 1), _DTYPE_CODES[q.dtype],
+            B, L, n_heads, H, last, chunks, chunk, _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[k_buf.dtype], 1.0 / math.sqrt(H),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("decode_fused", rc, err)

@@ -26,15 +26,14 @@ _BLOCK_V = 1024
 # the rounding is the same in every dtype (h to bf16, exact products, f32
 # sums); only the order of summation differs: the JAX registry's tol
 _TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-4)}
-_MAX_ROWS = 64              # batch rows per chunk (8 n-tiles of 8)
-_SMEM_BUDGET = 200 * 1024   # bytes of staged bf16 h per CTA
 
 
 def int8_matvec_preferred(rows, device):
     """Whether the quantized head takes the kernel for `rows` rows on
     `device`: decode-sized row counts on the card. The 64 is the JAX
     package's v5e bound, kept as it is; PERF.md holds the kernel against
-    the composed product at 8..128 rows on the H100."""
+    the composed product and the dequantized bf16 matmul at 1..128 rows
+    on the H100."""
     return torch.device(device).type == "cuda" and rows <= 64
 
 
@@ -46,17 +45,6 @@ def int8_matvec_plain(h, wq, scale):
     return torch.matmul(hh, wq.float().t()) * scale.float()[None, :]
 
 
-def _n_tiles(B, D):
-    """n-tiles of 8 batch rows per chunk: enough for B up to 64 rows,
-    within the shared-memory budget."""
-    nt = 1
-    while nt < _MAX_ROWS // 8 and 8 * nt < B:
-        nt *= 2
-    while nt > 1 and 16 * nt * (D + 8) > _SMEM_BUDGET:
-        nt //= 2
-    return nt
-
-
 @register_kernel(
     "int8_matvec", plain=int8_matvec_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/int8_matvec.cu",
@@ -64,7 +52,7 @@ def _n_tiles(B, D):
 def int8_matvec(h, wq, scale):
     """h [B, D] (f32 or bf16), wq int8 [V, D], scale [V] (any float
     dtype, used as f32) -> f32 [B, V] = bf16(h) @ (wq * scale[:, None]).T.
-    On the card D must be a multiple of 64."""
+    On the card D must be a multiple of 64 and wq 16-byte aligned."""
     if h.device.type == "cpu":
         return int8_matvec_plain(h, wq, scale)
     if h.device.type != "cuda":
@@ -86,12 +74,14 @@ def int8_matvec(h, wq, scale):
                 {"wq": torch.int8})
     if wq.data_ptr() % 16:
         raise ValueError("int8_matvec: wq must be 16-byte aligned")
+    if h.data_ptr() % 16:           # the kernel reads h 16 bytes at a time
+        h = h.clone()
     fn, err = _build.launcher(
         "int8_matvec", "int8_matvec_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     out = torch.empty((B, V), dtype=torch.float32, device=h.device)
     rc = fn(h.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            B, D, V, _n_tiles(B, D), _DTYPE_CODES[h.dtype],
+            B, D, V, _DTYPE_CODES[h.dtype],
             torch.cuda.current_stream(h.device).cuda_stream)
     _build.check_launch("int8_matvec", rc, err)
     get_kernel("int8_matvec").launches += 1

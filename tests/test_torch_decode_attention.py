@@ -7,9 +7,12 @@ On the CPU the wrapper runs its plain version, which copies the JAX
 fallback at 1e-5 in f32 and the JAX Pallas kernel (interpret mode off
 the TPU) at the JAX registry's declared tolerance, on the registry's
 example generator and at GPT-3 125M head geometry with off at 0, mid and
-L - 1; in bf16 within 2e-2. The GPT's `_cached_attention` over the flat
-cache (the kernel's layout) matches dense masked attention, and
-`init_cache` refuses, off the CPU, a head dim the kernel lacks.
+L - 1; in bf16 within 2e-2. The plain mirror of the card kernel's split
+over the keys (`decode_attention_split_plain`) matches both at the
+chunk edges, and `decode_split` gives every chunk a key. The GPT's
+`_cached_attention` over the flat cache (the kernel's layout) matches
+dense masked attention, and `init_cache` refuses, off the CPU, a head
+dim the kernel lacks.
 """
 import numpy as np
 import pytest
@@ -20,8 +23,9 @@ from paddle_tpu.ops import pallas_decode as jax_pd
 from paddle_tpu.ops.kernel_registry import get_kernel as jax_kernel
 
 from paddle_tpu_torch.models.gpt import _cached_attention
-from paddle_tpu_torch.ops.decode_attention import (decode_attention,
-                                                   decode_attention_supported)
+from paddle_tpu_torch.ops.decode_attention import (
+    DECODE_ONE_CHUNK, DECODE_SPLIT_KEYS, decode_attention,
+    decode_attention_split_plain, decode_attention_supported, decode_split)
 from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
 
 _EXACT = dict(rtol=1e-5, atol=1e-5)
@@ -99,6 +103,47 @@ def test_head_dim_128():
     fb, kern, got = _both(q, k, v, 17, 4)
     np.testing.assert_allclose(got, fb, **_EXACT)
     np.testing.assert_allclose(got, kern, rtol=1e-3, atol=1e-3)
+
+
+_SL = 64                    # cache length of the split cases
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("off", [0, 15, 16, 17, 31, 32, 33, _SL - 1])
+def test_key_split_matches_jax(off, head_dim):
+    """The plain mirror of the kernel's split over the keys, at chunks of
+    1, 8, 16 and 32 keys and at the kernel's own `decode_split`, against
+    the JAX fallback (1e-5) and the Pallas kernel in interpret mode (the
+    registry's 1e-3): off at 0, at a chunk's last key (15, 31), one past
+    it (16, 32, 33) and at L - 1."""
+    n = 256 // head_dim
+    rng = np.random.default_rng(100 + off + head_dim)
+    q = rng.standard_normal((2, 1, n * head_dim)).astype(np.float32)
+    k, v = (rng.standard_normal((2, _SL, n * head_dim)).astype(np.float32)
+            for _ in range(2))
+    fb, kern, _ = _both(q, k, v, off, n)
+    for chunk in sorted({1, 8, 16, 32, decode_split(off)[1]}):
+        got = decode_attention_split_plain(_t(q), _t(k), _t(v), off, n,
+                                           chunk)
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        np.testing.assert_allclose(got.numpy(), fb, **_EXACT)
+        np.testing.assert_allclose(got.numpy(), kern, rtol=1e-3, atol=1e-3)
+
+
+def test_split_gives_every_chunk_a_key():
+    """One chunk up to DECODE_ONE_CHUNK keys, else a power of two up to 8
+    chunks of at most DECODE_SPLIT_KEYS keys; every chunk holds a key.
+    GPT-3 125M at batch 8 and off >= 128 gets 8 chunks: with 3 groups
+    of 4 heads, 192 CTAs for the card's 132 SMs."""
+    for last in range(4096):
+        chunks, chunk = decode_split(last)
+        assert (chunks - 1) * chunk <= last < chunks * chunk
+        assert chunks in (1, 2, 4, 8)
+        if last < DECODE_ONE_CHUNK:
+            assert chunks == 1
+        elif chunks < 8:
+            assert chunk <= DECODE_SPLIT_KEYS
+    assert all(decode_split(last)[0] == 8 for last in range(128, 256))
 
 
 def test_supported_is_the_card_kernels_head_dims():

@@ -5,9 +5,11 @@ inputs.
 On the CPU the wrapper runs its plain version, which copies the JAX
 `_matvec_fallback` (h rounded to bf16, exact products, f32 sums, scaled
 per row). The rounding is the same in both packages; only the order of
-summation differs, so the tolerance is the JAX registry's (1e-4, 1e-4)
-against both the fallback and the Pallas kernel in interpret mode, for
-f32 and bf16 h.
+summation differs (the card kernel sums each row over k-steps of 16 d's
+in the tensor cores' order, the JAX kernel over its own blocks), so the
+tolerance is the JAX registry's (1e-4, 1e-4) against both the fallback
+and the Pallas kernel in interpret mode, for f32 and bf16 h, and at
+every batch row count the quantized head sends to the card kernel.
 """
 import numpy as np
 import pytest
@@ -59,6 +61,21 @@ def test_matches_jax(B, dtype):
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
                 else (jnp.bfloat16, torch.bfloat16))
     _check(h, wq, scale, jdt, tdt)
+
+
+@pytest.mark.parametrize("B", range(1, 65))
+def test_every_kernel_row_count_matches_jax(B):
+    """Every row count 1..64 (the card kernel's n-tiles of 8, 16, 32 and
+    64 rows, full and ragged) at a small D and a V that is no multiple
+    of a table tile, against the JAX fallback."""
+    h, wq, scale = _inputs(np.random.default_rng(200 + B), B, 64, 300)
+    jh = jnp.asarray(h, jnp.bfloat16)
+    fb = np.asarray(jax_i8._matvec_fallback(jh, jnp.asarray(wq),
+                                            jnp.asarray(scale)))
+    got = int8_matvec(torch.from_numpy(h).to(torch.bfloat16),
+                      torch.from_numpy(wq), torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and got.shape == (B, 300)
+    np.testing.assert_allclose(got.numpy(), fb, **_TOL)
 
 
 @pytest.mark.parametrize("seed", range(3))
