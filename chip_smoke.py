@@ -51,7 +51,9 @@ ok line):
              from a trace), at the serving shapes (paged_decode at 16
              slots with ctx uniform in 0..511), at the training shape
              (batch 24, seq 1024; flash_fwd also at the K2 shapes,
-             non-causal and sq 512 < sk 1024), at the decode shape
+             non-causal and sq 512 < sk 1024; layernorm_fused at the
+             rows the main paths give it, 16, 8 and 128, and at 24576,
+             beside one trivial launch), at the decode shape
              (batch 8, mean position 191) and at the MoE training
              shape (f32 rows of
              768); int8_matvec at 1, 8, 16, 64 and 128 rows, each beside
@@ -74,6 +76,32 @@ ok line):
              served with weights="wo8" over a model quantized with its
              embeddings: every stream completes and int8_matvec launches
              once per decode step and once per prefill chunk;
+4b. serve loop — the engine as a server at the serve phase's shape
+             (bf16, init --init-range): `start()` and a
+             `ServingHTTPServer` on 127.0.0.1; 8 client threads POST the
+             32 serve prompts as JSONL streams, 16 greedy and 16
+             sampled with seeds (top_k 50, top_p 0.9, temperature 0.8
+             and all three), 32 new tokens each: every stream ends with
+             done, the greedy ones pass the teacher-forced bar. Replay
+             identity: after a drain (which flushes the prefix index), 4
+             sampled requests resubmitted one at a time give their batch
+             tokens. Step times of full greedy-only and sampling
+             batches; GET /metrics carries the serving.* histogram and
+             gauge series under the exporter's names, /healthz answers
+             200. A warm restart: one decode step raises a RuntimeError
+             under load (16 streams); serving.restarts is 1, every
+             stream completes, the greedy ones pass the bar. drain():
+             /healthz 503, /livez 200, the quiesce record balances, the
+             pool is quiesced. The launch counters, zeroed before the
+             first POST, equal layers x decode steps (paged_decode),
+             layers x prefill chunks (flash_prefill_chunk) and layers x
+             both (layernorm_fused), the restart's replay included.
+             Then prng on the card against the CPU (keys, bits, and 64
+             counts of [16, vocab] categorical draws: 0 mismatches), a
+             chi-square of 20000 draws from a fixed 8-way distribution
+             (p > 1e-3), top_k 1 and a tiny top_p give the argmax, and
+             the sampler's device ms and launches a call (torch.profiler)
+             against the greedy selection's;
 5. decode  — `generate` on GPT-3 125M (the JAX bench's decode_wo8 shape:
              batch 8, prompt 128 from RandomState(--seed), 128 new tokens,
              greedy, bf16), for three recipes of one model: native,
@@ -655,8 +683,10 @@ def train_kernels_phase(torch, seed):
 
     # add + LayerNorm: the saving form at the training step's dtypes (f32
     # residual stream, bf16 branch output, f32 weights); the output-only
-    # form in bf16 (the serving engine's), at the training rows and at a
-    # decode step's 16 rows
+    # form in bf16 at the rows the main paths launch it with — a serve
+    # decode step's 16 (its `kernels` row), a generate step's 8, a
+    # prefill chunk's 128 — and at the training rows, beside one trivial
+    # launch (a one-element fill), the floor under the short ones
     rows_t, d = TRAIN_BATCH * TRAIN_SEQ, N_HEADS * HEAD_DIM
 
     def ln_args(nrows, xdt, rdt):
@@ -675,7 +705,11 @@ def train_kernels_phase(torch, seed):
         library_ms=median_ms(torch, ln_library(a), flush),
         bound=bound(*ln_work(rows_t, d, 4, 2, 4, True), "bfloat16"),
         max_abs_err=errs[("layernorm_fwd_saved", "float32")])
-    for nrows in (rows_t, SLOTS):
+    one = torch.zeros(1, device=dev)
+    floor_ms = median_ms(torch, lambda: one.fill_(1.0), flush)
+    print(f"kernels: one trivial launch (a one-element fill): "
+          f"{floor_ms:.5f} ms")
+    for nrows in (SLOTS, DEC_BATCH, CHUNK, rows_t):
         a = ln_args(nrows, torch.bfloat16, torch.bfloat16)
         row = dict(
             ms=median_ms(torch, lambda: layernorm_fused(*a), flush),
@@ -683,7 +717,8 @@ def train_kernels_phase(torch, seed):
                                flush),
             library_ms=median_ms(torch, ln_library(a), flush),
             bound=bound(*ln_work(nrows, d, 2, 2, 2, False), "bfloat16"),
-            max_abs_err=errs[("layernorm_fused", "bfloat16")])
+            max_abs_err=errs[("layernorm_fused", "bfloat16")],
+            launch_floor_ms=floor_ms)
         print(f"kernels: layernorm_fused {nrows}x{d} bf16: "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
               f"F.layer_norm(x + r) {row['library_ms']:.4f}, bound "
@@ -977,6 +1012,11 @@ def make_requests(seed, vocab, n=32, template_len=96):
     return prompts
 
 
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
 def teacher_forced(torch, model, prompt, out):
     """The dense f32 forward over prompt + output; per generated token,
     whether it is the f32 argmax and how far its logit trails the best,
@@ -1054,8 +1094,7 @@ def serve_phase(torch, seed, init_range, dtype):
     stats = dict(tokens_per_s=32 * len(prompts) / wall, wall_s=wall,
                  decode_steps=steps, prefill_chunks=chunks,
                  step_p50_ms=statistics.median(step_ms),
-                 step_p99_ms=sorted(step_ms)[
-                     min(len(step_ms) - 1, math.ceil(0.99 * len(step_ms)) - 1)],
+                 step_p99_ms=pct(step_ms, 0.99),
                  prefix_hits=ps["hits"], tokens_saved=ps["tokens_saved"],
                  distinct_mean=sum(distinct) / len(distinct),
                  constant_streams=sum(1 for d in distinct if d == 1),
@@ -1172,6 +1211,372 @@ def serve_wo8_phase(torch, seed, init_range, n=16):
     print("serve[wo8 + int8 embeddings, bf16]: " + json.dumps(stats))
     if launches != want:
         raise AssertionError(f"serve wo8: launches {launches} != {want}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the engine as a server (serve loop + HTTP front)
+# ---------------------------------------------------------------------------
+
+# 8 client threads POST the 32 serve prompts: even ones greedy (half of
+# them share the template), odd ones sampled with a seed each and one of
+# these knob sets; 32 new tokens each
+LOOP_CLIENTS, LOOP_NEW = 8, 32
+LOOP_SAMPLED = ({"top_k": 50}, {"top_p": 0.9}, {"temperature": 0.8},
+                {"top_k": 50, "top_p": 0.9, "temperature": 0.8})
+LOOP_REPLAYS = 4            # sampled requests resubmitted one at a time
+LOOP_FAULT_AT = 10          # the decode step that raises in the restart run
+# card-vs-CPU draws over [slots, vocab] f32 logits, and a chi-square test
+# of 20000 draws from a fixed 8-way distribution
+DRAW_COUNTS = 64
+CHI_P = (0.3, 0.2, 0.15, 0.1, 0.1, 0.08, 0.05, 0.02)
+CHI_DRAWS, CHI_MIN_PVALUE = 20000, 1e-3
+SAMPLER_CALLS = 10
+
+
+class ListSink:
+    """The engine's record sink, in memory (kind=serving and
+    kind=reqtrace records)."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, rec):
+        self.records.append(rec)
+        return rec
+
+
+def loop_knobs(i):
+    if i % 2 == 0:
+        return {}
+    return {"decode_strategy": "sampling", "seed": 1000 + i,
+            **LOOP_SAMPLED[(i // 2) % len(LOOP_SAMPLED)]}
+
+
+def http_streams(url, prompts, knobs, timeout=300):
+    """POST every prompt with stream=true from LOOP_CLIENTS threads; each
+    stream must end with its done event. Returns the tokens per stream."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        body = json.dumps({"prompt": prompts[i], "max_new_tokens": LOOP_NEW,
+                           "stream": True, **knobs[i]}).encode()
+        req = urllib.request.Request(
+            url + "/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            lines = [json.loads(ln)
+                     for ln in r.read().decode().strip().splitlines()]
+        toks = [ln["token"] for ln in lines[:-1]]
+        if not lines[-1].get("done") or lines[-1]["tokens"] != toks or \
+                len(toks) != LOOP_NEW:
+            raise AssertionError(f"serve loop: stream {i} ended with "
+                                 f"{lines[-1]} after {len(toks)} tokens")
+        return toks
+
+    with ThreadPoolExecutor(LOOP_CLIENTS) as ex:
+        return list(ex.map(one, range(len(prompts))))
+
+
+def http_get(url, path, timeout=60):
+    """(status, body) of a GET; an HTTP error status is returned, not
+    raised."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url + path, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def tf_check(torch, model, prompts, outs, what):
+    agree, trail = [], []
+    for prompt, out in zip(prompts, outs):
+        a, t = teacher_forced(torch, model, prompt, out)
+        agree += a
+        trail += t
+    rate = sum(agree) / len(agree)
+    if rate < TF_AGREE or max(trail) > TF_MARGIN_STD:
+        raise AssertionError(
+            f"serve loop ({what}): teacher-forced check failed: agreement "
+            f"{rate:.3f} (need {TF_AGREE}), worst trail {max(trail):.3f} "
+            f"std (limit {TF_MARGIN_STD})")
+    return rate, max(trail)
+
+
+def draws_check(torch, seed, vocab):
+    """prng on the card against the CPU: keys and bits equal, and the
+    categorical draws of 64 counts over [slots, vocab] f32 logits (a
+    mismatch can come only from torch.log rounding differently); the
+    chi-square of 20000 draws from CHI_P on the card; top_k=1 and a
+    tiny top_p select the argmax."""
+    from scipy.stats import chi2
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.serving.engine import _select
+    gen = torch.Generator().manual_seed(seed)
+    lg = torch.randn(SLOTS, vocab, generator=gen) * 3
+    lg_d = lg.to(DEVICE)
+    base = torch.stack([prng.prng_key(seed + i) for i in range(SLOTS)])
+    mismatches = 0
+    for c in range(DRAW_COUNTS):
+        counts = torch.full((SLOTS,), c * 997)
+        keys = prng.fold_in(base, counts)
+        keys_d = prng.fold_in(base.to(DEVICE), counts.to(DEVICE))
+        if not torch.equal(keys_d.cpu(), keys):
+            raise AssertionError(f"draws: fold_in keys differ on the card "
+                                 f"(count {c * 997})")
+        if c == 0 and not torch.equal(
+                prng.random_bits32(keys_d, (vocab,)).cpu(),
+                prng.random_bits32(keys, (vocab,))):
+            raise AssertionError("draws: random bits differ on the card")
+        got = prng.categorical(keys_d, lg_d).cpu()
+        mismatches += int((got != prng.categorical(keys, lg)).sum())
+    if mismatches:
+        raise AssertionError(f"draws: {mismatches} of {DRAW_COUNTS * SLOTS}"
+                             " categorical draws differ card vs CPU")
+    p = torch.tensor(CHI_P, dtype=torch.float64)
+    keys = prng.fold_in(prng.prng_key(seed, device=DEVICE).expand(
+        CHI_DRAWS, 2), torch.arange(CHI_DRAWS, device=DEVICE))
+    toks = prng.categorical(keys, p.float().log().to(DEVICE).expand(
+        CHI_DRAWS, len(CHI_P)))
+    obs = torch.bincount(toks, minlength=len(CHI_P)).cpu().double()
+    exp = p * CHI_DRAWS
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    pvalue = float(chi2.sf(stat, len(CHI_P) - 1))
+    if pvalue <= CHI_MIN_PVALUE:
+        raise AssertionError(f"draws: chi-square {stat:.2f} (p {pvalue:.2e})"
+                             f" for counts {obs.tolist()}")
+    half = SLOTS // 2
+    top_k = torch.tensor([1] * half + [0] * half, device=DEVICE)
+    top_p = torch.tensor([1.0] * half + [1e-6] * half, device=DEVICE)
+    tok, _ = _select(lg_d, base.to(DEVICE),
+                     torch.arange(SLOTS, device=DEVICE),
+                     torch.ones(SLOTS, device=DEVICE), top_k, top_p,
+                     torch.zeros(SLOTS, dtype=torch.bool, device=DEVICE))
+    if not torch.equal(tok, lg_d.argmax(dim=-1)):
+        raise AssertionError("draws: top_k=1 / a tiny top_p did not give "
+                             "the argmax")
+    return dict(draw_mismatches=mismatches,
+                draws_compared=DRAW_COUNTS * SLOTS, chi_square=stat,
+                chi_square_pvalue=pvalue, chi_square_counts=obs.tolist())
+
+
+def sampler_cost(torch, vocab):
+    """Device ms and kernel launches of one `_select` (sampling) and one
+    `_greedy` over [slots, vocab] bf16 logits (torch.profiler, CUDA
+    activity), and their host ms a call (synchronized)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.serving.engine import _greedy, _select
+    gen = torch.Generator().manual_seed(1)
+    last = (torch.randn(SLOTS, vocab, generator=gen) * 3).to(
+        DEVICE, torch.bfloat16)
+    base = torch.stack([prng.prng_key(i) for i in range(SLOTS)]).to(DEVICE)
+    args = (base, torch.arange(SLOTS, device=DEVICE),
+            torch.full((SLOTS,), 0.8, device=DEVICE),
+            torch.full((SLOTS,), 50, device=DEVICE),
+            torch.full((SLOTS,), 0.9, device=DEVICE),
+            torch.zeros(SLOTS, dtype=torch.bool, device=DEVICE))
+    out = {}
+    for name, fn in (("sampling", lambda: _select(last, *args)),
+                     ("greedy", lambda: _greedy(last))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SAMPLER_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / SAMPLER_CALLS
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SAMPLER_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        dev = device_events(prof)
+        out[name] = dict(
+            host_ms=host_ms,
+            device_ms=(sum(e.self_device_time_total for e in dev) / 1e3
+                       / SAMPLER_CALLS) if dev else "not measured",
+            launches=(sum(e.count for e in dev) / SAMPLER_CALLS)
+            if dev else "not measured")
+    return out
+
+
+def serve_loop_phase(torch, seed, init_range):
+    """The engine as a server: `start()` + `ServingHTTPServer` on
+    127.0.0.1, GPT-3 125M in bf16 at the serve phase's engine shape."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
+                                          ServingHTTPServer)
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
+                              initializer_range=init_range)
+    model = GPTForPretraining(cfg, seed=seed)          # on the card
+    sink = ListSink()
+    eng = ServingEngine(model, sink=sink, **{**ENGINE, "dtype": "bfloat16",
+                                             "restart_backoff_s": 0.01})
+    for i, p in enumerate(make_requests(seed + 1, cfg.vocab_size, n=2)):
+        eng.submit(p[:40], SamplingParams(max_new_tokens=4,
+                                          **loop_knobs(i)))
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    step_ms = {False: [], True: []}
+    decode_step = eng._decode_step
+
+    def timed_step(inputs, sampling):
+        t = time.perf_counter()
+        out = decode_step(inputs, sampling)         # ends in a host copy
+        step_ms[sampling].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._decode_step = timed_step
+    prompts = make_requests(seed, cfg.vocab_size)
+    knobs = [loop_knobs(i) for i in range(len(prompts))]
+    restarts0 = monitor.get("serving.restarts", 0)
+    timing = {}
+
+    def timed_batch(sampling, drive, what):
+        """A full batch of the first 16 prompts cut to 64 tokens; its
+        decode-step times under timing[what, sampling]."""
+        step_ms[False].clear()
+        step_ms[True].clear()
+        hs = [eng.submit(p[:64], SamplingParams(
+            max_new_tokens=LOOP_NEW, **loop_knobs(2 * j + sampling)))
+            for j, p in enumerate(prompts[:SLOTS])]
+        drive()
+        for h in hs:
+            h.result(timeout=300)
+        timing[what, sampling] = list(step_ms[sampling])
+
+    d0, c0 = eng.decode_steps, eng.prefill_chunks
+    reset_launches()
+    # the greedy batch stepped by run_until_idle on this thread, as the
+    # serve phase steps, before the loop starts: what the loop's thread
+    # costs a step
+    timed_batch(False, eng.run_until_idle, "main")
+    eng.start()
+    srv = ServingHTTPServer(eng, port=0).start()
+    try:
+        t0 = time.perf_counter()
+        outs = http_streams(srv.url, prompts, knobs)
+        http_s = time.perf_counter() - t0
+        if monitor.get("serving.restarts", 0) != restarts0 or \
+                eng.sched.preemptions:
+            raise AssertionError("serve loop: the engine restarted or "
+                                 "preempted during the clean run")
+        # replay identity: sampled requests, one at a time to the idle
+        # engine, must draw the same tokens as in the batch: each row of
+        # the fixed-shape step computes alone. Their prompts share no
+        # template, and a drain flushes the prefix index, so no prefix
+        # hit (of their own cached prompts) moves where prefill chunks
+        # start
+        if not eng.drain(timeout=300):
+            raise AssertionError("serve loop: drain did not complete")
+        eng.resume_admission()
+        for i in [i for i in range(len(prompts)) if knobs[i]][:LOOP_REPLAYS]:
+            again = eng.submit(prompts[i], SamplingParams(
+                max_new_tokens=LOOP_NEW, **knobs[i])).result(timeout=300)
+            if again != outs[i]:
+                at = next(j for j, (a, b) in enumerate(zip(again, outs[i]))
+                          if a != b)
+                raise AssertionError(
+                    f"serve loop: sampled request {i} alone differs from "
+                    f"its batch stream at token {at}")
+        # decode-step times of full batches on the loop's thread: greedy
+        # only, then sampling
+        for sampling in (False, True):
+            timed_batch(sampling, lambda: None, "loop")
+        status, text = http_get(srv.url, "/metrics")
+        for series in ("# TYPE paddle_tpu_serving_ttft_ms histogram",
+                       'paddle_tpu_serving_ttft_ms_bucket{le="+Inf"}',
+                       "paddle_tpu_serving_ttft_ms_count",
+                       "paddle_tpu_serving_tpot_ms_sum",
+                       "# TYPE paddle_tpu_serving_kv_block_utilization gauge",
+                       "paddle_tpu_serving_queue_depth",
+                       "paddle_tpu_serving_ttft_p99_ms",
+                       "# TYPE paddle_tpu_serving_tokens_generated counter"):
+            if status != 200 or series not in text:
+                raise AssertionError(f"serve loop: /metrics ({status}) "
+                                     f"lacks {series!r}")
+        status, body = http_get(srv.url, "/healthz")
+        if status != 200 or json.loads(body)["status"] != "ok":
+            raise AssertionError(f"serve loop: /healthz {status} {body}")
+        # warm restart under load: one decode step raises mid-run
+        calls = {"n": 0}
+        inner = eng._decode_step
+
+        def faulty(inputs, sampling):
+            calls["n"] += 1
+            if calls["n"] == LOOP_FAULT_AT:
+                raise RuntimeError("serve loop: injected step fault")
+            return inner(inputs, sampling)
+
+        eng._decode_step = faulty
+        n_fault = len(prompts) // 2
+        r_outs = http_streams(srv.url, prompts[:n_fault], knobs[:n_fault])
+        eng._decode_step = inner
+        restarts = monitor.get("serving.restarts", 0) - restarts0
+        if restarts != 1 or calls["n"] < LOOP_FAULT_AT:
+            raise AssertionError(f"serve loop: {restarts} restarts after "
+                                 f"one injected fault")
+        if not eng.drain(timeout=300):
+            raise AssertionError("serve loop: drain did not complete")
+        status, body = http_get(srv.url, "/healthz")
+        live, _ = http_get(srv.url, "/livez")
+        if status != 503 or json.loads(body)["status"] != "draining" or \
+                live != 200:
+            raise AssertionError(f"serve loop: while draining /healthz "
+                                 f"answered {status}, /livez {live}")
+    finally:
+        srv.stop()
+        eng.stop()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels()}
+    steps, chunks = eng.decode_steps - d0, eng.prefill_chunks - c0
+    eng.pool.assert_quiesced()
+    quiesce = [r for r in sink.records if r.get("event") == "quiesce"][-1]
+    c = quiesce["counts"]
+    if c["admitted"] != c["finished"] + c["failed"] + c["cancelled"] + \
+            c["expired"] or quiesce["kv_blocks_used"] != 0:
+        raise AssertionError(f"serve loop: the quiesce record does not "
+                             f"balance: {quiesce}")
+    L = cfg.num_layers
+    want = {**{name: 0 for name in launches},
+            "paged_decode": L * steps, "flash_prefill_chunk": L * chunks,
+            "layernorm_fused": L * (steps + chunks)}
+    if launches != want:
+        raise AssertionError(f"serve loop: launches {launches} != layers x "
+                             f"steps/chunks {want}")
+    greedy = [i for i in range(len(prompts)) if not knobs[i]]
+    tf_rate, tf_trail = tf_check(torch, model, [prompts[i] for i in greedy],
+                                 [outs[i] for i in greedy], "clean run")
+    rg = [i for i in greedy if i < n_fault]
+    rtf_rate, rtf_trail = tf_check(torch, model, [prompts[i] for i in rg],
+                                   [r_outs[i] for i in rg], "restart run")
+    draws = draws_check(torch, seed, cfg.vocab_size)
+    sampler = sampler_cost(torch, cfg.vocab_size)
+    stats = dict(
+        http_tokens_per_s=LOOP_NEW * len(prompts) / http_s, http_s=http_s,
+        greedy_step_p50_ms=statistics.median(timing["loop", False]),
+        greedy_step_p99_ms=pct(timing["loop", False], 0.99),
+        sampling_step_p50_ms=statistics.median(timing["loop", True]),
+        sampling_step_p99_ms=pct(timing["loop", True], 0.99),
+        main_thread_greedy_step_p50_ms=statistics.median(
+            timing["main", False]),
+        main_thread_greedy_step_p99_ms=pct(timing["main", False], 0.99),
+        timed_steps=[len(t) for t in timing.values()],
+        sampler=sampler, decode_steps=steps, prefill_chunks=chunks,
+        restarts=restarts, quiesce_counts=c, tf_agree=tf_rate,
+        tf_max_trail_std=tf_trail, restart_tf_agree=rtf_rate,
+        restart_tf_max_trail_std=rtf_trail, replays=LOOP_REPLAYS,
+        **draws, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"serve loop[bf16, init {init_range}] on {card_line()}: "
+          + json.dumps(stats))
     return stats
 
 
@@ -1745,6 +2150,9 @@ def main(argv=None):
     wo8 = serve_wo8_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("serve wo8")
+    loop = serve_loop_phase(torch, args.seed, args.init_range)
+    torch.cuda.empty_cache()
+    lap("serve loop")
     decode = decode_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("decode")
@@ -1761,7 +2169,7 @@ def main(argv=None):
         r = rows[k.name]
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
-                       for run in (stats, wo8, decode, train, moe))
+                       for run in (stats, wo8, loop, decode, train, moe))
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -9,7 +9,9 @@ and backward, `ops/flash_attention.py`, and the residual-add +
 LayerNorm, `ops/layernorm.py`), decoding with `generate` and weight-only
 int8 (`ops/decode_attention.py`, `ops/int8_matvec.py`), and the
 mixture-of-experts training step (the dispatch and combine kernels,
-`moe/kernels.py`), each kernel written by hand in CUDA.
+`moe/kernels.py`), each kernel written by hand in CUDA. The serving
+engine runs as a server with the JAX engine's HTTP front, metrics and
+request traces, and samples with jax.random's own draws.
 
 Layout mirrors the JAX package so a reader finds each counterpart:
 
@@ -21,13 +23,22 @@ Layout mirrors the JAX package so a reader finds each counterpart:
 - `models.gpt`    — GPTConfig presets, the GPT decoder and its loss;
 - `optimizer`     — Adam and AdamW with the JAX update rule;
 - `jit`           — TrainStep (one eager step: loss, backward, update);
-- `telemetry`     — peak FLOP/s and the train FLOPs per token (MFU);
+- `telemetry`     — peak FLOP/s and the train FLOPs per token (MFU),
+                    the serving records and their JSONL sink, request
+                    traces, the Prometheus text exposition;
 - `convert`       — load JAX-package parameters into a port model;
 - `ops`           — the kernel registry, the nvcc/ctypes build step, the
                     attention entry points and every kernel with its
                     plain version;
 - `serving`       — BlockPool/PrefixIndex/PagedKVCache, the scheduler,
-                    admission control and `ServingEngine`;
+                    admission control, `ServingEngine` (greedy and
+                    sampled decoding, the serve loop with drain and warm
+                    restart) and `ServingHTTPServer`;
+- `prng`          — jax.random's threefry2x32 PRNG (keys, bits,
+                    uniform, gumbel, categorical) in torch;
+- `monitor`       — the stat registry (counters, gauges, histograms)
+                    the engine's `serving.*` metrics live in;
+- `resilience`    — transient-vs-permanent failure classification;
 - `generation`    — `run_generate` (greedy, sampling, beam search);
 - `quant`         — weight-only int8 linears and embeddings;
 - `moe`           — the router, MoEFFN, GPTMoE and the dispatch and

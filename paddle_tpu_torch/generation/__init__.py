@@ -14,8 +14,13 @@ Token selection follows the JAX functions: greedy is the f32 argmax
 keeps the smallest prefix of the stably sorted distribution whose mass
 reaches p, and beam search takes the nb best of the nb·V candidates with
 a stable sort, so ties resolve to the lowest index as `lax.top_k`'s do.
-Sampling draws from an explicit `torch.Generator` seeded with `seed`: it
-matches the JAX package in distribution only, not in its random bits.
+Sampling draws as the JAX loop does, from jax.random's own generator
+(`prng`, threefry2x32 in torch): the base key is `PRNGKey(seed)`, every
+step splits it into (next base, step key) and draws
+`categorical(step key, logits)` over the whole batch, so a seeded run
+samples the same tokens as the JAX package's. With `seed=None` the base
+key's seed comes from torch's default generator (`torch.manual_seed`
+makes it reproducible); no such stream is claimed to match JAX's.
 `dynamic_decode`/`BeamSearchDecoder` (the RNN-cell API) are not ported.
 """
 import contextlib
@@ -23,6 +28,7 @@ import itertools
 
 import torch
 
+from .. import prng
 from ..device import resolve_device, resolve_dtype
 
 __all__ = ["run_generate"]
@@ -52,16 +58,8 @@ def _apply_top_p(logits, p):
     return torch.empty_like(masked).scatter_(-1, sort_idx, masked)
 
 
-def _categorical(logits, gen):
-    """One draw per row from softmax(logits), by the Gumbel-max trick
-    (as jax.random.categorical draws)."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-
-
 def _make_selector(decode_strategy, top_k, top_p, temperature):
-    def select(logits, gen):
+    def select(logits, key):
         lg = logits.float()
         if temperature != 1.0:
             lg = lg / temperature
@@ -72,7 +70,7 @@ def _make_selector(decode_strategy, top_k, top_p, temperature):
                 lg = _apply_top_k(lg, int(top_k))
             if top_p is not None and top_p < 1.0:
                 lg = _apply_top_p(lg, float(top_p))
-            tok = _categorical(lg, gen)
+            tok = prng.categorical(key, lg)
         logp = torch.log_softmax(logits.float(), dim=-1)
         return tok, logp.gather(-1, tok[:, None])[:, 0]
     return select
@@ -125,7 +123,7 @@ def _decode_weights(model, dtype):
 # ---------------------------------------------------------------------------
 
 def _sample_loop(model, ids, max_new, select, eos_token_id, pad_token_id,
-                 gen):
+                 rng):
     b, s0 = ids.shape
     total = s0 + max_new
     eos = -1 if eos_token_id is None else int(eos_token_id)
@@ -136,7 +134,10 @@ def _sample_loop(model, ids, max_new, select, eos_token_id, pad_token_id,
     done = torch.zeros((b,), dtype=torch.bool, device=ids.device)
     score = torch.zeros((b,), dtype=torch.float32, device=ids.device)
     for cur in range(s0, total):
-        tok, tok_logp = select(last, gen)
+        sub = None
+        if rng is not None:                 # greedy draws nothing
+            rng, sub = prng.split(rng)
+        tok, tok_logp = select(last, sub)
         tok = torch.where(done, pad_token_id, tok)
         score = score + torch.where(done, 0.0, tok_logp)
         done = done | (tok == eos)
@@ -249,11 +250,10 @@ def run_generate(model, input_ids, max_new_tokens=32,
             return _beam_loop(model, ids, int(max_new_tokens), num_beams,
                               length_penalty, eos_token_id, pad_token_id,
                               temperature)
-        gen = torch.Generator(device=wdev)
-        if seed is None:
-            gen.seed()
-        else:
-            gen.manual_seed(int(seed))
+        rng = None
+        if decode_strategy == "sampling":
+            rng = prng.prng_key(prng.fresh_seed() if seed is None
+                                else seed, device=wdev)
         select = _make_selector(decode_strategy, top_k, top_p, temperature)
         return _sample_loop(model, ids, int(max_new_tokens), select,
-                            eos_token_id, pad_token_id, gen)
+                            eos_token_id, pad_token_id, rng)

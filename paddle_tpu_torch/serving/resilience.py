@@ -4,15 +4,17 @@ The part of paddle_tpu/serving/resilience.py the scheduler and engine of
 this port need, copied unchanged: per-request server-side deadlines
 reaped at step boundaries (`expired_reason`), per-class priorities over
 the waiting queue, SLO-aware load shedding at submit time
-(`AdmissionController`), and the typed errors a stream can end with.
-The drain/stop/restart errors and the restart backoff belong to the
-background serve loop, which a later slice of the port brings.
+(`AdmissionController`), the typed errors a stream can end with or
+`submit` can raise (draining, stopped, dead), and `restart_backoff`,
+the warm-restart schedule of the background serve loop. The memory
+observatory's `MemoryPressureError` is not ported yet.
 """
 
 __all__ = [
     "PRIORITIES", "Deadlines", "AdmissionController", "ServingError",
-    "ShedError", "QueueFullError", "RequestCancelledError",
-    "DeadlineExceededError", "expired_reason",
+    "ShedError", "QueueFullError", "EngineDrainingError",
+    "EngineStoppedError", "EngineDeadError", "RequestCancelledError",
+    "DeadlineExceededError", "expired_reason", "restart_backoff",
 ]
 
 # lower value = served first; the waiting queue is FIFO within a class
@@ -99,6 +101,25 @@ class QueueFullError(ShedError):
     reason = "queue_full"
 
 
+class EngineDrainingError(ServingError):
+    """Admission is stopped for a graceful drain (HTTP 503 +
+    Retry-After): running requests finish, new ones go elsewhere."""
+
+    def __init__(self, message, retry_after_s=5.0):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+
+
+class EngineStoppedError(ServingError):
+    """The engine was stopped; queued submitters fail with this instead
+    of blocking on their handles forever."""
+
+
+class EngineDeadError(ServingError):
+    """Warm-restart attempts exhausted: the engine declared itself dead
+    and failed all outstanding work."""
+
+
 class RequestCancelledError(ServingError):
     """The request was cancelled (`RequestHandle.cancel`); its slot and
     KV blocks were released at once."""
@@ -183,3 +204,12 @@ class AdmissionController:
                 retry_after_s=max(0.1, predicted_ahead / 1000.0),
                 queue_depth=depth, predicted_wait_ms=predicted_ahead)
         return predicted
+
+
+def restart_backoff(attempt, base_s, cap_s=30.0):
+    """Warm-restart backoff before retry #`attempt` (1-based): bounded
+    doubling, deterministic (the engine's restart cap bounds total
+    attempts, so jitter buys nothing here and determinism keeps a drill
+    reproducible)."""
+    return min(float(cap_s), float(base_s) * (2.0 ** (max(1, attempt)
+                                                      - 1)))

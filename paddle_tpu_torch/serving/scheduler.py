@@ -6,10 +6,12 @@ bookkeeping, KV-block accounting against the `BlockPool`, prefix-cache
 matching at admission, and preemption by recompute (the youngest
 block-holder frees its blocks and re-queues at the front; its streamed
 tokens are kept and re-prefilled, so the stream replays identically).
-Copied from the JAX package with its logic unchanged; the per-request
-RNG key, the request tracer and the per-class admission/eviction ledger
-(read only by the memory observatory) stay behind until sampling,
-tracing and telemetry are ported. Device work lives in engine.py.
+Copied from the JAX package with its logic unchanged, including the
+per-request base RNG key (a sampled token is drawn with
+fold_in(key, token index), so a replay resumes its stream exactly) and
+the request-trace hooks; the per-class admission/eviction ledger, read
+only by the memory observatory, is not ported yet. Device work lives in
+engine.py.
 """
 import itertools
 import queue
@@ -18,6 +20,7 @@ import time
 
 import numpy as np
 
+from .. import monitor
 from .kv_cache import PagedKVCache
 from .resilience import PRIORITIES, expired_reason
 
@@ -77,7 +80,7 @@ class Request:    # guarded by: ServingEngine._mu
 
     _ids = itertools.count()
 
-    def __init__(self, prompt_ids, params, submit_time=None,
+    def __init__(self, prompt_ids, params, rng_key=None, submit_time=None,
                  deadlines=None, priority="normal", request_id=None):
         self.rid = next(Request._ids)
         # the stable client-visible id (`rid` is a per-process counter)
@@ -86,6 +89,10 @@ class Request:    # guarded by: ServingEngine._mu
         if not self.prompt:
             raise ValueError("empty prompt")
         self.params = params
+        # base key (uint32 [2], the words of prng.prng_key); token i
+        # draws with fold_in(rng_key, i)
+        self.rng_key = rng_key
+        self.static_knobs = None            # set by the engine at submit
         self.state = WAITING
         self.out_tokens = []                # streamed tokens, in order
         self.n_prefilled = 0                # cache positions written
@@ -112,6 +119,7 @@ class Request:    # guarded by: ServingEngine._mu
         self.admit_time = None              # first admission out of the queue
         self.first_token_time = None
         self.finish_time = None
+        self.trace = None                   # telemetry.reqtrace.RequestTrace
         self._stream = queue.Queue()
 
     # -- sequence accounting ------------------------------------------------
@@ -214,8 +222,8 @@ class RequestHandle:
                     "far)") from None
             if tok is _SENTINEL:
                 if self._req.failure is not None:
-                    # typed terminal: cancelled / expired — both
-                    # RuntimeError subtypes
+                    # typed terminal: cancelled / expired / engine
+                    # stopped / engine dead — all RuntimeError subtypes
                     raise self._req.failure
                 if self._req.error is not None:
                     raise RuntimeError(
@@ -427,8 +435,8 @@ class Scheduler:    # guarded by: ServingEngine._mu
 
     def _release(self, req):
         """Give back everything `req` holds: blocks, slot, pipeline
-        membership. The single reclaim point — finish and preemption
-        both go through it, which is what makes
+        membership. The single reclaim point — finish, preemption, and
+        warm-restart requeue all go through it, which is what makes
         `BlockPool.assert_quiesced` a meaningful invariant."""
         if req.blocks:
             # drops THIS request's reference only: a prefix-shared
@@ -450,7 +458,8 @@ class Scheduler:    # guarded by: ServingEngine._mu
         of its priority class for recompute-replay (streamed tokens are
         kept — they are already on the wire — and re-prefill recomputes
         their K/V, so the stream replays identically). No preemption
-        accounting."""
+        accounting: engine warm restarts ride this after a transient
+        step fault."""
         if req in self.waiting:
             return
         self._release(req)
@@ -464,9 +473,16 @@ class Scheduler:    # guarded by: ServingEngine._mu
 
     def preempt(self, req):
         """Evict-by-recompute: `requeue` plus the preemption ledger."""
+        if req.trace is not None and req not in self.waiting:
+            # the trace marks WHY the request goes back to the queue
+            # (before requeue resets n_prefilled — the span records how
+            # much written progress the eviction threw away)
+            req.trace.note_requeue(time.monotonic(), "preempt",
+                                   n_prefilled=req.n_prefilled)
         self.requeue(req)
         req.preemptions += 1
         self.preemptions += 1
+        monitor.incr("serving.preemptions")
 
     def note_prefill_done(self, req):
         """Prefill covered the whole sequence: register the request's

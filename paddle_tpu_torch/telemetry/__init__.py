@@ -1,4 +1,11 @@
-"""Telemetry of the port (paddle_tpu/telemetry counterparts): MFU."""
+"""Telemetry of the port (paddle_tpu/telemetry counterparts): MFU, the
+serving records and their JSONL sink, request traces, and the
+Prometheus text exposition."""
+from .metrics_http import prometheus_text
 from .mfu import device_peak_flops, gpt_train_flops_per_token, mfu
+from .reqtrace import RequestTrace, RequestTracer
+from .sink import JsonlSink, make_reqtrace_record, make_serving_record
 
-__all__ = ["device_peak_flops", "gpt_train_flops_per_token", "mfu"]
+__all__ = ["device_peak_flops", "gpt_train_flops_per_token", "mfu",
+           "prometheus_text", "RequestTrace", "RequestTracer", "JsonlSink",
+           "make_reqtrace_record", "make_serving_record"]

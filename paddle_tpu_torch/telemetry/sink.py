@@ -1,0 +1,242 @@
+"""Structured records of the serving engine, and the JSONL sink.
+
+The port's copy of the serving subset of paddle_tpu/telemetry/sink.py,
+unchanged: the kind=serving lifecycle record (`make_serving_record`,
+`SERVING_EVENTS`), the kind=reqtrace request timeline
+(`make_reqtrace_record`, `REQTRACE_SPAN_KINDS`), and `JsonlSink`, the
+append-only file they are written to. Same schema version and keys, so
+the JAX package's offline tools read a ledger of either engine.
+"""
+import atexit
+import json
+import os
+import threading
+import weakref
+
+__all__ = ["SCHEMA_VERSION", "SERVING_EVENTS", "REQTRACE_SPAN_KINDS",
+           "REQTRACE_OUTCOMES", "make_serving_record",
+           "make_reqtrace_record", "JsonlSink"]
+
+# one process-wide atexit hook over weak refs: sinks stay collectable
+# (a per-instance atexit.register would pin every sink + its fd for the
+# process lifetime) while anything still alive at exit gets flushed
+_LIVE_SINKS = weakref.WeakSet()
+_ATEXIT_INSTALLED = False
+
+
+def _close_live_sinks():
+    for sink in list(_LIVE_SINKS):
+        sink.close()
+
+
+SCHEMA_VERSION = 1
+
+# a serving-lifecycle record (serving.engine.ServingEngine) always
+# carries schema, kind, rank, event; optional: rid, engine, queue_depth,
+# queue_wait_ms, queue_deadline_ms, predicted_wait_ms, retry_after_s,
+# n_tokens, priority, reason, error, attempt, requeued, running,
+# completed, drained_ms, kv_blocks_used, counts
+# the request-lifecycle vocabulary: admitted (passed admission control
+# into the bounded queue), one of four TERMINAL outcomes (finished /
+# failed / cancelled / expired), shed (rejected up front: queue full or
+# predicted to blow its deadline — MUST carry queue_depth, the
+# pressure that justified the rejection), restart (transient step
+# fault -> arenas rebuilt, in-flight requeued for recompute-replay),
+# drain_begin/drain_end (graceful drain protocol), quiesce (engine
+# idle: counts must balance — admitted == finished+failed+cancelled+
+# expired — and kv_blocks_used must be 0; tools/trace_check.py
+# enforces both).
+SERVING_EVENTS = ("admitted", "finished", "failed", "cancelled",
+                  "expired", "shed", "restart", "drain_begin",
+                  "drain_end", "quiesce")
+
+# a per-request trace record (telemetry.reqtrace.RequestTracer)
+# always carries schema, kind, rank, rid, outcome, e2e_ms, spans;
+# optional: engine, t0_s, ttft_ms, tpot_ms, queue_wait_ms, n_tokens,
+# prompt_len, preemptions
+# the span vocabulary: queued (waiting; `reason` says why — submit /
+# preempt / restart), admit (the admission decision with its prefix-hit
+# info), shed (rejected up front), prefill_chunk (one chunked-prefill
+# dispatch; `replay`+`replay_cause` mark chunks recomputing positions a
+# preemption or warm restart threw away), decode (CONSECUTIVE decode
+# steps coalesced into one segment at engine-step boundaries — one span
+# per decode stretch, never one per token), preempt / restart_replay
+# (the requeue markers), cow_fork (copy-on-write block fork), finalize
+# (terminal transition + stream close). Spans TILE the request's
+# [submit, finish] wall-clock interval — each begins where the previous
+# ended — which is what makes the decomposition invariant (durations
+# sum to e2e_ms) checkable by tools/trace_check.py.
+# `collective` / `transfer` are the multi-chip vocabulary (ROADMAP
+# multi-chip serving item): time inside a cross-chip collective or a
+# host<->device / chip<->chip transfer. They tile like every other
+# kind, so the decomposition invariant is unchanged — a trace carrying
+# them still sums to e2e_ms.
+REQTRACE_SPAN_KINDS = ("queued", "admit", "shed", "prefill_chunk",
+                       "decode", "preempt", "cow_fork", "restart_replay",
+                       "finalize", "collective", "transfer")
+# trace outcomes: the four terminal request states plus `shed` (the
+# request never entered the engine; its trace is the admission verdict)
+REQTRACE_OUTCOMES = ("finished", "failed", "cancelled", "expired",
+                     "shed")
+
+
+def make_serving_record(event, rank=0, rid=None, engine=None,
+                        queue_depth=None, queue_wait_ms=None,
+                        queue_deadline_ms=None, predicted_wait_ms=None,
+                        retry_after_s=None, n_tokens=None, priority=None,
+                        reason=None, error=None, kv_blocks_used=None,
+                        counts=None, **extra):
+    """One serving-lifecycle event as a first-class record
+    (kind="serving", serving.engine.ServingEngine). `event` is one
+    of SERVING_EVENTS; `engine` is the emitting engine instance id (so
+    one ledger can carry several sequential engines and the quiesce
+    accounting stays per-engine); `counts` is the quiesce snapshot of
+    the engine's request accounting."""
+    if event not in SERVING_EVENTS:
+        raise ValueError(f"serving event must be one of {SERVING_EVENTS}, "
+                         f"got {event!r}")
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "serving",
+        "rank": int(rank),
+        "event": str(event),
+    }
+    if rid is not None:
+        rec["rid"] = int(rid)
+    if engine is not None:
+        rec["engine"] = int(engine)
+    if queue_depth is not None:
+        rec["queue_depth"] = int(queue_depth)
+    if queue_wait_ms is not None:
+        rec["queue_wait_ms"] = round(float(queue_wait_ms), 4)
+    if queue_deadline_ms is not None:
+        rec["queue_deadline_ms"] = round(float(queue_deadline_ms), 4)
+    if predicted_wait_ms is not None:
+        rec["predicted_wait_ms"] = round(float(predicted_wait_ms), 4)
+    if retry_after_s is not None:
+        rec["retry_after_s"] = round(float(retry_after_s), 4)
+    if n_tokens is not None:
+        rec["n_tokens"] = int(n_tokens)
+    if priority is not None:
+        rec["priority"] = str(priority)
+    if reason is not None:
+        rec["reason"] = str(reason)
+    if error is not None:
+        rec["error"] = str(error)
+    if kv_blocks_used is not None:
+        rec["kv_blocks_used"] = int(kv_blocks_used)
+    if counts is not None:
+        rec["counts"] = {str(k): int(v) for k, v in counts.items()}
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+def make_reqtrace_record(rid, outcome, spans, e2e_ms, rank=0, engine=None,
+                         t0_s=None, ttft_ms=None, tpot_ms=None,
+                         queue_wait_ms=None, n_tokens=None,
+                         prompt_len=None, preemptions=None, **extra):
+    """One request's complete span timeline as a first-class record
+    (kind='reqtrace', telemetry.reqtrace.RequestTracer). `spans` is the
+    ordered tiling of the request's wall-clock life — each span a dict
+    {kind, t0_ms, dur_ms, ...attrs} with t0_ms relative to submit time —
+    and `e2e_ms` the end-to-end latency the span durations must sum to
+    (tools/trace_check.py enforces the decomposition within 1%).
+    `t0_s` is the submit instant on the process monotonic clock, which
+    is what lets offline tools order requests and the Chrome export
+    place per-request lanes next to engine-step spans."""
+    if outcome not in REQTRACE_OUTCOMES:
+        raise ValueError(f"reqtrace outcome must be one of "
+                         f"{REQTRACE_OUTCOMES}, got {outcome!r}")
+    norm = []
+    for sp in spans:
+        s = {"kind": str(sp["kind"]),
+             "t0_ms": round(float(sp["t0_ms"]), 4),
+             "dur_ms": round(float(sp["dur_ms"]), 4)}
+        for k, v in sp.items():
+            if k not in ("kind", "t0_ms", "dur_ms") and v is not None:
+                s[k] = v
+        norm.append(s)
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "reqtrace",
+        "rank": int(rank),
+        "rid": int(rid),
+        "outcome": str(outcome),
+        "e2e_ms": round(float(e2e_ms), 4),
+        "spans": norm,
+    }
+    if engine is not None:
+        rec["engine"] = int(engine)
+    if t0_s is not None:
+        rec["t0_s"] = round(float(t0_s), 6)
+    if ttft_ms is not None:
+        rec["ttft_ms"] = round(float(ttft_ms), 4)
+    if tpot_ms is not None:
+        rec["tpot_ms"] = round(float(tpot_ms), 4)
+    if queue_wait_ms is not None:
+        rec["queue_wait_ms"] = round(float(queue_wait_ms), 4)
+    if n_tokens is not None:
+        rec["n_tokens"] = int(n_tokens)
+    if prompt_len is not None:
+        rec["prompt_len"] = int(prompt_len)
+    if preemptions is not None:
+        rec["preemptions"] = int(preemptions)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+class JsonlSink:
+    """Append-only JSONL metrics file, one record per line. Thread-safe.
+
+    Crash durability: the file handle is held open and every record is
+    flushed to the OS as it is written, and live sinks are closed by a
+    process-wide `atexit` hook (weak refs — a sink is still collectable
+    the moment its owner drops it) — records buffered at the moment of
+    an exception (or a SystemExit tearing the interpreter down) are on
+    disk, not lost in a dead buffer. A write after close() transparently
+    reopens (append), so a closed sink still works."""
+
+    def __init__(self, path):
+        global _ATEXIT_INSTALLED
+        self.path = os.fspath(path)
+        d = os.path.dirname(os.path.abspath(self.path))
+        os.makedirs(d, exist_ok=True)
+        self._mu = threading.Lock()
+        self._n = 0
+        self._f = open(self.path, "a")
+        if not _ATEXIT_INSTALLED:
+            atexit.register(_close_live_sinks)
+            _ATEXIT_INSTALLED = True
+        _LIVE_SINKS.add(self)
+
+    def write(self, record):
+        line = json.dumps(record, sort_keys=True)
+        with self._mu:
+            if self._f is None or self._f.closed:
+                self._f = open(self.path, "a")
+            self._f.write(line + "\n")
+            self._f.flush()
+            self._n += 1
+        return record
+
+    def flush(self):
+        with self._mu:
+            if self._f is not None and not self._f.closed:
+                self._f.flush()
+                try:
+                    os.fsync(self._f.fileno())
+                except OSError:
+                    pass
+
+    def close(self):
+        with self._mu:
+            if self._f is not None and not self._f.closed:
+                self._f.flush()
+                self._f.close()
+
+    def __len__(self):
+        return self._n

@@ -6,10 +6,11 @@ token-identical ids, with scores within 1e-4, for the native weights,
 weight-only int8 linears and int8 linears + embeddings; an EOS stop must
 pad the same way. On the CPU both packages take the composed head and
 the port's one-token steps run `decode_fused`'s plain version, which is
-the JAX composed f32 attention. Sampling matches the JAX package in
-distribution only, so it is held to its own rules: seeded determinism
-and every token inside the top-k set or the top-p nucleus of its logits;
-`_apply_top_k`/`_apply_top_p` equal the JAX functions on the same logits.
+the JAX composed f32 attention. Sampling is also held to its own rules:
+seeded determinism and every token inside the top-k set or the top-p
+nucleus of its logits; `_apply_top_k`/`_apply_top_p` equal the JAX
+functions on the same logits. Seeded sampling is token-identical to the
+JAX package's (tests/test_torch_serving_sampling.py).
 """
 import numpy as np
 import pytest

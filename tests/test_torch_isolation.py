@@ -67,6 +67,36 @@ def test_importing_every_submodule_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# the modules of the served path's host runtime: each keeps its own copy
+# of what it needs from a JAX-package module that imports no JAX
+_SERVING_MODULES = (
+    "paddle_tpu_torch.prng", "paddle_tpu_torch.monitor",
+    "paddle_tpu_torch.resilience", "paddle_tpu_torch.resilience.retry",
+    "paddle_tpu_torch.telemetry.sink", "paddle_tpu_torch.telemetry.reqtrace",
+    "paddle_tpu_torch.telemetry.metrics_http",
+    "paddle_tpu_torch.serving.engine", "paddle_tpu_torch.serving.http",
+    "paddle_tpu_torch.serving.resilience",
+    "paddle_tpu_torch.serving.scheduler")
+
+
+def test_serving_runtime_modules_stand_alone():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {list(_SERVING_MODULES)!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(p, _ROOT) for p in _package_files()}
+    for m in _SERVING_MODULES:
+        rel = m.replace(".", "/")
+        assert f"{rel}.py" in files or f"{rel}/__init__.py" in files, m
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.moe import GPTMoE, gpt_moe_tiny_config

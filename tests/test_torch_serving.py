@@ -148,8 +148,6 @@ def test_prefix_hit_mid_block_forks_and_matches(models):
 def test_engine_refuses_what_is_not_ported(models):
     _, tm = models
     eng = ServingEngine(tm, device="cpu", **_ENGINE)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.submit([1, 2, 3], SamplingParams(decode_strategy="sampling"))
     with pytest.raises(ValueError, match="'native' or 'wo8'"):
         ServingEngine(tm, device="cpu", weights="int4")
     with pytest.raises(ValueError):
