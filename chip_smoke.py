@@ -102,6 +102,48 @@ ok line):
              (p > 1e-3), top_k 1 and a tiny top_p give the argmax, and
              the sampler's device ms and launches a call (torch.profiler)
              against the greedy selection's;
+4c. memory — the memory observatory over the CUDA caching allocator, one
+             engine at the serve phase's shape (bf16): 16 of the serve
+             prompts served with the ledger sampled every step (launch
+             counts exact); then a snapshot whose params bucket equals
+             the serving copy's parameter and buffer bytes, whose kv
+             bucket equals the arenas' bytes, whose total equals
+             torch.cuda.memory_reserved() and is the sum of its buckets.
+             An engine with hbm_budget_mb below that total sheds:
+             submit raises MemoryPressureError and POST /generate
+             answers 429 with Retry-After (serving.mem_shed counts
+             both). An engine with the card's memory as its budget sheds
+             nothing; one of its decode steps asks the allocator for
+             twice the card: a real torch.OutOfMemoryError, a postmortem
+             record (the old arenas' bytes, num_ooms, the largest
+             segments) written before the restart record, one warm
+             restart, every stream complete and past the teacher-forced
+             bar. The ledger records pass telemetry/ledger_check.py;
+4d. fleet  — paddle_tpu_torch.fleet.drill on the card: three replica
+             processes (`python -m paddle_tpu_torch.fleet.drill --serve`,
+             each an engine at the serve shape, bf16, with its own
+             engine_id and ledger) and a fourth behind a router of its
+             own (the single-replica baseline), spawned in parallel;
+             every replica's weight checksum equals this process's
+             reference model's. A FleetRouter over HTTPReplicas in this
+             process: the 32 serve prompts as greedy streams (32 new
+             tokens), two waves over the three replicas and two over
+             the one (best of 2: fleet.rated_throughput_tokens_per_sec
+             and fleet.scaling_efficiency); the chaos wave, where the
+             replica of the first stream to reach 16 tokens is
+             SIGKILLed: every stream completes, every splice balances,
+             the tokens streamed before the kill equal the second
+             wave's, the router's time to declare the death is printed;
+             the victim respawned under a new engine_id; a rolling
+             restart of the three under feeder traffic (half greedy,
+             half sampled with seeds), zero failures; a last wave
+             through a FleetHTTPServer (its /metrics, /healthz and
+             /replicas read). Every greedy stream passes the
+             teacher-forced bar; the fleet-wide prefix hit rate is above
+             0; the concatenated ledger (every incarnation and both
+             routers) passes telemetry/ledger_check.py; every replica
+             that exited cleanly ran on this card and launched
+             layernorm_fused, paged_decode and flash_prefill_chunk;
 5. decode  — `generate` on GPT-3 125M (the JAX bench's decode_wo8 shape:
              batch 8, prompt 128 from RandomState(--seed), 128 new tokens,
              greedy, bf16), for three recipes of one model: native,
@@ -153,7 +195,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -265,11 +306,8 @@ PTXAS_SHOWN = ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma", "bwd_delta",
 
 
 def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
+    from paddle_tpu_torch.device import card_line
+    return card_line()
 
 
 # ---------------------------------------------------------------------------
@@ -997,19 +1035,10 @@ def moe_kernels_phase(torch, seed):
 # ---------------------------------------------------------------------------
 
 def make_requests(seed, vocab, n=32, template_len=96):
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    template = rng.integers(0, vocab, template_len).tolist()
-    lengths = rng.integers(16, 385, n)
-    prompts = []
-    for i, length in enumerate(lengths):
-        if i % 2 == 0:
-            tail = rng.integers(0, vocab, max(int(length), template_len + 1)
-                                - template_len).tolist()
-            prompts.append(template + tail)
-        else:
-            prompts.append(rng.integers(0, vocab, int(length)).tolist())
-    return prompts
+    """`n` prompts of 16..384 tokens, the even ones sharing a template
+    (the fleet drill's serve prompts)."""
+    from paddle_tpu_torch.fleet.drill import serve_prompts
+    return serve_prompts(seed, vocab, n, template_len)
 
 
 def pct(xs, q):
@@ -1222,8 +1251,6 @@ def serve_wo8_phase(torch, seed, init_range, n=16):
 # them share the template), odd ones sampled with a seed each and one of
 # these knob sets; 32 new tokens each
 LOOP_CLIENTS, LOOP_NEW = 8, 32
-LOOP_SAMPLED = ({"top_k": 50}, {"top_p": 0.9}, {"temperature": 0.8},
-                {"top_k": 50, "top_p": 0.9, "temperature": 0.8})
 LOOP_REPLAYS = 4            # sampled requests resubmitted one at a time
 LOOP_FAULT_AT = 10          # the decode step that raises in the restart run
 # card-vs-CPU draws over [slots, vocab] f32 logits, and a chi-square test
@@ -1247,10 +1274,11 @@ class ListSink:
 
 
 def loop_knobs(i):
-    if i % 2 == 0:
-        return {}
-    return {"decode_strategy": "sampling", "seed": 1000 + i,
-            **LOOP_SAMPLED[(i // 2) % len(LOOP_SAMPLED)]}
+    """Even requests greedy, odd ones sampled with a seed of their own
+    and one of the fleet drill's knob sets (top_k 50, top_p 0.9,
+    temperature 0.8, all three)."""
+    from paddle_tpu_torch.fleet.drill import feeder_knobs
+    return feeder_knobs(i)
 
 
 def http_streams(url, prompts, knobs, timeout=300):
@@ -1300,7 +1328,7 @@ def tf_check(torch, model, prompts, outs, what):
     rate = sum(agree) / len(agree)
     if rate < TF_AGREE or max(trail) > TF_MARGIN_STD:
         raise AssertionError(
-            f"serve loop ({what}): teacher-forced check failed: agreement "
+            f"{what}: teacher-forced check failed: agreement "
             f"{rate:.3f} (need {TF_AGREE}), worst trail {max(trail):.3f} "
             f"std (limit {TF_MARGIN_STD})")
     return rate, max(trail)
@@ -1553,10 +1581,12 @@ def serve_loop_phase(torch, seed, init_range):
                              f"steps/chunks {want}")
     greedy = [i for i in range(len(prompts)) if not knobs[i]]
     tf_rate, tf_trail = tf_check(torch, model, [prompts[i] for i in greedy],
-                                 [outs[i] for i in greedy], "clean run")
+                                 [outs[i] for i in greedy],
+                                 "serve loop (clean run)")
     rg = [i for i in greedy if i < n_fault]
     rtf_rate, rtf_trail = tf_check(torch, model, [prompts[i] for i in rg],
-                                   [r_outs[i] for i in rg], "restart run")
+                                   [r_outs[i] for i in rg],
+                                   "serve loop (restart run)")
     draws = draws_check(torch, seed, cfg.vocab_size)
     sampler = sampler_cost(torch, cfg.vocab_size)
     stats = dict(
@@ -1577,6 +1607,287 @@ def serve_loop_phase(torch, seed, init_range):
         phase_s=time.perf_counter() - t_phase)
     print(f"serve loop[bf16, init {init_range}] on {card_line()}: "
           + json.dumps(stats))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the memory observatory (one engine at the serve shape)
+# ---------------------------------------------------------------------------
+
+MEM_REQUESTS = 16           # served per engine in the memory phase
+MEM_FAULT_AT = 6            # the decode step that asks for too much memory
+MEM_SNAP_TIMED = 50         # snapshots timed alone
+GIB = 2 ** 30
+
+
+def memory_phase(torch, seed, init_range):
+    """The ledger against the CUDA caching allocator, the headroom shed
+    (direct and over HTTP), a budget that never sheds, and a real
+    allocation failure inside a step -> postmortem before the arena
+    rebuild, one warm restart, every stream complete."""
+    import gc
+    import urllib.error
+    import urllib.request
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.serving import (MemoryPressureError,
+                                          SamplingParams, ServingEngine,
+                                          ServingHTTPServer)
+    from paddle_tpu_torch.telemetry.ledger_check import check_records
+    from paddle_tpu_torch.telemetry.mem_obs import registered_providers
+    t_phase = time.perf_counter()
+    gc.collect()        # the earlier phases' engines must be gone
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
+                              initializer_range=init_range)
+    model = GPTForPretraining(cfg, seed=seed)          # on the card
+    prompts = make_requests(seed, cfg.vocab_size)[:MEM_REQUESTS]
+    sink = ListSink()
+    eng = ServingEngine(model, sink=sink, **{**ENGINE, "dtype": "bfloat16"})
+    if len(registered_providers()) != 2:
+        raise AssertionError(f"memory: providers of other engines are "
+                             f"alive: {registered_providers()}")
+    # the phase's main path: the engine serving, the ledger sampled at
+    # every step
+    d0, c0 = eng.decode_steps, eng.prefill_chunks
+    reset_launches()
+    hs = [eng.submit(p, SamplingParams(max_new_tokens=LOOP_NEW))
+          for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels()}
+    steps, chunks = eng.decode_steps - d0, eng.prefill_chunks - c0
+    L = cfg.num_layers
+    want = {**{name: 0 for name in launches},
+            "paged_decode": L * steps, "flash_prefill_chunk": L * chunks,
+            "layernorm_fused": L * (steps + chunks)}
+    if launches != want or not all(h.finished for h in hs):
+        raise AssertionError(f"memory: launches {launches} != {want}, or "
+                             "a stream did not complete")
+    snaps = [r for r in sink.records if r.get("kind") == "memsnap"]
+    if len(snaps) != eng._steps:
+        raise AssertionError(f"memory: {len(snaps)} snapshots in "
+                             f"{eng._steps} steps")
+    # the ledger against the allocator, read back to back
+    rec = eng.mem_obs.snapshot(eng._steps + 1)
+    reserved = torch.cuda.memory_reserved()
+    net = eng._net
+    params = sum(t.numel() * t.element_size()
+                 for t in {*net.parameters(), *net.buffers()})
+    kv = sum(a.numel() * a.element_size() for a in eng.cache.k + eng.cache.v)
+    buckets = {b: rec[b] for b in ("params_bytes", "opt_state_bytes",
+                                   "kv_bytes", "workspace_bytes",
+                                   "other_bytes")}
+    if rec["params_bytes"] != params or rec["kv_bytes"] != kv or \
+            rec["total_bytes"] != reserved or \
+            sum(buckets.values()) != rec["total_bytes"]:
+        raise AssertionError(
+            f"memory: ledger {rec} against params {params}, kv {kv}, "
+            f"reserved {reserved}")
+    total = rec["total_bytes"]
+    # what a snapshot costs the step that takes it (host time)
+    snap_ms = []
+    for i in range(MEM_SNAP_TIMED):
+        t = time.perf_counter()
+        eng.mem_obs.snapshot(eng._steps + 2 + i)
+        snap_ms.append((time.perf_counter() - t) * 1e3)
+    del eng, hs
+    gc.collect()        # the ledger is per process: one engine at a time
+    # a budget below the measured total: admission sheds, directly and
+    # over HTTP (429 + Retry-After)
+    shed0 = monitor.get("serving.mem_shed", 0)
+    low = ServingEngine(model, **{**ENGINE, "dtype": "bfloat16",
+                                  "hbm_budget_mb": total // 2 ** 20 - 1})
+    low.mem_obs.snapshot(0)
+    if low.mem_obs.headroom_bytes() != 0:
+        raise AssertionError(f"memory: headroom {low.mem_obs.last}")
+    try:
+        low.submit(prompts[0], SamplingParams(max_new_tokens=4))
+        raise AssertionError("memory: an exhausted budget admitted")
+    except MemoryPressureError as e:
+        if e.reason != "mem_pressure" or e.retry_after_s <= 0:
+            raise
+    low.start()
+    srv = ServingHTTPServer(low, port=0).start()
+    try:
+        body = json.dumps({"prompt": prompts[0], "max_new_tokens": 4,
+                           "stream": True}).encode()
+        req = urllib.request.Request(
+            srv.url + "/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            raise AssertionError("memory: HTTP admitted past the budget")
+        except urllib.error.HTTPError as e:
+            reply = json.loads(e.read().decode())
+            if e.code != 429 or e.headers.get("Retry-After") is None or \
+                    reply.get("reason") != "mem_pressure":
+                raise AssertionError(f"memory: HTTP answered {e.code} "
+                                     f"{dict(e.headers)} {reply}")
+    finally:
+        srv.stop()
+        low.stop()
+    if monitor.get("serving.mem_shed", 0) != shed0 + 2 or \
+            low._counts["admitted"] != 0:
+        raise AssertionError("memory: serving.mem_shed did not count the "
+                             "two sheds")
+    del low, srv
+    gc.collect()
+    # the card's memory as the budget: nothing sheds. Then a step that
+    # asks the allocator for more than the card has: a real
+    # torch.OutOfMemoryError -> postmortem, warm restart, every stream
+    # complete
+    card_mb = torch.cuda.get_device_properties(0).total_memory // 2 ** 20
+    psink = ListSink()
+    high = ServingEngine(model, sink=psink,
+                         **{**ENGINE, "dtype": "bfloat16",
+                            "hbm_budget_mb": card_mb,
+                            "restart_backoff_s": 0.01})
+    kv_high = high.cache.nbytes
+    calls = {"n": 0}
+    inner = high._decode_step
+
+    def greedy_for_memory(inputs, sampling):
+        calls["n"] += 1
+        if calls["n"] == MEM_FAULT_AT:
+            torch.empty(2 * card_mb * 2 ** 20, dtype=torch.uint8,
+                        device=DEVICE)
+        return inner(inputs, sampling)
+
+    high._decode_step = greedy_for_memory
+    ooms0 = torch.cuda.memory_stats().get("num_ooms", 0)
+    restarts0 = monitor.get("serving.restarts", 0)
+    high.start()
+    try:
+        hs = [high.submit(p, SamplingParams(max_new_tokens=LOOP_NEW))
+              for p in prompts]
+        outs = [h.result(timeout=300) for h in hs]
+        if not high.drain(timeout=300):
+            raise AssertionError("memory: drain did not complete")
+    finally:
+        high.stop()
+    recs = psink.records
+    posts = [i for i, r in enumerate(recs) if r.get("event") == "postmortem"]
+    restarts = [i for i, r in enumerate(recs)
+                if r.get("kind") == "serving" and r.get("event") == "restart"]
+    if calls["n"] < MEM_FAULT_AT or len(posts) != 1 or len(restarts) != 1 \
+            or posts[0] > restarts[0] or \
+            monitor.get("serving.restarts", 0) != restarts0 + 1:
+        raise AssertionError(f"memory: {len(posts)} postmortems, "
+                             f"{len(restarts)} restarts after one OOM")
+    post = recs[posts[0]]
+    if "OutOfMemoryError" not in post["error"] or \
+            post["kv_bytes"] != kv_high or post["num_ooms"] <= ooms0 or \
+            not post["top_arrays"] or not post["top_segments"]:
+        raise AssertionError(f"memory: postmortem {post}")
+    if any(len(o) != LOOP_NEW for o in outs) or \
+            high._counts["shed"] or high._counts["admitted"] != len(prompts):
+        raise AssertionError("memory: a stream did not complete or was "
+                             "shed under a budget above the total")
+    tf_rate, tf_trail = tf_check(torch, model, prompts, outs,
+                                 "memory (OOM restart run)")
+    problems = check_records(sink.records + psink.records, "memory")
+    if problems:
+        raise AssertionError(f"memory: ledger problems {problems[:5]}")
+    stats = dict(
+        ledger_gib={k[:-6]: v / GIB for k, v in buckets.items()},
+        total_gib=total / GIB, reserved_gib=reserved / GIB,
+        allocated_gib=torch.cuda.memory_allocated() / GIB,
+        snapshots=len(snaps), decode_steps=steps, prefill_chunks=chunks,
+        snapshot_host_ms_p50=statistics.median(snap_ms),
+        snapshot_host_ms_max=max(snap_ms),
+        low_budget_mb=total // 2 ** 20 - 1, high_budget_mb=card_mb,
+        postmortem=dict(step=post["step"],
+                        num_alloc_retries=post["num_alloc_retries"],
+                        num_ooms=post["num_ooms"],
+                        top_segment_gib=post["top_segments"][0]["bytes"]
+                        / GIB,
+                        top_array=post["top_arrays"][0]),
+        oom_tf_agree=tf_rate, oom_tf_max_trail_std=tf_trail,
+        launches=launches, phase_s=time.perf_counter() - t_phase)
+    print(f"memory[bf16, init {init_range}] on {card_line()}: "
+          + json.dumps(stats))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the fleet tier (replica processes on the one card)
+# ---------------------------------------------------------------------------
+
+def fleet_phase(torch, seed, init_range):
+    """paddle_tpu_torch.fleet.drill on the card at the serve shape: three
+    replica processes (`python -m paddle_tpu_torch.fleet.drill --serve`)
+    and a single-replica baseline, a FleetRouter over HTTPReplicas and a
+    FleetHTTPServer in this process; the chaos wave, respawn, rolling
+    restart and ledger of the drill, then the teacher-forced bar over
+    every greedy stream (chaos wave, greedy feeders, the final wave,
+    which goes through a FleetHTTPServer)."""
+    import tempfile
+    import urllib.request
+    from paddle_tpu_torch.fleet.drill import (N_REPLICAS, SERVED_KERNELS,
+                                              drill, weights_checksum)
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
+                              initializer_range=init_range)
+    model = GPTForPretraining(cfg, seed=seed)          # the reference
+    checksum = weights_checksum(model)
+    prompts = make_requests(seed, cfg.vocab_size)
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="fleet_", dir=os.path.join(root,
+                                                                "build"))
+    res = drill(workdir, seed=seed, init_range=init_range, device=DEVICE,
+                prompts=prompts, max_new=LOOP_NEW)
+    if res["findings"]:
+        raise AssertionError("fleet: " + "; ".join(res["findings"][:10]))
+    if res["weights_sha256"] != [checksum]:
+        raise AssertionError(f"fleet: replica weights {res['weights_sha256']}"
+                             f" != the reference's {checksum}")
+    kind = torch.cuda.get_device_name(0)
+    if {r["device"] for r in res["ready"].values()} != {kind} or \
+            any(r["device"] != kind for r in res["exits"]):
+        raise AssertionError(f"fleet: a replica ran off {kind}")
+    if res["prefix_hit_rate"] <= 0:
+        raise AssertionError("fleet: no prefix hit across the fleet")
+    if not res["spliced"]:
+        raise AssertionError("fleet: the kill spliced no stream")
+    greedy_feed = [(i, t) for i, k, t in res["feed"]
+                   if k.get("decode_strategy") != "sampling"]
+    tf = {}
+    for what, ps, outs in (
+            ("fleet chaos wave", prompts, res["chaos_streams"]),
+            ("fleet rolling restart", [prompts[i] for i, _ in greedy_feed],
+             [t for _, t in greedy_feed]),
+            ("fleet final wave", prompts, res["final_streams"])):
+        tf[what] = tf_check(torch, model, ps, outs, what)
+    launches = {}
+    for rep in res["exits"]:
+        for k, n in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    stats = {
+        "fleet.rated_throughput_tokens_per_sec": res["fleet_tokens_per_s"],
+        "fleet.rated_throughput_tokens_per_sec[1 replica]":
+            res["solo_tokens_per_s"],
+        "fleet.scaling_efficiency": res["scaling_efficiency"],
+        "replicas": N_REPLICAS, "kill_to_exit_ms": res["exit_ms"],
+        "kill_to_declared_dead_ms": res["detect_ms"],
+        "declared_dead_detect_s": res["detect_s_record"],
+        "victim": res["victim"], "spliced": res["spliced"],
+        "spawn_s": res["spawn_s"], "respawn_s": res["respawn_s"],
+        "rolling_restart_s": res["rolling_restart_s"],
+        "restarted": res["restarted"], "feed_requests": len(res["feed"]),
+        "feed_failed": res["feed_failed"],
+        "prefix_hit_rate": res["prefix_hit_rate"],
+        "tf": {k: {"agree": a, "max_trail_std": t}
+               for k, (a, t) in tf.items()},
+        "ledger_records": res["ledger_records"],
+        "engines_exited": [r["engine_id"] for r in res["exits"]],
+        "launches": {k: launches.get(k, 0) for k in SERVED_KERNELS},
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"fleet[bf16, init {init_range}] on {card_line()}: "
+          + json.dumps(stats))
+    stats["launches"] = launches
     return stats
 
 
@@ -2153,6 +2464,12 @@ def main(argv=None):
     loop = serve_loop_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("serve loop")
+    memory = memory_phase(torch, args.seed, args.init_range)
+    torch.cuda.empty_cache()
+    lap("memory")
+    fleet = fleet_phase(torch, args.seed, args.init_range)
+    torch.cuda.empty_cache()
+    lap("fleet")
     decode = decode_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("decode")
@@ -2169,7 +2486,8 @@ def main(argv=None):
         r = rows[k.name]
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
-                       for run in (stats, wo8, loop, decode, train, moe))
+                       for run in (stats, wo8, loop, memory, fleet, decode,
+                                   train, moe))
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -5,9 +5,11 @@ Every entry point (`GPTForPretraining(...)`, `ServingEngine(...)`) takes
 never a silent fall back to the CPU: a CPU run must be asked for with
 `device="cpu"`, as the tests do.
 """
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["resolve_device", "resolve_dtype", "card_line"]
 
 # the dtypes the port's kernels take
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -35,3 +37,14 @@ def resolve_dtype(dtype):
     except KeyError:
         raise ValueError(f"unsupported dtype {dtype!r} (expected one of "
                          f"{sorted(_DTYPES)})") from None
+
+
+def card_line():
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them:
+    every time measured on the card is reported beside it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0]

@@ -18,8 +18,17 @@ library that includes no PyTorch header builds in seconds, where
 one nvcc per source, all at once; `ptxas_info(name)` reads back each
 kernel's registers, spills and static shared memory from the build's
 `-Xptxas -v` report.
+
+Processes that share a checkout (the fleet's replica processes) build
+under one file lock, `build/paddle_tpu_torch/.lock` (`fcntl.flock`,
+released by the kernel when its holder exits, so a killed build leaves
+no stale lock): a process that finds another building waits, then loads
+what that one built. The in-process `threading.Lock` alone guards only
+this process's threads.
 """
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -114,10 +123,23 @@ def _finish(name, proc, tmp, so):
     _reports[name] = out
 
 
+@contextlib.contextmanager
+def _file_lock():
+    """Hold the checkout's build lock (exclusive, across processes)."""
+    d = build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    with open(d / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names):
     """Compile every named kernel source that is not built yet, one
     nvcc process per source, all running at once."""
-    with _lock:
+    with _lock, _file_lock():
         started = [(n, *_start(n)) for n in names]
         errors = []
         for name, proc, tmp, so in started:
@@ -134,7 +156,8 @@ def load(name):
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            _finish(name, *_start(name))
+            with _file_lock():
+                _finish(name, *_start(name))
             lib = ctypes.CDLL(str(_target(name)[1]))
             _loaded[name] = lib
         return lib

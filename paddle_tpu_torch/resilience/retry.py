@@ -2,7 +2,11 @@
 
 The port's copy of the classifier half of paddle_tpu/resilience/retry.py
 (`is_transient`, `classify_failure`, `classify_http_status`,
-`tag_transient` and their type tables, unchanged). The serving engine's
+`tag_transient`, `retry_after_hint`, `HTTPStatusError` and their type
+tables, unchanged). The fleet router speaks the HTTP half: an
+`HTTPReplica` raises `HTTPStatusError` for a non-2xx reply, and
+`classify_failure` reads its status (429/503/504 transient, other 4xx
+permanent, 5xx infra). The serving engine's
 background loop rides `classify_failure` after a failed step: a
 'permanent' failure (a programming error: ValueError, TypeError, ...)
 fails the in-flight requests, anything else warm-restarts. Under this
@@ -14,7 +18,8 @@ the port yet and is not copied.
 import errno
 
 __all__ = ["is_transient", "classify_failure", "tag_transient",
-           "classify_http_status", "TRANSIENT_HTTP_STATUSES"]
+           "classify_http_status", "retry_after_hint", "HTTPStatusError",
+           "TRANSIENT_HTTP_STATUSES"]
 
 # errno values worth retrying: transient kernel/FS/network conditions.
 # Deliberately NOT here: ENOSPC/EDQUOT (disk full stays full), EACCES/
@@ -54,6 +59,30 @@ def classify_http_status(status):
         return "permanent"
     return "infra"
 
+
+def retry_after_hint(exc):
+    """The server's Retry-After hint carried on `exc` (seconds, float),
+    or None."""
+    hint = getattr(exc, "retry_after_s", None)
+    if hint is None:
+        return None
+    try:
+        hint = float(hint)
+    except (TypeError, ValueError):
+        return None
+    return hint if hint >= 0 else None
+
+
+class HTTPStatusError(RuntimeError):
+    """A non-2xx reply from a serving replica, classified by status.
+    `http_status` drives `classify_failure`; `retry_after_s` carries the
+    reply's Retry-After header when it had one."""
+
+    def __init__(self, message, http_status, retry_after_s=None):
+        super().__init__(message)
+        self.http_status = int(http_status)
+        self.retry_after_s = None if retry_after_s is None \
+            else float(retry_after_s)
 
 def is_transient(exc):
     """Transient: timeouts, connection errors, OSError with a transient

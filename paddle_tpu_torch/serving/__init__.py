@@ -7,8 +7,9 @@ batching with chunked prefill and preemption by recompute),
 the warm-restart backoff), `engine` (`ServingEngine`: greedy and
 sampled decoding with jax.random's draws, the background serve loop
 with stop, drain and warm restart, `serving.*` metrics and request
-traces) and `http` (`ServingHTTPServer`, the stdlib HTTP front). The
-memory observatory's `MemoryPressureError` is not ported yet.
+traces, the memory observatory's ledger, headroom shed
+(`MemoryPressureError`) and OOM postmortem) and `http`
+(`ServingHTTPServer`, the stdlib HTTP front).
 
     engine = ServingEngine(model, max_slots=16).start()
     srv = ServingHTTPServer(engine, port=8000).start()
@@ -20,14 +21,15 @@ from .kv_cache import (NULL_BLOCK, BlockLeakError, BlockPool, PagedKVCache,
 from .resilience import (AdmissionController, Deadlines,
                          DeadlineExceededError, EngineDeadError,
                          EngineDrainingError, EngineStoppedError,
-                         QueueFullError, RequestCancelledError,
-                         ServingError, ShedError)
+                         MemoryPressureError, QueueFullError,
+                         RequestCancelledError, ServingError, ShedError)
 from .scheduler import Request, RequestHandle, SamplingParams, Scheduler
 
 __all__ = ["EngineConfig", "ServingEngine", "ServingHTTPServer",
            "NULL_BLOCK", "BlockLeakError", "BlockPool", "PagedKVCache",
            "PrefixIndex", "StaleIndexError", "AdmissionController",
            "Deadlines", "DeadlineExceededError", "EngineDeadError",
-           "EngineDrainingError", "EngineStoppedError", "QueueFullError",
+           "EngineDrainingError", "EngineStoppedError",
+           "MemoryPressureError", "QueueFullError",
            "RequestCancelledError", "ServingError", "ShedError", "Request",
            "RequestHandle", "SamplingParams", "Scheduler"]

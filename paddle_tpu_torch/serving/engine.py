@@ -41,9 +41,16 @@ Metrics: `serving.*` counters, gauges and the ttft/tpot/queue-wait
 histograms on the port's monitor registry, under the JAX engine's names
 (scrape them from the HTTP front, serving/http.py); per-request span
 timelines (telemetry.reqtrace) ride the attached sink as kind=reqtrace
-records, with the slowest-K exemplars on `GET /traces`. Not ported yet:
-the memory observatory (HBM budget, headroom shedding, OOM postmortems)
-and `EngineConfig.from_inference_config`.
+records, with the slowest-K exemplars on `GET /traces`.
+
+Memory: every engine builds a memory observatory (telemetry/mem_obs)
+over the CUDA caching allocator. It tags the serving copy's parameters
+and buffers as `params` and the KV arenas as `kv`, samples the ledger
+every `mem_sample_every` steps into kind=memsnap records, gauges
+`serving.mem_headroom_bytes`, sheds at `submit` with
+`MemoryPressureError` once a declared `hbm_budget_mb` is used up, and
+writes an OOM postmortem before a warm restart rebuilds the arenas. Not
+ported yet: `EngineConfig.from_inference_config`.
 """
 import copy
 import itertools
@@ -59,13 +66,14 @@ from ..device import resolve_device, resolve_dtype
 from ..ops.paged_attention import flash_prefill_chunk, paged_decode_attention
 from ..quant import quantize_for_decode
 from ..resilience.retry import classify_failure
+from ..telemetry.mem_obs import MemoryObservatory, is_oom, register_provider
 from ..telemetry.reqtrace import RequestTracer
 from ..telemetry.sink import make_serving_record
 from .kv_cache import NULL_BLOCK, BlockPool, PagedKVCache, PrefixIndex
 from .resilience import (AdmissionController, DeadlineExceededError,
                          EngineDeadError, EngineDrainingError,
-                         EngineStoppedError, RequestCancelledError,
-                         ShedError, restart_backoff)
+                         EngineStoppedError, MemoryPressureError,
+                         RequestCancelledError, ShedError, restart_backoff)
 from .scheduler import (CANCELLED, EXPIRED, FAILED, FINISHED, PREFILL,
                         TERMINAL_STATES, Request, RequestHandle,
                         SamplingParams, Scheduler)
@@ -90,14 +98,18 @@ class EngineConfig:
     copy of the weights and the KV arenas to bf16. `weights="wo8"`
     serves weight-only int8 linears (the model is quantized in place).
     `kv_memory_mb` sizes the KV pool by bytes when `num_blocks` is not
-    given."""
+    given. `hbm_budget_mb` declares the device-memory budget the
+    admission headroom is measured against (None: no budget, no memory
+    shed); the memory ledger is sampled every `mem_sample_every`
+    steps."""
 
     def __init__(self, max_slots=4, block_size=16, num_blocks=None,
                  max_model_len=None, prefill_chunk=32, dtype="bfloat16",
                  weights="native", kv_memory_mb=None, device=None,
                  max_queue=None, max_restarts=3, restart_backoff_s=1.0,
                  enable_prefix_cache=True, enable_tracing=True,
-                 trace_exemplars=32, engine_id=None):
+                 trace_exemplars=32, hbm_budget_mb=None,
+                 mem_sample_every=1, engine_id=None):
         if weights not in ("native", "wo8"):
             raise ValueError(f"weights must be 'native' or 'wo8', got "
                              f"{weights!r}")
@@ -124,6 +136,11 @@ class EngineConfig:
             else int(max_queue)
         self.max_restarts = int(max_restarts)
         self.restart_backoff_s = float(restart_backoff_s)
+        # memory observatory: a declared budget (None -> the observatory
+        # still samples, but nothing is shed) and the step cadence of
+        # ledger snapshots
+        self.hbm_budget_mb = hbm_budget_mb
+        self.mem_sample_every = max(1, int(mem_sample_every))
         # explicit engine identity for multi-process fleets (the default
         # per-process counter collides across replicas)
         self.engine_id = None if engine_id is None else int(engine_id)
@@ -300,6 +317,26 @@ class ServingEngine:
         self.decode_steps = 0
         self.prefill_chunks = 0
         self.kv_peak_utilization = 0.0
+        # memory observatory: the ledger sampled every
+        # `mem_sample_every` steps; its headroom is what submit()'s
+        # admission consult reads. Always built — without a declared
+        # budget it still ledgers, it just never sheds
+        self.mem_obs = MemoryObservatory(   # guarded by: _mu
+            sink=sink,
+            hbm_budget_bytes=(int(cfg.hbm_budget_mb) * 2 ** 20
+                              if cfg.hbm_budget_mb else None),
+            kv_source=self._kv_accounting, engine=self.engine_id,
+            device=self.device)
+        # a serving process has no optimizer to tag the weights, so the
+        # engine tags its serving copy's parameters and buffers. Listed
+        # once: torch updates tensors in place and the serving copy is
+        # never re-bound (walking the module tree at every snapshot
+        # would cost ~0.6 ms of host time a step at GPT-3 125M)
+        self._weights = list(self._net.parameters()) + list(
+            self._net.buffers())
+        register_provider("engine.weights", "params", self,
+                          lambda eng: eng._weights)
+        self._steps = 0                 # guarded by: _mu
         monitor.set_gauge("serving.kv_blocks_total", self.pool.capacity)
         monitor.set_gauge("serving.draining", 0)
         self._update_gauges()
@@ -376,6 +413,7 @@ class ServingEngine:
                     retry_after_s=5.0)
             self.sched.validate(req)        # client error, not load
             try:
+                self._check_mem_headroom()
                 self.admission.admit_or_raise(req, self.sched.waiting)
             except ShedError as e:
                 self._counts["shed"] += 1
@@ -465,6 +503,12 @@ class ServingEngine:
                     self._last_latency_obs = now
             did = self._prefill_one()
             did = self._decode_once() or did
+            self._steps += 1
+            if self._steps % self.cfg.mem_sample_every == 0:
+                try:
+                    self.mem_obs.snapshot(self._steps)
+                except Exception:
+                    pass    # the ledger must never take a step down
             self._update_gauges()
             return did
 
@@ -709,6 +753,13 @@ class ServingEngine:
         kind = classify_failure(exc)
         traceback.print_exc()
         with self._mu:
+            if is_oom(exc):
+                # capture-on-failure: write the postmortem BEFORE the
+                # arena rebuild below frees the evidence
+                try:
+                    self.mem_obs.capture_postmortem(msg, step=self._steps)
+                except Exception:
+                    pass  # forensics must never mask the real failure
             active = [r for r in self.sched.admit_order
                       if r.state not in TERMINAL_STATES]
             if kind == "permanent":
@@ -1064,7 +1115,57 @@ class ServingEngine:
         util = self.pool.utilization()
         monitor.set_gauge("serving.kv_block_utilization", util)
         self.kv_peak_utilization = max(self.kv_peak_utilization, util)
+        monitor.set_gauge("serving.mem_headroom_bytes",
+                          self._mem_headroom_bytes())
         self.refresh_latency_gauges()
+
+    def _kv_accounting(self):     # requires: _mu (called from snapshot)
+        """The memory observatory's `kv_source`: the pool's block census
+        (held + free + cached tile its capacity) plus the scheduler's
+        cumulative per-priority-class eviction/admission counters."""
+        pool, sched = self.pool, self.sched
+        ev = dict(sched.evictions_by_class)
+        adm = dict(sched.admissions_by_class)
+        return {
+            "blocks_total": pool.capacity,
+            "blocks_held": pool.num_used,
+            "blocks_free": pool.num_free,
+            "blocks_cached": pool.num_cached,
+            "evictions": sum(ev.values()),
+            "admissions": sum(adm.values()),
+            "evictions_by_class": ev,
+            "admissions_by_class": adm,
+        }
+
+    def _mem_headroom_bytes(self):     # requires: _mu
+        """Bytes the engine believes it can still allocate: the ledger's
+        headroom (declared budget minus the sampled total) when the
+        observatory has both, else the KV pool's free blocks in bytes —
+        so the gauge exists without a declared budget."""
+        h = self.mem_obs.headroom_bytes()
+        if h is not None:
+            return h
+        return self.pool.num_free * (2 * self.num_layers * self.block_size
+                                     * self.hidden
+                                     * self._compute_dtype.itemsize)
+
+    def _check_mem_headroom(self):     # requires: _mu
+        """submit()'s admission consult: with a declared budget and a
+        sampled ledger showing it used up, shed at the door
+        (MemoryPressureError -> 429 + Retry-After) instead of admitting
+        work into an allocation failure mid-decode. Without a budget or
+        before the first snapshot there is no verdict."""
+        if self.mem_obs.hbm_budget_bytes is None:
+            return
+        h = self.mem_obs.headroom_bytes()
+        if h is None or h > 0:
+            return
+        monitor.incr("serving.mem_shed")
+        raise MemoryPressureError(
+            f"HBM budget exhausted: ledger shows 0 headroom bytes "
+            f"against the declared "
+            f"{self.mem_obs.hbm_budget_bytes} byte budget",
+            retry_after_s=1.0, queue_depth=len(self.sched.waiting))
 
     # the legacy-gauge <- histogram mapping (the JAX engine's names)
     _LATENCY_GAUGES = (

@@ -20,6 +20,7 @@ The attention over this layout is `ops.paged_attention`.
 import torch
 
 from ..device import resolve_device
+from ..telemetry import mem_obs
 
 __all__ = ["BlockPool", "BlockLeakError", "PagedKVCache", "NULL_BLOCK",
            "PrefixIndex", "StaleIndexError"]
@@ -486,6 +487,16 @@ class PagedKVCache:
                   for _ in range(self.num_layers)]
         self.v = [torch.zeros(shape, dtype=dtype, device=device)
                   for _ in range(self.num_layers)]
+        # memory-observatory tagging (telemetry/mem_obs): the ledger
+        # attributes these arenas to the 'kv' bucket, queried fresh at
+        # each snapshot. Weakref-owned: a warm restart builds a NEW
+        # cache and drops this one, which must stay collectible
+        mem_obs.register_provider("kv_cache.arenas", "kv", self,
+                                  lambda cache: cache.k + cache.v)
+
+    @property
+    def nbytes(self):
+        return sum(a.nbytes for a in self.k + self.v)
 
     def copy_block(self, src, dst):
         """Copy-on-write fork: physical block `src` -> `dst` in every

@@ -6,13 +6,14 @@ reaped at step boundaries (`expired_reason`), per-class priorities over
 the waiting queue, SLO-aware load shedding at submit time
 (`AdmissionController`), the typed errors a stream can end with or
 `submit` can raise (draining, stopped, dead), and `restart_backoff`,
-the warm-restart schedule of the background serve loop. The memory
-observatory's `MemoryPressureError` is not ported yet.
+the warm-restart schedule of the background serve loop, and
+`MemoryPressureError`, the memory observatory's shed.
 """
 
 __all__ = [
     "PRIORITIES", "Deadlines", "AdmissionController", "ServingError",
-    "ShedError", "QueueFullError", "EngineDrainingError",
+    "ShedError", "QueueFullError", "MemoryPressureError",
+    "EngineDrainingError",
     "EngineStoppedError", "EngineDeadError", "RequestCancelledError",
     "DeadlineExceededError", "expired_reason", "restart_backoff",
 ]
@@ -99,6 +100,15 @@ class QueueFullError(ShedError):
     """The bounded waiting queue is at capacity."""
 
     reason = "queue_full"
+
+
+class MemoryPressureError(ShedError):
+    """The memory observatory's ledger shows the declared HBM budget
+    fully consumed: admitting more work would walk the engine into an
+    allocation failure mid-decode, so the request bounces at the door
+    instead (HTTP 429 + Retry-After, like every other shed)."""
+
+    reason = "mem_pressure"
 
 
 class EngineDrainingError(ServingError):

@@ -9,9 +9,8 @@ tokens are kept and re-prefilled, so the stream replays identically).
 Copied from the JAX package with its logic unchanged, including the
 per-request base RNG key (a sampled token is drawn with
 fold_in(key, token index), so a replay resumes its stream exactly) and
-the request-trace hooks; the per-class admission/eviction ledger, read
-only by the memory observatory, is not ported yet. Device work lives in
-engine.py.
+the request-trace hooks and the per-class admission/eviction ledger the
+memory observatory reads. Device work lives in engine.py.
 """
 import itertools
 import queue
@@ -287,6 +286,13 @@ class Scheduler:    # guarded by: ServingEngine._mu
         self.running = [None] * self.max_slots
         self.admit_order = []              # running/prefilling, oldest first
         self.preemptions = 0
+        # per-priority-class admission/eviction ledger (telemetry/
+        # mem_obs KV-occupancy accounting). An admission counts each
+        # time a request ENTERS prefill — replays included, so a
+        # preempt/re-admit ping-pong shows as both counters climbing
+        # in lockstep; an eviction counts at each preemption
+        self.admissions_by_class = {}
+        self.evictions_by_class = {}
 
     # -- queries ------------------------------------------------------------
     def free_slots(self):
@@ -365,6 +371,9 @@ class Scheduler:    # guarded by: ServingEngine._mu
                     else time.monotonic()
             self.prefilling.append(req)
             self.admit_order.append(req)
+            cls = req.priority_class
+            self.admissions_by_class[cls] = \
+                self.admissions_by_class.get(cls, 0) + 1
             admitted.append(req)
         return admitted
 
@@ -482,6 +491,9 @@ class Scheduler:    # guarded by: ServingEngine._mu
         self.requeue(req)
         req.preemptions += 1
         self.preemptions += 1
+        cls = req.priority_class
+        self.evictions_by_class[cls] = \
+            self.evictions_by_class.get(cls, 0) + 1
         monitor.incr("serving.preemptions")
 
     def note_prefill_done(self, req):

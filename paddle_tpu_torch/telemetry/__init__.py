@@ -1,6 +1,7 @@
 """Telemetry of the port (paddle_tpu/telemetry counterparts): MFU, the
-serving records and their JSONL sink, request traces, and the
-Prometheus text exposition."""
+serving, memsnap and fleet records and their JSONL sink, request traces,
+the Prometheus text exposition, the memory observatory (`mem_obs`) and
+the ledger rules (`ledger_check`)."""
 from .metrics_http import prometheus_text
 from .mfu import device_peak_flops, gpt_train_flops_per_token, mfu
 from .reqtrace import RequestTrace, RequestTracer

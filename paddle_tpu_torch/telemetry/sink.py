@@ -3,9 +3,13 @@
 The port's copy of the serving subset of paddle_tpu/telemetry/sink.py,
 unchanged: the kind=serving lifecycle record (`make_serving_record`,
 `SERVING_EVENTS`), the kind=reqtrace request timeline
-(`make_reqtrace_record`, `REQTRACE_SPAN_KINDS`), and `JsonlSink`, the
+(`make_reqtrace_record`, `REQTRACE_SPAN_KINDS`), the memory
+observatory's kind=memsnap ledger record (`make_memsnap_record`,
+`MEMSNAP_BUCKETS`, `MEMSNAP_EVENTS`), the fleet router's kind=fleet
+record (`make_fleet_record`, `FLEET_EVENTS`), and `JsonlSink`, the
 append-only file they are written to. Same schema version and keys, so
-the JAX package's offline tools read a ledger of either engine.
+the JAX package's offline tools read a ledger of either engine; the
+port's own copy of the cross-record rules is telemetry/ledger_check.py.
 """
 import atexit
 import json
@@ -14,8 +18,10 @@ import threading
 import weakref
 
 __all__ = ["SCHEMA_VERSION", "SERVING_EVENTS", "REQTRACE_SPAN_KINDS",
-           "REQTRACE_OUTCOMES", "make_serving_record",
-           "make_reqtrace_record", "JsonlSink"]
+           "REQTRACE_OUTCOMES", "FLEET_RECORD_KEYS", "FLEET_EVENTS",
+           "MEMSNAP_RECORD_KEYS", "MEMSNAP_BUCKETS", "MEMSNAP_EVENTS",
+           "make_serving_record", "make_reqtrace_record",
+           "make_fleet_record", "make_memsnap_record", "JsonlSink"]
 
 # one process-wide atexit hook over weak refs: sinks stay collectable
 # (a per-instance atexit.register would pin every sink + its fd for the
@@ -78,6 +84,53 @@ REQTRACE_SPAN_KINDS = ("queued", "admit", "shed", "prefill_chunk",
 # request never entered the engine; its trace is the admission verdict)
 REQTRACE_OUTCOMES = ("finished", "failed", "cancelled", "expired",
                      "shed")
+
+# required keys of a fleet-tier record (fleet.FleetRouter —
+# the router/front tier over N engine replicas); optional: replica,
+# to_replica, request_id, policy, healthy, miss_count, detect_s,
+# breaker, streamed_before, streamed_after, n_tokens, queue_depth,
+# retry_after_s, reason, error, counts
+FLEET_RECORD_KEYS = ("schema", "kind", "rank", "event")
+# the fleet lifecycle vocabulary: route (a routing decision — which
+# replica and WHY: prefix_affinity / session / least_loaded), probe
+# (one health-probe verdict; an unhealthy probe carries miss_count, the
+# ElasticCoordinator consecutive-miss pattern one tier up),
+# declared_dead (miss_count consecutive failed probes — must be
+# preceded by at least one failed probe for the same replica, the
+# elastic declared-dead rule), failover (a request resubmitted after
+# replica death or a mid-stream error: must reference a preceding death
+# OR carry the error that justified it), replay_spliced (the spliced
+# stream's accounting: n_tokens MUST equal streamed_before +
+# streamed_after — the recompute-replay invariant made auditable),
+# restart (one rolling-restart step: drain -> quiesce -> restart ->
+# re-admit for one replica), shed (cross-replica admission rejected the
+# request at the fleet door: every replica full/unhealthy), quiesce
+# (the fleet ledger snapshot: requests == admitted + shed, and the sum
+# of per-replica serving admissions must equal fleet admitted +
+# failover re-admissions; tools/trace_check.py enforces all of it).
+FLEET_EVENTS = ("route", "probe", "declared_dead", "failover",
+                "replay_spliced", "restart", "shed", "quiesce")
+
+# required keys of a memory-observatory ledger record
+# (telemetry/mem_obs); optional: the attribution
+# buckets, budget/headroom/projection anchors, KV-pool accounting, and
+# the postmortem payload (top_arrays, compile_families)
+MEMSNAP_RECORD_KEYS = ("schema", "kind", "rank", "event", "step",
+                       "total_bytes")
+
+# attribution buckets — every live byte lands in exactly ONE, so
+# tools/trace_check.py can recompute total_bytes from the record's own
+# fields (the reqtrace decomposition stance, applied to HBM)
+MEMSNAP_BUCKETS = ("params_bytes", "opt_state_bytes", "kv_bytes",
+                   "workspace_bytes", "other_bytes")
+
+# what one memsnap record may claim to be: a step-cadence ledger
+# snapshot, or the capture-on-failure POSTMORTEM written when an
+# allocation failed (torch.OutOfMemoryError) — a postmortem must carry
+# an error note and the top-K array listing (telemetry/ledger_check
+# validates both), so an OOM
+# is diagnosable offline from the ledger alone
+MEMSNAP_EVENTS = ("snapshot", "postmortem")
 
 
 def make_serving_record(event, rank=0, rid=None, engine=None,
@@ -188,6 +241,166 @@ def make_reqtrace_record(rid, outcome, spans, e2e_ms, rank=0, engine=None,
             rec[k] = v
     return rec
 
+
+
+def make_fleet_record(event, rank=0, replica=None, to_replica=None,
+                      request_id=None, policy=None, healthy=None,
+                      miss_count=None, detect_s=None, breaker=None,
+                      streamed_before=None, streamed_after=None,
+                      n_tokens=None, queue_depth=None, retry_after_s=None,
+                      reason=None, error=None, counts=None, **extra):
+    """One fleet-tier event as a first-class record (kind='fleet',
+    fleet.FleetRouter). `event` is one of FLEET_EVENTS;
+    `replica` names the replica the event is ABOUT (for a failover,
+    the one that failed — `to_replica` is where the request went);
+    `request_id` is the stable client-visible id that joins fleet
+    records to the per-replica kind=serving / kind=reqtrace records;
+    `counts` is the quiesce snapshot of the router's accounting."""
+    if event not in FLEET_EVENTS:
+        raise ValueError(f"fleet event must be one of {FLEET_EVENTS}, "
+                         f"got {event!r}")
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "fleet",
+        "rank": int(rank),
+        "event": str(event),
+    }
+    if replica is not None:
+        rec["replica"] = str(replica)
+    if to_replica is not None:
+        rec["to_replica"] = str(to_replica)
+    if request_id is not None:
+        rec["request_id"] = str(request_id)
+    if policy is not None:
+        rec["policy"] = str(policy)
+    if healthy is not None:
+        rec["healthy"] = bool(healthy)
+    if miss_count is not None:
+        rec["miss_count"] = int(miss_count)
+    if detect_s is not None:
+        rec["detect_s"] = round(float(detect_s), 4)
+    if breaker is not None:
+        rec["breaker"] = str(breaker)
+    if streamed_before is not None:
+        rec["streamed_before"] = int(streamed_before)
+    if streamed_after is not None:
+        rec["streamed_after"] = int(streamed_after)
+    if n_tokens is not None:
+        rec["n_tokens"] = int(n_tokens)
+    if queue_depth is not None:
+        rec["queue_depth"] = int(queue_depth)
+    if retry_after_s is not None:
+        rec["retry_after_s"] = round(float(retry_after_s), 4)
+    if reason is not None:
+        rec["reason"] = str(reason)
+    if error is not None:
+        rec["error"] = str(error)
+    if counts is not None:
+        rec["counts"] = {str(k): int(v) for k, v in counts.items()}
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+def make_memsnap_record(event, step, total_bytes, rank=0,
+                        params_bytes=None, opt_state_bytes=None,
+                        kv_bytes=None, workspace_bytes=None,
+                        other_bytes=None, hbm_budget_bytes=None,
+                        headroom_bytes=None, projected_bytes=None,
+                        projection_family=None, n_arrays=None,
+                        kv_blocks_total=None, kv_blocks_held=None,
+                        kv_blocks_free=None, kv_blocks_cached=None,
+                        kv_occupancy=None, kv_cache_share=None,
+                        kv_evictions=None, kv_admissions=None,
+                        kv_eviction_rate=None, kv_admission_rate=None,
+                        evictions_by_class=None, admissions_by_class=None,
+                        engine=None, error=None, top_arrays=None,
+                        compile_families=None, **extra):
+    """One live-HBM ledger snapshot as a first-class typed record
+    (kind='memsnap') — the memory sibling of kind='commbench': the mesh
+    observatory measures what the mesh moves, the memory observatory
+    measures what the chip HOLDS. The bucket fields (MEMSNAP_BUCKETS)
+    partition total_bytes — tools/trace_check.py recomputes the sum;
+    `headroom_bytes` is max(0, hbm_budget_bytes - total_bytes), the
+    admission signal the serving engine gauges; `projected_bytes` is
+    a static projection the reconcile-drift rule latches against (the
+    port has no compile observatory and leaves it None); the kv_* fields snapshot the
+    BlockPool/PrefixIndex accounting (held+free+cached must tile
+    kv_blocks_total) plus the eviction/admission rates the kv_thrash
+    rule judges — all riding ON the record, so an offline replay and
+    an in-flight detector see identical numbers. A postmortem event
+    additionally carries `error`, the top-K `top_arrays` by bytes, and
+    the active `compile_families`. Non-finite measurements become None
+    + an error note — a NaN never rides the ledger silently."""
+    def _clean(v):
+        if v is None:
+            return None, False
+        bad = isinstance(v, float) and (v != v or v in (float("inf"),
+                                                        float("-inf")))
+        return (None if bad else float(v)), bad
+
+    total_bytes, bad = _clean(total_bytes)
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "memsnap",
+        "rank": int(rank),
+        "event": str(event),
+        "step": int(step),
+        "total_bytes": None if total_bytes is None else int(total_bytes),
+    }
+    if bad:
+        rec["error"] = "non-finite total_bytes"
+    for key, v in (("params_bytes", params_bytes),
+                   ("opt_state_bytes", opt_state_bytes),
+                   ("kv_bytes", kv_bytes),
+                   ("workspace_bytes", workspace_bytes),
+                   ("other_bytes", other_bytes),
+                   ("hbm_budget_bytes", hbm_budget_bytes),
+                   ("headroom_bytes", headroom_bytes),
+                   ("projected_bytes", projected_bytes)):
+        v, bad = _clean(v)
+        if v is not None:
+            rec[key] = int(v)
+        elif bad:
+            rec["error"] = f"non-finite {key}"
+    for key, v in (("kv_occupancy", kv_occupancy),
+                   ("kv_cache_share", kv_cache_share),
+                   ("kv_eviction_rate", kv_eviction_rate),
+                   ("kv_admission_rate", kv_admission_rate)):
+        v, bad = _clean(v)
+        if v is not None:
+            rec[key] = round(v, 6)
+        elif bad:
+            rec["error"] = f"non-finite {key}"
+    for key, v in (("n_arrays", n_arrays),
+                   ("kv_blocks_total", kv_blocks_total),
+                   ("kv_blocks_held", kv_blocks_held),
+                   ("kv_blocks_free", kv_blocks_free),
+                   ("kv_blocks_cached", kv_blocks_cached),
+                   ("kv_evictions", kv_evictions),
+                   ("kv_admissions", kv_admissions),
+                   ("engine", engine)):
+        if v is not None:
+            rec[key] = int(v)
+    if projection_family is not None:
+        rec["projection_family"] = str(projection_family)
+    if evictions_by_class is not None:
+        rec["evictions_by_class"] = {str(k): int(v) for k, v
+                                     in evictions_by_class.items()}
+    if admissions_by_class is not None:
+        rec["admissions_by_class"] = {str(k): int(v) for k, v
+                                      in admissions_by_class.items()}
+    if error is not None:
+        rec["error"] = str(error)
+    if top_arrays is not None:
+        rec["top_arrays"] = list(top_arrays)
+    if compile_families is not None:
+        rec["compile_families"] = list(compile_families)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
 
 class JsonlSink:
     """Append-only JSONL metrics file, one record per line. Thread-safe.

@@ -67,8 +67,10 @@ def test_importing_every_submodule_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-# the modules of the served path's host runtime: each keeps its own copy
-# of what it needs from a JAX-package module that imports no JAX
+# the modules of the served path's host runtime, the memory observatory
+# and the fleet tier: each keeps its own copy of what it needs from a
+# JAX-package module that imports no JAX (the fleet modules, the retry
+# module's HTTP helpers, the sink's record makers, trace_check's rules)
 _SERVING_MODULES = (
     "paddle_tpu_torch.prng", "paddle_tpu_torch.monitor",
     "paddle_tpu_torch.resilience", "paddle_tpu_torch.resilience.retry",
@@ -76,7 +78,12 @@ _SERVING_MODULES = (
     "paddle_tpu_torch.telemetry.metrics_http",
     "paddle_tpu_torch.serving.engine", "paddle_tpu_torch.serving.http",
     "paddle_tpu_torch.serving.resilience",
-    "paddle_tpu_torch.serving.scheduler")
+    "paddle_tpu_torch.serving.scheduler",
+    "paddle_tpu_torch.telemetry.mem_obs",
+    "paddle_tpu_torch.telemetry.ledger_check",
+    "paddle_tpu_torch.fleet", "paddle_tpu_torch.fleet.replica",
+    "paddle_tpu_torch.fleet.router", "paddle_tpu_torch.fleet.http",
+    "paddle_tpu_torch.fleet.drill")
 
 
 def test_serving_runtime_modules_stand_alone():
@@ -119,3 +126,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert model.generate(ids, max_new_tokens=2,
                           device="cpu")[0].shape == (1, 5)
     assert GPTMoE(gpt_moe_tiny_config(), device="cpu").moe_num_experts == 4
+
+
+def test_fleet_replicas_and_drill_raise_without_cuda(monkeypatch, tmp_path):
+    """A replica (`fleet.drill --serve`) and the drill run on the card
+    unless `device="cpu"` is asked for: without a card they raise before
+    building anything, so the replica process exits non-zero."""
+    from paddle_tpu_torch.fleet import drill
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        drill.serve(0, 0, str(tmp_path / "r.jsonl"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        drill.drill(str(tmp_path))
+    assert not (tmp_path / "r.jsonl").exists()
+
+
+def test_no_module_reads_the_tools_directory():
+    """The port never reaches into the JAX package's tools/ (its ledger
+    rules are its own copy, telemetry/ledger_check.py)."""
+    offenders = []
+    for path in _package_files():
+        text = open(path).read()
+        for needle in ("sys.path.insert", "import trace_check",
+                       "from tools", "import tools"):
+            if needle in text:
+                offenders.append(f"{os.path.relpath(path, _ROOT)}: {needle}")
+    assert offenders == []
