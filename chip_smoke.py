@@ -28,9 +28,15 @@ ok line):
              < sk 190, a partial last key tile) and head_dim 128; every
              backward run twice and held bitwise
              equal: no atomics) and at 24576 x 768 and
-             16 x 768 (add + LayerNorm); the decode kernels at generate's
-             shapes: decode_fused at batch 8, cache 256, 12 heads of 64,
-             off in {0, 7, 63, 64, 127, 128, 135, 136, 191, 200, 255}
+             16 x 768 (add + LayerNorm); the inference pair (K7's out
+             and the residual carry from one launch, the carry bit for
+             bit x + residual) at 8, 16, 128, 300 and 24576 rows of 768
+             (its 16-byte path), of 770 and with x one element off its
+             allocation (its one-element path), 3 rows of 4096, in f32,
+             bf16 and bf16 x over an f32 residual; the decode kernels
+             at generate's shapes: decode_fused at batch 8, cache 256,
+             12 heads of 64, off in {0, 7, 63, 64, 127, 128, 135, 136,
+             191, 200, 255}
              (one chunk up to 128 keys, then 8 chunks, full at 136 keys;
              and head_dim 128, 6 heads of 64 (no group of 4 heads), and
              bf16 q over the f32 cache), int8_matvec at D 768, V 51200,
@@ -51,9 +57,10 @@ ok line):
              from a trace), at the serving shapes (paged_decode at 16
              slots with ctx uniform in 0..511), at the training shape
              (batch 24, seq 1024; flash_fwd also at the K2 shapes,
-             non-causal and sq 512 < sk 1024; layernorm_fused at the
-             rows the main paths give it, 16, 8 and 128, and at 24576,
-             beside one trivial launch), at the decode shape
+             non-causal and sq 512 < sk 1024; the layernorm_fused pair
+             at the rows the main paths give it, 16, 8 and 128, and at
+             24576, L2 flushed and warm, beside its y-only form and one
+             trivial launch), at the decode shape
              (batch 8, mean position 191) and at the MoE training
              shape (f32 rows of
              768); int8_matvec at 1, 8, 16, 64 and 128 rows, each beside
@@ -223,6 +230,23 @@ LN_CHECKS = ((24576, 768, "float32", "bfloat16"), (24576, 768, "bfloat16",
              (16, 768, "bfloat16", "bfloat16"), (16, 768, "float32",
                                                  "float32"),
              (24576, 768, "float32", "float32"))
+# the inference pair (K7's out and the residual carry from one launch):
+# (rows, d, x dtype, residual dtype, unaligned). d 768 takes the kernel's
+# 16-byte path, d 770 (no multiple of 4 or 8) and an x one element off
+# its allocation the one-element path; 4096 is the widest row it takes
+# (16-byte chunks in bf16, one-element in f32)
+LN_PAIR_CHECKS = ((16, 768, "bfloat16", "bfloat16", False),
+                  (8, 768, "bfloat16", "bfloat16", False),
+                  (128, 768, "bfloat16", "bfloat16", False),
+                  (300, 768, "float32", "float32", False),
+                  (16, 768, "bfloat16", "float32", False),
+                  (16, 770, "bfloat16", "bfloat16", False),
+                  (16, 770, "float32", "float32", False),
+                  (16, 768, "bfloat16", "bfloat16", True),
+                  (16, 768, "float32", "float32", True),
+                  (3, 4096, "bfloat16", "bfloat16", False),
+                  (3, 4096, "float32", "float32", False),
+                  (24576, 768, "bfloat16", "bfloat16", False))
 
 # serving shapes of GPT-3 125M in the engine configuration below
 N_HEADS, HEAD_DIM, BLOCK, MAX_BLOCKS, SLOTS, CHUNK = 12, 64, 16, 32, 16, 128
@@ -305,6 +329,23 @@ PTXAS_SHOWN = ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma", "bwd_delta",
                "int8_matvec_wgmma")
 
 
+def print_pair_ptxas(_build):
+    """The inference add + LayerNorm has one instance per dtype triple and
+    width class: print their register range and which spill (by their
+    mangled template arguments), when this process built them."""
+    pair = {fn: info for fn, info in
+            _build.ptxas_info("add_layer_norm").items() if "add_ln_pair" in fn}
+    if not pair:
+        return
+    regs = [info.get("registers", 0) for info in pair.values()]
+    spill = sorted(fn.split("add_ln_pair", 1)[1].split("EEEv")[0]
+                   for fn, info in pair.items()
+                   if info.get("spills", (0, 0)) != (0, 0))
+    print(f"build: ptxas add_layer_norm: {len(pair)} add_ln_pair "
+          f"instances, {min(regs)}-{max(regs)} registers, {len(spill)} "
+          f"spill: {spill}")
+
+
 def card_line():
     from paddle_tpu_torch.device import card_line
     return card_line()
@@ -366,22 +407,26 @@ def hold(name, got, ref, tol):
     return err.max().item()
 
 
-def median_ms(torch, fn, flush, reps=60, warmup=5):
+def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None):
     """Median of per-launch CUDA-event times; the L2 is overwritten
     before every launch so each reads its inputs from device memory.
     With `flush` None the L2 stays warm, as in a step: the card spins
     ~0.1 ms instead, so that the host has queued the launch before the
     first event is reached and the time is the kernel's, not the
-    host's."""
+    host's. `spin` sets the spin in clock cycles (by default 200000
+    when warm, none after a flush): a call that enqueues several
+    launches needs more, or the card waits for the host."""
+    if spin is None:
+        spin = 200_000 if flush is None else 0
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
-        if flush is None:
-            torch.cuda._sleep(200_000)
-        else:
+        if flush is not None:
             flush.zero_()
+        if spin:
+            torch.cuda._sleep(spin)
         s.record()
         fn()
         e.record()
@@ -581,13 +626,55 @@ def bwd_parts(torch, fn, flush, calls=10):
     return parts
 
 
-def ln_work(rows, d, x_size, r_size, w_size, save):
+def ln_work(rows, d, x_size, r_size, w_size, save, carry=False):
     """Bytes and operations of add + LayerNorm: x, r, w, b in, out (and
-    the f32 sum and rstd) out; ~8 flops per element."""
+    the f32 sum and rstd, or the carry in x's dtype) out; ~8 flops per
+    element."""
     nbytes = rows * d * (2 * x_size + r_size) + 2 * d * w_size
     if save:
         nbytes += rows * d * 4 + rows * 4
+    if carry:
+        nbytes += rows * d * x_size
     return nbytes, 8 * rows * d
+
+
+def same_bits(torch, a, b):
+    """a and b hold the same bits (dtype, shape and every element)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def ln_pair_checks(torch, gen, dev):
+    """The inference pair of add + LayerNorm against its plain version at
+    LN_PAIR_CHECKS: out within the registry's tolerance, the carry bit
+    for bit the plain one's and torch's x + residual; -> {x dtype: max
+    abs error of out}."""
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    from paddle_tpu_torch.ops.layernorm import (layernorm_fused_pair,
+                                                layernorm_fused_pair_plain)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    errs = {}
+    for rows, d, xd, rd, unaligned in LN_PAIR_CHECKS:
+        tag = (f"[pair {rows}x{d}, x {xd}, residual {rd}"
+               f"{', x unaligned' if unaligned else ''}]")
+        x = torch.randn((rows * d + 1,), generator=gen).to(dev, dts[xd])
+        x = (x[1:] if unaligned else x[:-1]).view(rows, d)
+        r = torch.randn((rows, d), generator=gen).to(dev, dts[rd])
+        w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, dts[xd])
+        bb = (0.1 * torch.randn((d,), generator=gen)).to(dev, dts[xd])
+        y, h = layernorm_fused_pair(x, r, w, bb)
+        ry, rh = layernorm_fused_pair_plain(x, r, w, bb)
+        torch.cuda.synchronize()
+        errs[xd] = max(errs.get(xd, 0.0), hold(
+            "layernorm_fused pair out" + tag, y, ry,
+            get_kernel("layernorm_fused").tol[xd]))
+        # the carry is one rounding of the same f32 sum: bit for bit
+        if not (same_bits(torch, h, rh)
+                and same_bits(torch, h, (x + r).to(x.dtype))):
+            raise AssertionError(f"layernorm_fused pair carry{tag}: not bit "
+                                 "for bit x + residual")
+    return errs
 
 
 def train_kernels_phase(torch, seed):
@@ -598,8 +685,8 @@ def train_kernels_phase(torch, seed):
         flash_fwd)
     from paddle_tpu_torch.ops.kernel_registry import get_kernel
     from paddle_tpu_torch.ops.layernorm import (
-        layernorm_fused, layernorm_fused_plain, layernorm_fwd_saved,
-        layernorm_plain)
+        layernorm_fused, layernorm_fused_pair, layernorm_fused_pair_plain,
+        layernorm_fused_plain, layernorm_fwd_saved, layernorm_plain)
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(seed + 7)
@@ -656,6 +743,8 @@ def train_kernels_phase(torch, seed):
             hold("layernorm_fwd_saved rstd" + tag, got[2], ref[2], f32tol)))
         note("layernorm_fused", xd,
              hold("layernorm_fused" + tag, got_o, ref_o, tol))
+    for xd, e in ln_pair_checks(torch, gen, dev).items():
+        note("layernorm_fused", xd, e)
     for (name, dname), e in sorted(errs.items()):
         print(f"kernels: {name} {dname} max_abs_err {e:.3e} "
               f"(tol rtol, atol = {get_kernel(name).tol[dname]})")
@@ -720,11 +809,13 @@ def train_kernels_phase(torch, seed):
         del q, k, v, lq, lk, lv
 
     # add + LayerNorm: the saving form at the training step's dtypes (f32
-    # residual stream, bf16 branch output, f32 weights); the output-only
-    # form in bf16 at the rows the main paths launch it with — a serve
+    # residual stream, bf16 branch output, f32 weights); the inference
+    # pair in bf16 at the rows the main paths launch it with — a serve
     # decode step's 16 (its `kernels` row), a generate step's 8, a
-    # prefill chunk's 128 — and at the training rows, beside one trivial
-    # launch (a one-element fill), the floor under the short ones
+    # prefill chunk's 128 — and at the training rows, L2 flushed and
+    # warm, beside its y-only form, F.layer_norm(x + r) (which gives the
+    # same pair in two launches) and one trivial launch (a one-element
+    # fill), the floor under the short ones
     rows_t, d = TRAIN_BATCH * TRAIN_SEQ, N_HEADS * HEAD_DIM
 
     def ln_args(nrows, xdt, rdt):
@@ -745,22 +836,30 @@ def train_kernels_phase(torch, seed):
         max_abs_err=errs[("layernorm_fwd_saved", "float32")])
     one = torch.zeros(1, device=dev)
     floor_ms = median_ms(torch, lambda: one.fill_(1.0), flush)
+    warm_floor_ms = median_ms(torch, lambda: one.fill_(1.0), None)
     print(f"kernels: one trivial launch (a one-element fill): "
-          f"{floor_ms:.5f} ms")
+          f"{floor_ms:.5f} ms, L2 warm {warm_floor_ms:.5f}")
     for nrows in (SLOTS, DEC_BATCH, CHUNK, rows_t):
         a = ln_args(nrows, torch.bfloat16, torch.bfloat16)
         row = dict(
-            ms=median_ms(torch, lambda: layernorm_fused(*a), flush),
-            plain_ms=median_ms(torch, lambda: layernorm_fused_plain(*a),
-                               flush),
+            ms=median_ms(torch, lambda: layernorm_fused_pair(*a), flush),
+            warm_ms=median_ms(torch, lambda: layernorm_fused_pair(*a),
+                              None),
+            y_only_ms=median_ms(torch, lambda: layernorm_fused(*a), flush),
+            plain_ms=median_ms(torch, lambda: layernorm_fused_pair_plain(
+                *a), flush),
             library_ms=median_ms(torch, ln_library(a), flush),
-            bound=bound(*ln_work(nrows, d, 2, 2, 2, False), "bfloat16"),
+            warm_library_ms=median_ms(torch, ln_library(a), None),
+            bound=bound(*ln_work(nrows, d, 2, 2, 2, False, carry=True),
+                        "bfloat16"),
             max_abs_err=errs[("layernorm_fused", "bfloat16")],
             launch_floor_ms=floor_ms)
-        print(f"kernels: layernorm_fused {nrows}x{d} bf16: "
-              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-              f"F.layer_norm(x + r) {row['library_ms']:.4f}, bound "
-              f"{row['bound'][0]:.5f} by {row['bound'][1]})")
+        print(f"kernels: layernorm_fused pair {nrows}x{d} bf16: "
+              f"{row['ms']:.5f} ms, L2 warm {row['warm_ms']:.5f} (y only "
+              f"{row['y_only_ms']:.5f}, plain {row['plain_ms']:.4f}, "
+              f"F.layer_norm(x + r) {row['library_ms']:.5f}, L2 warm "
+              f"{row['warm_library_ms']:.5f}, bound {row['bound'][0]:.5f} "
+              f"by {row['bound'][1]})")
         rows.setdefault("layernorm_fused", row)
     for name in ("flash_fwd", "flash_bwd", "layernorm_fwd_saved"):
         r = rows[name]
@@ -1142,13 +1241,16 @@ def serve_phase(torch, seed, init_range, dtype):
     return stats, eng, cfg.vocab_size
 
 
-def profile_phase(torch, eng, vocab, seed, steps=10):
+def profile_phase(torch, eng, vocab, seed, steps=10, sampling_params=None,
+                  what=""):
     """Device time by kernel over `steps` decode steps of a full batch,
     from torch.profiler with CUDA activity only (the profiler's own host
-    cost lengthens the steps, so the busy share it gives is a floor)."""
-    from torch.autograd import DeviceType
+    cost lengthens the steps, so the busy share it gives is a floor).
+    `sampling_params` is the engine's own SamplingParams class (another
+    checkout's engine takes its own)."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import SamplingParams
+    SamplingParams = sampling_params or SamplingParams
     for p in make_requests(seed + 2, vocab, n=SLOTS):
         eng.submit(p[:200], SamplingParams(max_new_tokens=64))
     while eng.sched.prefilling or eng.sched.waiting:
@@ -1162,8 +1264,8 @@ def profile_phase(torch, eng, vocab, seed, steps=10):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     eng.run_until_idle()
-    print_profile(prof, steps, wall_ms, f"decode steps of {SLOTS} slots",
-                  top=12)
+    print_profile(prof, steps, wall_ms,
+                  f"decode steps of {SLOTS} slots{what}", top=12)
 
 
 def device_events(prof):
@@ -1181,8 +1283,10 @@ def print_profile(prof, steps, wall_ms, what, top):
               "measured)")
         return None
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    launches = sum(e.count for e in dev) / steps
     print(f"profile: {steps} {what}: wall {wall_ms:.3f} ms/step, device "
-          f"busy {busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f})")
+          f"busy {busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f}) "
+          f"over {launches:.1f} device launches/step")
     split = {}
     for e in dev:
         cat = next((c for c, keys in PROFILE_CATEGORIES
@@ -2438,6 +2542,7 @@ def main(argv=None):
         for fn, info in sorted(_build.ptxas_info(src).items()):
             if any(k in fn for k in PTXAS_SHOWN):
                 print(f"build: ptxas {src}: {fn}: {json.dumps(info)}")
+    print_pair_ptxas(_build)
 
     phase_s = {"build": time.perf_counter() - t0}
 

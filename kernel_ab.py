@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time this checkout's flash_fwd, paged_decode, decode_fused and
-int8_matvec kernels against another checkout's, in turns, on one CUDA
-card.
+"""Time this checkout's kernels against another checkout's, in turns,
+on one CUDA card: flash_fwd, paged_decode, decode_fused, int8_matvec
+and layernorm_fused.
 
     python3 kernel_ab.py --base DIR [--seed 0] [--reps 60]
+                         [--kernels flash_fwd,...,layernorm_fused]
 
 DIR is the root of another checkout of the repository, for example the
 parent commit unpacked from `git archive` into a directory that
 .gitignore lists. Both trees' paddle_tpu_torch packages are imported
 side by side (the other one under the name base_paddle_tpu_torch); each
-builds its kernels into its own build/ directory. Both are called on the
-same inputs:
+builds its kernels into its own build/ directory. --kernels picks the
+cases (all by default). Both are called on the same inputs:
 
 - flash_fwd at the training shape of GPT-3 125M (batch 24, seq 1024, 12
   heads of 64, causal, bf16) and at the K2 shapes (non-causal; causal
@@ -20,20 +21,33 @@ same inputs:
 - decode_fused at generate's mean step (batch 8, off 191 of a 256-key
   cache, 12 heads of 64, bf16 q) over an f32 and a bf16 cache;
 - int8_matvec on GPT-3 125M's int8 head (V 51200, D 768) at 8, 16 and
-  64 bf16 rows.
+  64 bf16 rows;
+- layernorm_fused at the residual site (`nn.fused_add_layer_norm`
+  without a gradient, bf16, d 768) at 8, 16 and 128 rows: the other
+  tree's kernel alone, the other tree's site and this tree's (whatever
+  each launches for the pair (LayerNorm(x + r), x + r)), this tree's
+  site at 1, 2, 4 and 8 rows a CTA, and F.layer_norm(x + r); then at 16
+  rows in the decode step's sequence, out_proj GEMM ([16, 768] x [768,
+  768]) -> the site -> fc1 GEMM ([16, 768] x [768, 3072]), both trees,
+  and this tree with its programmatic dependent launch on and off; then
+  layernorm_fwd_saved (K6, the same kernel in both trees) at the
+  training shape (24576 rows, f32 x, bf16 r); then the host
+  microseconds a call of each site, each kernel wrapper, a torch add
+  and one trivial launch (calls back to back, the card keeping up).
 
 Each kernel's output is held against the plain version of this
 checkout, then both are timed base, change, change, base (median of
 --reps launches by CUDA events, the L2 flushed before each by writing
-256 MB; paged_decode also with the L2 warm; decode_fused and
-int8_matvec also flushed by reading 256 MB, which leaves the L2 clean,
-where the write flush leaves it dirty and a kernel's reads then pay for
-as many bytes written back) beside one PyTorch call on the same inputs:
-scaled_dot_product_attention, and for int8_matvec the dequantized bf16
-matmul and a product over an unquantized bf16 table. Prints the card's
-name and power limit, one JSON line per kernel and shape, and the same
-timings of one trivial launch (a one-element fill), the floor under
-every number above. Exits non-zero without CUDA.
+256 MB; paged_decode and layernorm_fused also with the L2 warm;
+decode_fused and int8_matvec also flushed by reading 256 MB, which
+leaves the L2 clean, where the write flush leaves it dirty and a
+kernel's reads then pay for as many bytes written back) beside one
+PyTorch call on the same inputs: scaled_dot_product_attention, for
+int8_matvec the dequantized bf16 matmul and a product over an
+unquantized bf16 table, for layernorm_fused F.layer_norm(x + r). Prints
+the card's name and power limit, one JSON line per kernel and shape,
+and the same timings of one trivial launch (a one-element fill), the
+floor under every number above. Exits non-zero without CUDA.
 """
 import argparse
 import importlib
@@ -43,6 +57,8 @@ import math
 import os
 import statistics
 import sys
+import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -86,38 +102,12 @@ def clean_ms(torch, fn, src, reps=60, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--base", required=True,
-                    help="root of the other checkout")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=60)
-    args = ap.parse_args(argv)
-
-    import torch
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    import chip_smoke as cs
-    mods_used = ("flash_attention", "paged_attention", "decode_attention",
-                 "int8_matvec", "_build")
-    new = {m: importlib.import_module(f"paddle_tpu_torch.ops.{m}")
-           for m in mods_used}
-    load_package(os.path.abspath(args.base), "base_paddle_tpu_torch")
-    old = {m: importlib.import_module(f"base_paddle_tpu_torch.ops.{m}")
-           for m in mods_used}
-    for mods in (old, new):
-        mods["_build"].build(["flash_attention_fwd", "paged_decode",
-                              "decode_attention", "int8_matvec"])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(cs.card_line())
-
-    F = torch.nn.functional
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(args.seed)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+def ab_flash_fwd(ab):
+    """flash_fwd at the training shape and the K2 shapes, beside SDPA."""
+    torch, cs, F, old, new, dev, flush = (ab.torch, ab.cs, ab.F, ab.old,
+                                          ab.new, ab.dev, ab.flush)
     n, h = cs.N_HEADS, cs.HEAD_DIM
+    gen = torch.Generator().manual_seed(ab.seed)
     scale = 1.0 / math.sqrt(h)
     shapes = ((cs.TRAIN_BATCH, cs.TRAIN_SEQ, cs.TRAIN_SEQ, True),) \
         + cs.FLASH_K2_TIMED
@@ -145,13 +135,13 @@ def main(argv=None):
             torch, cs,
             lambda: old["flash_attention"].flash_fwd(q, k, v, causal, scale),
             lambda: new["flash_attention"].flash_fwd(q, k, v, causal, scale),
-            flush, args.reps)
+            flush, ab.reps)
         if causal and sq == sk:
             sdpa = cs.median_ms(torch, lambda: F.scaled_dot_product_attention(
-                lq, lk, lv, is_causal=True), flush, reps=args.reps)
+                lq, lk, lv, is_causal=True), flush, reps=ab.reps)
         else:
             sdpa = cs.median_ms(torch, lambda: F.scaled_dot_product_attention(
-                lq, lk, lv, attn_mask=mask), flush, reps=args.reps)
+                lq, lk, lv, attn_mask=mask), flush, reps=ab.reps)
         print(json.dumps({
             "kernel": "flash_fwd", "b": b, "sq": sq, "sk": sk,
             "causal": causal, "base_ms": base_ms, "change_ms": change_ms,
@@ -161,8 +151,14 @@ def main(argv=None):
             "max_abs_err": errs}))
         del q, k, v, lq, lk, lv
 
+
+def ab_paged_decode(ab):
+    """paged_decode at a serving decode step, L2 flushed and warm."""
+    torch, cs, F, old, new, dev, flush = (ab.torch, ab.cs, ab.F, ab.old,
+                                          ab.new, ab.dev, ab.flush)
+    n, h = cs.N_HEADS, cs.HEAD_DIM
     dargs = cs.decode_inputs(torch, torch.Generator().manual_seed(
-        args.seed + 3), torch.bfloat16, dev, edges=False)
+        ab.seed + 3), torch.bfloat16, dev, edges=False)
     ref = new["paged_attention"].paged_decode_plain(*dargs, n)
     errs = {}
     for tag, mods in (("base", old), ("change", new)):
@@ -177,21 +173,22 @@ def main(argv=None):
             torch, cs,
             lambda: old["paged_attention"].paged_decode_attention(*dargs, n),
             lambda: new["paged_attention"].paged_decode_attention(*dargs, n),
-            fl, args.reps)
+            fl, ab.reps)
         row[f"{label}sdpa_ms"] = cs.median_ms(
             torch, lambda: F.scaled_dot_product_attention(
-                sd[0], sd[1], sd[2], attn_mask=sd[3]), fl, reps=args.reps)
+                sd[0], sd[1], sd[2], attn_mask=sd[3]), fl, reps=ab.reps)
     row["bound_ms"] = cs.bound(*cs.decode_work(dargs[4].tolist(), 2),
                                "bfloat16")[0]
     print(json.dumps(row))
-    src = torch.zeros(64 * 2 ** 20, device=dev)     # 256 MB read flush
 
-    def clean(fn):
-        return clean_ms(torch, fn, src, reps=args.reps)
 
-    # decode_fused at generate's mean step, bf16 q over an f32 and a bf16
-    # cache
-    gen = torch.Generator().manual_seed(args.seed + 11)
+def ab_decode_fused(ab):
+    """decode_fused at generate's mean step, bf16 q over an f32 and a
+    bf16 cache."""
+    torch, cs, F, old, new, dev, flush = (ab.torch, ab.cs, ab.F, ab.old,
+                                          ab.new, ab.dev, ab.flush)
+    n, h = cs.N_HEADS, cs.HEAD_DIM
+    gen = torch.Generator().manual_seed(ab.seed + 11)
     B, off, L = cs.DEC_BATCH, cs.DEC_TIMED_OFF, cs.DEC_LEN
     q = torch.randn((B, 1, n * h), generator=gen).to(dev, torch.bfloat16)
     k32, v32 = (torch.randn((B, L, n * h), generator=gen).to(dev)
@@ -217,19 +214,25 @@ def main(argv=None):
         row = {"kernel": "decode_fused", "b": B, "off": off,
                "cache": str(k.dtype).split(".")[1], "max_abs_err": errs}
         row["base_ms"], row["change_ms"] = turns(torch, cs, base, change,
-                                                 flush, args.reps)
+                                                 flush, ab.reps)
         row["clean_base_ms"], row["clean_change_ms"] = turns(
-            torch, cs, base, change, None, args.reps, timer=clean)
+            torch, cs, base, change, None, ab.reps, timer=ab.clean)
         row["sdpa_ms"] = cs.median_ms(
             torch, lambda: F.scaled_dot_product_attention(sq, sk, sv),
-            flush, reps=args.reps)
+            flush, reps=ab.reps)
         nbytes = 2 * B * (off + 1) * n * h * k.element_size() \
             + B * n * h * (2 + 4)
         row["bound_ms"] = cs.bound(nbytes, 4 * B * n * (off + 1) * h,
                                    "float32")[0]
         print(json.dumps(row))
 
-    # int8_matvec over GPT-3 125M's int8 head, bf16 h
+
+def ab_int8_matvec(ab):
+    """int8_matvec over GPT-3 125M's int8 head, bf16 h."""
+    torch, cs, F, old, new, dev, flush = (ab.torch, ab.cs, ab.F, ab.old,
+                                          ab.new, ab.dev, ab.flush)
+    n, h = cs.N_HEADS, cs.HEAD_DIM
+    gen = torch.Generator().manual_seed(ab.seed + 17)
     wq = torch.randint(-127, 128, (cs.I8_V, cs.I8_D), generator=gen,
                        dtype=torch.int8).to(dev)
     sc = ((0.01 + torch.rand((cs.I8_V,), generator=gen)) * 0.01).to(dev)
@@ -258,19 +261,239 @@ def main(argv=None):
             return torch.matmul(hh, wb.t())
         row = {"kernel": "int8_matvec", "rows": rows, "max_abs_err": errs}
         row["base_ms"], row["change_ms"] = turns(torch, cs, base, change,
-                                                 flush, args.reps)
+                                                 flush, ab.reps)
         row["clean_base_ms"], row["clean_change_ms"] = turns(
-            torch, cs, base, change, None, args.reps, timer=clean)
+            torch, cs, base, change, None, ab.reps, timer=ab.clean)
         for name, fn in (("dequant_bf16_matmul", dequant),
                          ("bf16_table", bf16_table)):
             row[f"{name}_ms"] = cs.median_ms(torch, fn, flush,
-                                             reps=args.reps)
-            row[f"clean_{name}_ms"] = clean(fn)
+                                             reps=ab.reps)
+            row[f"clean_{name}_ms"] = ab.clean(fn)
         nbytes = cs.I8_V * cs.I8_D + rows * cs.I8_D * 2 + cs.I8_V * 4 \
             + rows * cs.I8_V * 4
         row["bound_ms"] = cs.bound(nbytes, 2 * rows * cs.I8_V * cs.I8_D,
                                    "bfloat16")[0]
         print(json.dumps(row))
+
+
+# rows a CTA of the inference add + LayerNorm kernel, swept
+LN_WARPS = (1, 2, 4, 8)
+SEQ_SPIN = 2_000_000        # clock cycles, ~1 ms
+HOST_CALLS = 2000
+
+
+def host_us(torch, fn, calls=HOST_CALLS, warmup=50):
+    """Host microseconds a call of `fn`, which only enqueues work on the
+    card: `calls` calls back to back on the host clock, synchronized
+    before and after but not between (the card keeps up, so no call
+    waits for it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def ab_layernorm_fused(ab):
+    """K7 at the residual site as the engine runs it (no gradient, bf16,
+    x the [rows, 1, 768] residual stream, r the attention output)."""
+    torch, cs, F, old, new, dev, flush = (ab.torch, ab.cs, ab.F, ab.old,
+                                          ab.new, ab.dev, ab.flush)
+    ln_old, ln_new = old["layernorm"], new["layernorm"]
+    site_old = old["nn"].fused_add_layer_norm
+    site_new = new["nn"].fused_add_layer_norm
+    d = cs.N_HEADS * cs.HEAD_DIM
+    gen = torch.Generator().manual_seed(ab.seed + 23)
+    tol = ln_new.get_kernel("layernorm_fused").tol["bfloat16"]
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(
+            dev, torch.bfloat16)
+
+    def median(fn, fl):
+        return cs.median_ms(torch, fn, fl, reps=ab.reps)
+
+    w, b = 1 + randn(d, scale=0.1), randn(d, scale=0.1)
+    torch.set_grad_enabled(False)
+    warps_rule = ln_new.pair_warps
+    for rows in (cs.DEC_BATCH, cs.SLOTS, cs.CHUNK):
+        x, r = randn(rows, 1, d), randn(rows, 1, d)
+        x2, r2 = x.view(rows, d), r.view(rows, d)
+        ref_y, ref_h = ln_new.layernorm_fused_pair_plain(x2, r2, w, b)
+        errs, outs = {}, {}
+        for tag, site in (("base", site_old), ("change", site_new)):
+            outs[tag] = y, h = site(x, r, w, b)
+            torch.cuda.synchronize()
+            errs[tag] = cs.hold(f"layernorm_fused site {tag}",
+                                y.view(rows, d), ref_y, tol)
+            if not cs.same_bits(torch, h.view(rows, d), ref_h):
+                raise AssertionError(f"layernorm_fused site {tag}: the "
+                                     "carry is not x + r bit for bit")
+
+        def base_k7():
+            return ln_old.layernorm_fused(x2, r2, w, b)
+
+        def base_site():
+            return site_old(x, r, w, b)
+
+        def change_site():
+            return site_new(x, r, w, b)
+
+        def library():
+            return F.layer_norm(x2 + r2, (d,), w, b)
+        row = {"kernel": "layernorm_fused", "rows": rows, "d": d,
+               "max_abs_err": errs,
+               "out_same_bits": cs.same_bits(torch, outs["base"][0],
+                                             outs["change"][0])}
+        for label, fl in (("", flush), ("warm_", None)):
+            row[f"{label}base_site_ms"], row[f"{label}change_site_ms"] = \
+                turns(torch, cs, base_site, change_site, fl, ab.reps)
+            row[f"{label}base_k7_ms"] = median(base_k7, fl)
+            row[f"{label}library_ms"] = median(library, fl)
+            by_warps = {}
+            for warps in LN_WARPS:
+                ln_new.pair_warps = lambda n, k=warps: k
+                try:
+                    by_warps[warps] = median(change_site, fl)
+                finally:
+                    ln_new.pair_warps = warps_rule
+            row[f"{label}change_site_ms_by_warps"] = by_warps
+        row["change_warps"] = warps_rule(rows)
+        row["bound_ms"] = cs.bound(*cs.ln_work(rows, d, 2, 2, 2, False,
+                                               carry=True), "bfloat16")[0]
+        print(json.dumps(row))
+
+    # the decode step's sequence at 16 rows
+    rows = cs.SLOTS
+    a_in = randn(rows, d)
+    w_out, w_fc1 = randn(d, d, scale=0.03), randn(d, 4 * d, scale=0.03)
+    resid = randn(rows, 1, d)
+
+    def sequence(site):
+        def run():
+            o = torch.matmul(a_in, w_out).view(rows, 1, d)
+            y, h = site(resid, o, w, b)
+            return torch.matmul(y, w_fc1), h
+        return run
+
+    def without_pdl(fn):
+        def run():
+            ln_new.PDL = False
+            try:
+                return fn()
+            finally:
+                ln_new.PDL = True
+        return run
+    base_seq, change_seq = sequence(site_old), sequence(site_new)
+    row = {"kernel": "layernorm_fused", "rows": rows,
+           "sequence": "out_proj GEMM -> site -> fc1 GEMM"}
+    for label, fl in (("", flush), ("warm_", None)):
+        # the card spins ~1 ms first: the host enqueues 3-4 launches
+        def timer(fn, fl=fl):
+            return cs.median_ms(torch, fn, fl, reps=ab.reps,
+                                spin=SEQ_SPIN)
+        row[f"{label}base_ms"], row[f"{label}change_ms"] = turns(
+            torch, cs, base_seq, change_seq, fl, ab.reps, timer=timer)
+        row[f"{label}change_no_pdl_ms"], row[f"{label}change_pdl_ms"] = \
+            turns(torch, cs, without_pdl(change_seq), change_seq, fl,
+                  ab.reps, timer=timer)
+    print(json.dumps(row))
+
+    # the saving form (K6) at the training shape: the same kernel in both
+    # trees behind a changed wrapper (f32 stream, bf16 branch, f32 w)
+    rows_t = cs.TRAIN_BATCH * cs.TRAIN_SEQ
+    xt = torch.randn((rows_t, d), generator=gen).to(dev)
+    rt = randn(rows_t, d)
+    wt = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+    bt = (0.1 * torch.randn((d,), generator=gen)).to(dev)
+    base_ms, change_ms = turns(
+        torch, cs, lambda: ln_old.layernorm_fwd_saved(xt, rt, wt, bt),
+        lambda: ln_new.layernorm_fwd_saved(xt, rt, wt, bt), flush, ab.reps)
+    print(json.dumps({"kernel": "layernorm_fwd_saved", "rows": rows_t,
+                      "base_ms": base_ms, "change_ms": change_ms}))
+    del xt, rt
+
+    # host cost a call, at 16 rows
+    x, r = randn(rows, 1, d), randn(rows, 1, d)
+    x2, r2 = x.view(rows, d), r.view(rows, d)
+    one = torch.empty(1, device=dev)
+    host = {}
+    host["base_site"], host["change_site"] = turns(
+        torch, cs, lambda: site_old(x, r, w, b), lambda: site_new(x, r, w, b),
+        None, None, timer=lambda fn: host_us(torch, fn))
+    for name, fn in (
+            ("base_k7", lambda: ln_old.layernorm_fused(x2, r2, w, b)),
+            ("change_pair", lambda: ln_new.layernorm_fused_pair(x2, r2, w,
+                                                                b)),
+            ("change_y_only", lambda: ln_new.layernorm_fused(x2, r2, w, b)),
+            ("torch_add", lambda: x + r),
+            ("trivial_launch", lambda: one.fill_(1.0))):
+        host[name] = host_us(torch, fn)
+    torch.set_grad_enabled(True)
+    print(json.dumps({"kernel": "layernorm_fused", "rows": rows,
+                      "host_us_per_call": host}))
+
+
+# case -> (function, ops module, kernel source)
+CASES = {"flash_fwd": (ab_flash_fwd, "flash_attention",
+                       "flash_attention_fwd"),
+         "paged_decode": (ab_paged_decode, "paged_attention",
+                          "paged_decode"),
+         "decode_fused": (ab_decode_fused, "decode_attention",
+                          "decode_attention"),
+         "int8_matvec": (ab_int8_matvec, "int8_matvec", "int8_matvec"),
+         "layernorm_fused": (ab_layernorm_fused, "layernorm",
+                             "add_layer_norm")}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--base", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=60)
+    ap.add_argument("--kernels", default=",".join(CASES),
+                    help="comma-separated cases, of " + ", ".join(CASES))
+    args = ap.parse_args(argv)
+    chosen = args.kernels.split(",")
+    unknown = set(chosen) - set(CASES)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    mods_used = [CASES[c][1] for c in chosen] + ["_build"]
+    new = {m: importlib.import_module(f"paddle_tpu_torch.ops.{m}")
+           for m in mods_used}
+    load_package(os.path.abspath(args.base), "base_paddle_tpu_torch")
+    old = {m: importlib.import_module(f"base_paddle_tpu_torch.ops.{m}")
+           for m in mods_used}
+    for pkg, mods in (("paddle_tpu_torch", new),
+                      ("base_paddle_tpu_torch", old)):
+        mods["nn"] = importlib.import_module(f"{pkg}.nn.functional")
+        mods["_build"].build([CASES[c][2] for c in chosen])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line())
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    src = torch.zeros(64 * 2 ** 20, device=dev)     # 256 MB read flush
+
+    def clean(fn):
+        return clean_ms(torch, fn, src, reps=args.reps)
+    ab = types.SimpleNamespace(torch=torch, cs=cs, F=torch.nn.functional,
+                               old=old, new=new, dev=dev, flush=flush,
+                               reps=args.reps, seed=args.seed, clean=clean)
+    for c in chosen:
+        CASES[c][0](ab)
 
     one = torch.empty(1, device=dev)
     print(json.dumps({"launch_floor_ms": cs.median_ms(

@@ -9,7 +9,7 @@ import math
 import torch
 
 from ..amp import amp_op_dtype, amp_state, maybe_cast_to_compute
-from ..ops.layernorm import FusedAddLayerNormPair, layernorm_fused
+from ..ops.layernorm import FusedAddLayerNormPair, layernorm_fused_pair
 
 __all__ = ["linear", "embedding", "gelu", "layer_norm",
            "fused_add_layer_norm", "dropout", "cross_entropy"]
@@ -61,17 +61,17 @@ def fused_add_layer_norm(x, residual, weight, bias, epsilon=1e-5):
     in one call, through the add+LayerNorm kernels of `ops/layernorm.py`
     (the counterpart of the JAX package's `use_pallas_layernorm` route,
     norm.py:248-252). With a gradient wanted it runs the saving kernel
-    inside `FusedAddLayerNormPair`; otherwise the output-only kernel, and
-    the carry is one add. f32 moments, one rounding of the output."""
-    lead, d = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, d).contiguous()
-    r2 = residual.reshape(-1, d).contiguous()
+    inside `FusedAddLayerNormPair`; otherwise one launch of the inference
+    kernel gives both. f32 moments, one rounding of each output."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, residual, weight, bias)):
-        y, h = FusedAddLayerNormPair.apply(x2, r2, weight, bias, epsilon)
+        lead, d = x.shape[:-1], x.shape[-1]
+        y, h = FusedAddLayerNormPair.apply(
+            x.reshape(-1, d).contiguous(),
+            residual.reshape(-1, d).contiguous(), weight, bias, epsilon)
         return y.reshape(*lead, d), h.reshape(*lead, d)
-    y = layernorm_fused(x2, r2, weight, bias, epsilon)
-    return y.reshape(*lead, d), (x + residual).to(x.dtype)
+    return layernorm_fused_pair(x.contiguous(), residual.contiguous(),
+                                weight, bias, epsilon)
 
 
 def dropout(x, p=0.5, training=True):

@@ -19,9 +19,11 @@ greedy) base, change, change, base; per run it reports generated
 tokens/s and the decode-step p50/p99 (host clock around `_decode_once`,
 which ends in the step's host copy), and checks that both trees give
 the same tokens. Host speed on the card's machines drifts within a
-call, so the turns, not single runs, are what to compare. Prints the
-card's name and power limit and one JSON line per tree. Exits non-zero
-without CUDA.
+call, so the turns, not single runs, are what to compare. Then each
+tree's engine runs chip_smoke.py's decode-step profile (10 full-batch
+steps under torch.profiler: device ms and launches a step, by
+category). Prints the card's name and power limit and one JSON line per
+tree. Exits non-zero without CUDA.
 """
 import argparse
 import json
@@ -111,6 +113,11 @@ def main(argv=None):
             runs[tree].append((rate, statistics.median(steps),
                                cs.pct(steps, 0.99)))
             outs.setdefault(tree, out)
+    # device time and launches of a full-batch decode step, each tree
+    for tree in ("base", "change"):
+        eng, sp = engines[tree]
+        cs.profile_phase(torch, eng, cfg.vocab_size, args.seed,
+                         sampling_params=sp, what=f" ({tree})")
     same = outs["base"] == outs["change"]
     for tree, rs in runs.items():
         print(json.dumps({

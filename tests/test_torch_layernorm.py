@@ -5,6 +5,10 @@ On the CPU the wrappers run the plain version; it must match the JAX
 `_fwd` (K6: out, f32 sum, rstd) and `fused_add_layer_norm` (K7: out) in
 interpret mode at the JAX registry's tolerance (1e-4, 1e-5), and the
 port's pair backward must match the vjp of `fused_add_layer_norm_pair`.
+The inference pair (K7's out and the residual carry from one launch)
+must match the JAX pair: out within the registry's tolerance, the carry
+bit for bit, and the no-grad residual site must call it once and add
+nothing itself.
 """
 import numpy as np
 import pytest
@@ -15,9 +19,12 @@ import jax.numpy as jnp
 from paddle_tpu.ops import pallas_layernorm as jax_ln
 
 from paddle_tpu_torch import nn
+from paddle_tpu_torch.nn import functional as nn_functional
 from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
 from paddle_tpu_torch.ops.layernorm import (FusedAddLayerNormPair,
                                             layernorm_fused,
+                                            layernorm_fused_pair,
+                                            layernorm_fused_pair_plain,
                                             layernorm_fwd_saved)
 
 _TOL = dict(rtol=1e-4, atol=1e-5)
@@ -134,3 +141,104 @@ def test_residual_site_routes_by_grad_mode():
     torch.testing.assert_close(y_g.detach(), y_n)
     torch.testing.assert_close(h_g.detach(), x3 + r3)
     torch.testing.assert_close(h_n, x3 + r3)
+
+
+_JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_BITS = {torch.float32: (torch.int32, np.int32),
+         torch.bfloat16: (torch.int16, np.int16)}
+
+
+def _bits(t):
+    return t.view(_BITS[t.dtype][0])
+
+
+@pytest.mark.parametrize("d", [768, 770])       # 770: d % 8 != 0
+@pytest.mark.parametrize("rows", [1, 8, 16, 128, 300])
+@pytest.mark.parametrize("x_dt,r_dt", [("float32", "float32"),
+                                       ("bfloat16", "bfloat16"),
+                                       ("bfloat16", "float32")])
+def test_inference_pair_matches_jax_pair(x_dt, r_dt, rows, d):
+    """(out, carry) against the JAX pair `fused_add_layer_norm_pair`:
+    its Pallas kernel in interpret mode where its block spec takes the
+    rows, else its plain reference `_ln_ref` (300 rows is no multiple of
+    its 256-row block). The carry is one rounding of the f32 sum, so it
+    equals the JAX carry and torch's own `(x + r).to(x.dtype)` bit for
+    bit, mixed dtypes (bf16 x, f32 r: two roundings in each) included."""
+    x, r, w, b = _inputs(rows * 7 + d, rows, d)
+    jx, jr = jnp.asarray(x, _JD[x_dt]), jnp.asarray(r, _JD[r_dt])
+    jw, jb = jnp.asarray(w), jnp.asarray(b)
+    if rows <= 256:
+        ref_y, ref_h = jax_ln.fused_add_layer_norm_pair(jx, jr, jw, jb, 1e-5)
+    else:
+        ref_y, ref_s, _ = jax_ln._ln_ref(jx, jr, jw, jb, 1e-5)
+        ref_h = ref_s.astype(jx.dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32)), _TD[x_dt])
+    tr = _t(np.asarray(jr.astype(jnp.float32)), _TD[r_dt])
+    y, h = layernorm_fused_pair(tx, tr, _t(w), _t(b), 1e-5)
+    assert y.dtype == h.dtype == tx.dtype
+    assert y.shape == h.shape == (rows, d)
+    np.testing.assert_allclose(
+        y.float().numpy(), np.asarray(ref_y.astype(jnp.float32)),
+        **(_TOL if x_dt == "float32" else _TOL_BF16))
+    ref_bits = np.array(ref_h).view(_BITS[h.dtype][1])
+    assert torch.equal(_bits(h), torch.from_numpy(ref_bits))
+    assert torch.equal(_bits(h), _bits((tx + tr).to(tx.dtype)))
+    # the y-only form is the pair's first output
+    assert torch.equal(layernorm_fused(tx, tr, _t(w), _t(b), 1e-5), y)
+
+
+def test_inference_pair_site_one_call_no_add(monkeypatch):
+    """Without a gradient, `nn.fused_add_layer_norm` makes one call of
+    the kernel wrapper for both outputs and no add of its own (the CPU
+    launches nothing, so a counting stand-in takes the wrapper's place
+    and every torch function the site calls is recorded)."""
+    x, r, w, b = _inputs(13, 16, 128)
+    x3, r3 = _t(x).reshape(2, 8, 128), _t(r).reshape(2, 8, 128)
+    wt, bt = _t(w), _t(b)
+    want = layernorm_fused_pair_plain(x3, r3, wt, bt)
+    calls = []
+
+    def stand_in(*args):
+        calls.append(args)
+        return want
+
+    class Record(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.names.append(getattr(func, "__name__", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(nn_functional, "layernorm_fused_pair", stand_in)
+    with torch.no_grad(), Record() as rec:
+        y, h = nn.fused_add_layer_norm(x3, r3, wt, bt)
+    assert len(calls) == 1
+    assert not [n for n in rec.names if "add" in n], rec.names
+    assert y is want[0] and h is want[1]
+    assert y.shape == h.shape == (2, 8, 128)
+    assert torch.equal(h, (x3 + r3).to(x3.dtype))
+
+
+def test_inference_pair_keeps_leading_dims():
+    """The pair takes [..., d] (the residual site's [batch, seq, d]) and
+    returns both outputs in that shape: the rows are normalized one by
+    one, as over the flattened [rows, d]."""
+    x, r, w, b = _inputs(21, 6, 128)
+    x3, r3 = _t(x).reshape(2, 3, 128), _t(r).reshape(2, 3, 128)
+    y3, h3 = layernorm_fused_pair(x3, r3, _t(w), _t(b))
+    y2, h2 = layernorm_fused_pair(_t(x), _t(r), _t(w), _t(b))
+    assert y3.shape == h3.shape == (2, 3, 128)
+    assert torch.equal(y3.reshape(6, 128), y2)
+    assert torch.equal(h3.reshape(6, 128), h2)
+
+
+def test_inference_pair_no_fallback_off_the_cpu():
+    """On a tensor that is not on the CPU (meta stands for the card's
+    here) the pair takes no plain version: it checks and raises."""
+    x = torch.empty((16, 768), device="meta")
+    w = torch.empty((768,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        layernorm_fused_pair(x, x, w, w)
