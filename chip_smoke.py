@@ -7,7 +7,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit, never the
 ok line):
 
 1. build   — compile every CUDA kernel of the port from
-             paddle_tpu_torch/csrc with nvcc, all sources at once, into
+             paddle_tpu_torch/csrc with nvcc, all sources at once (and
+             graph_edges.cu, the host helper that counts a captured
+             graph's edges), into
              build/paddle_tpu_torch/, and print the build time and the
              registers, spills, static shared memory and "Potential
              Performance Loss" notes ptxas reports for the flash
@@ -21,7 +23,9 @@ ok line):
              tables, context lengths 0..511 including 0, block edges and
              the decode kernel's 32-key chunk edges, an inactive slot,
              and chunk starts p0 in {0, 7, 128, 384, 400} (at 400 the
-             chunk runs past key 511 and its last rows clamp); the
+             chunk runs past key 511 and its last rows clamp; each also
+             with p0 read from device memory, bit for bit the host
+             argument's result); the
              training kernels at [2, 1024, 12, 64] (flash forward and
              backward, causal, non-causal, and causal with sq 512 < sk
              1024, plus ragged lengths (sq 200; sq 300 < sk 700; sq 130
@@ -39,7 +43,12 @@ ok line):
              191, 200, 255}
              (one chunk up to 128 keys, then 8 chunks, full at 136 keys;
              and head_dim 128, 6 heads of 64 (no group of 4 heads), and
-             bf16 q over the f32 cache), int8_matvec at D 768, V 51200,
+             bf16 q over the f32 cache), and with its position read from
+             device memory at keys {1, 32, 33, 64, 65, 128, 129, 136,
+             200, 256} and every chunk count 1/2/4/8 that leaves each
+             chunk a key: inside a CUDA graph bit for bit the same launch
+             outside it, at decode_split's chunk count the host
+             position's bits, int8_matvec at D 768, V 51200,
              rows {1, 8, 16, 24, 40, 64, 65}, V 50257 (no multiple of
              the kernel's 64-row tile) at rows {3, 16, 64}, and a bf16
              scale at 8 rows (generate's bf16 decode); the MoE kernels
@@ -72,17 +81,32 @@ ok line):
              ServingEngine(max_slots=16, block_size=16,
              prefill_chunk=128, max_model_len=512): 32 greedy requests of
              16..384 prompt tokens, half sharing a 96-token template, 32
-             new tokens each. Every stream must complete; the launch
-             counters, zeroed just before, must equal layers x decode steps
-             (paged_decode), layers x prefill chunks
+             new tokens each, the decode steps and prefill chunks
+             replayed as CUDA graphs captured at the warm-up (the prefix
+             index flushed before each run). Every stream must complete;
+             the launch counters, zeroed just before, must equal layers
+             x decode steps (paged_decode), layers x prefill chunks
              (flash_prefill_chunk) and layers x both (layernorm_fused);
              every stream is teacher-forced through the port's dense f32
-             forward on the card (flash_fwd and layernorm_fused in f32);
+             forward on the card (flash_fwd and layernorm_fused in f32).
+             Then the same requests through the eager step bodies and the
+             captured steps in turns (eager, captured, captured, eager):
+             the same tokens every run; tokens/s, decode-step p50/p99
+             and prefill-chunk p50 of each; every family captured once
+             per key (the capture records), capture ms, the graph pool's
+             bytes, and the edges of each captured graph, how many of
+             them programmatic (cudaGraphGetEdges_v2): 2 x layers in a
+             decode graph (K7 and K10's merge), layers in a prefill
+             graph (K7), or the phase fails;
 4. profile — device time by kernel over 10 full-batch decode steps
-             (torch.profiler, CUDA activity only); then 16 requests
+             (torch.profiler), device launches and the host's launch API
+             calls (cudaLaunchKernel, cudaLaunchKernelExC,
+             cuLaunchKernelEx, cudaGraphLaunch) a step, captured and
+             eager; then 16 requests
              served with weights="wo8" over a model quantized with its
-             embeddings: every stream completes and int8_matvec launches
-             once per decode step and once per prefill chunk;
+             embeddings: every stream completes, int8_matvec launches
+             once per decode step and once per prefill chunk, and the
+             eager bodies give the same tokens;
 4b. serve loop — the engine as a server at the serve phase's shape
              (bf16, init --init-range): `start()` and a
              `ServingHTTPServer` on 127.0.0.1; 8 client threads POST the
@@ -92,7 +116,9 @@ ok line):
              done, the greedy ones pass the teacher-forced bar. Replay
              identity: after a drain (which flushes the prefix index), 4
              sampled requests resubmitted one at a time give their batch
-             tokens. Step times of full greedy-only and sampling
+             tokens, and after another flush so do the same 4 through
+             the eager step bodies. Step times of full greedy-only and
+             sampling
              batches; GET /metrics carries the serving.* histogram and
              gauge series under the exporter's names, /healthz answers
              200. A warm restart: one decode step raises a RuntimeError
@@ -125,7 +151,9 @@ ok line):
              record (the old arenas' bytes, num_ooms, the largest
              segments) written before the restart record, one warm
              restart, every stream complete and past the teacher-forced
-             bar. The ledger records pass telemetry/ledger_check.py;
+             bar; each step family recaptured exactly once after it,
+             the record's cause naming the arenas. The ledger records
+             pass telemetry/ledger_check.py;
 4d. fleet  — paddle_tpu_torch.fleet.drill on the card: three replica
              processes (`python -m paddle_tpu_torch.fleet.drill --serve`,
              each an engine at the serve shape, bf16, with its own
@@ -161,11 +189,18 @@ ok line):
              128 x calls (int8_matvec, third recipe; 0 otherwise) and
              layers x 129 x calls (layernorm_fused); every stream is
              teacher-forced through the same model's dense f32 forward;
-             a 10-step decode profile (native and int8-head recipes; the
-             latter's holds the int8 linears' copies too). On the native
-             model one beam
+             the token steps are CUDA graphs captured at the warm call.
+             Then eager and captured calls in turns (eager, captured,
+             captured, eager): the same 8 streams, tokens/s of each; a
+             profile of the 32 token steps of a call, captured and
+             eager (native and int8-head recipes; device launches and
+             host launch calls a step). On the native model one beam
              search (4 beams, 32 tokens) and one top-k/top-p sampling
-             call must give valid ids;
+             call must give valid ids, the same as their eager
+             bodies'; every family captured once per key; the bytes
+             generate keeps for the native model after its first call
+             (weights, loop buffers, graph pool) and what
+             `generation.release` frees;
 6. train   — GPT-3 125M at full width (seed 0, init 0.02) through
              TrainStep with AdamW(1e-4, weight decay 0.01): first 3 steps
              in f32 at batch 2, seq 256 on the card and on the CPU (plain
@@ -190,7 +225,9 @@ ok line):
              profile and the MoE regions timed alone.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
-phase took, a JSON line with
+phase took, one JSON line of the compiled step against the eager bodies
+(serve tokens/s, step p50/p99 and chunk p50, generate tokens/s per
+recipe, capture ms, pool bytes, launches a step), a JSON line with
 every kernel's launches, error and times, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is unavailable or when run
@@ -260,9 +297,13 @@ ENGINE = dict(max_slots=SLOTS, block_size=BLOCK, prefill_chunk=CHUNK,
 # at position p attends keys 0..p; the timed kernel sits at the mean
 # position of the 128 steps
 DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_CALLS = 8, 128, 128, 3
+DEC_PROFILED = 32           # token steps a decode profile covers
 DEC_LEN = DEC_PROMPT + DEC_NEW
 DEC_OFFS = (0, 7, 63, 64, 127, 128, 135, 136, 191, 200, 255)
 DEC_TIMED_OFF = DEC_PROMPT + (DEC_NEW - 1) // 2
+# key counts of decode_fused's device-position checks: the one-chunk
+# edge (128/129) and the cluster path's 32- and 64-key edges
+DEVICE_KEYS = (1, 32, 33, 64, 65, 128, 129, 136, 200, DEC_LEN)
 # the int8 head: GPT-3 125M's vocab 50304 padded to a multiple of 1024
 I8_V, I8_D = 51200, 768
 I8_ROWS = (1, 8, 16, 24, 40, 64, 65)
@@ -506,14 +547,23 @@ def kernels_phase(torch, seed):
             pargs = prefill_inputs(torch, gen, dtype, dev, p0)
             got = flash_prefill_chunk(*pargs, N_HEADS)
             ref = flash_prefill_plain(*pargs, N_HEADS)
+            # p0 read from device memory (the engine's captured chunk):
+            # the same bits as the host argument
+            p0_dev = torch.full((), p0, dtype=torch.int32, device=dev)
+            got_dev = flash_prefill_chunk(*pargs[:4], p0_dev, N_HEADS)
             torch.cuda.synchronize()
             e = hold(f"flash_prefill_chunk[{dname}, p0={p0}]", got, ref,
                      pre.tol[dname])
+            if not same_bits(torch, got, got_dev):
+                raise AssertionError(f"flash_prefill_chunk[{dname}, "
+                                     f"p0={p0}]: a device p0 differs")
             key = ("flash_prefill_chunk", dname)
             errs[key] = max(errs.get(key, 0.0), e)
     for (name, dname), e in sorted(errs.items()):
         print(f"kernels: {name} {dname} max_abs_err {e:.3e} "
               f"(tol rtol, atol = {get_kernel(name).tol[dname]})")
+    print(f"kernels: flash_prefill_chunk with p0 read from device memory: "
+          f"the host launch's bits at p0 {list(P0S)}, f32 and bf16")
 
     # timing at the serving shapes, in the engine's bf16: paged_decode
     # at a decode step of 16 slots with ctx uniform in 0..511, L2 flushed
@@ -872,6 +922,65 @@ def train_kernels_phase(torch, seed):
     return rows
 
 
+def device_position_checks(torch, gen, dev, k8, note):
+    """decode_fused with q's position read from device memory, as
+    generate's captured token step launches it: at every key count of
+    DEVICE_KEYS and every chunk count that leaves each chunk a key, the
+    launch inside a CUDA graph (replayed after the position buffer moved
+    away and back) gives the bits of the same launch outside it, and,
+    at decode_split's own chunk count, of the host-position launch;
+    every result within the registry's tolerance of the plain version."""
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain, decode_split)
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, n, h = DEC_BATCH, N_HEADS, HEAD_DIM
+    off = torch.zeros((), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    cases = 0
+    for qd, cd in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        dname = str(qd).split(".")[1]
+        q = torch.randn((B, 1, n * h), generator=gen).to(dev, qd)
+        k, v = (torch.randn((B, DEC_LEN, n * h), generator=gen).to(dev, cd)
+                for _ in range(2))
+        for keys in DEVICE_KEYS:
+            last = keys - 1
+            for chunks in (1, 2, 4, 8):
+                if (chunks - 1) * -(-keys // chunks) > last:
+                    continue            # a chunk would hold no key
+                off.fill_(last)
+                eager = decode_attention(q, k, v, off, n, chunks)
+                g = torch.cuda.CUDAGraph()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    g.capture_begin()
+                    in_graph = decode_attention(q, k, v, off, n, chunks)
+                    g.capture_end()
+                torch.cuda.current_stream().wait_stream(side)
+                off.fill_(0)
+                g.replay()
+                off.fill_(last)
+                g.replay()
+                ref = decode_attention_plain(q, k, v, last, n)
+                torch.cuda.synchronize()
+                what = (f"decode_fused[device position, q {qd}, cache {cd}, "
+                        f"keys {keys}, {chunks} chunks]")
+                if not same_bits(torch, eager, in_graph):
+                    raise AssertionError(f"{what}: the graph's bits differ")
+                if chunks == decode_split(last)[0] and not same_bits(
+                        torch, eager,
+                        decode_attention(q, k, v, last, n)):
+                    raise AssertionError(f"{what}: differs from the host "
+                                         "position's launch")
+                note(("decode_fused", dname, str(cd)),
+                     hold(what, eager, ref, k8.tol[dname]))
+                cases += 1
+                del g
+    print(f"kernels: decode_fused with its position in device memory: "
+          f"{cases} cases (keys {list(DEVICE_KEYS)} x 1/2/4/8 chunks x 3 "
+          f"dtype pairs), in a graph = outside it, = the host position's "
+          f"launch at decode_split's chunk count")
+
+
 def decode_kernels_phase(torch, seed):
     """The decode path's kernels against their plain versions, then
     timed at generate's shapes (batch 8 on GPT-3 125M)."""
@@ -913,6 +1022,7 @@ def decode_kernels_phase(torch, seed):
                 note(("decode_fused", dname, str(cd)), hold(
                     f"decode_fused[q {qd}, cache {cd}, b={b} n={n} h={h} "
                     f"off={off}]", got, ref, tol))
+    device_position_checks(torch, gen, dev, k8, note)
     # int8_matvec: h in f32 and bf16, the 125M head and a ragged table
     k9 = get_kernel("int8_matvec")
     big, ragged = table(I8_V), table(I8_RAGGED_V)
@@ -1160,23 +1270,28 @@ def teacher_forced(torch, model, prompt, out):
     return agree.tolist(), trail.tolist()
 
 
-def serve_phase(torch, seed, init_range, dtype):
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
-    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
-    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
-    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
-                              initializer_range=init_range)
-    model = GPTForPretraining(cfg, seed=seed)          # on the card
-    eng = ServingEngine(model, **{**ENGINE, "dtype": dtype})
-    # warm-up: cuBLAS handles, allocator pools, first launches
-    for p in make_requests(seed + 1, cfg.vocab_size, n=2):
-        eng.submit(p[:40], SamplingParams(max_new_tokens=4))
-    eng.run_until_idle()
-    torch.cuda.synchronize()
+def eager_steps(on=True):
+    """The captured steps' bodies run eagerly while active (`on`), the
+    same bodies over the same static buffers: what the compiled step is
+    compared with."""
+    from paddle_tpu_torch import jit
+    return jit._eager_steps() if on else contextlib.nullcontext()
 
-    prompts = make_requests(seed, cfg.vocab_size)
-    step_ms = []
-    decode_once = eng._decode_once
+
+def serve_run(torch, eng, prompts, new=32, eager=False, sp=None):
+    """The prompts served to idle (`new` tokens each, greedy) after a
+    drain has flushed the prefix index, so every run prefills the same
+    chunks: (outputs, tokens/s, decode-step ms, prefill-chunk ms), the
+    step times on the host's clock around `_decode_once` and
+    `_prefill_chunk` (each ends in its host copy). `sp` is the engine's
+    own SamplingParams class (another checkout's engine takes its
+    own)."""
+    from paddle_tpu_torch.serving import SamplingParams
+    sp = sp or SamplingParams
+    eng.drain()
+    eng.resume_admission()
+    step_ms, chunk_ms = [], []
+    decode_once, prefill_chunk = eng._decode_once, eng._prefill_chunk
 
     def timed_decode():
         t = time.perf_counter()
@@ -1185,21 +1300,116 @@ def serve_phase(torch, seed, init_range, dtype):
             step_ms.append((time.perf_counter() - t) * 1e3)
         return did
 
-    eng._decode_once = timed_decode
-    d0, c0 = eng.decode_steps, eng.prefill_chunks
-    reset_launches()
-    t0 = time.perf_counter()
-    handles = [eng.submit(p, SamplingParams(max_new_tokens=32))
-               for p in prompts]
+    def timed_chunk(*args):
+        t = time.perf_counter()
+        out = prefill_chunk(*args)
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._decode_once, eng._prefill_chunk = timed_decode, timed_chunk
+    try:
+        with eager_steps(eager):
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, sp(max_new_tokens=new))
+                       for p in prompts]
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del eng._decode_once, eng._prefill_chunk
+    outs = [h.output_tokens for h in handles]
+    if not all(h.finished and len(o) == new for h, o in zip(handles, outs)):
+        raise AssertionError("serve: a stream did not complete")
+    return outs, new * len(prompts) / wall, step_ms, chunk_ms
+
+
+def run_stats(rate, step_ms, chunk_ms):
+    return dict(tokens_per_s=rate, step_p50_ms=statistics.median(step_ms),
+                step_p99_ms=pct(step_ms, 0.99),
+                chunk_p50_ms=statistics.median(chunk_ms))
+
+
+def eager_captured_turns(torch, eng, prompts, outs, what, turns=2, new=32):
+    """Eager and captured runs of the same prompts in turns (eager,
+    captured, captured, eager, ...): each must give `outs`, token for
+    token. -> {"eager": [stats], "captured": [stats]}."""
+    order = [True, False, False, True] * (turns // 2)
+    got = {"eager": [], "captured": []}
+    for eager in order:
+        o, rate, step_ms, chunk_ms = serve_run(torch, eng, prompts, new=new,
+                                               eager=eager)
+        if o != outs:
+            i = next(i for i, (a, b) in enumerate(zip(o, outs)) if a != b)
+            mode = "eager" if eager else "captured"
+            raise AssertionError(f"{what}: the {mode} steps' stream {i} "
+                                 "differs from the captured run's")
+        got["eager" if eager else "captured"].append(
+            run_stats(rate, step_ms, chunk_ms))
+    return got
+
+
+def check_captures(records, what):
+    """Every family was captured once per key -> {family: captures}."""
+    keys, fams = {}, {}
+    for r in records:
+        if r.get("kind") != "compile":
+            continue
+        k = (r["fn"], r["extra"]["key"])
+        keys[k] = keys.get(k, 0) + 1
+        fams[r["fn"]] = fams.get(r["fn"], 0) + 1
+    twice = {k: n for k, n in keys.items() if n > 1}
+    if twice:
+        raise AssertionError(f"{what}: captured more than once per key: "
+                             f"{twice}")
+    return fams
+
+
+def graph_edges(graphs, layers, what):
+    """{key: [edges, programmatic edges]} of an engine's captured graphs,
+    from cudaGraphGetEdges_v2 (csrc/graph_edges.cu). Fails unless each
+    decode graph has 2 x `layers` programmatic edges (K7 and K10's merge
+    a layer) and each prefill graph `layers` (K7): a graph that lost
+    their early start has none."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    fn, err = _build.launcher(
+        "graph_edges", "graph_edge_counts",
+        [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_longlong)] * 2)
+    out = {}
+    for key, g in graphs.items():
+        total, prog = ctypes.c_longlong(), ctypes.c_longlong()
+        _build.check_launch("graph_edges", fn(
+            g.graph.raw_cuda_graph(), ctypes.byref(total),
+            ctypes.byref(prog)), err)
+        out[repr(key)] = [total.value, prog.value]
+        want = layers * (2 if key[0].startswith("decode") else 1)
+        if prog.value != want:
+            raise AssertionError(f"{what}: graph {key!r} has {prog.value} "
+                                 f"programmatic edges, not {want}")
+    return out
+
+
+def serve_phase(torch, seed, init_range, dtype):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
+                              initializer_range=init_range)
+    model = GPTForPretraining(cfg, seed=seed)          # on the card
+    eng = ServingEngine(model, **{**ENGINE, "dtype": dtype})
+    # warm-up: cuBLAS handles, allocator pools, first launches, and the
+    # captures of the greedy decode step and prefill chunk
+    for p in make_requests(seed + 1, cfg.vocab_size, n=2):
+        eng.submit(p[:40], SamplingParams(max_new_tokens=4))
     eng.run_until_idle()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    prompts = make_requests(seed, cfg.vocab_size)
+    d0, c0 = eng.decode_steps, eng.prefill_chunks
+    reset_launches()
+    outs, rate, step_ms, chunk_ms = serve_run(torch, eng, prompts)
     launches = {k.name: k.launches for k in kernels()}
     steps, chunks = eng.decode_steps - d0, eng.prefill_chunks - c0
-
-    outs = [h.output_tokens for h in handles]
-    if not all(h.finished and len(o) == 32 for h, o in zip(handles, outs)):
-        raise AssertionError("serve: a stream did not complete")
     eng.pool.assert_quiesced()
     L = cfg.num_layers
     want = {**{name: 0 for name in launches},
@@ -1218,36 +1428,51 @@ def serve_phase(torch, seed, init_range, dtype):
         a, t = teacher_forced(torch, model, prompt, out)
         agree += a
         trail += t
-    rate = sum(agree) / len(agree)
-    stats = dict(tokens_per_s=32 * len(prompts) / wall, wall_s=wall,
+    tf_rate = sum(agree) / len(agree)
+    # the same requests through the eager bodies, in turns with the
+    # captured steps: the same tokens
+    turns = eager_captured_turns(torch, eng, prompts, outs, "serve")
+    captures = check_captures(eng._graphs.records, "serve")
+    edges = graph_edges(eng._graphs.graphs, L, "serve")
+    stats = dict(**run_stats(rate, step_ms, chunk_ms), wall_s=32 * len(
+                     prompts) / rate,
                  decode_steps=steps, prefill_chunks=chunks,
-                 step_p50_ms=statistics.median(step_ms),
-                 step_p99_ms=pct(step_ms, 0.99),
                  prefix_hits=ps["hits"], tokens_saved=ps["tokens_saved"],
                  distinct_mean=sum(distinct) / len(distinct),
                  constant_streams=sum(1 for d in distinct if d == 1),
-                 tf_agree=rate, tf_max_trail_std=max(trail),
+                 tf_agree=tf_rate, tf_max_trail_std=max(trail),
                  launches=launches)
     print(f"serve[{dtype}, init {init_range}]: " + json.dumps(stats))
+    compiled = dict(turns=turns, captures=captures,
+                    capture_ms=eng._graphs.capture_ms,
+                    pool_bytes=eng._graphs.pool_bytes, graph_edges=edges,
+                    records=[{k: r[k] for k in ("fn", "n_compiles",
+                                                "compile_ms", "extra")}
+                             for r in eng._graphs.records])
+    print(f"serve[{dtype}] eager vs captured steps, same tokens, on "
+          f"{card_line()}: " + json.dumps(compiled))
+    stats["compiled"] = compiled
     if stats["constant_streams"] > MAX_CONSTANT_FRAC * len(outs) or \
             sum(distinct) / len(distinct) < MIN_MEAN_DISTINCT:
         raise AssertionError(f"serve: the streams barely vary (distinct "
                              f"tokens per stream {distinct})")
-    if rate < TF_AGREE or max(trail) > TF_MARGIN_STD:
+    if tf_rate < TF_AGREE or max(trail) > TF_MARGIN_STD:
         raise AssertionError(
-            f"serve: teacher-forced check failed: agreement {rate:.3f} "
+            f"serve: teacher-forced check failed: agreement {tf_rate:.3f} "
             f"(need {TF_AGREE}), worst trail {max(trail):.3f} std "
             f"(limit {TF_MARGIN_STD})")
     return stats, eng, cfg.vocab_size
 
 
 def profile_phase(torch, eng, vocab, seed, steps=10, sampling_params=None,
-                  what=""):
+                  what="", eager=False):
     """Device time by kernel over `steps` decode steps of a full batch,
-    from torch.profiler with CUDA activity only (the profiler's own host
-    cost lengthens the steps, so the busy share it gives is a floor).
-    `sampling_params` is the engine's own SamplingParams class (another
-    checkout's engine takes its own)."""
+    from torch.profiler with CUDA and CPU activity (the profiler's own
+    host cost lengthens the steps, so the busy share it gives is a
+    floor), and the host's launch API calls a step; `eager` runs the
+    steps' bodies eagerly. `sampling_params` is the engine's own
+    SamplingParams class (another checkout's engine takes its own).
+    -> (device launches, host launch calls) a step."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import SamplingParams
     SamplingParams = sampling_params or SamplingParams
@@ -1257,15 +1482,34 @@ def profile_phase(torch, eng, vocab, seed, steps=10, sampling_params=None,
         eng.step()
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with eager_steps(eager), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     eng.run_until_idle()
-    print_profile(prof, steps, wall_ms,
-                  f"decode steps of {SLOTS} slots{what}", top=12)
+    what = f"decode steps of {SLOTS} slots{what}"
+    print_profile(prof, steps, wall_ms, what, top=12)
+    return launch_counts(prof, steps, what)
+
+
+# the host's launch API calls in a profile: kernel launches (cuda* and
+# cu* entry points, PDL and clusters included) and graph launches
+LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+              "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def launch_counts(prof, steps, what):
+    """(device launches, host launch API calls by name) a step."""
+    dev = sum(e.count for e in device_events(prof)) / steps
+    host = {e.key: e.count / steps for e in prof.key_averages()
+            if e.key in LAUNCH_API}
+    print(f"profile: {what}: {dev:.1f} device launches a step, host launch "
+          f"calls a step {json.dumps(host)} (total "
+          f"{sum(host.values()):.1f})")
+    return dev, host
 
 
 def device_events(prof):
@@ -1321,25 +1565,27 @@ def serve_wo8_phase(torch, seed, init_range, n=16):
         eng.submit(p[:40], SamplingParams(max_new_tokens=4))
     eng.run_until_idle()
     torch.cuda.synchronize()
+    prompts = make_requests(seed + 3, cfg.vocab_size, n=n)
     d0, c0 = eng.decode_steps, eng.prefill_chunks
     reset_launches()
-    t0 = time.perf_counter()
-    handles = [eng.submit(p, SamplingParams(max_new_tokens=16))
-               for p in make_requests(seed + 3, cfg.vocab_size, n=n)]
-    eng.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    outs, rate, _, _ = serve_run(torch, eng, prompts, new=16)
     launches = {k.name: k.launches for k in kernels()}
     steps, chunks = eng.decode_steps - d0, eng.prefill_chunks - c0
-    if not all(h.finished and len(h.output_tokens) == 16 for h in handles):
-        raise AssertionError("serve wo8: a stream did not complete")
     eng.pool.assert_quiesced()
+    # the eager bodies give the captured steps' tokens
+    eager, eager_rate, _, _ = serve_run(torch, eng, prompts, new=16,
+                                        eager=True)
+    if eager != outs:
+        raise AssertionError("serve wo8: the eager steps' tokens differ "
+                             "from the captured steps'")
+    check_captures(eng._graphs.records, "serve wo8")
     L = cfg.num_layers
     want = {**{name: 0 for name in launches},
             "paged_decode": L * steps, "flash_prefill_chunk": L * chunks,
             "layernorm_fused": L * (steps + chunks),
             "int8_matvec": steps + chunks}
-    stats = dict(tokens_per_s=16 * n / wall, decode_steps=steps,
+    stats = dict(tokens_per_s=rate, eager_tokens_per_s=eager_rate,
+                 same_tokens_eager=True, decode_steps=steps,
                  prefill_chunks=chunks, launches=launches)
     print("serve[wo8 + int8 embeddings, bf16]: " + json.dumps(stats))
     if launches != want:
@@ -1618,6 +1864,21 @@ def serve_loop_phase(torch, seed, init_range):
                 raise AssertionError(
                     f"serve loop: sampled request {i} alone differs from "
                     f"its batch stream at token {at}")
+        # the same sampled requests through the eager bodies, after
+        # another flush: the captured steps' tokens
+        if not eng.drain(timeout=300):
+            raise AssertionError("serve loop: drain did not complete")
+        eng.resume_admission()
+        with eager_steps():
+            for i in [i for i in range(len(prompts))
+                      if knobs[i]][:LOOP_REPLAYS]:
+                again = eng.submit(prompts[i], SamplingParams(
+                    max_new_tokens=LOOP_NEW, **knobs[i])).result(
+                        timeout=300)
+                if again != outs[i]:
+                    raise AssertionError(
+                        f"serve loop: sampled request {i} through the "
+                        "eager steps differs from the captured stream")
         # decode-step times of full batches on the loop's thread: greedy
         # only, then sampling
         for sampling in (False, True):
@@ -1691,6 +1952,7 @@ def serve_loop_phase(torch, seed, init_range):
     rtf_rate, rtf_trail = tf_check(torch, model, [prompts[i] for i in rg],
                                    [r_outs[i] for i in rg],
                                    "serve loop (restart run)")
+    captures = check_captures(sink.records, "serve loop")
     draws = draws_check(torch, seed, cfg.vocab_size)
     sampler = sampler_cost(torch, cfg.vocab_size)
     stats = dict(
@@ -1707,6 +1969,8 @@ def serve_loop_phase(torch, seed, init_range):
         restarts=restarts, quiesce_counts=c, tf_agree=tf_rate,
         tf_max_trail_std=tf_trail, restart_tf_agree=rtf_rate,
         restart_tf_max_trail_std=rtf_trail, replays=LOOP_REPLAYS,
+        eager_replays_same=True, captures=captures,
+        capture_ms=eng._graphs.capture_ms, pool_bytes=eng._graphs.pool_bytes,
         **draws, launches=launches,
         phase_s=time.perf_counter() - t_phase)
     print(f"serve loop[bf16, init {init_range}] on {card_line()}: "
@@ -1722,6 +1986,24 @@ MEM_REQUESTS = 16           # served per engine in the memory phase
 MEM_FAULT_AT = 6            # the decode step that asks for too much memory
 MEM_SNAP_TIMED = 50         # snapshots timed alone
 GIB = 2 ** 30
+
+
+def recapture_check(records, what):
+    """After one warm restart: every family captured once per key, and
+    each family that ran after it recaptured exactly once, the cause
+    naming the arenas -> {family: cause}."""
+    check_captures(records, what)
+    comp = [r for r in records if r.get("kind") == "compile"]
+    again = {}
+    for r in comp:
+        if r["n_compiles"] > 1:
+            if r["fn"] in again or not any("arenas" in c
+                                           for c in r.get("cause", [])):
+                raise AssertionError(f"{what}: recapture {r}")
+            again[r["fn"]] = r["cause"]
+    if not again or any(r["n_compiles"] > 2 for r in comp):
+        raise AssertionError(f"{what}: recaptures {comp}")
+    return again
 
 
 def memory_phase(torch, seed, init_range):
@@ -1789,6 +2071,7 @@ def memory_phase(torch, seed, init_range):
             f"memory: ledger {rec} against params {params}, kv {kv}, "
             f"reserved {reserved}")
     total = rec["total_bytes"]
+    ledger_pool = eng._graphs.pool_bytes     # reserved inside the total
     # what a snapshot costs the step that takes it (host time)
     snap_ms = []
     for i in range(MEM_SNAP_TIMED):
@@ -1879,6 +2162,7 @@ def memory_phase(torch, seed, init_range):
             monitor.get("serving.restarts", 0) != restarts0 + 1:
         raise AssertionError(f"memory: {len(posts)} postmortems, "
                              f"{len(restarts)} restarts after one OOM")
+    recaptures = recapture_check(recs, "memory")
     post = recs[posts[0]]
     if "OutOfMemoryError" not in post["error"] or \
             post["kv_bytes"] != kv_high or post["num_ooms"] <= ooms0 or \
@@ -1896,6 +2180,7 @@ def memory_phase(torch, seed, init_range):
     stats = dict(
         ledger_gib={k[:-6]: v / GIB for k, v in buckets.items()},
         total_gib=total / GIB, reserved_gib=reserved / GIB,
+        total_graph_pool_gib=ledger_pool / GIB,
         allocated_gib=torch.cuda.memory_allocated() / GIB,
         snapshots=len(snaps), decode_steps=steps, prefill_chunks=chunks,
         snapshot_host_ms_p50=statistics.median(snap_ms),
@@ -1908,6 +2193,7 @@ def memory_phase(torch, seed, init_range):
                         / GIB,
                         top_array=post["top_arrays"][0]),
         oom_tf_agree=tf_rate, oom_tf_max_trail_std=tf_trail,
+        recaptures=recaptures, pool_bytes=high._graphs.pool_bytes,
         launches=launches, phase_s=time.perf_counter() - t_phase)
     print(f"memory[bf16, init {init_range}] on {card_line()}: "
           + json.dumps(stats))
@@ -1999,26 +2285,51 @@ def fleet_phase(torch, seed, init_range):
 # phase 5: decode (generate) GPT-3 125M, native and weight-only int8
 # ---------------------------------------------------------------------------
 
-def decode_profile(torch, model, ids, what, steps=10):
-    """Device time by kernel over `steps` bf16 decode steps of `model`
-    (after its prefill), the one-token forward and the greedy pick."""
+def decode_profile(torch, model, ids, what, eager=False):
+    """Device time by kernel over the DEC_PROFILED token steps of one bf16
+    `generate` call (torch.profiler, CUDA and CPU activity, started after
+    the prefill), and the host's launch API calls a step; `eager` runs
+    the token steps' bodies eagerly. A warm call first captures the
+    call's shape. -> (device launches, host launch calls) a step."""
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.generation import _decode_weights
-    with _decode_weights(model, torch.bfloat16), torch.inference_mode():
-        caches = model.gpt.init_cache(DEC_BATCH, DEC_LEN)
-        logits, caches = model(ids, caches=caches, offset=0)
-        tok = logits[:, -1].float().argmax(-1)
+    from paddle_tpu_torch import generation
+    model.generate(ids, max_new_tokens=DEC_PROFILED)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run, wall = generation._run_steps, []
+
+    def profiled(*args, **kw):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                logits, caches = model(tok[:, None], caches=caches,
-                                       offset=DEC_PROMPT + i)
-                tok = logits[:, -1].float().argmax(-1)
+        prof.start()
+        t0 = time.perf_counter()
+        try:
+            run(*args, **kw)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    print_profile(prof, steps, wall_ms, f"decode steps of {DEC_BATCH} rows, "
-                  f"{what}", top=8)
+        finally:
+            wall.append((time.perf_counter() - t0) * 1e3 / DEC_PROFILED)
+            prof.stop()
+
+    generation._run_steps = profiled
+    try:
+        with eager_steps(eager):
+            model.generate(ids, max_new_tokens=DEC_PROFILED)
+    finally:
+        generation._run_steps = run
+    what = (f"generate token steps of {DEC_BATCH} rows, {what}, "
+            f"{'eager' if eager else 'captured'}")
+    print_profile(prof, DEC_PROFILED, wall[0], what, top=8)
+    return launch_counts(prof, DEC_PROFILED, what)
+
+
+def kept_bytes(torch, ms):
+    """Bytes of one model's kept `generate` state: the decode-dtype
+    weights, the loop buffers (KV cache, ids, selection state), and the
+    device memory its graphs' captures reserved."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    loop = [t for kv in ms.loop.caches for t in kv] + [
+        t for t in vars(ms.loop).values() if torch.is_tensor(t)]
+    return dict(weights=nbytes(ms.store.values()), loop=nbytes(loop),
+                graph_pool=ms.steps.pool_bytes)
 
 
 def decode_phase(torch, seed, init_range):
@@ -2026,6 +2337,7 @@ def decode_phase(torch, seed, init_range):
     import numpy as np
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch import generation
     from paddle_tpu_torch.quant import (quantize_for_decode,
                                         quantize_weights_int8)
     cfg = GPTConfig.gpt3_125m(max_seq_len=1024,
@@ -2043,10 +2355,17 @@ def decode_phase(torch, seed, init_range):
          lambda m: quantize_weights_int8(m, embeddings=True)))
     total = {k.name: 0 for k in kernels()}
     stats = {}
+    kept = {}
     for name, m, quantize in recipes:
         quantize(m)
-        m.generate(ids, max_new_tokens=DEC_NEW)         # warm-up
         torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        m.generate(ids, max_new_tokens=DEC_NEW)         # warm-up, capture
+        torch.cuda.synchronize()
+        if name == "bf16":      # what generate keeps after a call
+            kept = dict(
+                allocated_after_first_call=torch.cuda.memory_allocated() - a0,
+                **kept_bytes(torch, generation._MODEL_STEPS[m]))
         reset_launches()
         t0 = time.perf_counter()
         for _ in range(DEC_CALLS):
@@ -2075,9 +2394,24 @@ def decode_phase(torch, seed, init_range):
             trail += t
         distinct = [len(set(s)) for s in streams]
         rate = sum(agree) / len(agree)
+        # the eager token steps in turns with the captured ones: the
+        # same 8 streams, and each mode's tokens/s
+        turns = {"eager": [], "captured": []}
+        for eager in (True, False, False, True):
+            with eager_steps(eager):
+                t0 = time.perf_counter()
+                o, _ = m.generate(ids, max_new_tokens=DEC_NEW)
+                torch.cuda.synchronize()
+                turns["eager" if eager else "captured"].append(
+                    DEC_BATCH * DEC_NEW / (time.perf_counter() - t0))
+            if not torch.equal(o, out):
+                raise AssertionError(f"decode {name}: the "
+                                     f"{'eager' if eager else 'captured'} "
+                                     "steps' streams differ")
         st = dict(tokens_per_s=DEC_BATCH * DEC_NEW * DEC_CALLS / wall,
                   call_s=wall / DEC_CALLS,
                   step_ms=wall * 1e3 / (DEC_CALLS * DEC_NEW),
+                  tokens_per_s_turns=turns, same_tokens_eager=True,
                   tf_agree=rate, tf_max_trail_std=max(trail),
                   distinct=distinct, launches=launches)
         print(f"decode[{name}, b={DEC_BATCH} prompt={DEC_PROMPT} "
@@ -2104,13 +2438,41 @@ def decode_phase(torch, seed, init_range):
                       and bool(((o >= 0) & (o < vocab)).all())
                       and bool(sc.isfinite().all())
                       and torch.equal(o[:, :DEC_PROMPT], ids))
+                dt = time.perf_counter() - t0
+                with eager_steps():
+                    eo, esc = m.generate(ids, max_new_tokens=32, **kw)
+                same = torch.equal(eo, o) and torch.equal(esc, sc)
                 print(f"decode[{kw['decode_strategy']}]: 32 tokens in "
-                      f"{time.perf_counter() - t0:.2f} s, valid {ok}")
-                if not ok:
-                    raise AssertionError(f"decode {kw}: invalid output")
+                      f"{dt:.2f} s (first call: capture included), valid "
+                      f"{ok}, the eager steps' tokens and scores {same}")
+                if not ok or not same:
+                    raise AssertionError(f"decode {kw}: invalid output, or "
+                                         "eager and captured differ")
         if name != "wo8":   # the int8-head recipe's trace holds its copies
-            decode_profile(torch, m, ids, name)
+            st["profile"] = {
+                mode: decode_profile(torch, m, ids, name,
+                                     eager=mode == "eager")
+                for mode in ("captured", "eager")}
+        steps = generation._MODEL_STEPS[m].steps
+        st["capture_ms"], st["pool_bytes"] = steps.capture_ms, steps.pool_bytes
         stats[name] = st
+    stats["captures"] = {
+        what: check_captures(generation.capture_records(m), f"decode {what}")
+        for what, m in (("native and wo8", model),
+                        ("wo8 + int8 embeddings", copy_for_embeddings))}
+    print(f"decode captures on {card_line()}: "
+          + json.dumps(stats["captures"]))
+    # release() gives the kept state back to the allocator
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    for m in (model, copy_for_embeddings):
+        generation.release(m)
+    torch.cuda.synchronize()
+    kept["freed_by_release_of_both_models"] = \
+        a0 - torch.cuda.memory_allocated()
+    stats["kept"] = kept
+    print(f"decode kept state (bytes; native bf16 after its first call, "
+          f"then freed) on {card_line()}: " + json.dumps(kept))
     stats["launches"] = total
     return stats
 
@@ -2500,6 +2862,37 @@ def moe_step_parts(prof, steps, busy_ms):
     return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
+def print_compiled_summary(serve, wo8, loop, memory, decode):
+    """The compiled step against the eager bodies, one JSON line: what
+    each phase measured, eager and captured in turns in this process."""
+    c = serve["compiled"]
+
+    def mid(runs, key):
+        return statistics.median(r[key] for r in runs)
+
+    out = {"serve": {mode: {k: mid(c["turns"][mode], k) for k in (
+        "tokens_per_s", "step_p50_ms", "step_p99_ms", "chunk_p50_ms")}
+        for mode in ("eager", "captured")},
+        "serve_turns": c["turns"],
+        "serve_profile": c["profile"], "serve_graph_edges": c["graph_edges"],
+        "serve_capture_ms": c["capture_ms"],
+        "serve_pool_bytes": c["pool_bytes"],
+        "serve_wo8_tokens_per_s": {"captured": wo8["tokens_per_s"],
+                                   "eager": wo8["eager_tokens_per_s"]},
+        "serve_loop_capture_ms": loop["capture_ms"],
+        "serve_loop_pool_bytes": loop["pool_bytes"],
+        "memory_recaptures": memory["recaptures"],
+        "memory_total_graph_pool_gib": memory["total_graph_pool_gib"],
+        "generate_kept_bytes": decode["kept"],
+        "generate": {name: {**{mode: statistics.median(ts) for mode, ts in
+                              decode[name]["tokens_per_s_turns"].items()},
+                            "capture_ms": decode[name]["capture_ms"],
+                            "pool_bytes": decode[name]["pool_bytes"],
+                            "profile": decode[name].get("profile")}
+                     for name in ("bf16", "wo8", "wo8 + int8 embeddings")}}
+    print(f"compiled step on {card_line()}: " + json.dumps(out))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2533,9 +2926,10 @@ def main(argv=None):
     regs = kernels()
     sources = sorted({os.path.basename(k.source)[:-3] for k in regs})
     t0 = time.perf_counter()
-    _build.build(sources)
-    print(f"build: {len(regs)} kernels from {len(sources)} sources in "
-          f"{time.perf_counter() - t0:.1f} s")
+    # the kernels' sources and the captured graphs' edge counter
+    _build.build(sources + ["graph_edges"])
+    print(f"build: {len(regs)} kernels from {len(sources)} sources (and "
+          f"graph_edges.cu) in {time.perf_counter() - t0:.1f} s")
     for src in ("flash_attention_fwd", "flash_attention_bwd",
                 "flash_prefill_chunk", "paged_decode", "decode_attention",
                 "int8_matvec"):
@@ -2560,7 +2954,10 @@ def main(argv=None):
     stats, eng, vocab = serve_phase(torch, args.seed, args.init_range,
                                     args.dtype)
     lap("serve")
-    profile_phase(torch, eng, vocab, args.seed)
+    stats["compiled"]["profile"] = {
+        mode: profile_phase(torch, eng, vocab, args.seed, what=f" ({mode})",
+                            eager=mode == "eager")
+        for mode in ("captured", "eager")}
     del eng
     lap("serve profile")
     wo8 = serve_wo8_phase(torch, args.seed, args.init_range)
@@ -2585,6 +2982,7 @@ def main(argv=None):
     lap("moe train")
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
+    print_compiled_summary(stats, wo8, loop, memory, decode)
 
     out = []
     for k in regs:

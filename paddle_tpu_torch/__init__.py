@@ -22,10 +22,14 @@ Layout mirrors the JAX package so a reader finds each counterpart:
                     cross entropy;
 - `models.gpt`    — GPTConfig presets, the GPT decoder and its loss;
 - `optimizer`     — Adam and AdamW with the JAX update rule;
-- `jit`           — TrainStep (one eager step: loss, backward, update);
+- `jit`           — TrainStep (one eager step: loss, backward, update)
+                    and CapturedStep (a fixed-shape step captured as a
+                    CUDA graph and replayed: the engine's decode and
+                    prefill, `generate`'s token step);
 - `telemetry`     — peak FLOP/s and the train FLOPs per token (MFU),
                     the serving records and their JSONL sink, request
-                    traces, the Prometheus text exposition;
+                    traces, the Prometheus text exposition, the capture
+                    records (compile_obs);
 - `convert`       — load JAX-package parameters into a port model;
 - `ops`           — the kernel registry, the nvcc/ctypes build step, the
                     attention entry points and every kernel with its

@@ -30,6 +30,13 @@
 //   heads of 64, 2 of 128: 1 KB of an f32 row), 8 a lane, so a warp's
 //   loads of a key are one contiguous span; with C = 1 (short contexts)
 //   it takes one head, as many CTAs as (row, head) pairs.
+// - The position: an argument, or an int32 the kernel reads from device
+//   memory (generate's captured token step, whose position advances on
+//   the device). Then the kernel computes last = min(off, L - 1) and the
+//   chunk, ceil((last + 1) / C), with decode_split's formula, so the
+//   keys each CTA takes, and the bits, are those of the host launch; C
+//   (the grid and cluster shape) stays the host's: one captured graph a
+//   chunk count.
 // - Warp w takes keys w, w + 8, ... of the chunk, 32 / E at a time (E
 //   the columns a lane holds: 4 keys in the wide layout, 16 for one head
 //   of 64), and issues all their K and V loads before computing on any:
@@ -134,7 +141,8 @@ template <typename TQ, typename TC, int H, int E>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_split(const TQ* __restrict__ q, const TC* __restrict__ k_buf,
                        const TC* __restrict__ v_buf, float* __restrict__ out,
-                       int L, int n_heads, int last, int chunk, float sl2) {
+                       int L, int n_heads, int last_arg, int chunk_arg,
+                       const int* __restrict__ off_dev, float sl2) {
   constexpr int W = 32 * E;             // columns a CTA
   constexpr int HG = W / H;             // heads a CTA
   constexpr int LH = 32 / HG;           // lanes a head
@@ -146,6 +154,14 @@ decode_attention_split(const TQ* __restrict__ q, const TC* __restrict__ k_buf,
   __shared__ float part_acc[kMaxCluster][W];
 
   const int rank = blockIdx.x, n_ranks = gridDim.x;
+  // the last key and the keys a chunk: the host's, or from q's position
+  // read in device memory, split with decode_split's formula (the chunk
+  // count, and so the grid, stays the host's)
+  int last = last_arg, chunk = chunk_arg;
+  if (off_dev != nullptr) {
+    last = min(*off_dev, L - 1);
+    chunk = (last + n_ranks) / n_ranks;
+  }
   const int b = blockIdx.z;
   const int k0 = rank * chunk;
   const int k1 = min(k0 + chunk, last + 1);      // keys [k0, k1)
@@ -284,7 +300,7 @@ decode_attention_split(const TQ* __restrict__ q, const TC* __restrict__ k_buf,
 template <typename TQ, typename TC, int H, int E>
 int launch(const void* q, const void* k_buf, const void* v_buf, float* out,
            int B, int L, int n_heads, int last, int clusters, int chunk,
-           float scale, cudaStream_t stream) {
+           const int* off_dev, float scale, cudaStream_t stream) {
   constexpr int HG = 32 * E / H;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters, n_heads / HG, B);
@@ -301,18 +317,19 @@ int launch(const void* q, const void* k_buf, const void* v_buf, float* out,
   return (int)cudaLaunchKernelEx(
       &cfg, decode_attention_split<TQ, TC, H, E>, static_cast<const TQ*>(q),
       static_cast<const TC*>(k_buf), static_cast<const TC*>(v_buf), out, L,
-      n_heads, last, chunk, scale * kLog2e);
+      n_heads, last, chunk, off_dev, scale * kLog2e);
 }
 
 // one head a CTA when there is one chunk, else 256 columns of a row
 template <typename TQ, typename TC>
 int launch_h(const void* q, const void* k_buf, const void* v_buf, float* out,
              int B, int L, int n_heads, int head_dim, int last, int clusters,
-             int chunk, float scale, cudaStream_t stream) {
+             int chunk, const int* off_dev, float scale,
+             cudaStream_t stream) {
   const bool wide = clusters > 1 && n_heads % (256 / head_dim) == 0;
 #define DECODE_LAUNCH(H, E)                                                 \
   return launch<TQ, TC, H, E>(q, k_buf, v_buf, out, B, L, n_heads, last,    \
-                              clusters, chunk, scale, stream)
+                              clusters, chunk, off_dev, scale, stream)
   if (head_dim == 64) {
     if (wide) DECODE_LAUNCH(64, 8);
     DECODE_LAUNCH(64, 2);
@@ -328,15 +345,16 @@ int launch_h(const void* q, const void* k_buf, const void* v_buf, float* out,
 template <typename TQ>
 int launch_q(const void* q, const void* k_buf, const void* v_buf, float* out,
              int B, int L, int n_heads, int head_dim, int last, int clusters,
-             int chunk, int cache_dtype, float scale, cudaStream_t stream) {
+             int chunk, int cache_dtype, const int* off_dev, float scale,
+             cudaStream_t stream) {
   if (cache_dtype == 0)
     return launch_h<TQ, float>(q, k_buf, v_buf, out, B, L, n_heads,
-                               head_dim, last, clusters, chunk, scale,
-                               stream);
+                               head_dim, last, clusters, chunk, off_dev,
+                               scale, stream);
   if (cache_dtype == 1)
     return launch_h<TQ, __nv_bfloat16>(q, k_buf, v_buf, out, B, L, n_heads,
                                        head_dim, last, clusters, chunk,
-                                       scale, stream);
+                                       off_dev, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -345,28 +363,38 @@ int launch_q(const void* q, const void* k_buf, const void* v_buf, float* out,
 // q [B, 1, N*H], k_buf/v_buf [B, L, N*H] (16-byte aligned), out f32
 // [B, 1, N*H]; keys 0..last are read (last = min(off, L - 1)), split
 // into `clusters` chunks of `chunk` keys (clusters <= 8, every chunk
-// holding a key). Dtype codes: 0 = float32, 1 = bfloat16, for q and for
-// the cache; head_dim 64 or 128. Returns a cudaError_t code.
+// holding a key). With `off_dev` not null, q's position is the int32 it
+// points at in device memory: `last` and `chunk` are then computed in the
+// kernel (chunk = ceil((last + 1) / clusters), decode_split's formula)
+// and ignored here, and the caller, which knows the position on the
+// host, has checked that every chunk holds a key. Dtype codes: 0 =
+// float32, 1 = bfloat16, for q and for the cache; head_dim 64 or 128.
+// Returns a cudaError_t code.
 extern "C" int decode_attention_launch(const void* q, const void* k_buf,
                                        const void* v_buf, void* out, int B,
                                        int L, int n_heads, int head_dim,
                                        int last, int clusters, int chunk,
                                        int q_dtype, int cache_dtype,
-                                       float scale, void* stream) {
+                                       float scale, const void* off_dev,
+                                       void* stream) {
   if (B <= 0 || n_heads <= 0) return 0;
-  if (last < 0 || last >= L || clusters < 1 || clusters > kMaxCluster ||
-      chunk < 1 || (long long)(clusters - 1) * chunk > last ||
-      (long long)clusters * chunk <= last)
+  const int* od = static_cast<const int*>(off_dev);
+  if (L < 1 || clusters < 1 || clusters > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (od == nullptr &&
+      (last < 0 || last >= L || chunk < 1 ||
+       (long long)(clusters - 1) * chunk > last ||
+       (long long)clusters * chunk <= last))
     return (int)cudaErrorInvalidValue;
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
     return launch_q<float>(q, k_buf, v_buf, o, B, L, n_heads, head_dim, last,
-                           clusters, chunk, cache_dtype, scale, st);
+                           clusters, chunk, cache_dtype, od, scale, st);
   if (q_dtype == 1)
     return launch_q<__nv_bfloat16>(q, k_buf, v_buf, o, B, L, n_heads,
                                    head_dim, last, clusters, chunk,
-                                   cache_dtype, scale, st);
+                                   cache_dtype, od, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,9 @@
 //
 // The chunk's C queries sit at positions p0..p0+C-1 (p0 is a runtime
 // value and need not be a multiple of bs: a prefix-cache hit resumes
-// anywhere). Query row i of head n attends causally to keys
+// anywhere; it comes as an argument or, for the serving engine's
+// captured chunk, as an int32 read from device memory, on which the
+// grid does not depend). Query row i of head n attends causally to keys
 // 0..min(p0+i, mb*bs-1), key j living in physical block table_row[j/bs],
 // row j % bs, columns n*H..n*H+H of the [num_blocks, bs, N*H] arenas:
 //   out[i, n*H:(n+1)*H] = softmax_j(q_i·k_j / sqrt(H)) · v_j
@@ -131,7 +133,11 @@ flash_prefill_mma(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v_pages,
                   const int* __restrict__ table_row,
                   __nv_bfloat16* __restrict__ out, int C, int n_heads,
-                  int bs, int mb, int p0, float scale_log2) {
+                  int bs, int mb, int p0_arg, const int* __restrict__ p0_dev,
+                  float scale_log2) {
+  // the chunk's first position: the host's value, or read from device
+  // memory (a captured step replays with the position it finds there)
+  const int p0 = p0_dev != nullptr ? *p0_dev : p0_arg;
   constexpr int LD = H + 8;                    // padded row, bf16
   constexpr int kMat = kStep * LD;             // one K or V step
   constexpr int kRing = 2 * 2 * kMat;          // 2 stages x (K, V)
@@ -335,7 +341,8 @@ flash_prefill_mma(const __nv_bfloat16* __restrict__ q,
 template <int H>
 int launch_bf16(const void* q, const void* k_pages, const void* v_pages,
                 const int* table_row, void* out, int C, int n_heads, int bs,
-                int mb, int p0, float scale, cudaStream_t stream) {
+                int mb, int p0, const int* p0_dev, float scale,
+                cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * 2 * 2 * kStep * (H + 8) * 2 +
                       kWarps * kRowsBf16 * 2 * sizeof(float);
   static bool ready = false;
@@ -351,7 +358,7 @@ int launch_bf16(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pages),
       static_cast<const __nv_bfloat16*>(v_pages), table_row,
-      static_cast<__nv_bfloat16*>(out), C, n_heads, bs, mb, p0,
+      static_cast<__nv_bfloat16*>(out), C, n_heads, bs, mb, p0, p0_dev,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -369,7 +376,9 @@ flash_prefill_f32(const float* __restrict__ q,
                   const float* __restrict__ k_pages,
                   const float* __restrict__ v_pages,
                   const int* __restrict__ table_row, float* __restrict__ out,
-                  int C, int n_heads, int bs, int mb, int p0, float scale) {
+                  int C, int n_heads, int bs, int mb, int p0_arg,
+                  const int* __restrict__ p0_dev, float scale) {
+  const int p0 = p0_dev != nullptr ? *p0_dev : p0_arg;
   extern __shared__ float smem_f32[];
   float* ks = smem_f32;         // [bs][H]
   float* vs = smem_f32 + bs * H;    // [bs][H]
@@ -450,12 +459,13 @@ flash_prefill_f32(const float* __restrict__ q,
 template <int H>
 int launch_f32(const void* q, const void* k_pages, const void* v_pages,
                const int* table_row, void* out, int C, int n_heads, int bs,
-               int mb, int p0, float scale, cudaStream_t stream) {
+               int mb, int p0, const int* p0_dev, float scale,
+               cudaStream_t stream) {
   flash_prefill_f32<H><<<dim3(n_heads, (C + kRows - 1) / kRows), kRows,
                          2 * (size_t)bs * H * sizeof(float), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), table_row,
-      static_cast<float*>(out), C, n_heads, bs, mb, p0, scale);
+      static_cast<float*>(out), C, n_heads, bs, mb, p0, p0_dev, scale);
   return (int)cudaGetLastError();
 }
 
@@ -463,27 +473,33 @@ int launch_f32(const void* q, const void* k_pages, const void* v_pages,
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128; bs a multiple of
 // 8. f32 needs 2*bs*head_dim*4 bytes of shared memory within the 48 KB
-// static limit (the wrapper checks). Returns a cudaError_t.
+// static limit (the wrapper checks). `p0_dev`, when not null, points at
+// the chunk's first position as an int32 in device memory and takes the
+// place of `p0`: the grid does not depend on it, so a captured chunk
+// replays at whatever position the device buffer holds. Returns a
+// cudaError_t.
 extern "C" int flash_prefill_chunk_launch(const void* q, const void* k_pages,
                                           const void* v_pages,
                                           const void* table_row, void* out,
                                           int C, int n_heads, int head_dim,
-                                          int bs, int mb, int p0, int dtype,
+                                          int bs, int mb, int p0,
+                                          const void* p0_dev, int dtype,
                                           float scale, void* stream) {
   const int* tab = static_cast<const int*>(table_row);
+  const int* pd = static_cast<const int*>(p0_dev);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
     return launch_f32<64>(q, k_pages, v_pages, tab, out, C, n_heads, bs, mb,
-                          p0, scale, st);
+                          p0, pd, scale, st);
   if (dtype == 0 && head_dim == 128)
     return launch_f32<128>(q, k_pages, v_pages, tab, out, C, n_heads, bs,
-                           mb, p0, scale, st);
+                           mb, p0, pd, scale, st);
   if (dtype == 1 && head_dim == 64)
     return launch_bf16<64>(q, k_pages, v_pages, tab, out, C, n_heads, bs,
-                           mb, p0, scale, st);
+                           mb, p0, pd, scale, st);
   if (dtype == 1 && head_dim == 128)
     return launch_bf16<128>(q, k_pages, v_pages, tab, out, C, n_heads, bs,
-                            mb, p0, scale, st);
+                            mb, p0, pd, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,11 @@ forward over a whole sequence, the training path (`loss`), or, given
 `caches=` and `offset=`, an incremental step over fixed-shape KV buffers
 (`init_cache`), the decode path of `generate`: a one-token step attends
 through the `decode_fused` kernel, a prompt through the composed
-attention. Under weight-only int8 (`quant.wo8`) the tied head reads the
+attention. `offset` is a host integer or, as the JAX forward takes a
+traced scalar, a 0-dim int32 tensor on the model's device: the position
+then stays device data end to end (the cache write is an `index_copy_`,
+`decode_fused` reads it from device memory), so `generate`'s token step
+can be captured once and replayed at every position. Under weight-only int8 (`quant.wo8`) the tied head reads the
 int8 table, through the `int8_matvec` kernel at decode sizes on the
 card. The serving engine drives the blocks itself over the paged cache
 (serving/engine.py).
@@ -102,17 +106,18 @@ class GPTAttention(torch.nn.Module):
                                        self.head_dim)
         return qkv.unbind(dim=2)
 
-    def forward(self, x, cache=None, offset=None):
+    def forward(self, x, cache=None, offset=None, decode_chunks=None):
         """cache: optional (k_buf, v_buf) of fixed shape from
         `GPTModel.init_cache` — flat [b, max_len, n*h]; offset: how many
-        positions are filled (a host integer). With a cache, returns
-        (out, (k_buf, v_buf))."""
+        positions are filled (a host integer, or a 0-dim int32 tensor on
+        x's device, which a one-token step on the card reads with
+        `decode_chunks`, its `decode_fused` chunk count). With a cache,
+        returns (out, (k_buf, v_buf))."""
         b, s = x.shape[0], x.shape[1]
         q, k, v = self.project_qkv(x)
         if cache is not None:
             out, k_buf, v_buf = _cached_attention(
-                q, k, v, cache[0], cache[1],
-                0 if offset is None else operator.index(offset))
+                q, k, v, cache[0], cache[1], _offset(offset), decode_chunks)
             return (self.out_proj(out.reshape(b, s, self.hidden_size)),
                     (k_buf, v_buf))
         out = flash_attention(q, k, v, dropout=self.attn_dropout,
@@ -120,20 +125,37 @@ class GPTAttention(torch.nn.Module):
         return self.out_proj(out.reshape(b, s, self.hidden_size))
 
 
-def _cached_attention(q, k_new, v_new, k_buf, v_buf, off):
+def _offset(offset):
+    """A forward's `offset`: None -> 0, a tensor as it is (a device
+    position), anything else as a host integer."""
+    if offset is None:
+        return 0
+    if isinstance(offset, torch.Tensor):
+        return offset
+    return operator.index(offset)
+
+
+def _cached_attention(q, k_new, v_new, k_buf, v_buf, off, chunks=None):
     """Incremental attention: write k/v at positions off..off+s-1 (in
     place: the buffers are the decode loop's own), then attend q (s
     tokens at those positions) over the valid prefix of the FLAT
     [b, L, n*h] buffers: a one-token step runs the `decode_fused` kernel,
     a prompt the composed attention over a [b, L, n, h] view. Neither
-    path copies the buffers."""
+    path copies the buffers. A tensor `off` (0-dim int32, on the
+    buffers' device) writes through `index_copy_` at device positions;
+    the values written are the same."""
     b, s, n, h = q.shape
     L = k_buf.shape[1]
-    k_buf[:, off:off + s] = k_new.reshape(b, s, n * h)
-    v_buf[:, off:off + s] = v_new.reshape(b, s, n * h)
+    if isinstance(off, torch.Tensor):
+        at = off + torch.arange(s, device=off.device)
+        k_buf.index_copy_(1, at, k_new.reshape(b, s, n * h).to(k_buf.dtype))
+        v_buf.index_copy_(1, at, v_new.reshape(b, s, n * h).to(v_buf.dtype))
+    else:
+        k_buf[:, off:off + s] = k_new.reshape(b, s, n * h)
+        v_buf[:, off:off + s] = v_new.reshape(b, s, n * h)
     if s == 1:
         out = decode_attention(q.reshape(b, 1, n * h).contiguous(),
-                               k_buf, v_buf, off, n).to(q.dtype)
+                               k_buf, v_buf, off, n, chunks).to(q.dtype)
         return out.reshape(b, 1, n, h), k_buf, v_buf
     k4, v4 = k_buf.view(b, L, n, h), v_buf.view(b, L, n, h)
     key_pos = torch.arange(L, device=q.device)[None, None, None, :]
@@ -168,9 +190,10 @@ class GPTBlock(torch.nn.Module):
         self.mlp = self.mlp_cls(config, device=device, dtype=dtype)
         self.dropout = nn.Dropout(config.dropout)
 
-    def forward(self, x, cache=None, offset=None):
+    def forward(self, x, cache=None, offset=None, decode_chunks=None):
         if cache is not None:
-            a, new_cache = self.attn(self.ln1(x), cache=cache, offset=offset)
+            a, new_cache = self.attn(self.ln1(x), cache=cache, offset=offset,
+                                     decode_chunks=decode_chunks)
             y, h = self._add_ln2(x, self.dropout(a))
             return h + self.dropout(self.mlp(y)), new_cache
         y, h = self._add_ln2(x, self.dropout(self.attn(self.ln1(x))))
@@ -218,18 +241,23 @@ class GPTModel(torch.nn.Module):
                  torch.zeros(shape, dtype=dt, device=dev))
                 for _ in self.blocks]
 
-    def forward(self, input_ids, caches=None, offset=None):
+    def forward(self, input_ids, caches=None, offset=None,
+                decode_chunks=None):
         """Dense causal forward over positions 0..s-1 -> ln_f(h); with
         `caches` an incremental forward at positions offset..offset+s-1
-        -> (ln_f(h), caches)."""
+        -> (ln_f(h), caches). `offset` is a host integer or a 0-dim int32
+        tensor on the model's device; `decode_chunks` is the
+        `decode_fused` chunk count a one-token step at a device offset
+        launches with (ops.decode_attention.decode_split)."""
         s = input_ids.shape[1]
-        off = 0 if offset is None else operator.index(offset)
+        off = _offset(offset)
         pos = (off + torch.arange(s, device=input_ids.device))[None, :]
         h = self.drop(self.wte(input_ids) + self.wpe(pos))
         if caches is not None:
             new_caches = []
             for block, cache in zip(self.blocks, caches):
-                h, nc = block(h, cache=cache, offset=off)
+                h, nc = block(h, cache=cache, offset=off,
+                              decode_chunks=decode_chunks)
                 new_caches.append(nc)
             return self.ln_f(h), new_caches
         for block in self.blocks:
@@ -274,9 +302,11 @@ class GPTForPretraining(torch.nn.Module):
                 p.normal_(0.0, out_std if name.endswith("fc2.weight")
                           else std, generator=gen)
 
-    def forward(self, input_ids, caches=None, offset=None):
+    def forward(self, input_ids, caches=None, offset=None,
+                decode_chunks=None):
         if caches is not None:
-            h, new_caches = self.gpt(input_ids, caches=caches, offset=offset)
+            h, new_caches = self.gpt(input_ids, caches=caches, offset=offset,
+                                     decode_chunks=decode_chunks)
             return self.lm_head(h), new_caches
         return self.lm_head(self.gpt(input_ids))
 

@@ -3,10 +3,15 @@
 `decode_attention` (registry "decode_fused") is q_len == 1 attention of
 every batch row over keys 0..off of a flat [B, L, N*H] cache, with one
 `off` for all rows; CUDA source `csrc/decode_attention.cu`. It keeps the
-JAX signature (paddle_tpu/ops/pallas_decode.py:606) with `off` a host
-integer, since the port's decode loop runs on the host. On a CPU tensor
-it runs its plain version, `_decode_fallback`'s dense masked attention
-in f32; on a CUDA tensor it launches its kernel or raises. The kernel
+JAX signature (paddle_tpu/ops/pallas_decode.py:606): `off` is a host
+integer, or, as the JAX function takes a traced scalar, a 0-dim int32
+tensor on q's device (generate's captured token step, whose position
+advances on the device); the kernel then reads it from device memory
+and the caller names the chunk count (`chunks`) the host picked from
+the position it knows, so the launch's grid never depends on device
+data. On a CPU tensor it runs its plain version, `_decode_fallback`'s
+dense masked attention in f32; on a CUDA tensor it launches its kernel
+or raises. The kernel
 splits keys 0..off into `decode_split(off)` chunks, one CTA each for a
 batch row and a group of heads, and merges them in chunk order;
 `decode_attention_split_plain` is that split and merge in f32 on any
@@ -24,7 +29,7 @@ from .paged_attention import _DTYPE_CODES, _check_cuda
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_split_plain", "decode_attention_supported",
-           "decode_split"]
+           "decode_split", "device_split"]
 
 _HEAD_DIMS = (64, 128)      # the kernel's template instances
 # f32: the JAX registry's declared tolerance; bf16: the port's rule for
@@ -48,6 +53,22 @@ def decode_split(last):
     while chunks < _MAX_CHUNKS and chunks * DECODE_SPLIT_KEYS < keys:
         chunks *= 2
     return chunks, -(-keys // chunks)
+
+
+def device_split(last, chunks):
+    """Keys a chunk when the kernel splits keys 0..last into `chunks`
+    itself (a position read from device memory): ceil((last + 1) /
+    chunks), decode_split's formula. Raises unless every chunk holds a
+    key, the check the launcher makes of a host split: the host loop
+    that knows the position calls it before each captured step."""
+    if not 1 <= chunks <= _MAX_CHUNKS or last < 0:
+        raise ValueError(f"decode_attention: {chunks} chunks over keys "
+                         f"0..{last}")
+    chunk = -(-(last + 1) // chunks)
+    if (chunks - 1) * chunk > last:
+        raise ValueError(f"decode_attention: {chunks} chunks of {chunk} "
+                         f"keys leave a chunk without a key at last {last}")
+    return chunk
 
 
 def decode_attention_supported(hidden, n_heads):
@@ -109,12 +130,17 @@ def decode_attention_split_plain(q, k_buf, v_buf, off, n_heads, chunk):
     "decode_fused", plain=decode_attention_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/decode_attention.cu",
     replaces="paddle_tpu/ops/pallas_decode.py:606")
-def decode_attention(q, k_buf, v_buf, off, n_heads):
+def decode_attention(q, k_buf, v_buf, off, n_heads, chunks=None):
     """q [B, 1, N*H]; k_buf/v_buf FLAT [B, L, N*H] (f32 or bf16, each
-    independent of q's dtype); off — q's position, a host integer (keys
-    0..off are valid). Returns [B, 1, N*H] f32. Does NOT write the cache:
-    callers write position off first."""
-    off = operator.index(off)
+    independent of q's dtype); off — q's position (keys 0..off are
+    valid): a host integer, or a 0-dim int32 tensor on q's device, with
+    `chunks` the kernel's chunk count for it (`decode_split(min(off,
+    L - 1))[0]`, which the caller checks with `device_split`; ignored on
+    the CPU). Returns [B, 1, N*H] f32. Does NOT write the cache: callers
+    write position off first."""
+    dev_off = isinstance(off, torch.Tensor)
+    if not dev_off:
+        off = operator.index(off)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_buf, v_buf, off, n_heads)
     if q.device.type != "cuda":
@@ -134,11 +160,18 @@ def decode_attention(q, k_buf, v_buf, off, n_heads):
         raise ValueError(f"decode_attention: k_buf and v_buf must both be "
                          f"[{B}, L, {nh}], got {tuple(k_buf.shape)} and "
                          f"{tuple(v_buf.shape)}")
-    if off < 0:
+    if dev_off:
+        if off.dim() != 0 or chunks is None or not 1 <= chunks <= _MAX_CHUNKS:
+            raise ValueError("decode_attention: a device position is a "
+                             "0-dim int32 tensor and needs its chunk count "
+                             f"(1..{_MAX_CHUNKS}), got shape "
+                             f"{tuple(off.shape)} and chunks {chunks}")
+    elif off < 0:
         raise ValueError(f"decode_attention: off {off} < 0")
     _check_cuda("decode_attention",
-                [("q", q), ("k_buf", k_buf), ("v_buf", v_buf)],
-                {"v_buf": k_buf.dtype})
+                [("q", q), ("k_buf", k_buf), ("v_buf", v_buf)]
+                + ([("off", off)] if dev_off else []),
+                {"v_buf": k_buf.dtype, "off": torch.int32})
     if k_buf.data_ptr() % 16 or v_buf.data_ptr() % 16:
         raise ValueError("decode_attention: k_buf and v_buf must be "
                          "16-byte aligned")
@@ -147,15 +180,19 @@ def decode_attention(q, k_buf, v_buf, off, n_heads):
     fn, err = _build.launcher(
         "decode_attention", "decode_attention_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     L = k_buf.shape[1]
     H = nh // n_heads
-    last = min(off, L - 1)
-    chunks, chunk = decode_split(last)
+    if dev_off:     # the kernel reads the position and splits the keys
+        last, chunk, off_ptr = 0, 0, off.data_ptr()
+    else:
+        last = min(off, L - 1)
+        chunks, chunk = decode_split(last)
+        off_ptr = None
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(), out.data_ptr(),
             B, L, n_heads, H, last, chunks, chunk, _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k_buf.dtype], 1.0 / math.sqrt(H),
+            _DTYPE_CODES[k_buf.dtype], 1.0 / math.sqrt(H), off_ptr,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("decode_fused", rc, err)
     get_kernel("decode_fused").launches += 1

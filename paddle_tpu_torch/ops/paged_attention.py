@@ -255,9 +255,13 @@ def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
     k_pages/v_pages [num_blocks, block_size, N*H], already holding this
     chunk's own K/V (callers write before attending); table_row
     [max_blocks] int32 — one request's logical->physical block map; p0 —
-    the chunk's first position, a host integer. Returns [1, C, N*H] in
-    q's dtype."""
-    p0 = operator.index(p0)
+    the chunk's first position: a host integer, or a 0-dim int32 tensor
+    on q's device, which the kernel reads from device memory (the
+    engine's captured chunk; the grid does not depend on p0). Returns
+    [1, C, N*H] in q's dtype."""
+    dev_p0 = isinstance(p0, torch.Tensor)
+    if not dev_p0:
+        p0 = operator.index(p0)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k_pages, v_pages, table_row, p0,
                                    n_heads)
@@ -270,9 +274,10 @@ def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
     H = _check_pages("flash_prefill_chunk", q, k_pages, v_pages, n_heads)
     _check_cuda("flash_prefill_chunk",
                 [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                 ("table_row", table_row)],
+                 ("table_row", table_row)]
+                + ([("p0", p0)] if dev_p0 else []),
                 {"k_pages": q.dtype, "v_pages": q.dtype,
-                 "table_row": torch.int32})
+                 "table_row": torch.int32, "p0": torch.int32})
     bs = k_pages.shape[1]
     if bs % 8:
         raise ValueError(f"flash_prefill_chunk: block_size {bs} must be a "
@@ -283,17 +288,18 @@ def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
         raise ValueError(f"flash_prefill_chunk: block_size {bs} needs "
                          "2*block_size*head_dim f32 values within 48 KB of "
                          "shared memory")
-    if table_row.dim() != 1 or p0 < 0:
+    if table_row.dim() != 1 or (p0.dim() != 0 if dev_p0 else p0 < 0):
         raise ValueError("flash_prefill_chunk: table_row must be "
-                         "[max_blocks] and p0 >= 0")
+                         "[max_blocks] and p0 >= 0 (or a 0-dim tensor)")
     fn, err = _build.launcher(
         "flash_prefill_chunk", "flash_prefill_chunk_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table_row.data_ptr(), out.data_ptr(), C, n_heads, H, bs,
-            table_row.shape[0], p0, _DTYPE_CODES[q.dtype],
+            table_row.shape[0], 0 if dev_p0 else p0,
+            p0.data_ptr() if dev_p0 else None, _DTYPE_CODES[q.dtype],
             1.0 / math.sqrt(H),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_prefill_chunk", rc, err)

@@ -114,8 +114,10 @@ def uniform(keys, shape, minval=0.0, maxval=1.0):
     bits = random_bits32(keys, shape)
     one = (bits >> 9) | 0x3F800000            # < 2**30: fits an int32
     f = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    # the bounds are filled on the device (no host-to-device copy, which
+    # a captured CUDA graph could not hold); f32 as jax's are
+    lo = torch.full((), minval, dtype=torch.float32, device=f.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

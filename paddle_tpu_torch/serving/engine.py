@@ -26,9 +26,24 @@ dispatches its greedy-only variant. In f32 on the CPU the streams, greedy
 and sampled, are token-identical to the JAX engine's on the same
 weights.
 
-Device state: the arenas are updated in place (`index_put_`); PyTorch
-runs eagerly, so the JAX engine's compiled programs, donation and
-compile observatory have no counterpart here.
+Device state: the arenas are updated in place (`index_put_`). The JAX
+engine compiles its decode steps (sampling and greedy) and its prefill
+chunk into XLA programs; here each is captured once as a CUDA graph
+(`jit.CapturedStep`) over static device buffers and replayed: a step
+copies its packed int32 inputs from one pinned host buffer into the
+step's static device buffer, replays, and copies the token and logp
+back. The position a prefill chunk starts at is device data (the
+`flash_prefill_chunk` kernel reads it from that buffer), so one graph
+serves every chunk: one for greedy chunks and one for sampled ones, as
+for decode. `_decode_step` and `_prefill_chunk` stay the seams tests
+replace to inject faults; the graphs live inside them. Each capture is
+a kind=compile record on the engine's sink (family `decode`,
+`decode_greedy` or `prefill`, the signature, capture ms, the graph
+pool's bytes), as the JAX engine's compile observatory records a
+compile; a warm restart's new arenas change the key (`arenas` in the
+signature), so the next step recaptures and its record names the cause.
+On the CPU the same step bodies run eagerly over the same buffers.
+Donation has no counterpart (the arenas are updated in place).
 
 Weight-only int8 (`weights="wo8"`) quantizes the caller's model in
 place with `quant.quantize_for_decode` (linears) before the compute-dtype
@@ -63,9 +78,11 @@ import torch
 
 from .. import monitor, prng
 from ..device import resolve_device, resolve_dtype
+from ..jit import CapturedStep
 from ..ops.paged_attention import flash_prefill_chunk, paged_decode_attention
 from ..quant import quantize_for_decode
 from ..resilience.retry import classify_failure
+from ..telemetry.compile_obs import signature_of
 from ..telemetry.mem_obs import MemoryObservatory, is_oom, register_provider
 from ..telemetry.reqtrace import RequestTracer
 from ..telemetry.sink import make_serving_record
@@ -337,9 +354,44 @@ class ServingEngine:
         register_provider("engine.weights", "params", self,
                           lambda eng: eng._weights)
         self._steps = 0                 # guarded by: _mu
+        # the compiled steps: CUDA graphs over static input buffers (the
+        # pinned host side and the device side of each step's one
+        # packed int32 copy), keyed by the arenas' generation
+        self._graphs = CapturedStep(self.device, sink=sink,  # guarded by: _mu
+                                    engine=self.engine_id)
+        self._arena_gen = 0             # guarded by: _mu
+        C, mb = cfg.prefill_chunk, self.max_blocks_per_seq
+        self._staging = {
+            "decode": self._staging_buffers((cfg.max_slots,
+                                             2 + len(_KNOBS) + mb)),
+            "prefill": self._staging_buffers(
+                (4 * C + mb + len(_KNOBS) + 1,))}
         monitor.set_gauge("serving.kv_blocks_total", self.pool.capacity)
         monitor.set_gauge("serving.draining", 0)
         self._update_gauges()
+
+    def _staging_buffers(self, shape):
+        """[pinned host buffer, static device buffer, the copy's event]
+        of one step's packed int32 inputs (on the CPU: a plain host
+        buffer and no event)."""
+        cuda = self.device.type == "cuda"
+        return [torch.zeros(shape, dtype=torch.int32, pin_memory=cuda),
+                torch.zeros(shape, dtype=torch.int32, device=self.device),
+                torch.cuda.Event() if cuda else None]
+
+    def _stage(self, name, inputs):     # requires: _mu
+        """Copy a step's packed inputs into its static device buffer,
+        through the pinned host buffer (an asynchronous copy: the host
+        buffer is rewritten only after the last copy out of it is done).
+        Returns the device buffer, which the step's graph reads."""
+        host, dev, done = self._staging[name]
+        if done is not None:
+            done.synchronize()
+        host.numpy()[...] = inputs
+        dev.copy_(host, non_blocking=True)
+        if done is not None:
+            done.record()
+        return dev
 
     def _resolve_num_blocks(self):
         cfg = self.cfg
@@ -718,7 +770,11 @@ class ServingEngine:
         failed step the arenas' contents are suspect, and every
         surviving request holds zero blocks by construction (failed or
         requeued). The prefix index MUST flush and rebind — its physical
-        block ids name the old arenas' rows."""
+        block ids name the old arenas' rows — and the captured steps go:
+        they write into the old arenas, so the next steps recapture over
+        the new ones (a new `arenas` generation in their key)."""
+        self._graphs.invalidate()
+        self._arena_gen += 1
         if self.prefix_index is not None:
             self.prefix_index.flush()
         self.pool = BlockPool(self.pool.num_blocks)
@@ -951,17 +1007,38 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # device steps
     # ------------------------------------------------------------------
+    def _step_signature(self, packed, static):     # requires: _mu
+        """The capture record's signature of a step: its static input
+        buffer, the arenas it writes, the knobs of its key."""
+        return signature_of((packed, self.cache.k[0]),
+                            arg_names=("inputs", "arena"),
+                            static={**static, "arenas": self._arena_gen})
+
     @torch.inference_mode()
     def _decode_step(self, inputs, sampling):
         """One decode token for every slot. `inputs` [S, 2 + 7 + mb]
         int32: token, ctx, the `_KNOBS` columns, the block table. Writes
         each slot's K/V at (table[ctx // bs], ctx % bs), attends over its
         blocks, selects (greedily unless `sampling`). Returns host arrays
-        (tokens [S], logp [S])."""
+        (tokens [S], logp [S]). On the card the step is a CUDA graph
+        over the static input buffer, one for each of the two
+        programs."""
+        packed = self._stage("decode", inputs)
+        family = "decode" if sampling else "decode_greedy"
+        tok, logp = self._graphs.run(
+            family, (family, self._arena_gen),
+            lambda: self._decode_body(packed, sampling),
+            signature=lambda: self._step_signature(
+                packed, {"sampling": sampling}),
+            step=self._steps)
+        return tok.cpu().numpy(), logp.cpu().numpy()
+
+    def _decode_body(self, packed, sampling):
+        """The decode step over the static input buffer -> (tokens [S],
+        logp [S]) on the device."""
         core = self._net.gpt
         S, nh, bs = self.cfg.max_slots, self.hidden, self.block_size
         nk = len(_KNOBS)
-        packed = torch.from_numpy(inputs).to(self.device)   # one copy
         tok_d = packed[:, 0]
         ctx_d = packed[:, 1].contiguous()
         tab_d = packed[:, 2 + nk:].contiguous()
@@ -984,11 +1061,8 @@ class ServingEngine:
             h = _block_step(block, h, attend, write)
         last = self._net.lm_head(core.ln_f(h))[:, -1]
         if sampling:
-            tok, logp = _select(last,
-                                *_unpack_knobs(packed[:, 2:2 + nk]))
-        else:
-            tok, logp = _greedy(last)
-        return tok.cpu().numpy(), logp.cpu().numpy()
+            return _select(last, *_unpack_knobs(packed[:, 2:2 + nk]))
+        return _greedy(last)
 
     @torch.inference_mode()
     def _prefill_chunk(self, ids, p0, n_real, table_row, knobs):
@@ -996,20 +1070,42 @@ class ServingEngine:
         padding, written to the null block) at positions p0..p0+C-1;
         `knobs` is the request's `_KNOBS` row. Returns the token selected
         from the last real position and its logp — used by the caller
-        only after the final chunk."""
-        core = self._net.gpt
-        C, nh, bs = self.cfg.prefill_chunk, self.hidden, self.block_size
+        only after the final chunk. On the card the chunk is a CUDA
+        graph over the static input buffer, which holds p0 and the last
+        real row as device data: one graph for greedy chunks, one for
+        sampled ones."""
+        C, bs = self.cfg.prefill_chunk, self.block_size
         mb = self.max_blocks_per_seq
         positions = p0 + np.arange(C, dtype=np.int32)
         blk = np.where(np.arange(C) < n_real,
                        table_row[np.clip(positions // bs, 0, mb - 1)],
                        NULL_BLOCK).astype(np.int32)
-        packed = torch.from_numpy(np.concatenate(
-            [ids, positions, blk, positions % bs, table_row, knobs])).to(
-                self.device)
+        packed = self._stage("prefill", np.concatenate(
+            [ids, positions, blk, positions % bs, table_row, knobs,
+             np.array([n_real - 1], np.int32)]))
+        # a greedy request skips the sorts and the draw: its token is
+        # the tempered argmax either way, as in the JAX engine's select
+        sampling = not bool(knobs[2])
+        tok, logp = self._graphs.run(
+            "prefill", ("prefill", sampling, self._arena_gen),
+            lambda: self._prefill_body(packed, sampling),
+            signature=lambda: self._step_signature(
+                packed, {"sampling": sampling}),
+            step=self._steps)
+        return int(tok[0]), float(logp[0])
+
+    def _prefill_body(self, packed, sampling):
+        """The prefill chunk over the static input buffer [ids C,
+        positions C, blocks C, offsets C, table mb, knobs 7, last real
+        row 1] -> (token [1], logp [1]) on the device."""
+        core = self._net.gpt
+        C, nh = self.cfg.prefill_chunk, self.hidden
+        mb, nk = self.max_blocks_per_seq, len(_KNOBS)
         ids_d, pos_d = packed[:C], packed[C:2 * C]
         blk_d, off_d = packed[2 * C:3 * C].long(), packed[3 * C:4 * C].long()
         tab_d = packed[4 * C:4 * C + mb]
+        knobs_d = packed[4 * C + mb:4 * C + mb + nk]
+        row_d = packed[4 * C + mb + nk:].long()
         h = core.drop(core.wte(ids_d[None]) + core.wpe(pos_d[None]))
         for li, block in enumerate(core.blocks):
             kp, vp = self.cache.k[li], self.cache.v[li]
@@ -1020,17 +1116,14 @@ class ServingEngine:
 
             def attend(q, kp=kp, vp=vp):
                 return flash_prefill_chunk(
-                    q.reshape(1, C, nh).contiguous(), kp, vp, tab_d, p0,
-                    self.n_heads)
+                    q.reshape(1, C, nh).contiguous(), kp, vp, tab_d,
+                    pos_d[0], self.n_heads)
 
             h = _block_step(block, h, attend, write)
         hf = core.ln_f(h)
-        last = self._net.lm_head(hf[:, n_real - 1:n_real])[:, -1]
-        # a greedy request skips the sorts and the draw: its token is
-        # the tempered argmax either way, as in the JAX engine's select
-        tok, logp = _select(last, *_unpack_knobs(packed[4 * C + mb:][None]),
-                            sampling=not bool(knobs[2]))
-        return int(tok[0]), float(logp[0])
+        last = self._net.lm_head(hf.index_select(1, row_d))[:, -1]
+        return _select(last, *_unpack_knobs(knobs_d[None]),
+                       sampling=sampling)
 
     # ------------------------------------------------------------------
     # helpers: accounting, records, gauges

@@ -6,7 +6,9 @@ unchanged: the kind=serving lifecycle record (`make_serving_record`,
 (`make_reqtrace_record`, `REQTRACE_SPAN_KINDS`), the memory
 observatory's kind=memsnap ledger record (`make_memsnap_record`,
 `MEMSNAP_BUCKETS`, `MEMSNAP_EVENTS`), the fleet router's kind=fleet
-record (`make_fleet_record`, `FLEET_EVENTS`), and `JsonlSink`, the
+record (`make_fleet_record`, `FLEET_EVENTS`), the kind=compile record
+(`make_compile_record`: here one capture of a step as a CUDA graph,
+telemetry/compile_obs.py), and `JsonlSink`, the
 append-only file they are written to. Same schema version and keys, so
 the JAX package's offline tools read a ledger of either engine; the
 port's own copy of the cross-record rules is telemetry/ledger_check.py.
@@ -21,7 +23,8 @@ __all__ = ["SCHEMA_VERSION", "SERVING_EVENTS", "REQTRACE_SPAN_KINDS",
            "REQTRACE_OUTCOMES", "FLEET_RECORD_KEYS", "FLEET_EVENTS",
            "MEMSNAP_RECORD_KEYS", "MEMSNAP_BUCKETS", "MEMSNAP_EVENTS",
            "make_serving_record", "make_reqtrace_record",
-           "make_fleet_record", "make_memsnap_record", "JsonlSink"]
+           "make_fleet_record", "make_memsnap_record",
+           "make_compile_record", "JsonlSink"]
 
 # one process-wide atexit hook over weak refs: sinks stay collectable
 # (a per-instance atexit.register would pin every sink + its fd for the
@@ -303,6 +306,34 @@ def make_fleet_record(event, rank=0, replica=None, to_replica=None,
     return rec
 
 
+def make_compile_record(fn, step, compile_ms, rank=0, n_compiles=1,
+                        backend=None, cause=None, signature=None, **extra):
+    """One capture of a step as a CUDA graph, as a kind='compile' record.
+
+    `cause` is the recapture diff (list of human-readable strings) —
+    None/absent on the FIRST capture of a family, required on every
+    later one (tools/trace_check.py enforces this). The port's fields
+    (the graph pool's bytes, the capture key) ride under `extra`."""
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "compile",
+        "rank": int(rank),
+        "fn": str(fn),
+        "step": int(step),
+        "compile_ms": round(float(compile_ms), 4),
+        "n_compiles": int(n_compiles),
+    }
+    if backend is not None:
+        rec["backend"] = str(backend)
+    if cause:
+        rec["cause"] = [str(c) for c in cause]
+    if signature is not None:
+        rec["signature"] = signature
+    if extra:
+        rec["extra"] = extra
+    return rec
+
+
 def make_memsnap_record(event, step, total_bytes, rank=0,
                         params_bytes=None, opt_state_bytes=None,
                         kv_bytes=None, workspace_bytes=None,
@@ -325,7 +356,8 @@ def make_memsnap_record(event, step, total_bytes, rank=0,
     `headroom_bytes` is max(0, hbm_budget_bytes - total_bytes), the
     admission signal the serving engine gauges; `projected_bytes` is
     a static projection the reconcile-drift rule latches against (the
-    port has no compile observatory and leaves it None); the kv_* fields snapshot the
+    port's capture records project nothing, so it stays None); the
+    kv_* fields snapshot the
     BlockPool/PrefixIndex accounting (held+free+cached must tile
     kv_blocks_total) plus the eviction/admission rates the kv_thrash
     rule judges — all riding ON the record, so an offline replay and
