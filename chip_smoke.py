@@ -74,7 +74,13 @@ ok line):
              shape (f32 rows of
              768); int8_matvec at 1, 8, 16, 64 and 128 rows, each beside
              the composed head, the dequantized bf16 matmul and a
-             product over an unquantized bf16 table;
+             product over an unquantized bf16 table; then at GPT-3
+             1.3B's shapes: flash forward and backward at batch 2, seq
+             2048, 16 heads of 128 (bf16, causal; the backward twice,
+             bitwise equal) and add + LayerNorm with saved statistics
+             at [16384, 2048] bf16, each against its plain version and
+             timed beside SDPA forward / backward or F.layer_norm(x + r)
+             and its bound;
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -222,13 +228,49 @@ ok line):
              memory, finite loss, the routing stats; the launch counters
              must equal layers x steps for moe_gather, moe_combine,
              flash_fwd, flash_bwd and layernorm_fwd_saved), a 3-step
-             profile and the MoE regions timed alone.
+             profile and the MoE regions timed alone;
+8. train options — one GPT-3 1.3B-width block (b 1, s 256; loss the
+             mean square of its output) for 3 steps on the card and on
+             the CPU from the same weights, losses within 1e-4
+             relative: Momentum with a global-norm clip (1.0) and a
+             warm-up into a cosine schedule, in f32; AdamW over bf16
+             parameters with f32 masters. Then 3 bf16 amp AdamW steps of
+             GPT-3 125M at the train shape from one seed: plain, with
+             use_fused_ce (losses within 2e-2 relative of plain: one
+             bf16 rounding of the logits) and with remat (losses,
+             gradients and parameters bit for bit the plain run's: the
+             recompute runs the same kernels on the same inputs under
+             the caller's amp, and K3-K5 use no atomics); launches exact,
+             the remat run's forward kernels twice;
+9. train 1.3B layer — the JAX bench's gpt1_3b_layer: one GPTBlock at
+             GPT-3 1.3B's width, x of 8 x 2048 x 2048 (0.02 N(0, 1) from
+             RandomState(0)), SGD(1e-6), bf16 amp, 3 warm and 15 timed
+             steps: tokens/s, MFU (the bench's 6 layer_params + 12 h seq
+             FLOPs a token over 989 TFLOP/s), step ms, peak memory; one
+             launch of each training kernel a step;
+10. train 1.3B full — the JAX bench's gpt1_3b_full with nothing cut in
+             width or depth: GPT-3 1.3B (24 layers, seq 2048, remat,
+             use_fused_ce, bf16 amp), OffloadTrainStep with bf16
+             parameters and AdamW(1e-4, wd 0.01) whose f32 masters and
+             moments sit in pinned host memory, micro-batch 16 x 2048;
+             cut: K 4 (the bench's 16) and 1 warm + 1 timed round (the
+             bench's 2 + 2). First /proc/meminfo's MemTotal and
+             MemAvailable (under 24 GB available fails). Reports
+             tokens/s and MFU, micro-step and update-round ms, the
+             update's copy bytes and rate, peak device memory, pinned
+             bytes and every round's losses (finite); each micro-step
+             launches exactly 48 flash_fwd (24 + 24 recomputed), 24
+             flash_bwd and 48 layernorm_fwd_saved.
+
+`--phases kernels_1_3b,options,layer,full` (any of them) runs the build
+and the named phases alone and prints no result line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
 (serve tokens/s, step p50/p99 and chunk p50, generate tokens/s per
 recipe, capture ms, pool bytes, launches a step), a JSON line with
-every kernel's launches, error and times, and as its last line
+every kernel's launches, error and times, a JSON line of the 1.3B
+phases, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is unavailable or when run
 outside a checkout of the repository.
@@ -371,20 +413,24 @@ PTXAS_SHOWN = ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma", "bwd_delta",
 
 
 def print_pair_ptxas(_build):
-    """The inference add + LayerNorm has one instance per dtype triple and
-    width class: print their register range and which spill (by their
-    mangled template arguments), when this process built them."""
-    pair = {fn: info for fn, info in
-            _build.ptxas_info("add_layer_norm").items() if "add_ln_pair" in fn}
-    if not pair:
-        return
-    regs = [info.get("registers", 0) for info in pair.values()]
-    spill = sorted(fn.split("add_ln_pair", 1)[1].split("EEEv")[0]
-                   for fn, info in pair.items()
-                   if info.get("spills", (0, 0)) != (0, 0))
-    print(f"build: ptxas add_layer_norm: {len(pair)} add_ln_pair "
-          f"instances, {min(regs)}-{max(regs)} registers, {len(spill)} "
-          f"spill: {spill}")
+    """The add + LayerNorm kernels have one instance per dtype triple and
+    width class: print, for the saving form (add_ln, K6) and the
+    inference pair (add_ln_pair, K7), their register range and which
+    spill (by their mangled template arguments), when this process built
+    them."""
+    info = _build.ptxas_info("add_layer_norm")
+    for kernel in ("add_ln", "add_ln_pair"):
+        mark = kernel + "I"
+        inst = {fn: i for fn, i in info.items() if mark in fn}
+        if not inst:
+            continue
+        regs = [i.get("registers", 0) for i in inst.values()]
+        spill = sorted(fn.split(mark, 1)[1].split("EEEv")[0]
+                       for fn, i in inst.items()
+                       if i.get("spills", (0, 0)) != (0, 0))
+        print(f"build: ptxas add_layer_norm: {len(inst)} {kernel} "
+              f"instances, {min(regs)}-{max(regs)} registers, "
+              f"{len(spill)} spill: {spill}")
 
 
 def card_line():
@@ -2553,31 +2599,32 @@ def train_phase(torch, seed):
     ids, labels = train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
                               0, DEVICE)
     n_params = sum(p.numel() for p in model.parameters())
-    stats = timed_train(torch, step, ids, labels, TRAIN_WARMUP, TRAIN_STEPS,
+    stats = timed_train(torch, step, (ids, labels), TRAIN_WARMUP,
+                        TRAIN_STEPS,
                         gpt_train_flops_per_token(cfg, TRAIN_SEQ, n_params))
     stats["n_params"] = n_params
     print(f"train[bf16 amp, b={TRAIN_BATCH} s={TRAIN_SEQ}]: "
           + json.dumps(stats))
     check_train_launches(stats["launches"], L, TRAIN_STEPS, "bench shape")
     check_falling("train", stats, TRAIN_WARMUP + TRAIN_STEPS)
-    profile_steps(torch, step, ids, labels, TRAIN_STEPS,
+    profile_steps(torch, step, (ids, labels), TRAIN_STEPS,
                   f"train steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens", top=20)
     train_regions(torch, cfg, step, labels)
     return stats
 
 
-def timed_train(torch, step, ids, labels, warmup, steps, fpt):
+def timed_train(torch, step, batch, warmup, steps, fpt):
     """`warmup` steps (the first one's loss kept), then the launch
     counters and the peak memory reset and `steps` timed steps on one
-    batch: tokens/s and mean step ms on the host clock (ending in
-    `.item()`), p50 and max step ms from CUDA events, MFU at `fpt` FLOPs
-    per token, peak memory, the first and last losses and the launches
-    of the timed steps."""
+    batch (its first tensor [batch, seq, ...] gives the tokens): tokens/s
+    and mean step ms on the host clock (ending in `.item()`), p50 and max
+    step ms from CUDA events, MFU at `fpt` FLOPs per token, peak memory,
+    the first and last losses and the launches of the timed steps."""
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
     from paddle_tpu_torch.telemetry import device_peak_flops, mfu
-    first = float(step(ids, labels))
+    first = float(step(*batch))
     for _ in range(warmup - 1):
-        step(ids, labels)
+        step(*batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2585,13 +2632,13 @@ def timed_train(torch, step, ids, labels, warmup, steps, fpt):
     t0 = time.perf_counter()
     ev[0].record()
     for i in range(steps):
-        loss = step(ids, labels)
+        loss = step(*batch)
         ev[i + 1].record()
     final = loss.item()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels()}
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
-    tps = ids.numel() * steps / wall
+    tps = batch[0].shape[0] * batch[0].shape[1] * steps / wall
     return dict(tokens_per_s=tps, step_ms=wall * 1e3 / steps,
                 step_p50_ms=statistics.median(step_ms),
                 step_max_ms=max(step_ms),
@@ -2610,13 +2657,13 @@ def check_falling(what, stats, steps):
                              "or not falling")
 
 
-def profile_steps(torch, step, ids, labels, steps, what, top):
+def profile_steps(torch, step, batch, steps, what, top):
     """Device time by kernel over `steps` steps (CUDA activity only)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            loss = step(ids, labels)
+            loss = step(*batch)
         loss.item()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     return print_profile(prof, steps, wall_ms, what, top)
@@ -2746,7 +2793,7 @@ def moe_train_phase(torch, seed):
     n_params = sum(p.numel() for p in model.parameters())
     active = n_params - L * (MOE_E - MOE_K) * 2 * cfg.hidden_size \
         * cfg.ffn_hidden_size
-    stats = timed_train(torch, step, ids, labels, MOE_WARMUP, MOE_STEPS,
+    stats = timed_train(torch, step, (ids, labels), MOE_WARMUP, MOE_STEPS,
                         gpt_train_flops_per_token(cfg, MOE_SEQ, active))
     stats.update(n_params=n_params, active_params=active,
                  moe=note_step_stats(None, step._last_moe, MOE_E))
@@ -2758,7 +2805,7 @@ def moe_train_phase(torch, seed):
     if stats["moe"] is None:
         raise AssertionError(f"moe train: routing stats {step._last_moe} "
                              "not finite")
-    busy = profile_steps(torch, step, ids, labels, MOE_PROFILE_STEPS,
+    busy = profile_steps(torch, step, (ids, labels), MOE_PROFILE_STEPS,
                          f"moe train steps of {MOE_BATCH}x{MOE_SEQ} tokens",
                          top=24)
     # again with CPU activity (slower on the host, the same kernels) to
@@ -2862,6 +2909,470 @@ def moe_step_parts(prof, steps, busy_ms):
     return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
+# ---------------------------------------------------------------------------
+# the 1.3B shapes: kernels, the training options, gpt1_3b_layer and
+# gpt1_3b_full
+# ---------------------------------------------------------------------------
+
+# flash at GPT-3 1.3B's attention shape: (batch, seq, heads, head_dim)
+FLASH_1_3B = (2, 2048, 16, 128)
+# K6 at the layer phase's rows (8 x 2048 tokens) of width 2048
+LN_1_3B = (16384, 2048)
+# the training options: one 1.3B-width block, card vs CPU
+OPT_SEQ, OPT_STEPS = 256, 3
+# the bench's gpt1_3b_layer (bench.py:496-535)
+LAYER_BATCH, LAYER_SEQ, LAYER_WARMUP, LAYER_STEPS = 8, 2048, 3, 15
+# the bench's gpt1_3b_full (bench.py:538-630), K cut from 16 to 4 and its
+# 2 warm + 2 timed rounds to 1 + 1
+FULL_BATCH, FULL_SEQ, FULL_K, FULL_WARM_ROUNDS = 16, 2048, 4, 1
+FULL_MIN_HOST_GB = 24       # the pinned f32 master + moments: ~15.8 GB
+# micro-step launches of the 24-layer remat step: the forward and its
+# recomputation each run flash_fwd and the add + LayerNorm site
+FULL_MICRO_LAUNCHES = {"flash_fwd": 48, "flash_bwd": 24,
+                       "layernorm_fwd_saved": 48}
+
+
+def kernels_1_3b_phase(torch, seed):
+    """flash_fwd and flash_bwd at 16 heads of 128, s 2048 (bf16, causal,
+    batch 2) and layernorm_fwd_saved at [16384, 2048] bf16 against their
+    plain versions at the registry's tolerance (every backward twice,
+    bitwise equal), then timed beside the plain versions, SDPA forward
+    and backward / F.layer_norm(x + r) and their bounds, L2 flushed."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain, flash_bwd,
+        flash_fwd)
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    from paddle_tpu_torch.ops.layernorm import (layernorm_fwd_saved,
+                                                layernorm_plain)
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 13)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    b, s, n, h = FLASH_1_3B
+    scale = 1.0 / math.sqrt(h)
+    tag = f"[bfloat16, b={b} s={s} n={n} h={h} causal]"
+    tol = get_kernel("flash_fwd").tol["bfloat16"]
+    q, k, v, dout = flash_inputs(torch, gen, torch.bfloat16, dev, b, s, s,
+                                 n, h)
+    out, lse = flash_fwd(q, k, v, True, scale)
+    rout, rlse = flash_attention_fwd_plain(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    fwd_err = max(hold("flash_fwd out" + tag, out, rout, tol),
+                  hold("flash_fwd lse" + tag, lse, rlse, tol))
+    got = flash_bwd(q, k, v, rout, rlse, dout, True, scale)
+    ref = flash_attention_bwd_plain(q, k, v, rout, rlse, dout, True, scale)
+    again = flash_bwd(q, k, v, rout, rlse, dout, True, scale)
+    torch.cuda.synchronize()
+    bwd_err = max(hold(f"flash_bwd d{nm}" + tag, g, r, tol)
+                  for nm, g, r in zip("qkv", got, ref))
+    for nm, g, a in zip("qkv", got, again):
+        if not torch.equal(g, a):
+            raise AssertionError(f"flash_bwd d{nm}{tag}: two calls on the "
+                                 "same inputs differ")
+    del got, ref, again, rout, rlse
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True), flush)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    go = dout.transpose(1, 2).contiguous()
+    rows = {"flash_fwd": dict(
+        ms=median_ms(torch, lambda: flash_fwd(q, k, v, True, scale), flush),
+        plain_ms=median_ms(torch, lambda: flash_attention_fwd_plain(
+            q, k, v, True, scale), flush, reps=5, warmup=1),
+        library_ms=sdpa_fwd,
+        bound=bound(*flash_work(b, s, s, n, h, True, 2, False), "bfloat16"),
+        max_abs_err=fwd_err)}
+    rows["flash_bwd"] = dict(
+        ms=median_ms(torch, lambda: flash_bwd(q, k, v, out, lse, dout, True,
+                                              scale), flush),
+        plain_ms=median_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, True, scale), flush, reps=3, warmup=1),
+        library_ms=median_ms(torch, lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), go, retain_graph=True), flush),
+        bound=bound(*flash_work(b, s, s, n, h, True, 2, True), "bfloat16"),
+        max_abs_err=bwd_err)
+    print("kernels: flash_bwd at the 1.3B shape by kernel (L2 flushed, ms a "
+          "call): " + json.dumps(bwd_parts(
+              torch, lambda: flash_bwd(q, k, v, out, lse, dout, True, scale),
+              flush)))
+    del lo, lq, lk, lv, go, q, k, v, dout, out, lse
+    nrows, d = LN_1_3B
+    x, r = (torch.randn((nrows, d), generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, torch.bfloat16)
+    bb = (0.1 * torch.randn((d,), generator=gen)).to(dev, torch.bfloat16)
+    kt = get_kernel("layernorm_fwd_saved").tol
+    got = layernorm_fwd_saved(x, r, w, bb)
+    ref = layernorm_plain(x, r, w, bb)
+    torch.cuda.synchronize()
+    tag = f"[{nrows}x{d} bfloat16]"
+    ln_err = max(hold("layernorm_fwd_saved out" + tag, got[0], ref[0],
+                      kt["bfloat16"]),
+                 hold("layernorm_fwd_saved sum" + tag, got[1], ref[1],
+                      kt["float32"]),
+                 hold("layernorm_fwd_saved rstd" + tag, got[2], ref[2],
+                      kt["float32"]))
+    rows["layernorm_fwd_saved"] = dict(
+        ms=median_ms(torch, lambda: layernorm_fwd_saved(x, r, w, bb), flush),
+        plain_ms=median_ms(torch, lambda: layernorm_plain(x, r, w, bb),
+                           flush),
+        library_ms=median_ms(torch, lambda: F.layer_norm(
+            x + r, (d,), w, bb), flush),
+        bound=bound(*ln_work(nrows, d, 2, 2, 2, True), "bfloat16"),
+        max_abs_err=ln_err)
+    for name, row in rows.items():
+        print(f"kernels: {name} at the 1.3B shape: {row['ms']:.4f} ms "
+              f"(plain {row['plain_ms']:.3f}, library "
+              f"{row['library_ms']:.4f}, bound {row['bound'][0]:.5f} by "
+              f"{row['bound'][1]}, max_abs_err {row['max_abs_err']:.3e})")
+    del flush
+    return rows
+
+
+def init_block(torch, block, num_layers, seed):
+    """A standalone block's weights as GPTForPretraining.init_weights
+    draws them: N(0, 0.02), fc2 N(0, 0.02 / sqrt(2 num_layers)), zero
+    biases, unit LayerNorm scales."""
+    gen = torch.Generator(device=block.ln1.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.startswith("ln"):
+                continue
+            if name.endswith(".bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02 / math.sqrt(2 * num_layers)
+                          if name.endswith("fc2.weight") else 0.02,
+                          generator=gen)
+
+
+def options_optimizer(name, block):
+    """The option recipes: Momentum with f32 masters (for low-precision
+    parameters), a global-norm clip and a warm-up into a cosine
+    schedule; AdamW (masters on by default)."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, Momentum, lr
+    if name == "momentum":
+        return Momentum(learning_rate=lr.LinearWarmup(
+            lr.CosineAnnealingDecay(0.05, T_max=4), warmup_steps=2,
+            start_lr=0.01, end_lr=0.05), momentum=0.9,
+            parameters=block.parameters(), multi_precision=True,
+            grad_clip=ClipGradByGlobalNorm(1.0))
+    return AdamW(learning_rate=1e-3, weight_decay=0.01,
+                 parameters=block.parameters())
+
+
+def options_block_runs(torch, seed):
+    """One 1.3B-width block (b 1, s 256) for OPT_STEPS steps per recipe,
+    on the card and on the CPU (plain versions) from the same weights:
+    Momentum + clip + schedule in f32, AdamW over bf16 parameters with
+    f32 masters. The loss is the mean square of the block's output (f32),
+    which stays away from 0. Losses within PARITY_RTOL; the card's
+    launches are one of each training kernel a step."""
+    import copy
+
+    import numpy as np
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    cfg = GPTConfig.gpt3_1_3b(max_seq_len=2048, dropout=0.0)
+    x0 = np.random.RandomState(seed).randn(1, OPT_SEQ, cfg.hidden_size)
+    out, launches = {}, {}
+    for name, dtype in (("momentum", torch.float32),
+                        ("adamw", torch.bfloat16)):
+        cpu_block = GPTBlock(cfg, device="cpu", dtype=dtype)
+        init_block(torch, cpu_block, cfg.num_layers, seed)
+        card_block = copy.deepcopy(cpu_block).to(DEVICE)
+        runs, masters = {}, {}
+        for where, block in (("cuda", card_block), ("cpu", cpu_block)):
+            opt = options_optimizer(name, block)
+            x = torch.from_numpy(x0).to(block.ln1.weight.device, dtype)
+
+            def loss_fn(xx, block=block):
+                return block(xx).float().square().mean()
+
+            step = TrainStep(block, loss_fn, opt)
+            reset_launches()
+            runs[where] = []
+            for _ in range(OPT_STEPS):
+                runs[where].append(float(step(x)))
+                if hasattr(opt._learning_rate, "step"):
+                    opt._learning_rate.step()
+            if where == "cuda":
+                launches = {k.name: launches.get(k.name, 0) + k.launches
+                            for k in kernels()}
+                check_train_launches({k.name: k.launches for k in kernels()},
+                                     1, OPT_STEPS, f"options {name}")
+            masters[where] = [opt._states[id(p)].get("master")
+                              for p in step.params]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"],
+                                                       runs["cpu"]))
+        gap = max((float((a.cpu() - b).abs().max())
+                   for a, b in zip(masters["cuda"], masters["cpu"])
+                   if a is not None), default=None)
+        print(f"train options: {name} 1.3B-width block b=1 s={OPT_SEQ} "
+              f"{str(dtype)[6:]}: card {runs['cuda']} vs CPU {runs['cpu']}, "
+              f"relative {rel:.2e}; masters' max gap card vs CPU {gap}")
+        if not rel <= PARITY_RTOL:
+            raise AssertionError(f"train options {name}: relative {rel:.2e} "
+                                 f"> {PARITY_RTOL}")
+        out[name] = dict(card=runs["cuda"], cpu=runs["cpu"], rel=rel,
+                         master_gap=gap)
+    return out, launches
+
+
+def fused_remat_runs(torch, seed):
+    """GPT-3 125M at the train shape, bf16 amp, 3 AdamW steps from one
+    seed: plain, with use_fused_ce, with remat. Fused vs plain losses
+    within 2e-2 relative (one bf16 rounding of the logits); remat vs
+    plain identical losses, gradients and parameters (the recompute
+    runs the same kernels on the same inputs under the caller's amp, and
+    K3-K5 use no atomics). Launches exact: remat runs each forward
+    kernel twice. -> (results, launches)."""
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    vocab = GPTConfig.gpt3_125m().vocab_size
+    ids, labels = train_batch(torch, vocab, TRAIN_BATCH, TRAIN_SEQ, 0,
+                              DEVICE)
+    runs, launches = {}, {}
+    for tag, fused, remat in (("plain", False, False),
+                              ("fused_ce", True, False),
+                              ("remat", False, True)):
+        cfg = GPTConfig.gpt3_125m(max_seq_len=1024, dropout=0.0,
+                                  remat=remat)
+        model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
+        step = make_train_step(torch, model, amp_on=True)
+        set_flags({"use_fused_ce": fused})
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            losses, ev = [], [torch.cuda.Event(enable_timing=True)
+                              for _ in range(OPT_STEPS + 1)]
+            ev[0].record()
+            for i in range(OPT_STEPS):
+                losses.append(step(ids, labels))
+                ev[i + 1].record()
+            losses = [float(x) for x in losses]
+        finally:
+            set_flags({"use_fused_ce": False})
+        got = {k.name: k.launches for k in kernels()}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        twice = 2 if remat else 1
+        want = {k: 0 for k in got}
+        want.update(flash_fwd=twice * cfg.num_layers * OPT_STEPS,
+                    flash_bwd=cfg.num_layers * OPT_STEPS,
+                    layernorm_fwd_saved=twice * cfg.num_layers * OPT_STEPS)
+        if got != want:
+            raise AssertionError(f"train options {tag}: launches {got} != "
+                                 f"{want}")
+        runs[tag] = dict(
+            losses=losses,
+            step_ms=[ev[i].elapsed_time(ev[i + 1]) for i in range(OPT_STEPS)],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            grads=[p.grad.detach().clone() for p in step.params],
+            params=[p.detach().clone() for p in step.params])
+        del model, step
+    fused_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["fused_ce"]["losses"], runs["plain"]["losses"]))
+    same = {what: all(torch.equal(a, b) for a, b in zip(
+        runs["remat"][what], runs["plain"][what])) for what in ("grads",
+                                                               "params")}
+    same["losses"] = runs["remat"]["losses"] == runs["plain"]["losses"]
+    grad_gap = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(runs["remat"]["grads"],
+                                   runs["plain"]["grads"]))
+    summary = {tag: {k: r[k] for k in ("losses", "step_ms", "peak_mem_gb")}
+               for tag, r in runs.items()}
+    print(f"train options: GPT-3 125M b={TRAIN_BATCH} s={TRAIN_SEQ} bf16 "
+          f"amp, {OPT_STEPS} steps: " + json.dumps(summary))
+    print(f"train options: fused CE vs plain losses relative "
+          f"{fused_rel:.2e}; remat vs plain identical {json.dumps(same)}, "
+          f"largest gradient gap {grad_gap:.3e}")
+    if not fused_rel <= 2e-2:
+        raise AssertionError(f"train options: fused CE losses "
+                             f"{runs['fused_ce']['losses']} vs "
+                             f"{runs['plain']['losses']}")
+    if not all(same.values()):
+        raise AssertionError(f"train options: remat changed the step "
+                             f"({same}, gradients up to {grad_gap:.3e} "
+                             "apart)")
+    return dict(fused_rel=fused_rel, remat_identical=same, **summary), \
+        launches
+
+
+def train_options_phase(torch, seed):
+    block, launches = options_block_runs(torch, seed)
+    torch.cuda.empty_cache()
+    gpt, more = fused_remat_runs(torch, seed)
+    return dict(block=block, gpt125m=gpt, launches={
+        k: launches.get(k, 0) + more.get(k, 0) for k in more})
+
+
+def train_1_3b_layer_phase(torch, seed):
+    """The bench's gpt1_3b_layer: one GPTBlock at GPT-3 1.3B's width,
+    x = 0.02 N(0, 1) of 8 x 2048 x 2048 from RandomState(0), SGD(1e-6),
+    bf16 amp, loss = mean of the block's output; 3 warm and 15 timed
+    steps; MFU with the bench's 6 layer_params + 12 h seq FLOPs a token
+    over the card's dense bf16 peak."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
+    from paddle_tpu_torch.optimizer import SGD
+    cfg = GPTConfig.gpt3_1_3b(max_seq_len=LAYER_SEQ, dropout=0.0,
+                              attn_dropout=0.0)
+    block = GPTBlock(cfg, device=DEVICE)
+    init_block(torch, block, cfg.num_layers, seed)
+    opt = SGD(learning_rate=1e-6, parameters=block.parameters())
+
+    def loss_fn(x):
+        with amp.auto_cast(dtype="bfloat16"):
+            return block(x).mean()
+
+    step = TrainStep(block, loss_fn, opt)
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        LAYER_BATCH, LAYER_SEQ, cfg.hidden_size).astype(np.float32)
+        * 0.02).to(DEVICE)
+    layer_params = sum(p.numel() for p in block.parameters())
+    fpt = 6 * layer_params + 12 * cfg.hidden_size * LAYER_SEQ
+    stats = timed_train(torch, step, (x,), LAYER_WARMUP, LAYER_STEPS, fpt)
+    stats["layer_params"] = layer_params
+    print(f"train 1.3B layer[bf16 amp, b={LAYER_BATCH} s={LAYER_SEQ}, SGD] "
+          f"on {card_line()}: " + json.dumps(stats))
+    check_train_launches(stats["launches"], 1, LAYER_STEPS, "1.3B layer")
+    if not (math.isfinite(stats["loss"])
+            and math.isfinite(stats["loss_first"])):
+        raise AssertionError(f"train 1.3B layer: loss {stats['loss']}")
+    profile_steps(torch, step, (x,), 5,
+                  f"1.3B layer steps of {LAYER_BATCH}x{LAYER_SEQ} tokens",
+                  top=12)
+    return stats
+
+
+def host_memory_gb():
+    """(MemTotal, MemAvailable) of /proc/meminfo in GB."""
+    got = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                got[key] = int(val.split()[0]) * 1024 / 1e9
+    return got["MemTotal"], got["MemAvailable"]
+
+
+def train_1_3b_full_phase(torch, seed):
+    """The bench's gpt1_3b_full with nothing cut in width or depth:
+    gpt3_1_3b(max_seq_len=2048, remat=True), use_fused_ce, bf16 amp,
+    OffloadTrainStep(param_dtype="bfloat16") with AdamW(1e-4, wd 0.01,
+    f32 masters and moments in pinned host memory), micro-batch 16 x
+    2048. Cut: K 4 (the bench: 16) and 1 warm + 1 timed round (the
+    bench: 2 + 2). Reports tokens/s and MFU (the bench's 6 N + 12 L d s
+    FLOPs a token), micro-step and update-round ms, the update's copy
+    bytes and rate, peak device memory, pinned host bytes and every
+    round's losses; the micro-steps' launches must be exactly
+    FULL_MICRO_LAUNCHES each."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import OffloadTrainStep
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.telemetry import (device_peak_flops,
+                                            gpt_train_flops_per_token, mfu)
+    total, avail = host_memory_gb()
+    print(f"train 1.3B full: host memory MemTotal {total:.1f} GB, "
+          f"MemAvailable {avail:.1f} GB")
+    if avail < FULL_MIN_HOST_GB:
+        raise AssertionError(f"train 1.3B full: {avail:.1f} GB of host "
+                             f"memory available, the pinned states need "
+                             f"~16 GB (at least {FULL_MIN_HOST_GB} GB asked)")
+    cfg = GPTConfig.gpt3_1_3b(max_seq_len=FULL_SEQ, dropout=0.0,
+                              attn_dropout=0.0, remat=True)
+    model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+
+    def loss_fn(ids, labels):
+        with amp.auto_cast(dtype="bfloat16"):
+            return model.loss(ids, labels)
+
+    set_flags({"use_fused_ce": True})
+    try:
+        t0 = time.perf_counter()
+        step = OffloadTrainStep(model, loss_fn, opt,
+                                accumulate_steps=FULL_K,
+                                param_dtype="bfloat16")
+        setup_s = time.perf_counter() - t0
+        state_bytes = sum(v.numel() * v.element_size() for st in step._states
+                          for v in st.values() if isinstance(v, torch.Tensor))
+        ids, labels = train_batch(torch, cfg.vocab_size, FULL_BATCH,
+                                  FULL_SEQ, 0, DEVICE)
+        t0 = time.perf_counter()
+        warm = [float(step(ids, labels))
+                for _ in range(FULL_K * FULL_WARM_ROUNDS)]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(FULL_K)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        losses = [step(ids, labels) for _ in range(FULL_K - 1)]
+        ev[-1].record()
+        torch.cuda.synchronize()
+        micro_ms = ev[0].elapsed_time(ev[-1]) / (FULL_K - 1)
+        t1 = time.perf_counter()
+        losses.append(step(ids, labels))    # the K-th: micro-step + update
+        torch.cuda.synchronize()
+        last_ms = (time.perf_counter() - t1) * 1e3
+        round_s = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        launches = {k.name: k.launches for k in kernels()}
+    finally:
+        set_flags({"use_fused_ce": False})
+    tokens = FULL_K * FULL_BATCH * FULL_SEQ
+    fpt = gpt_train_flops_per_token(cfg, FULL_SEQ, n_params)
+    tps = tokens / round_s
+    update_ms = last_ms - micro_ms
+    stats = dict(
+        tokens_per_s=tps, mfu=mfu(tps, fpt, device_peak_flops(
+            torch.cuda.get_device_name(0))),
+        round_s=round_s, micro_step_ms=micro_ms, update_round_ms=update_ms,
+        update_copy_bytes=2 * state_bytes,
+        update_copy_gb_per_s=2 * state_bytes / (update_ms / 1e3) / 1e9,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        pinned_bytes=step.pinned_bytes, chunks=len(step._chunks),
+        n_params=n_params, flops_per_token=fpt, setup_s=setup_s,
+        warm_round_s=warm_s, losses_warm=warm, losses=losses,
+        host_mem_total_gb=total, host_mem_available_gb=avail,
+        launches=launches)
+    print(f"train 1.3B full[remat, fused CE, bf16 params, offloaded AdamW, "
+          f"K={FULL_K} x {FULL_BATCH}x{FULL_SEQ}] on {card_line()}: "
+          + json.dumps(stats))
+    want = {k: FULL_K * FULL_MICRO_LAUNCHES.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"train 1.3B full: launches {launches} != "
+                             f"{want} (K x a micro-step's)")
+    if not all(math.isfinite(x) for x in warm + losses):
+        raise AssertionError(f"train 1.3B full: losses {warm} {losses}")
+    # where a micro-step's time goes (the next call: no update)
+    set_flags({"use_fused_ce": True})
+    try:
+        profile_steps(torch, step, (ids, labels), 1,
+                      f"1.3B full micro-step of {FULL_BATCH}x{FULL_SEQ} "
+                      "tokens", top=15)
+    finally:
+        set_flags({"use_fused_ce": False})
+    del step, opt, model
+    return stats
+
+
 def print_compiled_summary(serve, wo8, loop, memory, decode):
     """The compiled step against the eager bodies, one JSON line: what
     each phase measured, eager and captured in turns in this process."""
@@ -2893,6 +3404,24 @@ def print_compiled_summary(serve, wo8, loop, memory, decode):
     print(f"compiled step on {card_line()}: " + json.dumps(out))
 
 
+PARTIAL_PHASES = ("kernels_1_3b", "options", "layer", "full")
+
+
+def partial_run(torch, args, lap, phase_s):
+    """The build and the named phases alone (--phases); no result."""
+    fns = {"kernels_1_3b": kernels_1_3b_phase, "options": train_options_phase,
+           "layer": train_1_3b_layer_phase, "full": train_1_3b_full_phase}
+    for name in args.phases.split(","):
+        fns[name](torch, args.seed)
+        torch.cuda.empty_cache()
+        lap(name)
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
+    print(f"chip_smoke: partial run ({args.phases}) on {card_line()}: no "
+          "result line")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2901,6 +3430,10 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"),
                     help="the engine's compute dtype in the serve phase")
+    ap.add_argument("--phases", default="all",
+                    help="a comma list of " + ",".join(PARTIAL_PHASES)
+                    + " to run after the build alone, for iterating on "
+                    "them; such a run prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2943,6 +3476,8 @@ def main(argv=None):
     def lap(name):
         phase_s[name] = time.perf_counter() - t0 - sum(phase_s.values())
 
+    if args.phases != "all":
+        return partial_run(torch, args, lap, phase_s)
     rows = kernels_phase(torch, args.seed)
     lap("kernels: serving")
     rows.update(train_kernels_phase(torch, args.seed))
@@ -2951,6 +3486,8 @@ def main(argv=None):
     lap("kernels: decode")
     rows.update(moe_kernels_phase(torch, args.seed))
     lap("kernels: moe")
+    rows_1_3b = kernels_1_3b_phase(torch, args.seed)
+    lap("kernels: 1.3B")
     stats, eng, vocab = serve_phase(torch, args.seed, args.init_range,
                                     args.dtype)
     lap("serve")
@@ -2979,10 +3516,25 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lap("train")
     moe = moe_train_phase(torch, args.seed)
+    torch.cuda.empty_cache()
     lap("moe train")
+    options = train_options_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("train options")
+    layer = train_1_3b_layer_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("train 1.3B layer")
+    full = train_1_3b_full_phase(torch, args.seed)
+    lap("train 1.3B full")
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
     print_compiled_summary(stats, wo8, loop, memory, decode)
+    print(f"1.3B on {card_line()}: " + json.dumps({
+        "kernels": {k: {**r, "bound": list(r["bound"])}
+                    for k, r in rows_1_3b.items()},
+        "options": {k: v for k, v in options.items() if k != "launches"},
+        "layer": {k: v for k, v in layer.items() if k != "launches"},
+        "full": {k: v for k, v in full.items() if k != "launches"}}))
 
     out = []
     for k in regs:
@@ -2990,7 +3542,7 @@ def main(argv=None):
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
                        for run in (stats, wo8, loop, memory, fleet, decode,
-                                   train, moe))
+                                   train, moe, options, layer, full))
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time this checkout's kernels against another checkout's, in turns,
-on one CUDA card: flash_fwd, paged_decode, decode_fused, int8_matvec
-and layernorm_fused.
+on one CUDA card: flash_fwd, paged_decode, decode_fused, int8_matvec,
+layernorm_fused and layernorm_fwd_saved.
 
     python3 kernel_ab.py --base DIR [--seed 0] [--reps 60]
-                         [--kernels flash_fwd,...,layernorm_fused]
+                         [--kernels flash_fwd,...,layernorm_fwd_saved]
 
 DIR is the root of another checkout of the repository, for example the
 parent commit unpacked from `git archive` into a directory that
@@ -33,7 +33,10 @@ cases (all by default). Both are called on the same inputs:
   layernorm_fwd_saved (K6, the same kernel in both trees) at the
   training shape (24576 rows, f32 x, bf16 r); then the host
   microseconds a call of each site, each kernel wrapper, a torch add
-  and one trivial launch (calls back to back, the card keeping up).
+  and one trivial launch (calls back to back, the card keeping up);
+- layernorm_fwd_saved (K6) at GPT-3 1.3B's shape, 16384 rows of 2048,
+  bf16 x and r (the offloaded full step) and f32 x with bf16 r (the
+  amp layer step): both trees' outputs bit for bit equal.
 
 Each kernel's output is held against the plain version of this
 checkout, then both are timed base, change, change, base (median of
@@ -282,6 +285,50 @@ SEQ_SPIN = 2_000_000        # clock cycles, ~1 ms
 HOST_CALLS = 2000
 
 
+def ab_layernorm_fwd_saved(ab):
+    """K6 at GPT-3 1.3B's rows of 2048 (8 x 2048 tokens): bf16 x, r, w
+    (the offloaded step's bf16 parameters) and an f32 stream with a bf16
+    branch and f32 w (the amp layer step); both trees' outputs bit for
+    bit equal and within the registry's tolerance of the plain version,
+    timed in turns beside F.layer_norm(x + r) and the bytes bound."""
+    torch, cs, dev = ab.torch, ab.cs, ab.dev
+    ln_old, ln_new = ab.old["layernorm"], ab.new["layernorm"]
+    gen = torch.Generator().manual_seed(ab.seed + 12)
+    rows, d = cs.LN_1_3B
+    for xdt, rdt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.bfloat16)):
+        x = torch.randn((rows, d), generator=gen).to(dev, xdt)
+        r = torch.randn((rows, d), generator=gen).to(dev, rdt)
+        w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, xdt)
+        b = (0.1 * torch.randn((d,), generator=gen)).to(dev, xdt)
+        got = ln_new.layernorm_fwd_saved(x, r, w, b)
+        old = ln_old.layernorm_fwd_saved(x, r, w, b)
+        ref = ln_new.layernorm_plain(x, r, w, b)
+        torch.cuda.synchronize()
+        tol = ln_new.get_kernel("layernorm_fwd_saved").tol
+        name = str(xdt)[6:]
+        err = cs.hold(f"layernorm_fwd_saved [{rows}x{d} {name}]", got[0],
+                      ref[0], tol[name])
+        if not all(torch.equal(a, c) for a, c in zip(got, old)):
+            raise AssertionError("layernorm_fwd_saved: the two trees' "
+                                 "outputs differ")
+        base_ms, change_ms = turns(
+            torch, cs, lambda: ln_old.layernorm_fwd_saved(x, r, w, b),
+            lambda: ln_new.layernorm_fwd_saved(x, r, w, b), ab.flush,
+            ab.reps)
+        size = {torch.float32: 4, torch.bfloat16: 2}
+        print(json.dumps({
+            "kernel": "layernorm_fwd_saved", "rows": rows, "d": d,
+            "x": name, "residual": str(rdt)[6:], "max_abs_err": err,
+            "base_ms": base_ms, "change_ms": change_ms,
+            "library_ms": cs.median_ms(torch, lambda: ab.F.layer_norm(
+                x + r, (d,), w, b), ab.flush, reps=ab.reps),
+            "bound_ms": cs.bound(*cs.ln_work(rows, d, size[xdt], size[rdt],
+                                             size[xdt], True),
+                                 "bfloat16")[0]}))
+        del x, r, got, old, ref
+
+
 def host_us(torch, fn, calls=HOST_CALLS, warmup=50):
     """Host microseconds a call of `fn`, which only enqueues work on the
     card: `calls` calls back to back on the host clock, synchronized
@@ -447,7 +494,9 @@ CASES = {"flash_fwd": (ab_flash_fwd, "flash_attention",
                           "decode_attention"),
          "int8_matvec": (ab_int8_matvec, "int8_matvec", "int8_matvec"),
          "layernorm_fused": (ab_layernorm_fused, "layernorm",
-                             "add_layer_norm")}
+                             "add_layer_norm"),
+         "layernorm_fwd_saved": (ab_layernorm_fwd_saved, "layernorm",
+                                 "add_layer_norm")}
 
 
 def main(argv=None):

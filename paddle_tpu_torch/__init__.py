@@ -4,9 +4,11 @@ The JAX package stays the reference; this package is its counterpart for
 an NVIDIA H100, ported slice by slice along the system's main paths:
 GPT served through the continuous-batching engine over the paged KV
 cache (the paged attention kernels, `ops/paged_attention.py`), the GPT
-training step under bf16 amp with AdamW (the flash attention forward
-and backward, `ops/flash_attention.py`, and the residual-add +
-LayerNorm, `ops/layernorm.py`), decoding with `generate` and weight-only
+training step under bf16 amp (the flash attention forward and
+backward, `ops/flash_attention.py`, and the residual-add + LayerNorm,
+`ops/layernorm.py`) with the JAX package's training options, up to
+GPT-3 1.3B with its optimizer states offloaded to the host, decoding
+with `generate` and weight-only
 int8 (`ops/decode_attention.py`, `ops/int8_matvec.py`), and the
 mixture-of-experts training step (the dispatch and combine kernels,
 `moe/kernels.py`), each kernel written by hand in CUDA. The serving
@@ -19,9 +21,14 @@ Layout mirrors the JAX package so a reader finds each counterpart:
 - `amp`           — auto_cast with the JAX package's white/black lists;
 - `nn`            — Linear ([in, out] weights), Embedding, LayerNorm,
                     Dropout, tanh-gelu, fused residual-add + LayerNorm,
-                    cross entropy;
+                    cross entropy, gradient clipping (`nn.clip`);
 - `models.gpt`    — GPTConfig presets, the GPT decoder and its loss;
-- `optimizer`     — Adam and AdamW with the JAX update rule;
+- `optimizer`     — SGD, Momentum, Adam and AdamW with the JAX update
+                    rule (groups, L1/L2 decay, f32 masters, state
+                    dicts) and the 15 learning-rate schedules (`lr`);
+- `distributed`   — per-block recompute and the host-offloaded,
+                    gradient-accumulating `OffloadTrainStep`;
+- `flags`         — the runtime flags the port reads (`use_fused_ce`);
 - `jit`           — TrainStep (one eager step: loss, backward, update)
                     and CapturedStep (a fixed-shape step captured as a
                     CUDA graph and replayed: the engine's decode and
@@ -32,8 +39,9 @@ Layout mirrors the JAX package so a reader finds each counterpart:
                     records (compile_obs);
 - `convert`       — load JAX-package parameters into a port model;
 - `ops`           — the kernel registry, the nvcc/ctypes build step, the
-                    attention entry points and every kernel with its
-                    plain version;
+                    attention entry points, every kernel with its
+                    plain version, and the fused projection + cross
+                    entropy (`fused_ce`);
 - `serving`       — BlockPool/PrefixIndex/PagedKVCache, the scheduler,
                     admission control, `ServingEngine` (greedy and
                     sampled decoding, the serve loop with drain and warm

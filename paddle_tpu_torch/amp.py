@@ -17,7 +17,8 @@ import torch
 from .device import resolve_dtype
 
 __all__ = ["auto_cast", "amp_state", "amp_op_dtype",
-           "maybe_cast_to_compute", "white_black_list"]
+           "maybe_cast_to_compute", "white_black_list", "current_policy",
+           "use_policy"]
 
 _DEFAULT_WHITE = frozenset({
     "matmul", "conv", "linear", "mul", "einsum", "attention", "bmm",
@@ -44,27 +45,37 @@ def amp_state():
     return _state
 
 
-@contextlib.contextmanager
-def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
-              level="O1", dtype="bfloat16"):
-    """Run the enclosed ops under the amp policy. Custom white entries
-    are removed from black and vice versa (the reference's rule)."""
-    prev = (_state.enabled, _state.dtype, _state.level, _state.white,
+def current_policy():
+    """The calling thread's amp settings, for `use_policy` to re-enter
+    on another thread (the autograd engine's, where a recompute runs)."""
+    return (_state.enabled, _state.dtype, _state.level, _state.white,
             _state.black)
-    _state.enabled = bool(enable)
-    _state.dtype = resolve_dtype(dtype)
-    _state.level = level
-    white = set(_DEFAULT_WHITE) | set(custom_white_list or ())
-    black = set(_DEFAULT_BLACK) | set(custom_black_list or ())
-    white -= set(custom_black_list or ())
-    black -= set(custom_white_list or ())
-    _state.white = frozenset(white)
-    _state.black = frozenset(black)
+
+
+@contextlib.contextmanager
+def use_policy(policy):
+    """Run the enclosed ops under `policy` (from `current_policy`) on
+    this thread, restoring the thread's own settings afterwards."""
+    prev = current_policy()
+    (_state.enabled, _state.dtype, _state.level, _state.white,
+     _state.black) = policy
     try:
         yield
     finally:
         (_state.enabled, _state.dtype, _state.level, _state.white,
          _state.black) = prev
+
+
+def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
+              level="O1", dtype="bfloat16"):
+    """Run the enclosed ops under the amp policy. Custom white entries
+    are removed from black and vice versa (the reference's rule)."""
+    white = set(_DEFAULT_WHITE) | set(custom_white_list or ())
+    black = set(_DEFAULT_BLACK) | set(custom_black_list or ())
+    white -= set(custom_black_list or ())
+    black -= set(custom_white_list or ())
+    return use_policy((bool(enable), resolve_dtype(dtype), level,
+                       frozenset(white), frozenset(black)))
 
 
 def white_black_list():

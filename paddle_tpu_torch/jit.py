@@ -3,17 +3,23 @@
 `TrainStep` is the port of paddle_tpu/jit/__init__.py::TrainStep. The
 JAX TrainStep traces forward, backward and the optimizer update into
 one jitted program. Here the step is eager: clear the gradients, run the
-loss, backpropagate, and apply the optimizer's rule to every trainable
-parameter of the model (a parameter that received no gradient is
-updated with a zero one, as in the JAX step). It returns the loss tensor
-without reading it back, so a caller that times a run of steps syncs
-once at its end. A model with `collect_moe_stats` (moe.GPTMoE) leaves
-its routing-health vector of the step, detached and unread, in
-`_last_moe`, as the JAX step does. Each step first drops what `generate`
-keeps for the model (`generation.release`: the decode-dtype weights,
-the loop buffers, the graphs), so none of it sits beside training's
-memory. `torch.compile`, CUDA graphs and the
-JAX step's lint, health and resilience options are not carried over.
+loss, backpropagate, clip the gradients with the optimizer's
+`grad_clip` where the JAX step does (after the backward, before the
+update), and apply the optimizer's rule to every trainable parameter of
+the model (a parameter that received no gradient is updated with a zero
+one, as in the JAX step) at the optimizer's `get_lr()` of that call, so
+a scheduler stepped between calls takes effect at once. The step tells
+the optimizer the parameters' names (`model.named_parameters()`), which
+AdamW's `apply_decay_param_fun` and the state dict read. It returns the
+loss tensor without reading it back, so a caller that times a run of
+steps syncs once at its end. A model with `collect_moe_stats`
+(moe.GPTMoE) leaves its routing-health vector of the step, detached and
+unread, in `_last_moe`, as the JAX step does. Each step first drops
+what `generate` keeps for the model (`generation.release`: the
+decode-dtype weights, the loop buffers, the graphs), so none of it sits
+beside training's memory. `torch.compile`, CUDA graphs and the JAX
+step's `lint=`, `health=` and `resilience=` options are not carried
+over.
 
 `CapturedStep` is the counterpart of `jax.jit` over a fixed-shape
 inference step (the serving engine's decode and prefill steps,
@@ -62,7 +68,10 @@ class TrainStep:
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        optimizer._bind_names(named)
+        self.params = [p for _, p in named]
         for p in self.params:
             optimizer._get_state(p)
         self._last_moe = None
@@ -79,6 +88,10 @@ class TrainStep:
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        clip = self.optimizer._grad_clip
+        if clip is not None:
+            with torch.no_grad():
+                grads = [g for _, g in clip(list(zip(self.params, grads)))]
         self.optimizer.update(self.params, grads)
         return loss.detach()
 

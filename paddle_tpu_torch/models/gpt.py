@@ -7,9 +7,16 @@ moves weights over by name and the two agree in f32.
 
 The large products (qkv, out_proj, fc1/fc2, the tied head) are
 `torch.matmul`: the JAX package leaves them to XLA outside any Pallas
-kernel. Attention is `ops.attention.flash_attention` and the residual
-add + ln2 site `nn.fused_add_layer_norm`, which reach the flash and
-add+LayerNorm kernels on the card. `GPTModel.forward` is a dense causal
+kernel. Attention is `ops.attention.flash_attention` (the composed
+attention with `use_flash_attention=False`) and the residual add + ln2
+site `nn.fused_add_layer_norm`, which reach the flash and add+LayerNorm
+kernels on the card. With `remat` each block of the dense forward runs
+under `distributed.recompute` (its activations recomputed in the
+backward); with the `use_fused_ce` flag the loss is
+`ops.fused_ce.fused_linear_cross_entropy` over the tied table, which
+never forms the [tokens, vocab] logits. `sequence_parallel` (ring or
+Ulysses attention over a mesh) is not ported: a config that sets it can
+be built, and running it raises. `GPTModel.forward` is a dense causal
 forward over a whole sequence, the training path (`loss`), or, given
 `caches=` and `offset=`, an incremental step over fixed-shape KV buffers
 (`init_cache`), the decode path of `generate`: a one-token step attends
@@ -31,9 +38,12 @@ import torch
 from .. import nn
 from ..amp import amp_state, maybe_cast_to_compute
 from ..device import resolve_device, resolve_dtype
+from ..distributed.recompute import recompute
+from ..flags import get_flag
 from ..ops.attention import composed_attention, flash_attention
 from ..ops.decode_attention import (decode_attention,
                                     decode_attention_supported)
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.int8_matvec import int8_matvec, int8_matvec_preferred
 from ..quant.wo8 import WeightOnlyInt8Embedding
 
@@ -45,7 +55,8 @@ class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, ffn_hidden_size=None, max_seq_len=1024,
                  dropout=0.0, attn_dropout=0.0, initializer_range=0.02,
-                 dtype="float32"):
+                 use_flash_attention=True, sequence_parallel=None,
+                 dtype="float32", remat=False):
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
@@ -58,7 +69,14 @@ class GPTConfig:
         self.dropout = dropout
         self.attn_dropout = attn_dropout
         self.initializer_range = initializer_range
+        # False: the composed attention instead of the flash kernels
+        self.use_flash_attention = use_flash_attention
+        # None | "ring" | "ulysses": context parallelism over a mesh's sp
+        # axis, not ported (ROADMAP Queue 1 item 6); running it raises
+        self.sequence_parallel = sequence_parallel
         self.dtype = dtype
+        # per-block recompute: the backward keeps only block inputs
+        self.remat = remat
 
     @staticmethod
     def _preset(defaults, kw):
@@ -84,6 +102,16 @@ class GPTConfig:
         return GPTConfig._preset(
             dict(hidden_size=5120, num_layers=40, num_heads=40), kw)
 
+    @staticmethod
+    def gpt3_1_3b_128k(**kw):
+        """The JAX package's >= 128k-context preset: ring attention over
+        the sp mesh axis, per-block remat. Its sequence parallelism is
+        not ported, so it can be built but not run."""
+        return GPTConfig._preset(
+            dict(hidden_size=2048, num_layers=24, num_heads=16,
+                 max_seq_len=131072, sequence_parallel="ring",
+                 remat=True), kw)
+
 
 class GPTAttention(torch.nn.Module):
     def __init__(self, config, device=None, dtype=torch.float32):
@@ -93,6 +121,7 @@ class GPTAttention(torch.nn.Module):
         self.head_dim = c.hidden_size // c.num_heads
         self.hidden_size = c.hidden_size
         self.attn_dropout = c.attn_dropout
+        self.use_flash = c.use_flash_attention
         self.qkv_proj = nn.Linear(c.hidden_size, 3 * c.hidden_size,
                                   device=device, dtype=dtype)
         self.out_proj = nn.Linear(c.hidden_size, c.hidden_size,
@@ -120,8 +149,15 @@ class GPTAttention(torch.nn.Module):
                 q, k, v, cache[0], cache[1], _offset(offset), decode_chunks)
             return (self.out_proj(out.reshape(b, s, self.hidden_size)),
                     (k_buf, v_buf))
-        out = flash_attention(q, k, v, dropout=self.attn_dropout,
-                              causal=True, training=self.training)
+        if self.use_flash:
+            out = flash_attention(q, k, v, dropout=self.attn_dropout,
+                                  causal=True, training=self.training)
+        else:
+            valid = torch.ones((s, s), dtype=torch.bool,
+                               device=x.device).tril()
+            out = composed_attention(
+                q, k, v, valid, dropout_p=self.attn_dropout
+                if self.training else 0.0)
         return self.out_proj(out.reshape(b, s, self.hidden_size))
 
 
@@ -249,6 +285,11 @@ class GPTModel(torch.nn.Module):
         tensor on the model's device; `decode_chunks` is the
         `decode_fused` chunk count a one-token step at a device offset
         launches with (ops.decode_attention.decode_split)."""
+        if self.config.sequence_parallel is not None:
+            raise NotImplementedError(
+                f"sequence_parallel={self.config.sequence_parallel!r}: ring "
+                "and Ulysses attention are not ported yet (ROADMAP Queue 1 "
+                "item 6)")
         s = input_ids.shape[1]
         off = _offset(offset)
         pos = (off + torch.arange(s, device=input_ids.device))[None, :]
@@ -261,7 +302,7 @@ class GPTModel(torch.nn.Module):
                 new_caches.append(nc)
             return self.ln_f(h), new_caches
         for block in self.blocks:
-            h = block(h)
+            h = recompute(block, h) if self.config.remat else block(h)
         return self.ln_f(h)
 
 
@@ -371,13 +412,21 @@ class GPTForPretraining(torch.nn.Module):
             pad_token_id=pad_token_id, seed=seed, dtype=dtype, device=device)
 
     def loss(self, input_ids, labels, loss_mask=None):
-        """Mean next-token cross entropy of the logits against `labels`
-        (the JAX model's non-fused branch), over the positions
-        `loss_mask` keeps when it is given."""
-        logits = self(input_ids)
-        losses = nn.functional.cross_entropy(
-            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
-            reduction="none")
+        """Mean next-token cross entropy against `labels`, over the
+        positions `loss_mask` keeps when it is given. With the
+        `use_fused_ce` flag: the fused projection + cross entropy over the
+        tied table (h cast as the head casts it under amp, the table in
+        its own dtype); otherwise the logits and `cross_entropy`."""
+        if get_flag("use_fused_ce"):
+            h = self.gpt(input_ids)
+            losses = fused_linear_cross_entropy(
+                maybe_cast_to_compute(h, "matmul").reshape(-1, h.shape[-1]),
+                self.gpt.wte.weight, labels.reshape(-1))
+        else:
+            logits = self(input_ids)
+            losses = nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                reduction="none")
         if loss_mask is not None:
             m = loss_mask.reshape(-1)
             return (losses * m).sum() / m.sum()

@@ -73,10 +73,11 @@ class GPTMoE(GPTForPretraining):
 
 
 def gpt_moe_tiny_config(**kw):
-    """Small MoE config for tests (the JAX package's, without its
-    attention-kernel switch)."""
+    """Small MoE config for tests (the JAX package's: the composed
+    attention)."""
     defaults = dict(vocab_size=256, hidden_size=64, num_layers=2,
                     num_heads=4, max_seq_len=128, dropout=0.0,
-                    num_experts=4, expert_top_k=2, capacity_factor=2.0)
+                    num_experts=4, expert_top_k=2, capacity_factor=2.0,
+                    use_flash_attention=False)
     defaults.update(kw)
     return GPTMoEConfig(**defaults)

@@ -8,11 +8,11 @@ explicit `torch.Generator`.
 """
 import torch
 
-from . import functional
+from . import clip, functional
 from .functional import fused_add_layer_norm, gelu
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "functional",
-           "fused_add_layer_norm", "gelu"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "clip",
+           "functional", "fused_add_layer_norm", "gelu"]
 
 
 def _param(shape, device, dtype):
