@@ -15,7 +15,8 @@ ok line):
              Performance Loss" notes ptxas reports for the flash
              forward's and backward's, the prefill chunk's, the paged
              decode's, the decode attention's and the int8 head's
-             kernels;
+             kernels, and for the add + LayerNorm instances (an add_ln
+             instance that spills fails the smoke);
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, in f32 (TF32 off) and bf16. The serving kernels at the
              serving shapes of GPT-3 125M (12 heads of 64, block 16, 32
@@ -61,7 +62,8 @@ ok line):
              yardstick the port never calls: scaled_dot_product_attention,
              F.layer_norm, a dequantized bf16 matmul, F.embedding,
              F.embedding_bag) with CUDA events, the L2 flushed before
-             each launch (flash_bwd, flash_prefill_chunk and
+             each launch by reading 256 MB, which leaves it clean
+             (flash_bwd, flash_prefill_chunk and
              paged_decode also with the L2 warm, and flash_bwd by kernel
              from a trace), at the serving shapes (paged_decode at 16
              slots with ctx uniform in 0..511), at the training shape
@@ -78,9 +80,14 @@ ok line):
              1.3B's shapes: flash forward and backward at batch 2, seq
              2048, 16 heads of 128 (bf16, causal; the backward twice,
              bitwise equal) and add + LayerNorm with saved statistics
-             at [16384, 2048] bf16, each against its plain version and
-             timed beside SDPA forward / backward or F.layer_norm(x + r)
-             and its bound;
+             and the residual carry (layernorm_fwd_saved) at the four
+             shapes its main paths give it ([16384, 2048] and [32768,
+             2048] in bf16, [16384, 2048] and [24576, 768] with an f32
+             stream, a bf16 branch and f32 weights; the carry bit for
+             bit, the sum and rstd at the f32 tolerance), each against
+             its plain version and timed beside SDPA forward / backward
+             or F.layer_norm(x + r) and its bound (the bf16 shapes
+             also without the carry);
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -260,7 +267,8 @@ ok line):
              update's copy bytes and rate, peak device memory, pinned
              bytes and every round's losses (finite); each micro-step
              launches exactly 48 flash_fwd (24 + 24 recomputed), 24
-             flash_bwd and 48 layernorm_fwd_saved.
+             flash_bwd and 48 layernorm_fwd_saved (each writing the
+             bf16 carry: one device launch a residual site).
 
 `--phases kernels_1_3b,options,layer,full` (any of them) runs the build
 and the named phases alone and prints no result line.
@@ -417,12 +425,15 @@ def print_pair_ptxas(_build):
     width class: print, for the saving form (add_ln, K6) and the
     inference pair (add_ln_pair, K7), their register range and which
     spill (by their mangled template arguments), when this process built
-    them."""
+    them. An add_ln instance that spills fails: K6 runs on every
+    training path at widths up to 4096."""
     info = _build.ptxas_info("add_layer_norm")
     for kernel in ("add_ln", "add_ln_pair"):
         mark = kernel + "I"
         inst = {fn: i for fn, i in info.items() if mark in fn}
         if not inst:
+            print(f"build: ptxas add_layer_norm: {kernel} not built by "
+                  "this process (its report is not read)")
             continue
         regs = [i.get("registers", 0) for i in inst.values()]
         spill = sorted(fn.split(mark, 1)[1].split("EEEv")[0]
@@ -431,6 +442,9 @@ def print_pair_ptxas(_build):
         print(f"build: ptxas add_layer_norm: {len(inst)} {kernel} "
               f"instances, {min(regs)}-{max(regs)} registers, "
               f"{len(spill)} spill: {spill}")
+        if kernel == "add_ln" and spill:
+            raise AssertionError(f"add_ln: {len(spill)} of {len(inst)} "
+                                 f"instances spill: {spill}")
 
 
 def card_line():
@@ -494,15 +508,26 @@ def hold(name, got, ref, tol):
     return err.max().item()
 
 
-def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None):
+def l2_flush(torch, dev):
+    """256 MB of f32 zeros whose reading overwrites the card's 50 MB L2
+    (`median_ms`'s `flush`)."""
+    return torch.zeros(64 * 2 ** 20, device=dev)
+
+
+def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None,
+              dirty=False):
     """Median of per-launch CUDA-event times; the L2 is overwritten
-    before every launch so each reads its inputs from device memory.
-    With `flush` None the L2 stays warm, as in a step: the card spins
-    ~0.1 ms instead, so that the host has queued the launch before the
-    first event is reached and the time is the kernel's, not the
-    host's. `spin` sets the spin in clock cycles (by default 200000
-    when warm, none after a flush): a call that enqueues several
-    launches needs more, or the card waits for the host."""
+    before every launch by reading `flush` (`l2_flush`: a sum into a
+    scalar), so each launch reads its inputs from device memory and the
+    L2 holds no dirty lines. `dirty` flushes by zeroing `flush` instead:
+    ~50 MB of dirty lines stay, and the timed launch's reads pay for
+    their write-backs (cuBLAS over a bf16 table reads ~2.2 TB/s there,
+    ~2.7 after a read). With `flush` None the L2 stays warm, as in a
+    step: the card spins ~0.1 ms instead, so that the host has queued
+    the launch before the first event is reached and the time is the
+    kernel's, not the host's. `spin` sets the spin in clock cycles (by
+    default 200000 when warm, none after a flush): a call that enqueues
+    several launches needs more, or the card waits for the host."""
     if spin is None:
         spin = 200_000 if flush is None else 0
     for _ in range(warmup):
@@ -511,7 +536,10 @@ def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         if flush is not None:
-            flush.zero_()
+            if dirty:
+                flush.zero_()
+            else:
+                flush.sum()
         if spin:
             torch.cuda._sleep(spin)
         s.record()
@@ -614,7 +642,7 @@ def kernels_phase(torch, seed):
     # timing at the serving shapes, in the engine's bf16: paged_decode
     # at a decode step of 16 slots with ctx uniform in 0..511, L2 flushed
     # and warm (as in a step, where the arenas' rows were just written)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(torch, dev)
     rows = {}
     args = decode_inputs(torch, torch.Generator().manual_seed(seed + 3),
                          torch.bfloat16, dev, edges=False)
@@ -704,13 +732,13 @@ def flash_work(b, sq, sk, n, h, causal, itemsize, backward):
 def bwd_parts(torch, fn, flush, calls=10):
     """Device ms a call of each of flash_bwd's three kernels (delta,
     dK/dV, dQ), from torch.profiler over `calls` calls, the L2 flushed
-    before each."""
+    before each (`median_ms`'s read)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            flush.zero_()
+            flush.sum()
             fn()
         torch.cuda.synchronize()
     parts = {}
@@ -846,7 +874,7 @@ def train_kernels_phase(torch, seed):
               f"(tol rtol, atol = {get_kernel(name).tol[dname]})")
 
     # timing at the training shape, in bf16 as the amp step runs it
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(torch, dev)
     rows = {}
     b, s, n, h = TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM
     scale = 1.0 / math.sqrt(h)
@@ -1097,7 +1125,7 @@ def decode_kernels_phase(torch, seed):
         print(f"kernels: {' '.join(key)} max_abs_err {e:.3e} (tol rtol, "
               f"atol = {get_kernel(key[0]).tol[key[1]]})")
 
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(torch, dev)
     rows = {}
     # decode_fused as generate runs it: bf16 q over the f32 cache (the
     # cache keeps the config's dtype), at the mean step position
@@ -1245,7 +1273,7 @@ def moe_kernels_phase(torch, seed):
               f"atol = {get_kernel(key[0]).tol[key[1]]})")
 
     # timing at the main path's shape and dtype: f32 rows of 768
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(torch, dev)
     d = N_HEADS * HEAD_DIM
     tokens = torch.randn((n, d), generator=gen).to(dev)
     eo = torch.randn((n_slots, d), generator=gen).to(dev)
@@ -2916,8 +2944,15 @@ def moe_step_parts(prof, steps, busy_ms):
 
 # flash at GPT-3 1.3B's attention shape: (batch, seq, heads, head_dim)
 FLASH_1_3B = (2, 2048, 16, 128)
-# K6 at the layer phase's rows (8 x 2048 tokens) of width 2048
-LN_1_3B = (16384, 2048)
+# K6 at the shapes its main paths give it: (rows, d, x, residual and
+# weight dtypes) — the 1.3B layer step's 8 x 2048 rows in bf16 and as
+# the amp step runs them (an f32 stream, a bf16 branch, f32 weights),
+# the 1.3B full step's micro-batch of 16 x 2048 in bf16, and the 125M
+# train step's 24 x 1024
+LN_SAVED_PATHS = ((16384, 2048, "bfloat16", "bfloat16", "bfloat16"),
+                  (32768, 2048, "bfloat16", "bfloat16", "bfloat16"),
+                  (16384, 2048, "float32", "bfloat16", "float32"),
+                  (24576, 768, "float32", "bfloat16", "float32"))
 # the training options: one 1.3B-width block, card vs CPU
 OPT_SEQ, OPT_STEPS = 256, 3
 # the bench's gpt1_3b_layer (bench.py:496-535)
@@ -2932,9 +2967,68 @@ FULL_MICRO_LAUNCHES = {"flash_fwd": 48, "flash_bwd": 24,
                        "layernorm_fwd_saved": 48}
 
 
+def kernel_line(row):
+    """A timed row as text: ms, plain, library, bound, error, and any
+    other timings it has."""
+    extra = "".join(f", {k} {v:.4f}" for k, v in row.items()
+                    if k.endswith("_ms") and k not in ("plain_ms",
+                                                       "library_ms"))
+    return (f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, library "
+            f"{row['library_ms']:.4f}, bound {row['bound'][0]:.5f} by "
+            f"{row['bound'][1]}, max_abs_err {row['max_abs_err']:.3e}"
+            f"{extra})")
+
+
+def ln_saved_row(torch, gen, dev, flush, nrows, d, xd, rd, wd):
+    """layernorm_fwd_saved with the carry at one of LN_SAVED_PATHS
+    against its plain version (out at the registry's tolerance of x's
+    dtype, the sum and rstd at f32's, the carry bit for bit), then timed
+    beside the plain version, F.layer_norm(x + r) and its bytes bound
+    (the carry counted where x is bf16: an f32 x's carry is the sum);
+    a bf16 x also without the carry."""
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    from paddle_tpu_torch.ops.layernorm import (layernorm_fwd_saved,
+                                                layernorm_plain)
+    F = torch.nn.functional
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    x = torch.randn((nrows, d), generator=gen).to(dev, dts[xd])
+    r = torch.randn((nrows, d), generator=gen).to(dev, dts[rd])
+    w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, dts[wd])
+    bb = (0.1 * torch.randn((d,), generator=gen)).to(dev, dts[wd])
+    kt = get_kernel("layernorm_fwd_saved").tol
+    tag = f"[{nrows}x{d}, x {xd}, residual {rd}, weight {wd}]"
+    got = layernorm_fwd_saved(x, r, w, bb, carry=True)
+    ref = layernorm_plain(x, r, w, bb, carry=True)
+    torch.cuda.synchronize()
+    err = max(hold("layernorm_fwd_saved out" + tag, got[0], ref[0], kt[xd]),
+              hold("layernorm_fwd_saved sum" + tag, got[1], ref[1],
+                   kt["float32"]),
+              hold("layernorm_fwd_saved rstd" + tag, got[2], ref[2],
+                   kt["float32"]))
+    if not same_bits(torch, got[3], ref[3]):
+        raise AssertionError(f"layernorm_fwd_saved carry{tag}: not bit for "
+                             "bit the sum in x's dtype")
+    del got, ref
+    size = {"float32": 4, "bfloat16": 2}
+    row = dict(
+        ms=median_ms(torch, lambda: layernorm_fwd_saved(x, r, w, bb,
+                                                        carry=True), flush),
+        plain_ms=median_ms(torch, lambda: layernorm_plain(
+            x, r, w, bb, carry=True), flush, reps=20),
+        library_ms=median_ms(torch, lambda: F.layer_norm(
+            x + r, (d,), w, bb), flush),
+        bound=bound(*ln_work(nrows, d, size[xd], size[rd], size[wd], True,
+                             carry=xd != "float32"), "bfloat16"),
+        max_abs_err=err)
+    if xd != "float32":
+        row["no_carry_ms"] = median_ms(
+            torch, lambda: layernorm_fwd_saved(x, r, w, bb), flush)
+    return row
+
+
 def kernels_1_3b_phase(torch, seed):
     """flash_fwd and flash_bwd at 16 heads of 128, s 2048 (bf16, causal,
-    batch 2) and layernorm_fwd_saved at [16384, 2048] bf16 against their
+    batch 2) and layernorm_fwd_saved at LN_SAVED_PATHS against their
     plain versions at the registry's tolerance (every backward twice,
     bitwise equal), then timed beside the plain versions, SDPA forward
     and backward / F.layer_norm(x + r) and their bounds, L2 flushed."""
@@ -2942,12 +3036,10 @@ def kernels_1_3b_phase(torch, seed):
         flash_attention_bwd_plain, flash_attention_fwd_plain, flash_bwd,
         flash_fwd)
     from paddle_tpu_torch.ops.kernel_registry import get_kernel
-    from paddle_tpu_torch.ops.layernorm import (layernorm_fwd_saved,
-                                                layernorm_plain)
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(seed + 13)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(torch, dev)
     b, s, n, h = FLASH_1_3B
     scale = 1.0 / math.sqrt(h)
     tag = f"[bfloat16, b={b} s={s} n={n} h={h} causal]"
@@ -2998,35 +3090,12 @@ def kernels_1_3b_phase(torch, seed):
               torch, lambda: flash_bwd(q, k, v, out, lse, dout, True, scale),
               flush)))
     del lo, lq, lk, lv, go, q, k, v, dout, out, lse
-    nrows, d = LN_1_3B
-    x, r = (torch.randn((nrows, d), generator=gen).to(dev, torch.bfloat16)
-            for _ in range(2))
-    w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, torch.bfloat16)
-    bb = (0.1 * torch.randn((d,), generator=gen)).to(dev, torch.bfloat16)
-    kt = get_kernel("layernorm_fwd_saved").tol
-    got = layernorm_fwd_saved(x, r, w, bb)
-    ref = layernorm_plain(x, r, w, bb)
-    torch.cuda.synchronize()
-    tag = f"[{nrows}x{d} bfloat16]"
-    ln_err = max(hold("layernorm_fwd_saved out" + tag, got[0], ref[0],
-                      kt["bfloat16"]),
-                 hold("layernorm_fwd_saved sum" + tag, got[1], ref[1],
-                      kt["float32"]),
-                 hold("layernorm_fwd_saved rstd" + tag, got[2], ref[2],
-                      kt["float32"]))
-    rows["layernorm_fwd_saved"] = dict(
-        ms=median_ms(torch, lambda: layernorm_fwd_saved(x, r, w, bb), flush),
-        plain_ms=median_ms(torch, lambda: layernorm_plain(x, r, w, bb),
-                           flush),
-        library_ms=median_ms(torch, lambda: F.layer_norm(
-            x + r, (d,), w, bb), flush),
-        bound=bound(*ln_work(nrows, d, 2, 2, 2, True), "bfloat16"),
-        max_abs_err=ln_err)
     for name, row in rows.items():
-        print(f"kernels: {name} at the 1.3B shape: {row['ms']:.4f} ms "
-              f"(plain {row['plain_ms']:.3f}, library "
-              f"{row['library_ms']:.4f}, bound {row['bound'][0]:.5f} by "
-              f"{row['bound'][1]}, max_abs_err {row['max_abs_err']:.3e})")
+        print(f"kernels: {name} at the 1.3B shape: " + kernel_line(row))
+    for shape in LN_SAVED_PATHS:
+        name = "layernorm_fwd_saved {}x{} {}/{}/{}".format(*shape)
+        rows[name] = ln_saved_row(torch, gen, dev, flush, *shape)
+        print(f"kernels: {name} with the carry: " + kernel_line(rows[name]))
     del flush
     return rows
 

@@ -30,24 +30,29 @@ cases (all by default). Both are called on the same inputs:
   rows in the decode step's sequence, out_proj GEMM ([16, 768] x [768,
   768]) -> the site -> fc1 GEMM ([16, 768] x [768, 3072]), both trees,
   and this tree with its programmatic dependent launch on and off; then
-  layernorm_fwd_saved (K6, the same kernel in both trees) at the
-  training shape (24576 rows, f32 x, bf16 r); then the host
-  microseconds a call of each site, each kernel wrapper, a torch add
-  and one trivial launch (calls back to back, the card keeping up);
-- layernorm_fwd_saved (K6) at GPT-3 1.3B's shape, 16384 rows of 2048,
-  bf16 x and r (the offloaded full step) and f32 x with bf16 r (the
-  amp layer step): both trees' outputs bit for bit equal.
+  the host microseconds a call of each site, each kernel wrapper, a
+  torch add and one trivial launch (calls back to back, the card
+  keeping up);
+- layernorm_fwd_saved (K6) at the shapes its main paths give it
+  (chip_smoke.LN_SAVED_PATHS: GPT-3 1.3B's 16384 and 32768 rows of 2048
+  in bf16, 16384 rows with an f32 stream and a bf16 branch, GPT-3
+  125M's 24576 rows of 768 the same): both trees' outputs bit for bit
+  equal, this tree's carry bit for bit the sum in x's dtype; the kernel
+  without the carry in both trees, and the residual site with a
+  gradient's forward (FusedAddLayerNormPair: the other tree's K6 plus
+  its cast where x is bf16, this tree's one launch with the carry),
+  beside a device-to-device copy that moves as many bytes as the site.
 
 Each kernel's output is held against the plain version of this
 checkout, then both are timed base, change, change, base (median of
---reps launches by CUDA events, the L2 flushed before each by writing
-256 MB; paged_decode and layernorm_fused also with the L2 warm;
-decode_fused and int8_matvec also flushed by reading 256 MB, which
-leaves the L2 clean, where the write flush leaves it dirty and a
-kernel's reads then pay for as many bytes written back) beside one
-PyTorch call on the same inputs: scaled_dot_product_attention, for
-int8_matvec the dequantized bf16 matmul and a product over an
-unquantized bf16 table, for layernorm_fused F.layer_norm(x + r). Prints
+--reps launches by CUDA events, the L2 flushed before each by reading
+256 MB, which leaves it clean; paged_decode and layernorm_fused also
+with the L2 warm; decode_fused and int8_matvec also flushed by writing
+256 MB, which leaves it dirty, so that a kernel's reads pay for as many
+bytes written back) beside one PyTorch call on the same inputs:
+scaled_dot_product_attention, for int8_matvec the dequantized bf16
+matmul and a product over an unquantized bf16 table, for the add +
+LayerNorm kernels F.layer_norm(x + r). Prints
 the card's name and power limit, one JSON line per kernel and shape,
 and the same timings of one trivial launch (a one-element fill), the
 floor under every number above. Exits non-zero without CUDA.
@@ -58,7 +63,6 @@ import importlib.util
 import json
 import math
 import os
-import statistics
 import sys
 import time
 import types
@@ -86,23 +90,6 @@ def turns(torch, cs, base, change, flush, reps, timer=None):
     c1 = timer(change)
     b1 = timer(base)
     return [b0, b1], [c0, c1]
-
-
-def clean_ms(torch, fn, src, reps=60, warmup=5):
-    """Median of per-launch CUDA-event times with the L2 overwritten by
-    reading `src` (256 MB) before every launch: its lines stay clean, so
-    the timed kernel's reads pay for no write-back."""
-    for _ in range(warmup):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        src.sum()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
 def ab_flash_fwd(ab):
@@ -218,8 +205,8 @@ def ab_decode_fused(ab):
                "cache": str(k.dtype).split(".")[1], "max_abs_err": errs}
         row["base_ms"], row["change_ms"] = turns(torch, cs, base, change,
                                                  flush, ab.reps)
-        row["clean_base_ms"], row["clean_change_ms"] = turns(
-            torch, cs, base, change, None, ab.reps, timer=ab.clean)
+        row["dirty_base_ms"], row["dirty_change_ms"] = turns(
+            torch, cs, base, change, None, ab.reps, timer=ab.dirty)
         row["sdpa_ms"] = cs.median_ms(
             torch, lambda: F.scaled_dot_product_attention(sq, sk, sv),
             flush, reps=ab.reps)
@@ -265,13 +252,13 @@ def ab_int8_matvec(ab):
         row = {"kernel": "int8_matvec", "rows": rows, "max_abs_err": errs}
         row["base_ms"], row["change_ms"] = turns(torch, cs, base, change,
                                                  flush, ab.reps)
-        row["clean_base_ms"], row["clean_change_ms"] = turns(
-            torch, cs, base, change, None, ab.reps, timer=ab.clean)
+        row["dirty_base_ms"], row["dirty_change_ms"] = turns(
+            torch, cs, base, change, None, ab.reps, timer=ab.dirty)
         for name, fn in (("dequant_bf16_matmul", dequant),
                          ("bf16_table", bf16_table)):
             row[f"{name}_ms"] = cs.median_ms(torch, fn, flush,
                                              reps=ab.reps)
-            row[f"clean_{name}_ms"] = ab.clean(fn)
+            row[f"dirty_{name}_ms"] = ab.dirty(fn)
         nbytes = cs.I8_V * cs.I8_D + rows * cs.I8_D * 2 + cs.I8_V * 4 \
             + rows * cs.I8_V * 4
         row["bound_ms"] = cs.bound(nbytes, 2 * rows * cs.I8_V * cs.I8_D,
@@ -286,24 +273,28 @@ HOST_CALLS = 2000
 
 
 def ab_layernorm_fwd_saved(ab):
-    """K6 at GPT-3 1.3B's rows of 2048 (8 x 2048 tokens): bf16 x, r, w
-    (the offloaded step's bf16 parameters) and an f32 stream with a bf16
-    branch and f32 w (the amp layer step); both trees' outputs bit for
-    bit equal and within the registry's tolerance of the plain version,
-    timed in turns beside F.layer_norm(x + r) and the bytes bound."""
+    """K6 at the shapes its main paths give it (chip_smoke's
+    LN_SAVED_PATHS): both trees' outputs bit for bit equal and within
+    the registry's tolerance of the plain version, this tree's carry bit
+    for bit the sum in x's dtype; the kernel without the carry and the
+    residual site's forward with a gradient (FusedAddLayerNormPair, each
+    tree's own) timed in turns beside F.layer_norm(x + r) and the bytes
+    bounds of each."""
     torch, cs, dev = ab.torch, ab.cs, ab.dev
     ln_old, ln_new = ab.old["layernorm"], ab.new["layernorm"]
     gen = torch.Generator().manual_seed(ab.seed + 12)
-    rows, d = cs.LN_1_3B
-    for xdt, rdt in ((torch.bfloat16, torch.bfloat16),
-                     (torch.float32, torch.bfloat16)):
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    size = {"float32": 4, "bfloat16": 2}
+    for rows, d, xd, rd, wd in cs.LN_SAVED_PATHS:
+        xdt = dts[xd]
         x = torch.randn((rows, d), generator=gen).to(dev, xdt)
-        r = torch.randn((rows, d), generator=gen).to(dev, rdt)
-        w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, xdt)
-        b = (0.1 * torch.randn((d,), generator=gen)).to(dev, xdt)
+        r = torch.randn((rows, d), generator=gen).to(dev, dts[rd])
+        w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev, dts[wd])
+        b = (0.1 * torch.randn((d,), generator=gen)).to(dev, dts[wd])
         got = ln_new.layernorm_fwd_saved(x, r, w, b)
         old = ln_old.layernorm_fwd_saved(x, r, w, b)
         ref = ln_new.layernorm_plain(x, r, w, b)
+        with_carry = ln_new.layernorm_fwd_saved(x, r, w, b, carry=True)
         torch.cuda.synchronize()
         tol = ln_new.get_kernel("layernorm_fwd_saved").tol
         name = str(xdt)[6:]
@@ -312,21 +303,44 @@ def ab_layernorm_fwd_saved(ab):
         if not all(torch.equal(a, c) for a, c in zip(got, old)):
             raise AssertionError("layernorm_fwd_saved: the two trees' "
                                  "outputs differ")
+        if not (all(cs.same_bits(torch, a, c)
+                    for a, c in zip(with_carry, got))
+                and cs.same_bits(torch, with_carry[3], got[1].to(xdt))):
+            raise AssertionError("layernorm_fwd_saved: the carry is not "
+                                 "the sum in x's dtype bit for bit, or the "
+                                 "other outputs moved with it")
+        del got, old, ref, with_carry
         base_ms, change_ms = turns(
             torch, cs, lambda: ln_old.layernorm_fwd_saved(x, r, w, b),
             lambda: ln_new.layernorm_fwd_saved(x, r, w, b), ab.flush,
             ab.reps)
-        size = {torch.float32: 4, torch.bfloat16: 2}
+        with torch.no_grad():
+            base_site_ms, change_site_ms = turns(
+                torch, cs,
+                lambda: ln_old.FusedAddLayerNormPair.apply(x, r, w, b, 1e-5),
+                lambda: ln_new.FusedAddLayerNormPair.apply(x, r, w, b, 1e-5),
+                ab.flush, ab.reps)
+        work = (rows, d, size[xd], size[rd], size[wd], True)
+        # a device-to-device copy that moves the site's bytes (half read,
+        # half written): the card's rate for plain streaming traffic
+        site_bytes = cs.ln_work(*work, carry=xd != "float32")[0]
+        src = torch.empty(site_bytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = cs.median_ms(torch, lambda: dst.copy_(src), ab.flush,
+                               reps=ab.reps)
+        del src, dst
         print(json.dumps({
             "kernel": "layernorm_fwd_saved", "rows": rows, "d": d,
-            "x": name, "residual": str(rdt)[6:], "max_abs_err": err,
+            "x": xd, "residual": rd, "weight": wd, "max_abs_err": err,
             "base_ms": base_ms, "change_ms": change_ms,
+            "base_site_ms": base_site_ms, "change_site_ms": change_site_ms,
             "library_ms": cs.median_ms(torch, lambda: ab.F.layer_norm(
                 x + r, (d,), w, b), ab.flush, reps=ab.reps),
-            "bound_ms": cs.bound(*cs.ln_work(rows, d, size[xdt], size[rdt],
-                                             size[xdt], True),
-                                 "bfloat16")[0]}))
-        del x, r, got, old, ref
+            "bound_ms": cs.bound(*cs.ln_work(*work), "bfloat16")[0],
+            "site_bound_ms": cs.bound(site_bytes, 8 * rows * d,
+                                      "bfloat16")[0],
+            "copy_site_bytes_ms": copy_ms}))
+        del x, r
 
 
 def host_us(torch, fn, calls=HOST_CALLS, warmup=50):
@@ -450,20 +464,6 @@ def ab_layernorm_fused(ab):
                   ab.reps, timer=timer)
     print(json.dumps(row))
 
-    # the saving form (K6) at the training shape: the same kernel in both
-    # trees behind a changed wrapper (f32 stream, bf16 branch, f32 w)
-    rows_t = cs.TRAIN_BATCH * cs.TRAIN_SEQ
-    xt = torch.randn((rows_t, d), generator=gen).to(dev)
-    rt = randn(rows_t, d)
-    wt = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
-    bt = (0.1 * torch.randn((d,), generator=gen)).to(dev)
-    base_ms, change_ms = turns(
-        torch, cs, lambda: ln_old.layernorm_fwd_saved(xt, rt, wt, bt),
-        lambda: ln_new.layernorm_fwd_saved(xt, rt, wt, bt), flush, ab.reps)
-    print(json.dumps({"kernel": "layernorm_fwd_saved", "rows": rows_t,
-                      "base_ms": base_ms, "change_ms": change_ms}))
-    del xt, rt
-
     # host cost a call, at 16 rows
     x, r = randn(rows, 1, d), randn(rows, 1, d)
     x2, r2 = x.view(rows, d), r.view(rows, d)
@@ -533,14 +533,13 @@ def main(argv=None):
     print(cs.card_line())
 
     dev = torch.device("cuda")
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    src = torch.zeros(64 * 2 ** 20, device=dev)     # 256 MB read flush
+    flush = cs.l2_flush(torch, dev)
 
-    def clean(fn):
-        return clean_ms(torch, fn, src, reps=args.reps)
+    def dirty(fn):
+        return cs.median_ms(torch, fn, flush, reps=args.reps, dirty=True)
     ab = types.SimpleNamespace(torch=torch, cs=cs, F=torch.nn.functional,
                                old=old, new=new, dev=dev, flush=flush,
-                               reps=args.reps, seed=args.seed, clean=clean)
+                               reps=args.reps, seed=args.seed, dirty=dirty)
     for c in chosen:
         CASES[c][0](ab)
 
@@ -549,7 +548,7 @@ def main(argv=None):
         torch, lambda: one.fill_(1.0), flush, reps=args.reps),
         "warm_launch_floor_ms": cs.median_ms(
             torch, lambda: one.fill_(1.0), None, reps=args.reps),
-        "clean_launch_floor_ms": clean(lambda: one.fill_(1.0))}))
+        "dirty_launch_floor_ms": dirty(lambda: one.fill_(1.0))}))
     return 0
 
 

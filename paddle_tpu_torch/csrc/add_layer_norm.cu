@@ -12,20 +12,38 @@
 // step adds a bf16 attention output to the f32 residual stream); w and
 // b are [d], f32 or bf16.
 //
-// add_ln (the saving form, K6). What bounds it: memory. At the training
-// shape (24576 rows of 768, an f32 stream plus a bf16 branch, f32 out)
-// it moves ~264 MB (x, r, out, the f32 sum) and does ~8 flops per
-// element. One warp per row (any row count; the TPU kernel's 256-row
-// block is a block-spec limit). Each lane keeps its up to EPL elements
-// of s in registers, so the row is read once: a warp-shuffle sum gives
-// the mean, a second pass over the registers the variance (the same
-// two-pass formula as the reference), a third writes the outputs. The
-// loads are issued all at once. EPL is the smallest of 8, 32, 64 and 128
-// that holds the row: at GPT-3 1.3B's d 2048 the 128-value instance
-// spilled its s[] to local memory and ran at 0.243 ms on [16384, 2048]
-// bf16 against F.layer_norm(x + r)'s 0.137; a lane's elements beyond d
-// add exact zeros, so every instance sums in the same order and gives
-// the same bits.
+// add_ln (the saving form, K6). It writes out, the f32 sum s and the f32
+// rstd the backward needs, and, when its pointer is not null, the
+// residual carry s -> x dtype (the JAX pair's second output,
+// _pair_vjp_fwd's `s.astype(x.dtype)`), so a bf16 residual stream needs
+// no separate cast launch. What bounds it: memory, ~8 flops an element
+// against 14-20 bytes. At GPT-3 1.3B's full step (32768 rows of 2048, x,
+// r and w in bf16) it moves 805 MB: x and r in, out, the carry and the
+// f32 sum out. What held the kernel before this design back was not
+// bytes but instructions: a warp a row, an element a lane at a time, 256
+// memory instructions a lane at d 2048, and 64 values of s a lane in
+// registers (128 spilled at d > 2048). So:
+// - one row a CTA of up to 16 warps, P = 2 chunks of V = 16 / sizeof(x)
+//   elements a thread (128 threads at d 2048 in bf16, 96 at d 768 in
+//   f32): every access is 16 bytes a lane (r, w and b the same V
+//   elements, 8, 16 or 32 bytes), the f32 sum is written as float4;
+//   all of a row's loads are issued at once, 8-16 KB a row in flight;
+// - a thread holds 2 V values of s and loads w and b (the same 4-16 KB
+//   for every row, so L1 and L2 hits) only once the moments are known:
+//   34-54 registers, no spill up to d 4096 (loaded with x and r, they
+//   took 64 and one instance spilled);
+// - the moments are summed in the order of the kernel this one replaced
+//   (lane l adds elements l, l + 32, ... in turn, then the butterfly):
+//   each thread stages its s in the row's d floats of shared memory,
+//   warp 0 sums them in that order and passes mean and rstd through
+//   shared memory, so out, sum and rstd are the same bits as before;
+// - the sum and the carry are stored before the moments are known, so
+//   those stores drain while warp 0 sums;
+// - widths or pointers that do not align take the same kernel with
+//   V = 1 and P = 8.
+// On an H100 it moves its bytes at ~95 % of the rate of a device copy of
+// as many bytes; neither moments summed without staging nor a persistent
+// grid that loads the next row early was faster (PERF.md).
 //
 // add_ln_pair (the inference form, K7). It also writes the residual
 // carry h = s -> x dtype when its pointer is not null: the JAX pair
@@ -59,8 +77,6 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;    // 8 warps, one row each
-
 __device__ __forceinline__ float f32(float x) { return x; }
 __device__ __forceinline__ float f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -77,100 +93,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-template <typename TX, typename TR, typename TW, int EPL>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-add_ln(const TX* __restrict__ x, const TR* __restrict__ r,
-       const TW* __restrict__ w, const TW* __restrict__ b,
-       TX* __restrict__ out, float* __restrict__ sum_out,
-       float* __restrict__ rstd_out, int rows, int d, float eps) {
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;              // whole warps leave together
-  const long long base = (long long)row * d;
-  // loads are unconditional (clamped into the row) so the compiler can
-  // issue them all before the first use; a load under a per-element
-  // branch waits out one memory latency per element
-  float s[EPL];
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int j = i * 32 + lane;
-    const int jc = min(j, d - 1);
-    const float v = f32(x[base + jc]) + f32(r[base + jc]);
-    s[i] = j < d ? v : 0.f;
-    acc += s[i];
-  }
-  const float mean = warp_sum(acc) / d;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int j = i * 32 + lane;
-    const float dl = j < d ? s[i] - mean : 0.f;
-    sq += dl * dl;
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int j = i * 32 + lane;
-    const int jc = min(j, d - 1);
-    const float y = (s[i] - mean) * rstd * f32(w[jc]) + f32(b[jc]);
-    if (j < d) {
-      out[base + j] = cvt<TX>(y);
-      if (sum_out) sum_out[base + j] = s[i];
-    }
-  }
-  if (rstd_out && lane == 0) rstd_out[row] = rstd;
-}
-
-template <typename TX, typename TR, typename TW>
-int launch(const void* x, const void* r, const void* w, const void* b,
-           void* out, float* sum_out, float* rstd_out, int rows, int d,
-           float eps, cudaStream_t st) {
-  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  const dim3 block(32 * kRowsPerBlock);
-  const TX* xp = static_cast<const TX*>(x);
-  const TR* rp = static_cast<const TR*>(r);
-  const TW* wp = static_cast<const TW*>(w);
-  const TW* bp = static_cast<const TW*>(b);
-  TX* op = static_cast<TX*>(out);
-  if (d <= 8 * 32)
-    add_ln<TX, TR, TW, 8><<<grid, block, 0, st>>>(
-        xp, rp, wp, bp, op, sum_out, rstd_out, rows, d, eps);
-  else if (d <= 32 * 32)
-    add_ln<TX, TR, TW, 32><<<grid, block, 0, st>>>(
-        xp, rp, wp, bp, op, sum_out, rstd_out, rows, d, eps);
-  else if (d <= 64 * 32)
-    add_ln<TX, TR, TW, 64><<<grid, block, 0, st>>>(
-        xp, rp, wp, bp, op, sum_out, rstd_out, rows, d, eps);
-  else if (d <= 128 * 32)
-    add_ln<TX, TR, TW, 128><<<grid, block, 0, st>>>(
-        xp, rp, wp, bp, op, sum_out, rstd_out, rows, d, eps);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-template <typename TX, typename TR>
-int launch_w(int w_dtype, const void* x, const void* r, const void* w,
-             const void* b, void* out, float* sum_out, float* rstd_out,
-             int rows, int d, float eps, cudaStream_t st) {
-  if (w_dtype == 0)
-    return launch<TX, TR, float>(x, r, w, b, out, sum_out, rstd_out, rows,
-                                 d, eps, st);
-  if (w_dtype == 1)
-    return launch<TX, TR, __nv_bfloat16>(x, r, w, b, out, sum_out, rstd_out,
-                                         rows, d, eps, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-
-// ---------------------------------------------------------------------
-// add_ln_pair: the inference form (K7)
-// ---------------------------------------------------------------------
-
-constexpr int kPairMaxWarps = 8;
-constexpr int kStageFloats = 48 * 1024 / sizeof(float);
 
 // V consecutive elements of T, moved with one (or, at 32 bytes, two)
 // vector accesses of raw words
@@ -204,6 +126,166 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, V>& o) {
   else
     *p = o.v[0];                        // V = 1 (x's V is 16 bytes)
 }
+
+// V f32 values to p (shared or global memory): float4 stores, or one
+// store at V = 1
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float (&s)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] = make_float4(
+          s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+  } else {
+    *p = s[0];                          // V = 1
+  }
+}
+
+// mean and rstd of the row of d f32 values staged at srow, called by a
+// whole warp: lane l adds elements l, l + 32, l + 64, ... in turn, then
+// the butterfly, in the order of the one-element-a-lane kernel the
+// layouts of add_ln and add_ln_pair replaced, so both give its bits
+// whatever their layout; every lane gets the same values
+__device__ __forceinline__ void row_moments(const float* srow, int d,
+                                            int lane, float eps,
+                                            float& mean, float& rstd) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int j = lane; j < d; j += 32) acc += srow[j];
+  mean = warp_sum(acc) / d;
+  float sq = 0.f;
+#pragma unroll 8
+  for (int j = lane; j < d; j += 32) {
+    const float dl = srow[j] - mean;
+    sq += dl * dl;
+  }
+  rstd = rsqrtf(warp_sum(sq) / d + eps);
+}
+
+// ---------------------------------------------------------------------
+// add_ln: the saving form (K6)
+// ---------------------------------------------------------------------
+
+constexpr int kSavedMaxWarps = 16;
+
+// One row a CTA of blockDim.x threads; thread t holds chunks c = i *
+// blockDim.x + t (i < P) of V elements each, so a warp's access i is 32
+// * V consecutive elements. The CTA takes d floats of dynamic shared
+// memory for the staged row.
+template <typename TX, typename TR, typename TW, int P, int V>
+__global__ void __launch_bounds__(32 * kSavedMaxWarps)
+add_ln(const TX* __restrict__ x, const TR* __restrict__ r,
+       const TW* __restrict__ w, const TW* __restrict__ b,
+       TX* __restrict__ out, float* __restrict__ sum_out,
+       float* __restrict__ rstd_out, TX* __restrict__ carry, int d,
+       float eps) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int nchunk = d / V;
+  const long long base = (long long)blockIdx.x * d;
+  // loads are unconditional (clamped into the row) so that all are in
+  // flight at once; a load under a per-chunk branch waits out one
+  // latency each
+  Pack<TX, V> xp[P];
+  Pack<TR, V> rp[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int cc = min(i * nt + t, nchunk - 1);
+    xp[i] = load_pack<TX, V>(x + base + cc * V);
+    rp[i] = load_pack<TR, V>(r + base + cc * V);
+  }
+  extern __shared__ float4 stage[];
+  float* srow = reinterpret_cast<float*>(stage);
+  __shared__ float stat[2];
+  float s[P][V];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int c = i * nt + t;
+#pragma unroll
+    for (int k = 0; k < V; ++k) s[i][k] = f32(xp[i].v[k]) + f32(rp[i].v[k]);
+    if (c >= nchunk) continue;
+    store_f32<V>(srow + c * V, s[i]);
+    if (sum_out) store_f32<V>(sum_out + base + c * V, s[i]);
+    if (carry) {
+      Pack<TX, V> ho;
+#pragma unroll
+      for (int k = 0; k < V; ++k) ho.v[k] = cvt<TX>(s[i][k]);
+      store_pack<TX, V>(carry + base + c * V, ho);
+    }
+  }
+  __syncthreads();
+  if (t < 32) {
+    float mean, rstd;
+    row_moments(srow, d, t, eps, mean, rstd);
+    if (t == 0) {
+      stat[0] = mean;
+      stat[1] = rstd;
+      if (rstd_out) rstd_out[blockIdx.x] = rstd;
+    }
+  }
+  __syncthreads();
+  const float mean = stat[0], rstd = stat[1];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int c = i * nt + t;
+    if (c >= nchunk) continue;
+    const Pack<TW, V> wi = load_pack<TW, V>(w + c * V);
+    const Pack<TW, V> bi = load_pack<TW, V>(b + c * V);
+    Pack<TX, V> yo;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      yo.v[k] = cvt<TX>((s[i][k] - mean) * rstd * f32(wi.v[k])
+                        + f32(bi.v[k]));
+    store_pack<TX, V>(out + base + c * V, yo);
+  }
+}
+
+struct SavedArgs {
+  const void *x, *r, *w, *b;
+  void* out;
+  float *sum, *rstd;
+  void* carry;
+  int rows, d;
+  float eps;
+};
+
+template <typename TX, typename TR, typename TW, int P, int V>
+int saved_go(const SavedArgs& a, cudaStream_t st) {
+  // the fewest warps whose P chunks a thread cover the row
+  const int warps = (a.d / V + 32 * P - 1) / (32 * P);
+  add_ln<TX, TR, TW, P, V><<<a.rows, 32 * warps, sizeof(float) * a.d, st>>>(
+      static_cast<const TX*>(a.x), static_cast<const TR*>(a.r),
+      static_cast<const TW*>(a.w), static_cast<const TW*>(a.b),
+      static_cast<TX*>(a.out), a.sum, a.rstd, static_cast<TX*>(a.carry), a.d,
+      a.eps);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte chunks, two a thread: d <= 4096 is at most 1024 chunks (f32),
+// 16 warps; V = 1 (d % V or a pointer off 16 bytes) takes 8 a thread
+template <typename TX, typename TR, typename TW>
+int saved_dispatch(const SavedArgs& a, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(TX);
+  const uintptr_t ptrs = (uintptr_t)a.x | (uintptr_t)a.r | (uintptr_t)a.w |
+                         (uintptr_t)a.b | (uintptr_t)a.out |
+                         (uintptr_t)a.sum | (uintptr_t)a.carry;
+  if (a.d % V == 0 && ptrs % 16 == 0)
+    return saved_go<TX, TR, TW, 2, V>(a, st);
+  return saved_go<TX, TR, TW, 8, 1>(a, st);
+}
+
+template <typename TX, typename TR>
+int saved_w(int w_dtype, const SavedArgs& a, cudaStream_t st) {
+  if (w_dtype == 0) return saved_dispatch<TX, TR, float>(a, st);
+  return saved_dispatch<TX, TR, __nv_bfloat16>(a, st);
+}
+
+
+// ---------------------------------------------------------------------
+// add_ln_pair: the inference form (K7)
+// ---------------------------------------------------------------------
+
+constexpr int kPairMaxWarps = 8;
+constexpr int kStageFloats = 48 * 1024 / sizeof(float);
 
 // C chunks of V elements a lane; chunk c = i * 32 + lane covers elements
 // c * V .. c * V + V - 1, so a warp's access i is 32 * V consecutive
@@ -252,38 +334,19 @@ add_ln_pair(const TX* __restrict__ x, const TR* __restrict__ r,
     for (int k = 0; k < V; ++k) s[i][k] = f32(xp[i].v[k]) + f32(rp[i].v[k]);
   // the row is in registers: the next kernel may start its launch
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  // The moments are summed in the order of a one-element-a-lane layout
-  // (lane l adds elements l, l + 32, l + 64, ... in turn, then the
-  // butterfly), the order of the kernel this one replaced, so out is
-  // the same bits whatever V is. The row passes once through this
-  // warp's d floats of shared memory to get there.
+  // The row passes once through this warp's d floats of shared memory,
+  // so that row_moments sums it in its order: out is the same bits
+  // whatever V is.
   extern __shared__ float4 stage[];
   float* srow = reinterpret_cast<float*>(stage) + (threadIdx.x >> 5) * d;
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     const int c = i * 32 + lane;
-    if (c >= nchunk) continue;
-    if constexpr (V % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < V / 4; ++q)
-        reinterpret_cast<float4*>(srow + c * V)[q] = make_float4(
-            s[i][4 * q], s[i][4 * q + 1], s[i][4 * q + 2], s[i][4 * q + 3]);
-    } else {
-      srow[c] = s[i][0];                // V = 1
-    }
+    if (c < nchunk) store_f32<V>(srow + c * V, s[i]);
   }
   __syncwarp();
-  float acc = 0.f;
-#pragma unroll 8
-  for (int j = lane; j < d; j += 32) acc += srow[j];
-  const float mean = warp_sum(acc) / d;
-  float sq = 0.f;
-#pragma unroll 8
-  for (int j = lane; j < d; j += 32) {
-    const float dl = srow[j] - mean;
-    sq += dl * dl;
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
+  float mean, rstd;
+  row_moments(srow, d, lane, eps, mean, rstd);
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     const int c = i * 32 + lane;
@@ -367,31 +430,30 @@ int pair_w(int w_dtype, const PairArgs& a, int warps, bool pdl,
 
 }  // namespace
 
-// dtypes: 0 = float32, 1 = bfloat16, for x (and out), r, and w/b. d at
-// most 4096. sum_out (f32 [rows, d]) and rstd_out (f32 [rows]) may both
-// be null. Launches on `stream`; returns a cudaError_t.
+// The saving form (K6). dtypes: 0 = float32, 1 = bfloat16, for x (and
+// out and carry_out), r, and w/b. d at most 4096. sum_out (f32 [rows,
+// d]), rstd_out (f32 [rows]) and carry_out (x's dtype, [rows, d]) may
+// each be null. Launches on `stream`; returns a cudaError_t.
 extern "C" int add_layer_norm_launch(const void* x, const void* r,
                                      const void* w, const void* b, void* out,
-                                     void* sum_out, void* rstd_out, int rows,
-                                     int d, int x_dtype, int r_dtype,
-                                     int w_dtype, float eps, void* stream) {
+                                     void* sum_out, void* rstd_out,
+                                     void* carry_out, int rows, int d,
+                                     int x_dtype, int r_dtype, int w_dtype,
+                                     float eps, void* stream) {
   if (rows <= 0) return 0;
-  float* so = static_cast<float*>(sum_out);
-  float* ro = static_cast<float*>(rstd_out);
+  if (d <= 0 || d > 4096 || x_dtype < 0 || x_dtype > 1 || r_dtype < 0 ||
+      r_dtype > 1 || w_dtype < 0 || w_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const SavedArgs a{x, r, w, b, out, static_cast<float*>(sum_out),
+                    static_cast<float*>(rstd_out), carry_out, rows, d, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && r_dtype == 0)
-    return launch_w<float, float>(w_dtype, x, r, w, b, out, so, ro, rows, d,
-                                  eps, st);
-  if (x_dtype == 0 && r_dtype == 1)
-    return launch_w<float, __nv_bfloat16>(w_dtype, x, r, w, b, out, so, ro,
-                                          rows, d, eps, st);
-  if (x_dtype == 1 && r_dtype == 0)
-    return launch_w<__nv_bfloat16, float>(w_dtype, x, r, w, b, out, so, ro,
-                                          rows, d, eps, st);
-  if (x_dtype == 1 && r_dtype == 1)
-    return launch_w<__nv_bfloat16, __nv_bfloat16>(w_dtype, x, r, w, b, out,
-                                                  so, ro, rows, d, eps, st);
-  return (int)cudaErrorInvalidValue;
+    return saved_w<float, float>(w_dtype, a, st);
+  if (x_dtype == 0)
+    return saved_w<float, __nv_bfloat16>(w_dtype, a, st);
+  if (r_dtype == 0)
+    return saved_w<__nv_bfloat16, float>(w_dtype, a, st);
+  return saved_w<__nv_bfloat16, __nv_bfloat16>(w_dtype, a, st);
 }
 
 extern "C" const char* add_layer_norm_error_string(int code) {

@@ -5,7 +5,8 @@ CUDA source (`csrc/add_layer_norm.cu`):
 
 - `layernorm_fwd_saved` (registry "layernorm_fwd_saved") replaces the
   TPU kernel `_fwd`: (out, the f32 sum x + r, f32 rstd [rows, 1]), the
-  forward the backward needs;
+  forward the backward needs, and with `carry=True` also the residual
+  carry x + r in x's dtype, written by the same launch;
 - `layernorm_fused` (registry "layernorm_fused") replaces the TPU kernel
   `fused_add_layer_norm`: out only, for inference. Its kernel also
   writes the residual carry: `layernorm_fused_pair` returns (out,
@@ -14,9 +15,9 @@ CUDA source (`csrc/add_layer_norm.cu`):
   launch.
 
 `FusedAddLayerNormPair` is the autograd Function of
-`fused_add_layer_norm_pair`: it returns (LayerNorm(x + r), x + r) from the
-saving kernel, and its backward is the JAX package's `_pair_vjp_bwd` in
-plain torch (the JAX backward is jnp, not a kernel).
+`fused_add_layer_norm_pair`: it returns (LayerNorm(x + r), x + r) from one
+launch of the saving kernel, and its backward is the JAX package's
+`_pair_vjp_bwd` in plain torch (the JAX backward is jnp, not a kernel).
 
 The plain version copies `_ln_ref`: f32 moments and one rounding of the
 output to x's dtype; the carry is the f32 sum rounded once to x's dtype,
@@ -45,14 +46,17 @@ _MAX_D = 4096
 _TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}
 
 
-def layernorm_plain(x, residual, weight, bias, eps=1e-5):
+def layernorm_plain(x, residual, weight, bias, eps=1e-5, carry=False):
     """-> (out [rows, d] in x's dtype, sum f32 [rows, d], rstd f32
-    [rows, 1])."""
+    [rows, 1]), and with `carry` the sum in x's dtype (the sum itself
+    for an f32 x) after them."""
     s = x.float() + residual.float()
     mean = s.mean(dim=-1, keepdim=True)
     var = (s - mean).square().mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     out = (s - mean) * rstd * weight.float() + bias.float()
+    if carry:
+        return out.to(x.dtype), s, rstd, s.to(x.dtype)
     return out.to(x.dtype), s, rstd
 
 
@@ -80,7 +84,7 @@ def pair_warps(rows):
 
 
 _ARGTYPES = {
-    "add_layer_norm_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    "add_layer_norm_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p],
     "add_layer_norm_pair_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
@@ -149,8 +153,10 @@ def _explain(name, x, residual, weight, bias, index, rows_2d):
                      f"{tuple(bias.shape)} {bias.dtype}")
 
 
-def _launch_saved(x, residual, weight, bias, eps):
-    """The saving kernel (K6) -> (out, sum, rstd)."""
+def _launch_saved(x, residual, weight, bias, eps, carry):
+    """The saving kernel (K6) -> (out, sum, rstd), and with `carry` the
+    carry after them: written by the same launch for a bf16 x, the sum
+    itself for an f32 x."""
     name = "layernorm_fwd_saved"
     index = _check(name, x, residual, weight, bias, rows_2d=True)
     rows, d = x.shape
@@ -158,12 +164,16 @@ def _launch_saved(x, residual, weight, bias, eps):
     out = torch.empty_like(x)
     s = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     rstd = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    h = torch.empty_like(x) if carry and x.dtype != torch.float32 else None
     rc = fn(x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), out.data_ptr(), s.data_ptr(), rstd.data_ptr(),
-            rows, d, _DTYPE_CODES[x.dtype], _DTYPE_CODES[residual.dtype],
+            None if h is None else h.data_ptr(), rows, d,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[residual.dtype],
             _DTYPE_CODES[weight.dtype], float(eps), _raw_stream(index))
     _build.check_launch(name, rc, err)
     get_kernel(name).launches += 1
+    if carry:
+        return out, s, rstd, s if h is None else h
     return out, s, rstd
 
 
@@ -191,12 +201,14 @@ def _launch_pair(x, residual, weight, bias, eps, carry):
     "layernorm_fwd_saved", plain=layernorm_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/add_layer_norm.cu",
     replaces="paddle_tpu/ops/pallas_layernorm.py:90")
-def layernorm_fwd_saved(x, residual, weight, bias, eps=1e-5):
+def layernorm_fwd_saved(x, residual, weight, bias, eps=1e-5, carry=False):
     """LayerNorm(x + residual) with what the backward needs -> (out in
-    x's dtype, sum f32 [rows, d], rstd f32 [rows, 1])."""
+    x's dtype, sum f32 [rows, d], rstd f32 [rows, 1]), and with `carry`
+    the residual carry x + residual in x's dtype after them, from the
+    same launch."""
     if x.device.type == "cpu":
-        return layernorm_plain(x, residual, weight, bias, eps)
-    return _launch_saved(x, residual, weight, bias, eps)
+        return layernorm_plain(x, residual, weight, bias, eps, carry)
+    return _launch_saved(x, residual, weight, bias, eps, carry)
 
 
 @register_kernel(
@@ -222,15 +234,17 @@ def layernorm_fused_pair(x, residual, weight, bias, eps=1e-5):
 
 
 class FusedAddLayerNormPair(torch.autograd.Function):
-    """(LayerNorm(x + r) * w + b, x + r) for x, r [rows, d]; the carry is
-    the saved f32 sum in x's dtype."""
+    """(LayerNorm(x + r) * w + b, x + r) for x, r [rows, d], both from
+    one launch of the saving kernel; the carry is the saved f32 sum in
+    x's dtype."""
 
     @staticmethod
     def forward(ctx, x, residual, weight, bias, eps):
-        out, s, rstd = layernorm_fwd_saved(x, residual, weight, bias, eps)
+        out, s, rstd, h = layernorm_fwd_saved(x, residual, weight, bias, eps,
+                                              carry=True)
         ctx.save_for_backward(s, rstd, weight)
         ctx.dtypes = (x.dtype, residual.dtype, bias.dtype)
-        return out, s.to(x.dtype)
+        return out, h
 
     @staticmethod
     def backward(ctx, g_out, g_sum):

@@ -8,7 +8,10 @@ port's pair backward must match the vjp of `fused_add_layer_norm_pair`.
 The inference pair (K7's out and the residual carry from one launch)
 must match the JAX pair: out within the registry's tolerance, the carry
 bit for bit, and the no-grad residual site must call it once and add
-nothing itself.
+nothing itself. The saving form's carry (x + r in x's dtype from the
+same launch) must equal the JAX pair's bit for bit, and the residual
+site with a gradient must call the saving wrapper once, cast nothing
+itself and match the JAX pair's vjp.
 """
 import numpy as np
 import pytest
@@ -21,11 +24,13 @@ from paddle_tpu.ops import pallas_layernorm as jax_ln
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.nn import functional as nn_functional
 from paddle_tpu_torch.ops.kernel_registry import get_kernel, reset_launches
+from paddle_tpu_torch.ops import layernorm as ln_ops
 from paddle_tpu_torch.ops.layernorm import (FusedAddLayerNormPair,
                                             layernorm_fused,
                                             layernorm_fused_pair,
                                             layernorm_fused_pair_plain,
-                                            layernorm_fwd_saved)
+                                            layernorm_fwd_saved,
+                                            layernorm_plain)
 
 _TOL = dict(rtol=1e-4, atol=1e-5)
 # a bf16 output rounds once; two f32 summation orders may flip one ulp
@@ -242,3 +247,124 @@ def test_inference_pair_no_fallback_off_the_cpu():
     w = torch.empty((768,), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         layernorm_fused_pair(x, x, w, w)
+
+
+@pytest.mark.parametrize("x_dt,r_dt", [("float32", "float32"),
+                                       ("float32", "bfloat16"),
+                                       ("bfloat16", "bfloat16"),
+                                       ("bfloat16", "float32")])
+def test_saving_carry_matches_jax_pair(x_dt, r_dt):
+    """With `carry`, the saving form also returns the residual carry:
+    bit for bit the second output of the JAX pair (its Pallas `_fwd` in
+    interpret mode, then `s.astype(x.dtype)`), the f32 sum itself for an
+    f32 x; the other three outputs are those of the call without it."""
+    x, r, w, b = _inputs(31, 64, 256)
+    jx, jr = jnp.asarray(x, _JD[x_dt]), jnp.asarray(r, _JD[r_dt])
+    jw, jb = jnp.asarray(w, _JD[x_dt]), jnp.asarray(b, _JD[x_dt])
+    _, ref_h = jax_ln.fused_add_layer_norm_pair(jx, jr, jw, jb, 1e-5)
+    tx = _t(np.asarray(jx.astype(jnp.float32)), _TD[x_dt])
+    tr = _t(np.asarray(jr.astype(jnp.float32)), _TD[r_dt])
+    tw, tb = _t(w, _TD[x_dt]), _t(b, _TD[x_dt])
+    out, s, rstd, h = layernorm_fwd_saved(tx, tr, tw, tb, 1e-5, carry=True)
+    assert h.dtype == tx.dtype and h.shape == (64, 256)
+    ref_bits = np.array(ref_h).view(_BITS[h.dtype][1])
+    assert torch.equal(_bits(h), torch.from_numpy(ref_bits))
+    if x_dt == "float32":
+        assert h is s
+    for got, want in zip((out, s, rstd),
+                         layernorm_fwd_saved(tx, tr, tw, tb, 1e-5)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("x_dt,r_dt", [("bfloat16", "bfloat16"),
+                                       ("float32", "bfloat16")])
+def test_saving_site_one_call_no_cast(monkeypatch, x_dt, r_dt):
+    """With a gradient wanted, `nn.fused_add_layer_norm` makes one call
+    of the saving wrapper, which returns the carry too, and casts and
+    adds nothing itself (a counting stand-in takes the wrapper's place
+    and every torch function the site calls is recorded)."""
+    x, r, w, b = _inputs(17, 16, 128)
+    x3 = _t(x, _TD[x_dt]).reshape(2, 8, 128).requires_grad_()
+    r3 = _t(r, _TD[r_dt]).reshape(2, 8, 128).requires_grad_()
+    wt = _t(w, _TD[x_dt]).requires_grad_()
+    bt = _t(b, _TD[x_dt]).requires_grad_()
+    with torch.no_grad():
+        want = layernorm_plain(x3.reshape(16, 128), r3.reshape(16, 128),
+                               wt, bt, 1e-5, carry=True)
+    calls = []
+
+    def stand_in(*args, **kwargs):
+        calls.append((args, kwargs))
+        return want
+
+    class Record(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.names.append(getattr(func, "__name__", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(ln_ops, "layernorm_fwd_saved", stand_in)
+    with Record() as rec:
+        y, h = nn.fused_add_layer_norm(x3, r3, wt, bt)
+    assert len(calls) == 1 and calls[0][1] == {"carry": True}
+    assert not [n for n in rec.names
+                if n in ("to", "type", "float", "bfloat16", "_to_copy")
+                or "add" in n], rec.names
+    assert y.grad_fn is not None and y.shape == h.shape == (2, 8, 128)
+    assert h.dtype == x3.dtype
+    assert torch.equal(h.detach().reshape(16, 128), want[3])
+    assert torch.equal(h.detach(), (x3 + r3).detach().to(x3.dtype))
+
+
+@pytest.mark.parametrize("x_dt,r_dt", [("float32", "float32"),
+                                       ("float32", "bfloat16"),
+                                       ("bfloat16", "bfloat16")])
+def test_saving_site_matches_jax_pair_vjp(x_dt, r_dt):
+    """The residual site with a gradient wanted (the saving kernel's
+    plain version, its carry, the port's backward) against the JAX
+    pair's `_pair_vjp_fwd` and `_pair_vjp_bwd` on the same inputs and
+    cotangents: outputs and gradients within the tolerances above (bf16
+    ones within the bf16 tolerance), the carry bit for bit."""
+    rows, d = 128, 256
+    x, r, w, b = _inputs(41, rows, d)
+    rs = np.random.RandomState(42)
+    g_out = rs.randn(rows, d).astype(np.float32)
+    g_sum = rs.randn(rows, d).astype(np.float32)
+    jx, jr = jnp.asarray(x, _JD[x_dt]), jnp.asarray(r, _JD[r_dt])
+    jw, jb = jnp.asarray(w, _JD[x_dt]), jnp.asarray(b, _JD[x_dt])
+    jg_out, jg_sum = (jnp.asarray(g, _JD[x_dt]) for g in (g_out, g_sum))
+    (ref_y, ref_h), saved = jax_ln._pair_vjp_fwd(jx, jr, jw, jb, 1e-5)
+    ref_grads = jax_ln._pair_vjp_bwd(1e-5, saved, (jg_out, jg_sum))
+    ins = [_t(np.asarray(a.astype(jnp.float32)), _TD[dt]).requires_grad_()
+           for a, dt in ((jx, x_dt), (jr, r_dt), (jw, x_dt), (jb, x_dt))]
+    y, h = nn.fused_add_layer_norm(ins[0].reshape(2, rows // 2, d),
+                                   ins[1].reshape(2, rows // 2, d), *ins[2:])
+    tol = _TOL if x_dt == "float32" else _TOL_BF16
+    np.testing.assert_allclose(
+        y.detach().float().reshape(rows, d).numpy(),
+        np.asarray(ref_y.astype(jnp.float32)), **tol)
+    ref_bits = np.array(ref_h).view(_BITS[h.dtype][1])
+    assert torch.equal(_bits(h.detach().reshape(rows, d)),
+                       torch.from_numpy(ref_bits))
+    torch.autograd.backward(
+        (y, h), tuple(_t(np.asarray(g.astype(jnp.float32)), _TD[x_dt])
+                      .reshape(2, rows // 2, d) for g in (jg_out, jg_sum)))
+    for t, want in zip(ins, ref_grads):
+        np.testing.assert_allclose(
+            t.grad.float().numpy(), np.asarray(want.astype(jnp.float32)),
+            **(_TOL if t.dtype == torch.float32 and x_dt == "float32"
+               else _TOL_BF16))
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_saving_no_fallback_off_the_cpu(carry):
+    """On a tensor that is not on the CPU (meta stands for the card's
+    here) the saving wrapper takes no plain version: it checks and
+    raises, with or without the carry."""
+    x = torch.empty((16, 768), device="meta")
+    w = torch.empty((768,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        layernorm_fwd_saved(x, x, w, w, carry=carry)
