@@ -15,8 +15,11 @@ ok line):
              Performance Loss" notes ptxas reports for the flash
              forward's and backward's, the prefill chunk's, the paged
              decode's, the decode attention's and the int8 head's
-             kernels, and for the add + LayerNorm instances (an add_ln
-             instance that spills fails the smoke);
+             kernels, for the add + LayerNorm instances (an add_ln
+             instance that spills fails the smoke) and for the
+             moe_gather instances (one that spills fails too), from
+             the report kept beside each library, so a build that an
+             earlier run left is checked as well;
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, in f32 (TF32 off) and bf16. The serving kernels at the
              serving shapes of GPT-3 125M (12 heads of 64, block 16, 32
@@ -56,14 +59,19 @@ ok line):
              on maps from the port's own router at 8192 tokens, E 8,
              k 2, C 2560 (dropped choices and empty slots both real) at
              d in {64, 768, 1024, 2048}, plus all sentinels, 1001 rows,
-             k 1 and an f32 weight over bf16 rows (moe_gather exact,
+             k 1 and an f32 weight over bf16 rows, and for moe_gather
+             1009 rows (no multiple of a CTA's rows), m 1, n_src 1,
+             indices below 0 and above n_src, the combine backward's
+             map and (f32) rows of 64 KB (moe_gather bit for bit,
              moe_combine within the registry's tolerance). Then time
              kernel, plain version and one PyTorch library call (a
              yardstick the port never calls: scaled_dot_product_attention,
              F.layer_norm, a dequantized bf16 matmul, F.embedding,
              F.embedding_bag) with CUDA events, the L2 flushed before
-             each launch by reading 256 MB, which leaves it clean
-             (flash_bwd, flash_prefill_chunk and
+             each launch by reading 256 MB, which leaves it clean (the
+             MoE kernels' launches also after a reset of the lines
+             moe_gather reads under evict_last, which outlive a flush;
+             flash_bwd, flash_prefill_chunk and
              paged_decode also with the L2 warm, and flash_bwd by kernel
              from a trace), at the serving shapes (paged_decode at 16
              slots with ctx uniform in 0..511), at the training shape
@@ -73,8 +81,11 @@ ok line):
              24576, L2 flushed and warm, beside its y-only form and one
              trivial launch), at the decode shape
              (batch 8, mean position 191) and at the MoE training
-             shape (f32 rows of
-             768); int8_matvec at 1, 8, 16, 64 and 128 rows, each beside
+             shape (rows of 768: moe_combine in f32, moe_gather at the
+             dispatch in f32 and bf16 and at the combine's backward in
+             f32, beside the bytes of reading every valid slot's row
+             once, as a gather in slot order with no L2 reuse does);
+             int8_matvec at 1, 8, 16, 64 and 128 rows, each beside
              the composed head, the dequantized bf16 matmul and a
              product over an unquantized bf16 table; then at GPT-3
              1.3B's shapes: flash forward and backward at batch 2, seq
@@ -233,9 +244,11 @@ ok line):
              batch 8 x seq 1024 under bf16 amp, 3 warm-up and 10 timed
              steps (tokens/s, step ms, MFU over the active FLOPs, peak
              memory, finite loss, the routing stats; the launch counters
-             must equal layers x steps for moe_gather, moe_combine,
-             flash_fwd, flash_bwd and layernorm_fwd_saved), a 3-step
-             profile and the MoE regions timed alone;
+             must equal 2 x layers x steps for moe_gather (the dispatch
+             and the combine's backward) and layers x steps for
+             moe_combine, flash_fwd, flash_bwd and layernorm_fwd_saved,
+             in the f32 steps too), a 3-step profile and the MoE
+             regions timed alone;
 8. train options — one GPT-3 1.3B-width block (b 1, s 256; loss the
              mean square of its output) for 3 steps on the card and on
              the CPU from the same weights, losses within 1e-4
@@ -270,8 +283,9 @@ ok line):
              flash_bwd and 48 layernorm_fwd_saved (each writing the
              bf16 carry: one device launch a residual site).
 
-`--phases kernels_1_3b,options,layer,full` (any of them) runs the build
-and the named phases alone and prints no result line.
+`--phases kernels_moe,moe_train,kernels_1_3b,options,layer,full` (any of
+them) runs the build and the named phases alone and prints no result
+line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
@@ -424,17 +438,17 @@ def print_pair_ptxas(_build):
     """The add + LayerNorm kernels have one instance per dtype triple and
     width class: print, for the saving form (add_ln, K6) and the
     inference pair (add_ln_pair, K7), their register range and which
-    spill (by their mangled template arguments), when this process built
-    them. An add_ln instance that spills fails: K6 runs on every
-    training path at widths up to 4096."""
+    spill (by their mangled template arguments), from the report kept
+    beside the built library. An add_ln instance that spills, or no
+    report, fails: K6 runs on every training path at widths up to
+    4096."""
     info = _build.ptxas_info("add_layer_norm")
     for kernel in ("add_ln", "add_ln_pair"):
         mark = kernel + "I"
         inst = {fn: i for fn, i in info.items() if mark in fn}
         if not inst:
-            print(f"build: ptxas add_layer_norm: {kernel} not built by "
-                  "this process (its report is not read)")
-            continue
+            raise AssertionError(f"{kernel}: no ptxas report for its "
+                                 "instances")
         regs = [i.get("registers", 0) for i in inst.values()]
         spill = sorted(fn.split(mark, 1)[1].split("EEEv")[0]
                        for fn, i in inst.items()
@@ -515,7 +529,7 @@ def l2_flush(torch, dev):
 
 
 def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None,
-              dirty=False):
+              dirty=False, before=None):
     """Median of per-launch CUDA-event times; the L2 is overwritten
     before every launch by reading `flush` (`l2_flush`: a sum into a
     scalar), so each launch reads its inputs from device memory and the
@@ -527,7 +541,8 @@ def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None,
     the launch before the first event is reached and the time is the
     kernel's, not the host's. `spin` sets the spin in clock cycles (by
     default 200000 when warm, none after a flush): a call that enqueues
-    several launches needs more, or the card waits for the host."""
+    several launches needs more, or the card waits for the host.
+    `before`, when given, runs on the host before each flush."""
     if spin is None:
         spin = 200_000 if flush is None else 0
     for _ in range(warmup):
@@ -535,6 +550,8 @@ def median_ms(torch, fn, flush, reps=60, warmup=5, spin=None,
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
+        if before is not None:
+            before()
         if flush is not None:
             if dirty:
                 flush.zero_()
@@ -1201,25 +1218,84 @@ def moe_maps(torch, gen, dev):
     return n, C, comb_w, comb_slot, slot_token
 
 
+def gather_work(torch, idx, n_src, d, itemsize):
+    """Bytes the gather must move for the map `idx` over n_src rows of d,
+    each distinct byte once: every distinct valid source row read once,
+    all m rows written, the map read; and the distinct valid rows."""
+    valid = idx[(idx >= 0) & (idx < n_src)]
+    distinct = int(torch.unique(valid).numel())
+    m = idx.numel()
+    return (distinct + m) * d * itemsize + m * 4, distinct
+
+
 def moe_work(torch, n, d, slot_token, comb_slot, itemsize):
     """Bytes each kernel must move for these maps, each distinct byte
-    once: the gather reads every distinct kept token row and writes all
-    E*C rows (and reads the map); the combine reads every kept slot row
-    and writes n rows (and reads the maps and weights, f32)."""
+    once: the dispatch gather reads every distinct kept token row and
+    writes all E*C rows (and reads the map); the combine reads every
+    kept slot row and writes n rows (and reads the maps and weights,
+    f32)."""
     n_slots = slot_token.numel()
-    kept_tokens = int(torch.unique(slot_token[slot_token < n]).numel())
+    gather, kept_tokens = gather_work(torch, slot_token, n, d, itemsize)
     kept_slots = int((comb_slot < n_slots).sum())
-    gather = (kept_tokens + n_slots) * d * itemsize + n_slots * 4
     combine = (kept_slots + n) * d * itemsize + comb_slot.numel() * 8
     return gather, combine, kept_tokens, kept_slots
 
 
+def gather_cases(torch, gen, dev, n, slot_token, comb_slot, dtype):
+    """K12's own cases beside the router's maps: (tag, src, idx)."""
+    d = N_HEADS * HEAD_DIM
+    n_slots = slot_token.numel()
+    tokens = torch.randn((n, d), generator=gen).to(dev, dtype)
+    eo = torch.randn((n_slots, d), generator=gen).to(dev, dtype)
+    odd = slot_token.clone()
+    odd[::97] = -1
+    odd[1::101] = n + 1
+    odd[2::103] = -2 ** 31
+    odd[3::107] = 2 ** 31 - 1
+    cases = [
+        ("1009 rows, no multiple of a CTA's rows", tokens,
+         slot_token[:1009]),
+        ("m=1", tokens, slot_token[:1]),
+        ("m=1 valid", tokens, torch.full((1,), n - 1, dtype=torch.int32,
+                                         device=dev)),
+        ("n_src=1", tokens[:1], torch.randint(
+            -2, 3, (777,), generator=gen, dtype=torch.int32).to(dev)),
+        ("indices below 0 and above n_src", tokens, odd),
+        ("the combine backward's map", eo, comb_slot.reshape(-1))]
+    if dtype == torch.float32:
+        # 64 KB rows: 16 passes of a warp's loads (4 KB a pass)
+        wide = torch.randn((257, 16384), generator=gen).to(dev)
+        cases.append(("d=16384, rows of 64 KB", wide,
+                      torch.randint(-1, 259, (300,), generator=gen,
+                                    dtype=torch.int32).to(dev)))
+    return cases
+
+
+def print_gather_ptxas(_build):
+    """ptxas's report for K12's instances, kept beside the built
+    library; no report or an instance that spills fails."""
+    inst = {fn: i for fn, i in _build.ptxas_info("moe_kernels").items()
+            if "moe_gather" in fn}
+    if not inst:
+        raise AssertionError("moe_gather: no ptxas report for its "
+                             "instances")
+    for fn, info in sorted(inst.items()):
+        print(f"build: ptxas moe_kernels: {fn}: {json.dumps(info)}")
+    spill = [fn for fn, i in inst.items() if i.get("spills", (0, 0)) != (0, 0)]
+    if spill:
+        raise AssertionError(f"moe_gather: {len(spill)} of {len(inst)} "
+                             f"instances spill: {spill}")
+
+
 def moe_kernels_phase(torch, seed):
     """moe_gather and moe_combine against their plain versions on maps
-    from the port's own router (and edge cases), in f32 and bf16, then
-    timed at the MoE training shape in f32 (the layer's dtype there)."""
+    from the port's own router (and edge cases), in f32 and bf16 (the
+    gather bit for bit), then timed at the MoE training shape: the
+    combine in f32 (the layer's dtype there), the gather at both of its
+    sites in f32 and at the dispatch in bf16."""
     from paddle_tpu_torch.moe.kernels import (combine_plain, gather_plain,
-                                              moe_combine_fwd, moe_gather_fwd)
+                                              moe_combine_fwd, moe_gather_fwd,
+                                              reset_persisting_l2)
     from paddle_tpu_torch.ops.kernel_registry import get_kernel
     F = torch.nn.functional
     dev = torch.device(DEVICE)
@@ -1231,6 +1307,16 @@ def moe_kernels_phase(torch, seed):
 
     def note(key, e):
         errs[key] = max(errs.get(key, 0.0), e)
+
+    def check(kern, dname, tag, args):
+        got = kern.wrapper(*args)
+        ref = kern.plain(*args)
+        torch.cuda.synchronize()
+        name = f"{kern.name}[{dname}, {tag}]"
+        note((kern.name, dname), hold(name, got, ref, kern.tol[dname]))
+        if kern is kg and not same_bits(torch, got, ref):
+            raise AssertionError(f"{name}: not bit for bit its plain "
+                                 "version")
 
     dropped = int((comb_slot == n_slots).sum())
     empty = int((slot_token == n).sum())
@@ -1260,56 +1346,70 @@ def moe_kernels_phase(torch, seed):
                                         w[:, :1].contiguous())),
                     ("combine", "f32 w", (eo, comb_slot, comb_w))]
             for which, tag, args in cases:
-                kern = kg if which == "gather" else kc
-                got = kern.wrapper(*args)
-                ref = kern.plain(*args)
-                torch.cuda.synchronize()
-                note((kern.name, dname), hold(
-                    f"{kern.name}[{dname}, {tag}]", got, ref,
-                    kern.tol[dname]))
+                check(kg if which == "gather" else kc, dname, tag, args)
             del tokens, eo
+        for tag, src, idx in gather_cases(torch, gen, dev, n, slot_token,
+                                          comb_slot, dtype):
+            check(kg, dname, tag, (src, idx))
     for key, e in sorted(errs.items()):
         print(f"kernels: {' '.join(key)} max_abs_err {e:.3e} (tol rtol, "
               f"atol = {get_kernel(key[0]).tol[key[1]]})")
 
-    # timing at the main path's shape and dtype: f32 rows of 768
+    # timing at the main path's shapes: rows of 768, the combine and both
+    # gather sites in f32 (the layer's dtype), the dispatch also in bf16;
+    # every launch after a reset of the lines the gather left marked
     flush = l2_flush(torch, dev)
+
+    def timed(fn):
+        return median_ms(torch, fn, flush, before=reset_persisting_l2)
     d = N_HEADS * HEAD_DIM
     tokens = torch.randn((n, d), generator=gen).to(dev)
     eo = torch.randn((n_slots, d), generator=gen).to(dev)
-    tok_pad = torch.cat([tokens, tokens.new_zeros((1, d))])
     eo_pad = torch.cat([eo, eo.new_zeros((1, d))])
-    g_bytes, c_bytes, kept_tokens, kept_slots = moe_work(
+    _, c_bytes, kept_tokens, kept_slots = moe_work(
         torch, n, d, slot_token, comb_slot, 4)
-    rows = {
-        "moe_gather": dict(
-            ms=median_ms(torch, lambda: moe_gather_fwd(tokens, slot_token),
-                         flush),
-            plain_ms=median_ms(torch, lambda: gather_plain(tokens,
-                                                           slot_token), flush),
-            library_ms=median_ms(torch, lambda: F.embedding(slot_token,
-                                                            tok_pad), flush),
-            bound=bound(g_bytes, 0, "float32"),
-            max_abs_err=errs[("moe_gather", "float32")]),
-        "moe_combine": dict(
-            ms=median_ms(torch, lambda: moe_combine_fwd(eo, comb_slot,
-                                                        comb_w), flush),
-            plain_ms=median_ms(torch, lambda: combine_plain(eo, comb_slot,
-                                                            comb_w), flush),
-            library_ms=median_ms(torch, lambda: F.embedding_bag(
-                comb_slot, eo_pad, per_sample_weights=comb_w, mode="sum"),
-                flush),
-            bound=bound(c_bytes, 2 * kept_slots * d, "float32"),
-            max_abs_err=errs[("moe_combine", "float32")])}
     print(f"kernels: moe maps: {kept_tokens} distinct kept tokens, "
           f"{kept_slots} kept slots of {n_slots}")
-    for name, what, nbytes in (("moe_gather", "F.embedding", g_bytes),
-                               ("moe_combine", "F.embedding_bag", c_bytes)):
-        r = rows[name]
-        print(f"kernels: {name} f32 d={d}: {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f}, {what} {r['library_ms']:.4f}, bound "
-              f"{r['bound'][0]:.5f} by {r['bound'][1]}; {nbytes} bytes)")
+    sites = {"dispatch f32": (tokens, slot_token),
+             "combine backward f32": (eo, comb_slot.reshape(-1)),
+             "dispatch bf16": (tokens.to(torch.bfloat16), slot_token)}
+    gather = {}
+    for site, (src, idx) in sites.items():
+        pad = torch.cat([src, src.new_zeros((1, d))])
+        size = src.element_size()
+        nbytes, distinct = gather_work(torch, idx, src.shape[0], d, size)
+        valid = int(((idx >= 0) & (idx < src.shape[0])).sum())
+        gather[site] = r = dict(
+            ms=timed(lambda: moe_gather_fwd(src, idx)),
+            plain_ms=timed(lambda: gather_plain(src, idx)),
+            library_ms=timed(lambda: F.embedding(idx, pad)),
+            bound=bound(nbytes, 0, "float32"),
+            max_abs_err=errs[("moe_gather", str(src.dtype)[6:])])
+        # a gather in slot order with no L2 reuse reads each valid
+        # slot's row once
+        slot_order = (valid + idx.numel()) * d * size + idx.numel() * 4
+        print(f"kernels: moe_gather {site} d={d}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, F.embedding {r['library_ms']:.4f}, "
+              f"bound {r['bound'][0]:.5f} by {r['bound'][1]}; {nbytes} "
+              f"bytes, {distinct} distinct rows of {idx.numel()}; read in "
+              f"slot order, each valid row once: {slot_order} bytes, "
+              f"{bound(slot_order, 0, 'float32')[0]:.5f} ms)")
+        del pad
+    rows = {
+        "moe_gather": gather["dispatch f32"],
+        "moe_combine": dict(
+            ms=timed(lambda: moe_combine_fwd(eo, comb_slot, comb_w)),
+            plain_ms=timed(lambda: combine_plain(eo, comb_slot, comb_w)),
+            library_ms=timed(lambda: F.embedding_bag(
+                comb_slot, eo_pad, per_sample_weights=comb_w, mode="sum")),
+            bound=bound(c_bytes, 2 * kept_slots * d, "float32"),
+            max_abs_err=errs[("moe_combine", "float32")])}
+    r = rows["moe_combine"]
+    print(f"kernels: moe_combine f32 d={d}: {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}, F.embedding_bag {r['library_ms']:.4f}, "
+          f"bound {r['bound'][0]:.5f} by {r['bound'][1]}; {c_bytes} bytes)")
     del flush
+    reset_persisting_l2()
     return rows
 
 
@@ -2577,17 +2677,19 @@ def train_batch(torch, vocab, batch, seq, seed, dev):
     return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
 
 
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
-MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("moe_gather", "moe_combine")
+# launches a layer and step of each training kernel: the MoE step runs
+# the gather in the dispatch and in the combine's backward
+TRAIN_KERNELS = {"flash_fwd": 1, "flash_bwd": 1, "layernorm_fwd_saved": 1}
+MOE_TRAIN_KERNELS = {**TRAIN_KERNELS, "moe_gather": 2, "moe_combine": 1}
 
 
 def check_train_launches(launches, L, steps, what, train=TRAIN_KERNELS):
-    """Each kernel of `train` launched once per layer and step, no
-    other kernel at all."""
-    want = {name: L * steps if name in train else 0 for name in launches}
+    """Each kernel of `train` launched its count (`train[name]`) per
+    layer and step, no other kernel at all."""
+    want = {name: L * steps * train.get(name, 0) for name in launches}
     if launches != want:
         raise AssertionError(f"train {what}: launches {launches} != layers "
-                             f"x steps {want}")
+                             f"x steps x each kernel's count {want}")
 
 
 def train_phase(torch, seed):
@@ -2772,6 +2874,7 @@ def moe_train_phase(torch, seed):
     import copy
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.moe import GPTMoE, note_step_stats
+    from paddle_tpu_torch.moe.kernels import reset_persisting_l2
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
     from paddle_tpu_torch.telemetry import gpt_train_flops_per_token
 
@@ -2845,6 +2948,7 @@ def moe_train_phase(torch, seed):
         loss.item()
     print("moe train device ms per step by part: " + json.dumps(
         moe_step_parts(prof, MOE_PROFILE_STEPS, busy or 0.0)))
+    reset_persisting_l2()
     return stats
 
 
@@ -3473,12 +3577,14 @@ def print_compiled_summary(serve, wo8, loop, memory, decode):
     print(f"compiled step on {card_line()}: " + json.dumps(out))
 
 
-PARTIAL_PHASES = ("kernels_1_3b", "options", "layer", "full")
+PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b", "options",
+                  "layer", "full")
 
 
 def partial_run(torch, args, lap, phase_s):
     """The build and the named phases alone (--phases); no result."""
-    fns = {"kernels_1_3b": kernels_1_3b_phase, "options": train_options_phase,
+    fns = {"kernels_moe": moe_kernels_phase, "moe_train": moe_train_phase,
+           "kernels_1_3b": kernels_1_3b_phase, "options": train_options_phase,
            "layer": train_1_3b_layer_phase, "full": train_1_3b_full_phase}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
@@ -3539,6 +3645,7 @@ def main(argv=None):
             if any(k in fn for k in PTXAS_SHOWN):
                 print(f"build: ptxas {src}: {fn}: {json.dumps(info)}")
     print_pair_ptxas(_build)
+    print_gather_ptxas(_build)
 
     phase_s = {"build": time.perf_counter() - t0}
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time this checkout's kernels against another checkout's, in turns,
 on one CUDA card: flash_fwd, paged_decode, decode_fused, int8_matvec,
-layernorm_fused and layernorm_fwd_saved.
+layernorm_fused, layernorm_fwd_saved and moe_gather.
 
     python3 kernel_ab.py --base DIR [--seed 0] [--reps 60]
-                         [--kernels flash_fwd,...,layernorm_fwd_saved]
+                         [--kernels flash_fwd,...,moe_gather]
 
 DIR is the root of another checkout of the repository, for example the
 parent commit unpacked from `git archive` into a directory that
@@ -41,7 +41,19 @@ cases (all by default). Both are called on the same inputs:
   without the carry in both trees, and the residual site with a
   gradient's forward (FusedAddLayerNormPair: the other tree's K6 plus
   its cast where x is bf16, this tree's one launch with the carry),
-  beside a device-to-device copy that moves as many bytes as the site.
+  beside a device-to-device copy that moves as many bytes as the site;
+- moe_gather (K12) on the router's maps at the MoE training shape
+  (chip_smoke.moe_maps: 8192 tokens, E 8, k 2, C 2560, rows of 768) at
+  both of its sites, the dispatch (tokens by the slot map) and the
+  gather in the combine's backward (expert outputs by the flat choice
+  map), in f32, and the dispatch in bf16: both trees bit for bit this
+  tree's plain version, timed beside F.embedding over the zero-padded
+  source and a device copy of the bytes the kernel must move (each
+  distinct valid row read once, every output row written, the map
+  read), every launch after a reset of the lines the kernel leaves
+  marked evict_last, which outlive the flush; at the f32 dispatch also
+  the first expert product timed after each tree's gather, and last the
+  other tree's kernel after this one's without that reset.
 
 Each kernel's output is held against the plain version of this
 checkout, then both are timed base, change, change, base (median of
@@ -485,7 +497,118 @@ def ab_layernorm_fused(ab):
                       "host_us_per_call": host}))
 
 
-# case -> (function, ops module, kernel source)
+def after_gather_ms(torch, gather, follow, flush, reps, reset):
+    """Median of per-launch CUDA-event times of `follow(out)` launched
+    straight after `out = gather()`; before each pair the L2 lines left
+    marked evict_last are reset and the L2 is flushed, so `follow` sees
+    the L2 as this gather alone left it."""
+    times = []
+    for i in range(reps + 3):
+        reset()
+        flush.sum()
+        out = gather()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        follow(out)
+        e.record()
+        e.synchronize()
+        if i >= 3:
+            times.append(s.elapsed_time(e))
+    return sorted(times)[len(times) // 2]
+
+
+def ab_moe_gather(ab):
+    """K12 at its two sites of the MoE training step (the dispatch and
+    the gather in the combine's backward) in f32, and the dispatch in
+    bf16, on the router's maps at the training shape (chip_smoke's
+    moe_maps). Every launch is timed after a reset of the L2 lines the
+    kernel leaves marked evict_last (they outlive the flush). At every
+    site both trees bit for bit this tree's plain version, base, change,
+    change, base beside F.embedding over the zero-padded source and a
+    device copy of the bytes the kernel must move. At the f32 dispatch
+    also the step's next launch, the first expert product, timed after
+    each tree's gather in turns (what the lines a gather leaves marked
+    cost it), and last the base tree after five of this tree's launches
+    without the reset, then after it."""
+    torch, cs, F, dev, flush = ab.torch, ab.cs, ab.F, ab.dev, ab.flush
+    k_old, k_new = ab.old["moe.kernels"], ab.new["moe.kernels"]
+    gen = torch.Generator().manual_seed(ab.seed + 13)
+    n, C, _, comb_slot, slot_token = cs.moe_maps(torch, gen, dev)
+    d = cs.N_HEADS * cs.HEAD_DIM
+    tokens = torch.randn((n, d), generator=gen).to(dev)
+    eo = torch.randn((slot_token.numel(), d), generator=gen).to(dev)
+    sites = (("dispatch", tokens, slot_token),
+             ("combine backward", eo, comb_slot.reshape(-1)),
+             ("dispatch", tokens.to(torch.bfloat16), slot_token))
+    reset = k_new.reset_persisting_l2
+
+    def timed(fn):
+        return cs.median_ms(torch, fn, flush, reps=ab.reps, before=reset)
+
+    for site, src, idx in sites:
+        ref = k_new.gather_plain(src, idx)
+        for tag, mod in (("base", k_old), ("change", k_new)):
+            got = mod.moe_gather_fwd(src, idx)
+            torch.cuda.synchronize()
+            if not cs.same_bits(torch, got, ref):
+                raise AssertionError(f"moe_gather {tag} at the {site}: not "
+                                     "bit for bit the plain version")
+        del ref
+        size = src.element_size()
+        nbytes, distinct = cs.gather_work(torch, idx, src.shape[0], d, size)
+        valid = int(((idx >= 0) & (idx < src.shape[0])).sum())
+        row = {"kernel": "moe_gather", "site": site,
+               "dtype": str(src.dtype)[6:], "m": idx.numel(),
+               "n_src": src.shape[0], "d": d, "same_bits": True,
+               "distinct_rows": distinct, "bytes": nbytes,
+               "slot_order_bytes": (valid + idx.numel()) * d * size
+               + idx.numel() * 4,
+               "bound_ms": cs.bound(nbytes, 0, "float32")[0]}
+        row["base_ms"], row["change_ms"] = turns(
+            torch, cs, lambda: k_old.moe_gather_fwd(src, idx),
+            lambda: k_new.moe_gather_fwd(src, idx), flush, ab.reps,
+            timer=timed)
+        pad = torch.cat([src, src.new_zeros((1, d))])
+        row["library_ms"] = timed(lambda: F.embedding(idx, pad))
+        # a device-to-device copy that moves the kernel's bytes (half
+        # read, half written): the card's rate for plain streaming
+        a = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        b = torch.empty_like(a)
+        row["copy_bytes_ms"] = timed(lambda: b.copy_(a))
+        del pad, a, b
+        print(json.dumps(row))
+
+    site, src, idx = sites[0]
+    # the step's next launch after the dispatch: the first expert product
+    # (grouped [E, C, d] @ w_in [E, d, 4d], f32 as the MoE layer runs it)
+    E = idx.numel() // C
+    w_in = torch.randn((E, d, 4 * d), generator=gen).to(dev) * d ** -0.5
+
+    def product(out):
+        torch.bmm(out.reshape(E, C, d), w_in)
+
+    follow = [after_gather_ms(torch, lambda m=m: m.moe_gather_fwd(src, idx),
+                              product, flush, ab.reps, reset)
+              for m in (k_old, k_new, k_new, k_old)]
+    del w_in
+    # the lines this tree's kernel marks outlive the flush
+    for _ in range(5):
+        k_new.moe_gather_fwd(src, idx)
+    then = {"base, after the change": cs.median_ms(
+        torch, lambda: k_old.moe_gather_fwd(src, idx), flush, reps=ab.reps)}
+    reset()
+    then["base, after a reset"] = cs.median_ms(
+        torch, lambda: k_old.moe_gather_fwd(src, idx), flush, reps=ab.reps)
+    print(json.dumps({
+        "kernel": "moe_gather", "site": site, "dtype": "float32",
+        "expert_product_after_base_ms": [follow[0], follow[3]],
+        "expert_product_after_change_ms": [follow[1], follow[2]],
+        "then": then}))
+
+
+# case -> (function, module under the package (ops. when no dot), kernel
+# source)
 CASES = {"flash_fwd": (ab_flash_fwd, "flash_attention",
                        "flash_attention_fwd"),
          "paged_decode": (ab_paged_decode, "paged_attention",
@@ -496,7 +619,15 @@ CASES = {"flash_fwd": (ab_flash_fwd, "flash_attention",
          "layernorm_fused": (ab_layernorm_fused, "layernorm",
                              "add_layer_norm"),
          "layernorm_fwd_saved": (ab_layernorm_fwd_saved, "layernorm",
-                                 "add_layer_norm")}
+                                 "add_layer_norm"),
+         "moe_gather": (ab_moe_gather, "moe.kernels", "moe_kernels")}
+
+
+def import_module(pkg, m):
+    """Module `m` of package `pkg`: under its ops subpackage unless `m`
+    names its own path."""
+    return importlib.import_module(f"{pkg}.{m}" if "." in m
+                                   else f"{pkg}.ops.{m}")
 
 
 def main(argv=None):
@@ -520,11 +651,9 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     mods_used = [CASES[c][1] for c in chosen] + ["_build"]
-    new = {m: importlib.import_module(f"paddle_tpu_torch.ops.{m}")
-           for m in mods_used}
+    new = {m: import_module("paddle_tpu_torch", m) for m in mods_used}
     load_package(os.path.abspath(args.base), "base_paddle_tpu_torch")
-    old = {m: importlib.import_module(f"base_paddle_tpu_torch.ops.{m}")
-           for m in mods_used}
+    old = {m: import_module("base_paddle_tpu_torch", m) for m in mods_used}
     for pkg, mods in (("paddle_tpu_torch", new),
                       ("base_paddle_tpu_torch", old)):
         mods["nn"] = importlib.import_module(f"{pkg}.nn.functional")

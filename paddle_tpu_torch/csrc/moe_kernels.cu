@@ -16,50 +16,108 @@
 //
 // What bounds them: memory. Both move rows and do at most 2k flops per
 // element. At the GPT-3 125M MoE training shape (n 8192 tokens, E·C =
-// 20480 slots, d 768, f32) the gather reads each kept token row (25.2
-// MB of src at most) and writes 62.9 MB; the combine reads at most n·k
-// kept rows (50.3 MB) and writes 25.2 MB.
+// 20480 slots, d 768, f32) the gather reads each distinct kept token row
+// once at best (~7,950 rows, 24.4 MB) and writes 62.9 MB; the combine
+// reads at most n·k kept rows (50.3 MB) and writes 25.2 MB.
 //
-// Design: the TPU kernels keep all of src resident in VMEM and loop
-// over a block of output rows with indices from scalar prefetch. Here
-// one warp owns one output row, 8 rows to a CTA of 256 threads, a grid
-// over the rows; src stays in device memory (a row is read by index, so
-// no size limit applies). Lanes 0..k-1 load the row's indices (and
-// weights), a shuffle hands them to the warp, and every lane then moves
-// 16-byte vectors (768 f32 = 192 vectors, 6 a lane). The gather copies
-// bytes, so one instance serves every dtype; a sentinel row reads
-// nothing and stores zeros. The combine issues the loads of all k rows
-// of a vector before it adds any, and adds them in slot order with
-// explicit rounding (no FMA contraction), so each output element is the
-// JAX kernel's `acc + (w * valid) * row` sequence exactly.
+// moe_gather's design. The TPU kernel keeps all of src resident in VMEM,
+// so each row crosses HBM once. Here src stays in device memory, and the
+// router places slots expert by expert with the slot-0 choices before
+// the slot-1 choices: a token kept twice is read twice, about an expert
+// region apart, with up to 63 MB of output rows streaming through the
+// 50 MB L2 in between. So the kernel:
+// - Copies a row a warp over a grid of the rows; 16-byte vectors, every
+//   load of the row in flight before its stores (768 f32 = 192 vectors,
+//   6 a lane). Rows of 2 KB and more go one to a CTA, narrower rows
+//   eight: at the f32 training rows one-warp CTAs ran ~3 % faster than
+//   eight rows a CTA, at the bf16 rows ~4 % slower.
+// - Reads src under an L2 evict_last policy (createpolicy, passed as the
+//   loads' .L2::cache_hint), so a row chosen twice is more often still
+//   in the L2 at its second read: ~1 % at both sites. out is written
+//   plainly: evict_first on the stores ran slower at both sites. No
+//   cudaAccessPolicyWindow and no persisting-L2 limit: those are state
+//   of the whole process or stream, and would act inside the serve
+//   loop's captured graphs too.
+// - The lines read under evict_last stay marked after the kernel, and
+//   on the H100 they outlive a 256 MB read: a gather of the same rows
+//   without the hint then runs ~13 % faster, until
+//   cudaCtxResetPersistingL2Cache (moe_gather_reset_l2 below). The
+//   kernel does not reset them (applypriority ... L2::evict_normal on
+//   every source line): that would be a second pass over the rows,
+//   after the last CTA's reads, and the expert product that follows
+//   the dispatch measured no slower (PERF.md §6). Timings that follow
+//   a gather reset them first (chip_smoke.py, kernel_ab.py).
+// Measured on the H100 and not kept (PERF.md §6): the other hint
+// choices; two or four rows a CTA; two rows a one-warp CTA; persistent
+// grids; an index_select-like walk over (row, vector); and Hopper's 1-D
+// bulk copies (TMA without a tensor map) through a ring of mbarrier
+// stages in a persistent grid, at every stage size, depth and CTAs an
+// SM tried.
+// It copies bytes, so one instance serves every dtype; a sentinel row
+// reads nothing and is stored as zeros.
+//
+// moe_combine: one warp owns one output row, 8 rows to a CTA of 256
+// threads, a grid over the rows; lanes 0..k-1 load the row's indices and
+// weights, a shuffle hands them to the warp, and every lane then moves
+// 16-byte vectors (768 f32 = 192 vectors, 6 a lane). It issues the loads
+// of all k rows of a vector before it adds any, and adds them in slot
+// order with explicit rounding (no FMA contraction), so each output
+// element is the JAX kernel's `acc + (w * valid) * row` sequence
+// exactly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;        // output rows per CTA
-constexpr int kUnroll = 8;       // 16-byte vectors a lane has in flight
+constexpr int kWarps = 8;        // the combine's output rows per CTA
 constexpr int kMaxK = 8;         // the combine's largest k
 
-__global__ void __launch_bounds__(kWarps * 32)
+// ---------------------------------------------------------------------------
+// moe_gather
+// ---------------------------------------------------------------------------
+
+// rows of at least this many bytes go one to a CTA, narrower ones
+// kNarrowRows to a CTA
+constexpr int kWideRow = 2048;
+constexpr int kNarrowRows = 8;
+constexpr int kUnroll = 8;       // 16-byte vectors a lane has in flight
+
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, %1;"
+               : "=l"(p) : "f"(1.0f));
+  return p;
+}
+
+__device__ __forceinline__ uint4 load_hint(const uint4* p, uint64_t pol) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(pol));
+  return v;
+}
+
+template <int kRowsPerCta>
+__global__ void __launch_bounds__(kRowsPerCta * 32)
 moe_gather_kernel(const uint4* __restrict__ src, const int* __restrict__ idx,
                   uint4* __restrict__ out, int n_src, int m, int nvec) {
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int row = blockIdx.x * kRowsPerCta + threadIdx.x / 32;
   if (row >= m) return;
+  const uint64_t pol = evict_last_policy();
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   int t = lane == 0 ? idx[row] : 0;
   t = __shfl_sync(0xffffffffu, t, 0);
   const bool valid = static_cast<unsigned>(t) < static_cast<unsigned>(n_src);
   const uint4* s = src + static_cast<long long>(valid ? t : 0) * nvec;
   uint4* o = out + static_cast<long long>(row) * nvec;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int base = lane; base < nvec; base += 32 * kUnroll) {
     uint4 v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + u * 32;
-      v[u] = (valid && j < nvec) ? s[j] : zero;
+      v[u] = valid && j < nvec ? load_hint(s + j, pol) : zero;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -195,10 +253,17 @@ extern "C" int moe_gather_launch(const void* src, const void* idx, void* out,
                                  void* stream) {
   if (m <= 0 || row_bytes <= 0 || row_bytes % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  moe_gather_kernel<<<blocks_for(m), kWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(src), static_cast<const int*>(idx),
-      static_cast<uint4*>(out), n_src, m, row_bytes / 16);
+  const uint4* s = static_cast<const uint4*>(src);
+  const int* ip = static_cast<const int*>(idx);
+  uint4* o = static_cast<uint4*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (row_bytes >= kWideRow)
+    moe_gather_kernel<1><<<m, 32, 0, st>>>(s, ip, o, n_src, m,
+                                           row_bytes / 16);
+  else
+    moe_gather_kernel<kNarrowRows>
+        <<<(m + kNarrowRows - 1) / kNarrowRows, kNarrowRows * 32, 0, st>>>(
+            s, ip, o, n_src, m, row_bytes / 16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -221,6 +286,13 @@ extern "C" int moe_combine_launch(const void* src, const void* idx,
     return launch_combine<__nv_bfloat16>(src, ip, w, w_dtype, out, n_src, n,
                                          k, d / Vec<__nv_bfloat16>::kN, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Reset the L2 lines that accesses under evict_last left persisting, for
+// timings that follow a gather (the wrappers never call it: it acts on
+// the whole context). Returns a cudaError_t code.
+extern "C" int moe_gather_reset_l2() {
+  return static_cast<int>(cudaCtxResetPersistingL2Cache());
 }
 
 extern "C" const char* moe_kernels_error_string(int code) {

@@ -13,12 +13,20 @@ CUDA source (`csrc/moe_kernels.cu`):
 
 `moe_gather` and `moe_combine` are the differentiable entry points, as
 the JAX `custom_vjp` functions are. Their backwards are the JAX
-package's index math in plain torch (the JAX backwards are jnp, not
-kernels): the gather's is a scatter-add, the combine's a scatter-add and
-a row-dot. Both accumulate in f32 into one spare row past the end, where
-sentinel indices land and which is then sliced off. Starting from zero,
-a token row receives at most k adds and a slot row at most one, so the
-result does not depend on the order of the atomic adds.
+package's index math (the JAX backwards are jnp, not kernels): the
+gather's is a scatter-add, the combine's a scatter-add and a row-dot.
+The scatter-adds are plain torch; both accumulate in f32 into one spare
+row past the end, where sentinel indices land and which is then sliced
+off. Starting from zero, a token row receives at most k adds and a slot
+row at most one, so the result does not depend on the order of the
+atomic adds. The row-dot's rows are the gather of src at the flat
+choice map (`jnp.take(mode="fill")` in JAX's `_combine_bwd`), which is
+`moe_gather_fwd`'s function: on the card it launches the gather kernel,
+so the MoE step launches it twice a layer.
+
+The gather kernel reads src under an L2 evict_last policy; the lines it
+marks outlive later traffic (csrc/moe_kernels.cu), so timings that follow
+a gather call `reset_persisting_l2` first.
 
 The plain versions `gather_plain` / `combine_plain` are the index math
 of `gather_fallback` / `combine_fallback` (jnp.take with mode="fill").
@@ -34,7 +42,8 @@ from ..ops import _build
 from ..ops.kernel_registry import get_kernel, register_kernel
 
 __all__ = ["moe_gather", "moe_combine", "moe_gather_fwd", "moe_combine_fwd",
-           "gather_plain", "combine_plain", "MoEGather", "MoECombine"]
+           "gather_plain", "combine_plain", "MoEGather", "MoECombine",
+           "reset_persisting_l2"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 8          # the combine kernel's largest k
@@ -157,6 +166,17 @@ def moe_combine_fwd(src, idx, w):
     return out
 
 
+def reset_persisting_l2():
+    """Wait for the card, then return the L2 lines that the gather kernel
+    read under evict_last to normal priority (cudaCtxResetPersistingL2Cache,
+    which acts on the whole context). They outlive other traffic, so a
+    timing that follows a gather calls this first; the training path
+    never does."""
+    torch.cuda.synchronize()
+    fn, err = _build.launcher("moe_kernels", "moe_gather_reset_l2", [])
+    _build.check_launch("moe_gather_reset_l2", fn(), err)
+
+
 def _scatter_add_rows(n_rows, idx, rows):
     """f32 [n_rows, d]: rows[j] added at idx[j]; sentinel indices land
     in a spare row past the end, which is sliced off."""
@@ -186,7 +206,7 @@ class MoEGather(torch.autograd.Function):
 class MoECombine(torch.autograd.Function):
     """Weighted combine; backward (`_combine_bwd`): dsrc is the scatter-
     add of w[i, s] * g[i] at idx[i, s], dw[i, s] the dot of g[i] with the
-    gathered row."""
+    row `moe_gather_fwd` gathers for choice (i, s)."""
 
     @staticmethod
     def forward(ctx, src, idx, w):
@@ -201,7 +221,7 @@ class MoECombine(torch.autograd.Function):
         contrib = w.float()[..., None] * g32[:, None, :]
         dsrc = _scatter_add_rows(src.shape[0], idx.reshape(-1),
                                  contrib.reshape(n * k, -1))
-        rows = gather_plain(src, idx.reshape(-1)).reshape(n, k, -1).float()
+        rows = moe_gather_fwd(src, idx.reshape(-1)).reshape(n, k, -1).float()
         dw = (rows * g32[:, None, :]).sum(dim=-1)
         return dsrc.to(src.dtype), None, dw.to(w.dtype)
 

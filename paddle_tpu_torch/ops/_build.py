@@ -17,7 +17,9 @@ library that includes no PyTorch header builds in seconds, where
 `torch.utils.cpp_extension.load` takes minutes. `build(names)` starts
 one nvcc per source, all at once; `ptxas_info(name)` reads back each
 kernel's registers, spills and static shared memory from the build's
-`-Xptxas -v` report.
+`-Xptxas -v` report, which is kept beside the library
+(`<name>-<hash>.log`), so a library built by an earlier process still
+has it.
 
 Processes that share a checkout (the fleet's replica processes) build
 under one file lock, `build/paddle_tpu_torch/.lock` (`fcntl.flock`,
@@ -48,7 +50,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded = {}
-_reports = {}       # name -> nvcc's output of this process's build
 
 
 def build_dir():
@@ -97,10 +98,11 @@ def _target(name):
 
 
 def _start(name):
-    """Start nvcc for `name` unless its library exists; returns
-    (process or None, temporary output, final path)."""
+    """Start nvcc for `name` unless its library exists with its ptxas
+    report beside it; returns (process or None, temporary output, final
+    path)."""
     src, so = _target(name)
-    if so.exists():
+    if so.exists() and _report_path(so).exists():
         return None, None, so
     so.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
@@ -119,8 +121,13 @@ def _finish(name, proc, tmp, so):
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    # the report first: a library in place always has its report beside it
+    _report_path(so).write_text(out)
     os.replace(tmp, so)
-    _reports[name] = out
+
+
+def _report_path(so):
+    return so.with_suffix(".log")
 
 
 @contextlib.contextmanager
@@ -188,10 +195,12 @@ def check_launch(kernel, rc, err):
 def ptxas_info(name):
     """{kernel function: {registers, smem, spills, and the ptxas
     "Potential Performance Loss" notes if any}} from `-Xptxas -v` for
-    source `name`, when this process built it (an already built library
-    leaves no report: {})."""
+    source `name`, read from the report kept beside its library ({} when
+    it is not built)."""
+    report = _report_path(_target(name)[1])
+    text = report.read_text() if report.exists() else ""
     info, fn = {}, None
-    for line in _reports.get(name, "").splitlines():
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
