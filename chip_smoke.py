@@ -89,8 +89,10 @@ ok line):
              the composed head, the dequantized bf16 matmul and a
              product over an unquantized bf16 table; then at GPT-3
              1.3B's shapes: flash forward and backward at batch 2, seq
-             2048, 16 heads of 128 (bf16, causal; the backward twice,
-             bitwise equal) and add + LayerNorm with saved statistics
+             2048 and at the seq-4096 full run's batch 8, seq 4096, 16
+             heads of 128 (bf16, causal; the backward twice, bitwise
+             equal; at 8 x 4096 the plain versions run a batch row a
+             call) and add + LayerNorm with saved statistics
              and the residual carry (layernorm_fwd_saved) at the four
              shapes its main paths give it ([16384, 2048] and [32768,
              2048] in bf16, [16384, 2048] and [24576, 768] with an f32
@@ -99,6 +101,23 @@ ok line):
              its plain version and timed beside SDPA forward / backward
              or F.layer_norm(x + r) and its bound (the bf16 shapes
              also without the carry);
+2b. long context — the JAX bench's attn_16k (S 16384, B 1, 16 heads of
+             128 and 12 of 64, x = N(0, 1) from RandomState(0)) and the
+             single-card leg of its ringattn_128k (S 131072, 16 heads of
+             128, x = 0.3 N(0, 1)): the port's
+             scaled_dot_product_attention(x, x, x, is_causal=True) in
+             bf16 and the gradient of sum(o.float()^2) by x, once
+             counted (one flash_fwd and one flash_bwd launch a point),
+             its out and gradient held against the f32 math computed in
+             query chunks (at 131072 the whole output and the gradient
+             at 13 rows: the first, the last and both sides of 64-row
+             tile edges), at the registry's bf16 tolerance (2e-2)
+             elementwise and per row (the 2-norm of each head's row,
+             relative), then forward and forward + backward ms (CUDA
+             events, medians), TFLOP/s by the bench's 6 B H S^2 D,
+             flash_bwd alone, SDPA's forward, forward + backward and
+             backward as yardsticks, bounds, peak memory; an
+             out-of-memory fails the smoke;
 3. serve   — GPT-3 125M at full width, random weights from --seed (std
              --init-range), in bf16 (--dtype float32 serves in f32, which
              isolates what bf16 rounding changes), through
@@ -254,14 +273,24 @@ ok line):
              the CPU from the same weights, losses within 1e-4
              relative: Momentum with a global-norm clip (1.0) and a
              warm-up into a cosine schedule, in f32; AdamW over bf16
-             parameters with f32 masters. Then 3 bf16 amp AdamW steps of
+             parameters with f32 masters; Adamax, Adagrad, Adadelta,
+             RMSProp (centered, momentum), Lamb (biases and LayerNorms
+             excluded by name), LarsMomentum and DGCMomentum (Nesterov,
+             sparse from step 2) in f32, Lamb and Adamax over bf16
+             parameters; 4 eager steps of Lookahead(Momentum, k 2) with
+             an EMA and of GradientMerge(AdamW, k 2) with a ModelAverage,
+             whose apply() losses agree too and whose restore() gives
+             every parameter back bit for bit. Then 3 bf16 amp AdamW steps of
              GPT-3 125M at the train shape from one seed: plain, with
              use_fused_ce (losses within 2e-2 relative of plain: one
              bf16 rounding of the logits) and with remat (losses,
              gradients and parameters bit for bit the plain run's: the
              recompute runs the same kernels on the same inputs under
              the caller's amp, and K3-K5 use no atomics); launches exact,
-             the remat run's forward kernels twice;
+             the remat run's forward kernels twice. Last, optimizer.update
+             alone over GPT-3 125M's f32 parameters for SGD, Momentum,
+             Adam, AdamW and the seven rules (median of 10, CUDA events)
+             beside its bytes bound, and DGC's top-k on the token table;
 9. train 1.3B layer — the JAX bench's gpt1_3b_layer: one GPTBlock at
              GPT-3 1.3B's width, x of 8 x 2048 x 2048 (0.02 N(0, 1) from
              RandomState(0)), SGD(1e-6), bf16 amp, 3 warm and 15 timed
@@ -281,17 +310,21 @@ ok line):
              bytes and every round's losses (finite); each micro-step
              launches exactly 48 flash_fwd (24 + 24 recomputed), 24
              flash_bwd and 48 layernorm_fwd_saved (each writing the
-             bf16 carry: one device launch a residual site).
+             bf16 carry: one device launch a residual site). Then the
+             bench's seq-4096 point the same way: max_seq_len 4096,
+             micro-batch 8 x 4096 and the bench's K 8, 1 warm + 1 timed
+             round, the same report and launches.
 
-`--phases kernels_moe,moe_train,kernels_1_3b,options,layer,full` (any of
-them) runs the build and the named phases alone and prints no result
-line.
+`--phases kernels_moe,moe_train,kernels_1_3b,long_context,options,layer,
+full,full_4k` (any of them) runs the build and the named phases alone and
+prints no result line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
 (serve tokens/s, step p50/p99 and chunk p50, generate tokens/s per
 recipe, capture ms, pool bytes, launches a step), a JSON line with
-every kernel's launches, error and times, a JSON line of the 1.3B
+every kernel's launches, error (the largest of all its checks, the
+1.3B shapes' included) and times, a JSON line of the 1.3B
 phases, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is unavailable or when run
@@ -2683,13 +2716,18 @@ TRAIN_KERNELS = {"flash_fwd": 1, "flash_bwd": 1, "layernorm_fwd_saved": 1}
 MOE_TRAIN_KERNELS = {**TRAIN_KERNELS, "moe_gather": 2, "moe_combine": 1}
 
 
-def check_train_launches(launches, L, steps, what, train=TRAIN_KERNELS):
+def check_train_launches(launches, L, steps, what, train=TRAIN_KERNELS,
+                         extra=None):
     """Each kernel of `train` launched its count (`train[name]`) per
-    layer and step, no other kernel at all."""
-    want = {name: L * steps * train.get(name, 0) for name in launches}
+    layer and step, and `extra[name]` more (launches outside the steps),
+    no other kernel at all."""
+    extra = extra or {}
+    want = {name: L * steps * train.get(name, 0) + extra.get(name, 0)
+            for name in launches}
     if launches != want:
         raise AssertionError(f"train {what}: launches {launches} != layers "
-                             f"x steps x each kernel's count {want}")
+                             f"x steps x each kernel's count + {extra} "
+                             f"{want}")
 
 
 def train_phase(torch, seed):
@@ -3046,8 +3084,13 @@ def moe_step_parts(prof, steps, busy_ms):
 # gpt1_3b_full
 # ---------------------------------------------------------------------------
 
-# flash at GPT-3 1.3B's attention shape: (batch, seq, heads, head_dim)
-FLASH_1_3B = (2, 2048, 16, 128)
+# flash at GPT-3 1.3B's attention shapes: (batch, seq, heads, head_dim)
+# — the shape timed since the 1.3B phases began and the seq-4096 full
+# run's micro-batch of 8 x 4096
+FLASH_1_3B = ((2, 2048, 16, 128), (8, 4096, 16, 128))
+# the batch rows of each plain call: at 8 x 4096 the plain version's
+# [b, n, s, s] f32 logits are 8.6 GB a tensor, so it runs a row at a time
+FLASH_1_3B_PLAIN_ROWS = {(2, 2048, 16, 128): 2, (8, 4096, 16, 128): 1}
 # K6 at the shapes its main paths give it: (rows, d, x, residual and
 # weight dtypes) — the 1.3B layer step's 8 x 2048 rows in bf16 and as
 # the amp step runs them (an f32 stream, a bf16 branch, f32 weights),
@@ -3061,9 +3104,11 @@ LN_SAVED_PATHS = ((16384, 2048, "bfloat16", "bfloat16", "bfloat16"),
 OPT_SEQ, OPT_STEPS = 256, 3
 # the bench's gpt1_3b_layer (bench.py:496-535)
 LAYER_BATCH, LAYER_SEQ, LAYER_WARMUP, LAYER_STEPS = 8, 2048, 3, 15
-# the bench's gpt1_3b_full (bench.py:538-630), K cut from 16 to 4 and its
-# 2 warm + 2 timed rounds to 1 + 1
-FULL_BATCH, FULL_SEQ, FULL_K, FULL_WARM_ROUNDS = 16, 2048, 4, 1
+# the bench's gpt1_3b_full (bench.py:538-630) by sequence length:
+# (micro-batch, K); at 2048 K is cut from 16 to 4, at 4096 it is the
+# bench's 8; both cut the bench's 2 warm + 2 timed rounds to 1 + 1
+FULL_RUNS = {2048: (16, 4), 4096: (8, 8)}
+FULL_WARM_ROUNDS = 1
 FULL_MIN_HOST_GB = 24       # the pinned f32 master + moments: ~15.8 GB
 # micro-step launches of the 24-layer remat step: the forward and its
 # recomputation each run flash_fwd and the add + LayerNorm site
@@ -3130,33 +3175,56 @@ def ln_saved_row(torch, gen, dev, flush, nrows, d, xd, rd, wd):
     return row
 
 
-def kernels_1_3b_phase(torch, seed):
-    """flash_fwd and flash_bwd at 16 heads of 128, s 2048 (bf16, causal,
-    batch 2) and layernorm_fwd_saved at LN_SAVED_PATHS against their
-    plain versions at the registry's tolerance (every backward twice,
-    bitwise equal), then timed beside the plain versions, SDPA forward
-    and backward / F.layer_norm(x + r) and their bounds, L2 flushed."""
+def plain_by_batch(torch, fn, b, step):
+    """`fn` (flash_attention_fwd_plain or _bwd_plain, whose arguments are
+    [b, ...] tensors, an lse of [b n, sq] and flags) over `step` batch
+    rows a call, its outputs joined: the same math without holding
+    every row's [n, sq, sk] logits at once; `fn` itself when step >= b."""
+    if step >= b:
+        return fn
+
+    def part(t, i):
+        # lse is [b n, sq], batch-major: n of its rows a batch row
+        per = t.shape[0] // b
+        return t[i * per:(i + step) * per]
+
+    def sliced(*args):
+        ts = [a for a in args if isinstance(a, torch.Tensor)]
+        flags = args[len(ts):]
+        parts = [fn(*[part(t, i) for t in ts], *flags)
+                 for i in range(0, b, step)]
+        return tuple(torch.cat(o) for o in zip(*parts))
+
+    return sliced
+
+
+def flash_1_3b_rows(torch, gen, dev, flush, shape, tag_name):
+    """flash_fwd and flash_bwd at `shape` (b, s, n, h; bf16, causal)
+    against their plain versions at the registry's tolerance (the
+    plain versions over FLASH_1_3B_PLAIN_ROWS batch rows a call; the
+    backward twice, bitwise equal), then timed beside the plain
+    versions, SDPA forward and backward and their bounds, L2 flushed."""
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain, flash_bwd,
         flash_fwd)
     from paddle_tpu_torch.ops.kernel_registry import get_kernel
     F = torch.nn.functional
-    dev = torch.device(DEVICE)
-    gen = torch.Generator().manual_seed(seed + 13)
-    flush = l2_flush(torch, dev)
-    b, s, n, h = FLASH_1_3B
+    b, s, n, h = shape
     scale = 1.0 / math.sqrt(h)
     tag = f"[bfloat16, b={b} s={s} n={n} h={h} causal]"
     tol = get_kernel("flash_fwd").tol["bfloat16"]
+    step = FLASH_1_3B_PLAIN_ROWS[shape]
+    fwd_plain = plain_by_batch(torch, flash_attention_fwd_plain, b, step)
+    bwd_plain = plain_by_batch(torch, flash_attention_bwd_plain, b, step)
     q, k, v, dout = flash_inputs(torch, gen, torch.bfloat16, dev, b, s, s,
                                  n, h)
     out, lse = flash_fwd(q, k, v, True, scale)
-    rout, rlse = flash_attention_fwd_plain(q, k, v, True, scale)
+    rout, rlse = fwd_plain(q, k, v, True, scale)
     torch.cuda.synchronize()
     fwd_err = max(hold("flash_fwd out" + tag, out, rout, tol),
                   hold("flash_fwd lse" + tag, lse, rlse, tol))
     got = flash_bwd(q, k, v, rout, rlse, dout, True, scale)
-    ref = flash_attention_bwd_plain(q, k, v, rout, rlse, dout, True, scale)
+    ref = bwd_plain(q, k, v, rout, rlse, dout, True, scale)
     again = flash_bwd(q, k, v, rout, rlse, dout, True, scale)
     torch.cuda.synchronize()
     bwd_err = max(hold(f"flash_bwd d{nm}" + tag, g, r, tol)
@@ -3166,6 +3234,7 @@ def kernels_1_3b_phase(torch, seed):
             raise AssertionError(f"flash_bwd d{nm}{tag}: two calls on the "
                                  "same inputs differ")
     del got, ref, again, rout, rlse
+    torch.cuda.empty_cache()
     lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     with torch.no_grad():
@@ -3175,7 +3244,7 @@ def kernels_1_3b_phase(torch, seed):
     go = dout.transpose(1, 2).contiguous()
     rows = {"flash_fwd": dict(
         ms=median_ms(torch, lambda: flash_fwd(q, k, v, True, scale), flush),
-        plain_ms=median_ms(torch, lambda: flash_attention_fwd_plain(
+        plain_ms=median_ms(torch, lambda: fwd_plain(
             q, k, v, True, scale), flush, reps=5, warmup=1),
         library_ms=sdpa_fwd,
         bound=bound(*flash_work(b, s, s, n, h, True, 2, False), "bfloat16"),
@@ -3183,19 +3252,40 @@ def kernels_1_3b_phase(torch, seed):
     rows["flash_bwd"] = dict(
         ms=median_ms(torch, lambda: flash_bwd(q, k, v, out, lse, dout, True,
                                               scale), flush),
-        plain_ms=median_ms(torch, lambda: flash_attention_bwd_plain(
+        plain_ms=median_ms(torch, lambda: bwd_plain(
             q, k, v, out, lse, dout, True, scale), flush, reps=3, warmup=1),
         library_ms=median_ms(torch, lambda: torch.autograd.grad(
             lo, (lq, lk, lv), go, retain_graph=True), flush),
         bound=bound(*flash_work(b, s, s, n, h, True, 2, True), "bfloat16"),
         max_abs_err=bwd_err)
-    print("kernels: flash_bwd at the 1.3B shape by kernel (L2 flushed, ms a "
-          "call): " + json.dumps(bwd_parts(
+    print(f"kernels: flash_bwd at the {tag_name} shape by kernel (L2 "
+          "flushed, ms a call): " + json.dumps(bwd_parts(
               torch, lambda: flash_bwd(q, k, v, out, lse, dout, True, scale),
               flush)))
     del lo, lq, lk, lv, go, q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
     for name, row in rows.items():
-        print(f"kernels: {name} at the 1.3B shape: " + kernel_line(row))
+        print(f"kernels: {name} at the {tag_name} shape: " + kernel_line(row))
+    return rows
+
+
+def kernels_1_3b_phase(torch, seed):
+    """flash_fwd and flash_bwd at FLASH_1_3B's two training shapes
+    (`flash_1_3b_rows`) and layernorm_fwd_saved at LN_SAVED_PATHS
+    against their plain versions at the registry's tolerance, then
+    timed beside the plain versions, SDPA forward and backward /
+    F.layer_norm(x + r) and their bounds, L2 flushed. The seq-2048
+    rows keep the names flash_fwd and flash_bwd; the seq-4096 rows are
+    named "flash_fwd s4096" and "flash_bwd s4096"."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 13)
+    flush = l2_flush(torch, dev)
+    rows = {}
+    for shape in FLASH_1_3B:
+        tag_name = "1.3B" if shape[1] == 2048 else f"1.3B s{shape[1]}"
+        for name, row in flash_1_3b_rows(torch, gen, dev, flush, shape,
+                                         tag_name).items():
+            rows[name if shape[1] == 2048 else f"{name} s{shape[1]}"] = row
     for shape in LN_SAVED_PATHS:
         name = "layernorm_fwd_saved {}x{} {}/{}/{}".format(*shape)
         rows[name] = ln_saved_row(torch, gen, dev, flush, *shape)
@@ -3221,79 +3311,224 @@ def init_block(torch, block, num_layers, seed):
                           generator=gen)
 
 
+# the optimizer rules by recipe name, and the options phase's arguments
+# for those it runs with its own settings
+RULES = {"sgd": "SGD", "momentum": "Momentum", "adam": "Adam",
+         "adamw": "AdamW", "adamax": "Adamax", "adagrad": "Adagrad",
+         "adadelta": "Adadelta", "rmsprop": "RMSProp", "lamb": "Lamb",
+         "lars": "LarsMomentum", "dgc": "DGCMomentum"}
+
+
+def rule(name):
+    """The optimizer class of recipe `name` (RULES)."""
+    from paddle_tpu_torch import optimizer as O
+    return getattr(O, RULES[name])
+
+
 def options_optimizer(name, block):
-    """The option recipes: Momentum with f32 masters (for low-precision
-    parameters), a global-norm clip and a warm-up into a cosine
-    schedule; AdamW (masters on by default)."""
+    """The option recipes over a block's parameters: Momentum with f32
+    masters (for low-precision parameters), a global-norm clip and a
+    warm-up into a cosine schedule; AdamW (masters on by default); each
+    of the seven rules without masters (Lamb excluding biases and
+    LayerNorms from its decay by name); Lookahead over Momentum and
+    GradientMerge over AdamW, stepped eagerly."""
+    from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW, Momentum, lr
+    ps = block.parameters()
     if name == "momentum":
-        return Momentum(learning_rate=lr.LinearWarmup(
-            lr.CosineAnnealingDecay(0.05, T_max=4), warmup_steps=2,
-            start_lr=0.01, end_lr=0.05), momentum=0.9,
-            parameters=block.parameters(), multi_precision=True,
-            grad_clip=ClipGradByGlobalNorm(1.0))
-    return AdamW(learning_rate=1e-3, weight_decay=0.01,
-                 parameters=block.parameters())
+        return O.Momentum(learning_rate=O.lr.LinearWarmup(
+            O.lr.CosineAnnealingDecay(0.05, T_max=4), warmup_steps=2,
+            start_lr=0.01, end_lr=0.05), momentum=0.9, parameters=ps,
+            multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    if name == "lookahead":
+        return O.Lookahead(O.Momentum(learning_rate=0.01, momentum=0.9,
+                                      parameters=ps), alpha=0.5, k=2)
+    if name == "gradient_merge":
+        return O.GradientMerge(O.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                       parameters=ps), k_steps=2)
+    args = {"adamw": dict(learning_rate=1e-3, weight_decay=0.01),
+            "adamax": dict(learning_rate=1e-3),
+            "adagrad": dict(learning_rate=1e-2,
+                            initial_accumulator_value=0.1),
+            "adadelta": dict(learning_rate=1.0, weight_decay=O.L2Decay(1e-4)),
+            "rmsprop": dict(learning_rate=1e-3, momentum=0.9, centered=True),
+            "lamb": dict(learning_rate=1e-3,
+                         exclude_from_weight_decay_fn=lambda n: n.endswith(
+                             ".bias") or n.startswith("ln")),
+            "lars": dict(learning_rate=0.5, lars_coeff=0.01),
+            "dgc": dict(learning_rate=0.05, rampup_begin_step=1,
+                        use_nesterov=True)}[name]
+    return rule(name)(parameters=ps, **args)
+
+
+# (recipe, parameter dtype, steps) of the block runs: the wrappers step
+# eagerly 4 times, so that each updates (or syncs) twice; EMA rides on
+# the Lookahead run and ModelAverage on the GradientMerge run
+OPTION_RUNS = (("momentum", "float32", 3), ("adamw", "bfloat16", 3),
+               ("adamax", "float32", 3), ("adagrad", "float32", 3),
+               ("adadelta", "float32", 3), ("rmsprop", "float32", 3),
+               ("lamb", "float32", 3), ("lars", "float32", 3),
+               ("dgc", "float32", 3), ("lamb", "bfloat16", 3),
+               ("adamax", "bfloat16", 3), ("lookahead", "float32", 4),
+               ("gradient_merge", "float32", 4))
+
+
+def block_run(torch, block, name, x, steps, loss_fn):
+    """`steps` steps of recipe `name` on `block` -> (losses, the
+    optimizer, the averaged weights' loss or None). Rules step through
+    TrainStep; a wrapper steps eagerly (backward, `step()`,
+    `clear_grad()`) with an average beside it (EMA by Lookahead,
+    ModelAverage by GradientMerge), whose `apply()` gives the last loss
+    and whose `restore()` must put every parameter back bit for bit."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.jit import TrainStep
+    opt = options_optimizer(name, block)
+    if name not in ("lookahead", "gradient_merge"):
+        step = TrainStep(block, loss_fn, opt)
+        losses = []
+        for _ in range(steps):
+            losses.append(float(step(x)))
+            if hasattr(opt._learning_rate, "step"):
+                opt._learning_rate.step()
+        return losses, opt, None
+    ps = list(block.parameters())
+    avg = O.ExponentialMovingAverage(0.9, parameters=ps) \
+        if name == "lookahead" else O.ModelAverage(
+            0.5, parameters=ps, min_average_window=2, max_average_window=3)
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn(x)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        opt.step()
+        opt.clear_grad()
+        if name == "lookahead":
+            avg.update()
+        else:
+            avg.accumulate()
+    before = [p.detach().clone() for p in ps]
+    with torch.no_grad(), avg.apply():
+        averaged = float(loss_fn(x))
+    if not all(torch.equal(a, b) for a, b in zip(before, ps)):
+        raise AssertionError(f"train options {name}: restore() did not "
+                             "give the parameters back bit for bit")
+    return losses, opt, averaged
 
 
 def options_block_runs(torch, seed):
-    """One 1.3B-width block (b 1, s 256) for OPT_STEPS steps per recipe,
-    on the card and on the CPU (plain versions) from the same weights:
-    Momentum + clip + schedule in f32, AdamW over bf16 parameters with
-    f32 masters. The loss is the mean square of the block's output (f32),
-    which stays away from 0. Losses within PARITY_RTOL; the card's
-    launches are one of each training kernel a step."""
+    """One 1.3B-width block (b 1, s 256) for each of OPTION_RUNS, on the
+    card and on the CPU (plain versions) from the same weights. The loss
+    is the mean square of the block's output (f32), which stays away
+    from 0. Losses (and the averaged weights' loss) within PARITY_RTOL;
+    the card's training steps launch one of each training kernel a
+    step."""
     import copy
 
     import numpy as np
-    from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
     cfg = GPTConfig.gpt3_1_3b(max_seq_len=2048, dropout=0.0)
     x0 = np.random.RandomState(seed).randn(1, OPT_SEQ, cfg.hidden_size)
     out, launches = {}, {}
-    for name, dtype in (("momentum", torch.float32),
-                        ("adamw", torch.bfloat16)):
+    for name, dt, steps in OPTION_RUNS:
+        dtype = getattr(torch, dt)
         cpu_block = GPTBlock(cfg, device="cpu", dtype=dtype)
         init_block(torch, cpu_block, cfg.num_layers, seed)
         card_block = copy.deepcopy(cpu_block).to(DEVICE)
-        runs, masters = {}, {}
+        runs, masters, averaged = {}, {}, {}
         for where, block in (("cuda", card_block), ("cpu", cpu_block)):
-            opt = options_optimizer(name, block)
             x = torch.from_numpy(x0).to(block.ln1.weight.device, dtype)
 
             def loss_fn(xx, block=block):
                 return block(xx).float().square().mean()
 
-            step = TrainStep(block, loss_fn, opt)
             reset_launches()
-            runs[where] = []
-            for _ in range(OPT_STEPS):
-                runs[where].append(float(step(x)))
-                if hasattr(opt._learning_rate, "step"):
-                    opt._learning_rate.step()
+            runs[where], opt, averaged[where] = block_run(
+                torch, block, name, x, steps, loss_fn)
             if where == "cuda":
-                launches = {k.name: launches.get(k.name, 0) + k.launches
-                            for k in kernels()}
-                check_train_launches({k.name: k.launches for k in kernels()},
-                                     1, OPT_STEPS, f"options {name}")
-            masters[where] = [opt._states[id(p)].get("master")
-                              for p in step.params]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"],
-                                                       runs["cpu"]))
+                got = {k.name: k.launches for k in kernels()}
+                # one of each training kernel a step; the averaged
+                # weights' forward is an inference call (K1 and K7)
+                check_train_launches(
+                    got, 1, steps, f"options {name}",
+                    extra=None if averaged[where] is None else
+                    {"flash_fwd": 1, "layernorm_fused": 1})
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+            inner = getattr(opt, "inner", opt)
+            masters[where] = [inner._states[id(p)].get("master")
+                              for p in block.parameters()
+                              if id(p) in inner._states]
+        pairs = list(zip(runs["cuda"], runs["cpu"]))
+        if averaged["cpu"] is not None:
+            pairs.append((averaged["cuda"], averaged["cpu"]))
+        rel = max(abs(a - b) / abs(b) for a, b in pairs)
         gap = max((float((a.cpu() - b).abs().max())
                    for a, b in zip(masters["cuda"], masters["cpu"])
                    if a is not None), default=None)
-        print(f"train options: {name} 1.3B-width block b=1 s={OPT_SEQ} "
-              f"{str(dtype)[6:]}: card {runs['cuda']} vs CPU {runs['cpu']}, "
-              f"relative {rel:.2e}; masters' max gap card vs CPU {gap}")
+        tag = f"{name} {dt}"
+        print(f"train options: {tag} 1.3B-width block b=1 s={OPT_SEQ}: card "
+              f"{runs['cuda']} vs CPU {runs['cpu']}"
+              + ("" if averaged["cpu"] is None else
+                 f", averaged weights card {averaged['cuda']} vs CPU "
+                 f"{averaged['cpu']}")
+              + f", relative {rel:.2e}; masters' max gap card vs CPU {gap}")
         if not rel <= PARITY_RTOL:
-            raise AssertionError(f"train options {name}: relative {rel:.2e} "
+            raise AssertionError(f"train options {tag}: relative {rel:.2e} "
                                  f"> {PARITY_RTOL}")
-        out[name] = dict(card=runs["cuda"], cpu=runs["cpu"], rel=rel,
-                         master_gap=gap)
+        out[tag] = dict(card=runs["cuda"], cpu=runs["cpu"], rel=rel,
+                        master_gap=gap, averaged=averaged)
+        del card_block, cpu_block
     return out, launches
+
+
+# the optimizer.update timings: median of UPDATE_REPS
+UPDATE_REPS = 10
+
+
+def optimizer_update_times(torch, seed):
+    """`optimizer.update` alone over GPT-3 125M's f32 parameters and
+    random gradients, for each of RULES at its defaults (lr 1e-4): CUDA
+    events, the median
+    of UPDATE_REPS after 2 warm-up updates, L2 flushed; the bound is the
+    bytes of the parameters (read and written), the gradients (read) and
+    every state tensor (read and written) over the card's memory rate.
+    Also the top-k that DGC's threshold takes on the token table (k =
+    round(0.001 n))."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    dev = torch.device(DEVICE)
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024, dropout=0.0)
+    model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+             for p in params]
+    n = sum(p.numel() for p in params)
+    flush = l2_flush(torch, dev)
+    times = {}
+    for name in RULES:
+        opt = rule(name)(1e-4, parameters=named)
+        # the first warm-up update makes the states; count them after it
+        opt.update(params, grads)
+        n_state = sum(v.numel() for v in opt.state_dict().values()
+                      if isinstance(v, torch.Tensor))
+        ms = median_ms(torch, lambda: opt.update(params, grads), flush,
+                       reps=UPDATE_REPS, warmup=1)
+        nbytes = 4 * (2 * n + n + 2 * n_state)
+        times[name] = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                           bytes=nbytes)
+        del opt
+    wte = grads[[nm for nm, _ in named].index("gpt.wte.weight")]
+    k = max(1, int(round(wte.numel() * (1.0 - 0.999))))
+    times["dgc_topk_wte"] = dict(
+        ms=median_ms(torch, lambda: torch.topk(wte.abs().reshape(-1), k),
+                     flush, reps=UPDATE_REPS, warmup=2),
+        numel=wte.numel(), k=k)
+    print(f"train options: optimizer.update at GPT-3 125M ({n} f32 "
+          f"parameters) on {card_line()}: " + json.dumps(times))
+    del model, params, grads, flush
+    return times
 
 
 def fused_remat_runs(torch, seed):
@@ -3382,7 +3617,10 @@ def train_options_phase(torch, seed):
     block, launches = options_block_runs(torch, seed)
     torch.cuda.empty_cache()
     gpt, more = fused_remat_runs(torch, seed)
-    return dict(block=block, gpt125m=gpt, launches={
+    torch.cuda.empty_cache()
+    update = optimizer_update_times(torch, seed)
+    torch.cuda.empty_cache()
+    return dict(block=block, gpt125m=gpt, update=update, launches={
         k: launches.get(k, 0) + more.get(k, 0) for k in more})
 
 
@@ -3438,12 +3676,13 @@ def host_memory_gb():
     return got["MemTotal"], got["MemAvailable"]
 
 
-def train_1_3b_full_phase(torch, seed):
+def train_1_3b_full_phase(torch, seed, seq=2048):
     """The bench's gpt1_3b_full with nothing cut in width or depth:
-    gpt3_1_3b(max_seq_len=2048, remat=True), use_fused_ce, bf16 amp,
+    gpt3_1_3b(max_seq_len=seq, remat=True), use_fused_ce, bf16 amp,
     OffloadTrainStep(param_dtype="bfloat16") with AdamW(1e-4, wd 0.01,
-    f32 masters and moments in pinned host memory), micro-batch 16 x
-    2048. Cut: K 4 (the bench: 16) and 1 warm + 1 timed round (the
+    f32 masters and moments in pinned host memory), micro-batch and K
+    from FULL_RUNS (seq 2048: 16 x 2048, K 4 where the bench takes 16;
+    seq 4096: the bench's 8 x 4096, K 8), 1 warm + 1 timed round (the
     bench: 2 + 2). Reports tokens/s and MFU (the bench's 6 N + 12 L d s
     FLOPs a token), micro-step and update-round ms, the update's copy
     bytes and rate, peak device memory, pinned host bytes and every
@@ -3457,14 +3696,16 @@ def train_1_3b_full_phase(torch, seed):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.telemetry import (device_peak_flops,
                                             gpt_train_flops_per_token, mfu)
+    batch, K = FULL_RUNS[seq]
+    what = f"train 1.3B full s={seq}"
     total, avail = host_memory_gb()
-    print(f"train 1.3B full: host memory MemTotal {total:.1f} GB, "
+    print(f"{what}: host memory MemTotal {total:.1f} GB, "
           f"MemAvailable {avail:.1f} GB")
     if avail < FULL_MIN_HOST_GB:
-        raise AssertionError(f"train 1.3B full: {avail:.1f} GB of host "
+        raise AssertionError(f"{what}: {avail:.1f} GB of host "
                              f"memory available, the pinned states need "
                              f"~16 GB (at least {FULL_MIN_HOST_GB} GB asked)")
-    cfg = GPTConfig.gpt3_1_3b(max_seq_len=FULL_SEQ, dropout=0.0,
+    cfg = GPTConfig.gpt3_1_3b(max_seq_len=seq, dropout=0.0,
                               attn_dropout=0.0, remat=True)
     model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -3479,27 +3720,27 @@ def train_1_3b_full_phase(torch, seed):
     try:
         t0 = time.perf_counter()
         step = OffloadTrainStep(model, loss_fn, opt,
-                                accumulate_steps=FULL_K,
+                                accumulate_steps=K,
                                 param_dtype="bfloat16")
         setup_s = time.perf_counter() - t0
         state_bytes = sum(v.numel() * v.element_size() for st in step._states
                           for v in st.values() if isinstance(v, torch.Tensor))
-        ids, labels = train_batch(torch, cfg.vocab_size, FULL_BATCH,
-                                  FULL_SEQ, 0, DEVICE)
+        ids, labels = train_batch(torch, cfg.vocab_size, batch,
+                                  seq, 0, DEVICE)
         t0 = time.perf_counter()
         warm = [float(step(ids, labels))
-                for _ in range(FULL_K * FULL_WARM_ROUNDS)]
+                for _ in range(K * FULL_WARM_ROUNDS)]
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(FULL_K)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(K)]
         t0 = time.perf_counter()
         ev[0].record()
-        losses = [step(ids, labels) for _ in range(FULL_K - 1)]
+        losses = [step(ids, labels) for _ in range(K - 1)]
         ev[-1].record()
         torch.cuda.synchronize()
-        micro_ms = ev[0].elapsed_time(ev[-1]) / (FULL_K - 1)
+        micro_ms = ev[0].elapsed_time(ev[-1]) / (K - 1)
         t1 = time.perf_counter()
         losses.append(step(ids, labels))    # the K-th: micro-step + update
         torch.cuda.synchronize()
@@ -3509,8 +3750,8 @@ def train_1_3b_full_phase(torch, seed):
         launches = {k.name: k.launches for k in kernels()}
     finally:
         set_flags({"use_fused_ce": False})
-    tokens = FULL_K * FULL_BATCH * FULL_SEQ
-    fpt = gpt_train_flops_per_token(cfg, FULL_SEQ, n_params)
+    tokens = K * batch * seq
+    fpt = gpt_train_flops_per_token(cfg, seq, n_params)
     tps = tokens / round_s
     update_ms = last_ms - micro_ms
     stats = dict(
@@ -3525,25 +3766,230 @@ def train_1_3b_full_phase(torch, seed):
         warm_round_s=warm_s, losses_warm=warm, losses=losses,
         host_mem_total_gb=total, host_mem_available_gb=avail,
         launches=launches)
-    print(f"train 1.3B full[remat, fused CE, bf16 params, offloaded AdamW, "
-          f"K={FULL_K} x {FULL_BATCH}x{FULL_SEQ}] on {card_line()}: "
+    print(f"{what}[remat, fused CE, bf16 params, offloaded AdamW, "
+          f"K={K} x {batch}x{seq}] on {card_line()}: "
           + json.dumps(stats))
-    want = {k: FULL_K * FULL_MICRO_LAUNCHES.get(k, 0) for k in launches}
+    want = {k: K * FULL_MICRO_LAUNCHES.get(k, 0) for k in launches}
     if launches != want:
-        raise AssertionError(f"train 1.3B full: launches {launches} != "
+        raise AssertionError(f"{what}: launches {launches} != "
                              f"{want} (K x a micro-step's)")
     if not all(math.isfinite(x) for x in warm + losses):
-        raise AssertionError(f"train 1.3B full: losses {warm} {losses}")
+        raise AssertionError(f"{what}: losses {warm} {losses}")
     # where a micro-step's time goes (the next call: no update)
     set_flags({"use_fused_ce": True})
     try:
         profile_steps(torch, step, (ids, labels), 1,
-                      f"1.3B full micro-step of {FULL_BATCH}x{FULL_SEQ} "
+                      f"1.3B full micro-step of {batch}x{seq} "
                       "tokens", top=15)
     finally:
         set_flags({"use_fused_ce": False})
     del step, opt, model
     return stats
+
+
+# ---------------------------------------------------------------------------
+# long context: the JAX bench's attn_16k and the single-card leg of its
+# ringattn_128k
+# ---------------------------------------------------------------------------
+
+# (name, S, heads, head_dim, x's scale, timed calls): bench.py:837-927
+# (x = N(0, 1) from RandomState(0), B 1) and bench.py:774-834 (0.3 N(0, 1),
+# B 1, sp 1)
+LONG_POINTS = (("attn_16k d128", 16384, 16, 128, 1.0, 10),
+               ("attn_16k d64", 16384, 12, 64, 1.0, 10),
+               ("ringattn_128k sp1", 131072, 16, 128, 0.3, 3))
+# the f32 reference's chunks: [heads, rows, S] logits of 2^29 elements
+LONG_CHUNK_ELEMS = 2 ** 29
+# the 128k gradient's rows: the first, the last, and both sides of the
+# kernels' 64-row tile edges at the start, the middle and the end
+LONG_ROWS = (0, 1, 63, 64, 127, 128, 4095, 4096, 65535, 65536, 131007,
+             131008, 131071)
+
+
+def attention_ref_fwd(torch, x, scale, chunk):
+    """Causal attention of q = k = v = x ([1, S, n, h]) in f32, in query
+    chunks of `chunk` rows -> (out [n, S, h], lse [n, S]): the plain
+    version's math without its [n, S, S] logits."""
+    xf = x[0].float().transpose(0, 1).contiguous()
+    n, S, _ = xf.shape
+    out = torch.empty_like(xf)
+    lse = torch.empty((n, S), dtype=torch.float32, device=x.device)
+    for i0 in range(0, S, chunk):
+        i1 = min(i0 + chunk, S)
+        s = causal_logits(torch, xf, torch.arange(i0, i1, device=x.device),
+                          i1, scale)
+        m = s.amax(dim=-1, keepdim=True)
+        p = s.sub_(m).exp_()
+        den = p.sum(dim=-1, keepdim=True)
+        out[:, i0:i1] = torch.matmul(p, xf[:, :i1]).div_(den)
+        lse[:, i0:i1] = (m + den.log())[..., 0]
+    return out, lse
+
+
+def causal_logits(torch, xf, rows, keys, scale):
+    """f32 logits [n, len(rows), keys] of query rows `rows` over keys
+    0..keys-1, keys after a row at -inf."""
+    s = torch.matmul(xf[:, rows], xf[:, :keys].transpose(1, 2)).mul_(scale)
+    late = torch.arange(keys, device=xf.device)[None, :] > rows[:, None]
+    return s.masked_fill_(late, -math.inf)
+
+
+def attention_ref_grad_rows(torch, x, scale, out, lse, rows):
+    """d sum(o^2) / dx at `rows` ([n, len(rows), h] f32) for o the causal
+    attention of q = k = v = x: the plain backward's f32 math given the
+    forward's output `out` ([n, S, h]; the port's own, as the backward
+    kernel receives it) and the log-sum-exps `lse` ([n, S]): dO = 2 o,
+    delta = rowsum(dO o), P_ij = exp(s_ij - lse_i); dQ_i = scale sum_j
+    P_ij (dO_i v_j - delta_i) k_j over keys j <= i; dV_j = sum_i P_ij dO_i
+    and dK_j = scale sum_i P_ij (dO_i v_j - delta_i) q_i over queries
+    i >= j; autograd sums the three, as here."""
+    xf = x[0].float().transpose(0, 1).contiguous()
+    S = xf.shape[1]
+    rows = torch.as_tensor(rows, device=x.device)
+    dout = 2 * out
+    delta = (dout * out).sum(dim=-1)
+    # dQ at the rows: their queries over every key up to them
+    p = causal_logits(torch, xf, rows, S, scale).sub_(
+        lse[:, rows, None]).exp_()
+    ds = torch.matmul(dout[:, rows], xf.transpose(1, 2)).sub_(
+        delta[:, rows, None]).mul_(p)
+    grad = torch.matmul(ds, xf).mul_(scale)
+    # dK and dV at the rows: every query from them on over their keys
+    st = torch.matmul(xf, xf[:, rows].transpose(1, 2)).mul_(scale)
+    early = torch.arange(S, device=x.device)[:, None] < rows[None, :]
+    pt = st.masked_fill_(early, -math.inf).sub_(lse[..., None]).exp_()
+    grad += torch.matmul(pt.transpose(1, 2), dout)
+    dst = torch.matmul(dout, xf[:, rows].transpose(1, 2)).sub_(
+        delta[..., None]).mul_(pt)
+    grad += torch.matmul(dst.transpose(1, 2), xf).mul_(scale)
+    return grad
+
+
+def hold_rows(name, got, ref, rtol):
+    """|got - ref| / |ref| <= rtol over each head's row (the 2-norm over
+    the head dim): the check that stays strict where the values are
+    small, as the 128k point's late rows are; returns the worst."""
+    rel = ((got.float() - ref).norm(dim=-1)
+           / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+    if not rel <= rtol:
+        raise AssertionError(f"{name}: a row {rel:.3e} from the f32 "
+                             f"reference, relative, above {rtol}")
+    return rel
+
+
+def long_context_phase(torch, seed):
+    """The port's scaled_dot_product_attention(x, x, x, is_causal=True)
+    (K1 forward, K3 backward) in bf16 at LONG_POINTS, with the gradient
+    of sum(o.float()^2) with respect to x. One counted forward and
+    backward a point (one flash_fwd and one flash_bwd launch), its out
+    and gradient held against the f32 math (`attention_ref_fwd`,
+    `attention_ref_grad_rows`; at 16384 every row, at 131072 the whole
+    output and the gradient at LONG_ROWS) at the registry's bf16
+    tolerance, elementwise and per row; then forward and forward +
+    backward ms (CUDA events, medians), TFLOP/s by the bench's 6 B H S^2
+    D, flash_bwd alone, and SDPA's forward, forward + backward and
+    backward on the same x as yardsticks, beside the bounds."""
+    import numpy as np
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+    from paddle_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from paddle_tpu_torch.ops.kernel_registry import (get_kernel, kernels,
+                                                      reset_launches)
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    tol = get_kernel("flash_fwd").tol["bfloat16"]
+    flush = l2_flush(torch, dev)
+    points, launches = {}, {}
+    for name, S, n, h, amp, reps in LONG_POINTS:
+        scale = 1.0 / math.sqrt(h)
+        x = torch.from_numpy(np.random.RandomState(0).randn(
+            1, S, n, h).astype(np.float32)).to(dev, torch.bfloat16)
+        if amp != 1.0:
+            x = x * amp                 # in bf16, as the bench scales it
+
+        def fwd_bwd(x=x):
+            xg = x.detach().requires_grad_()
+            o = scaled_dot_product_attention(xg, xg, xg, is_causal=True)
+            return o, torch.autograd.grad((o.float() ** 2).sum(), xg)[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        o, dx = fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k.name: k.launches for k in kernels()}
+        want = {k: int(k in ("flash_fwd", "flash_bwd")) for k in got}
+        if got != want:
+            raise AssertionError(f"long_context {name}: launches {got} != "
+                                 f"{want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        chunk = max(64, LONG_CHUNK_ELEMS // (n * S))
+        ref, lse = attention_ref_fwd(torch, x, scale, chunk)
+        o_t = o.detach()[0].transpose(0, 1)
+        tag = f" [{name}: bf16, S {S}, {n} x {h}, causal]"
+        err = dict(out=hold("long_context out" + tag, o_t, ref, tol),
+                   out_row=hold_rows("long_context out" + tag, o_t, ref,
+                                     tol[0]))
+        # the backward's reference takes the port's out, as its kernel
+        # does: with o near one-hot (unit x at 16k), dO v_j and delta
+        # cancel, and o's bf16 rounding moves delta by more than the
+        # tolerance
+        rows = range(S) if S <= 16384 else LONG_ROWS
+        gdx = dx[0].transpose(0, 1)[:, list(rows)]
+        rdx = torch.cat([attention_ref_grad_rows(
+            torch, x, scale, o_t.float(), lse, list(rows)[i:i + chunk])
+            for i in range(0, len(rows), chunk)], dim=1)
+        err.update(dx=hold("long_context dx" + tag, gdx, rdx, tol),
+                   dx_row=hold_rows("long_context dx" + tag, gdx, rdx,
+                                    tol[0]))
+        ref_s = time.perf_counter() - t0
+        dout = 2 * o.detach()
+        del ref, lse, o_t, gdx, rdx, o, dx
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            fwd_ms = median_ms(torch, lambda: scaled_dot_product_attention(
+                x, x, x, is_causal=True), flush, reps=reps, warmup=1)
+        fb_ms = median_ms(torch, fwd_bwd, flush, reps=reps, warmup=1)
+        out, lse = flash_fwd(x, x, x, True, scale)
+        bwd_ms = median_ms(torch, lambda: flash_bwd(
+            x, x, x, out, lse, dout, True, scale), flush, reps=reps, warmup=1)
+        del out, lse
+        xs = x.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            sdpa_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                xs, xs, xs, is_causal=True), flush, reps=reps, warmup=1)
+
+        def sdpa_fwd_bwd():
+            xg = xs.detach().requires_grad_()
+            so = F.scaled_dot_product_attention(xg, xg, xg, is_causal=True)
+            return torch.autograd.grad((so.float() ** 2).sum(), xg)
+
+        sdpa_fb = median_ms(torch, sdpa_fwd_bwd, flush, reps=reps, warmup=1)
+        xg = xs.detach().requires_grad_()
+        so = F.scaled_dot_product_attention(xg, xg, xg, is_causal=True)
+        go = dout.transpose(1, 2).contiguous()
+        sdpa_bwd = median_ms(torch, lambda: torch.autograd.grad(
+            so, xg, go, retain_graph=True), flush, reps=reps, warmup=1)
+        del so, xg, go, xs, dout
+        points[name] = dict(
+            S=S, heads=n, head_dim=h, fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
+            tflops=6 * n * S * S * h / (fb_ms / 1e3) / 1e12,
+            flash_bwd_ms=bwd_ms, sdpa_fwd_ms=sdpa_fwd,
+            sdpa_fwd_bwd_ms=sdpa_fb, sdpa_bwd_ms=sdpa_bwd,
+            fwd_bound=bound(*flash_work(1, S, S, n, h, True, 2, False),
+                            "bfloat16"),
+            bwd_bound=bound(*flash_work(1, S, S, n, h, True, 2, True),
+                            "bfloat16"),
+            max_abs_err=err, checked_rows=len(rows), reference_s=ref_s,
+            peak_mem_gb=peak)
+        print(f"long_context: {name} on {card_line()}: "
+              + json.dumps(points[name]))
+        del x
+        torch.cuda.empty_cache()
+    del flush
+    return dict(points=points, launches=launches)
 
 
 def print_compiled_summary(serve, wo8, loop, memory, decode):
@@ -3577,15 +4023,18 @@ def print_compiled_summary(serve, wo8, loop, memory, decode):
     print(f"compiled step on {card_line()}: " + json.dumps(out))
 
 
-PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b", "options",
-                  "layer", "full")
+PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
+                  "long_context", "options", "layer", "full", "full_4k")
 
 
 def partial_run(torch, args, lap, phase_s):
     """The build and the named phases alone (--phases); no result."""
     fns = {"kernels_moe": moe_kernels_phase, "moe_train": moe_train_phase,
-           "kernels_1_3b": kernels_1_3b_phase, "options": train_options_phase,
-           "layer": train_1_3b_layer_phase, "full": train_1_3b_full_phase}
+           "kernels_1_3b": kernels_1_3b_phase,
+           "long_context": long_context_phase, "options": train_options_phase,
+           "layer": train_1_3b_layer_phase, "full": train_1_3b_full_phase,
+           "full_4k": lambda torch, seed: train_1_3b_full_phase(
+               torch, seed, 4096)}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
         torch.cuda.empty_cache()
@@ -3664,6 +4113,9 @@ def main(argv=None):
     lap("kernels: moe")
     rows_1_3b = kernels_1_3b_phase(torch, args.seed)
     lap("kernels: 1.3B")
+    long_ctx = long_context_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("long context")
     stats, eng, vocab = serve_phase(torch, args.seed, args.init_range,
                                     args.dtype)
     lap("serve")
@@ -3701,7 +4153,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lap("train 1.3B layer")
     full = train_1_3b_full_phase(torch, args.seed)
+    torch.cuda.empty_cache()
     lap("train 1.3B full")
+    full_4k = train_1_3b_full_phase(torch, args.seed, 4096)
+    torch.cuda.empty_cache()
+    lap("train 1.3B full s=4096")
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
     print_compiled_summary(stats, wo8, loop, memory, decode)
@@ -3710,7 +4166,9 @@ def main(argv=None):
                     for k, r in rows_1_3b.items()},
         "options": {k: v for k, v in options.items() if k != "launches"},
         "layer": {k: v for k, v in layer.items() if k != "launches"},
-        "full": {k: v for k, v in full.items() if k != "launches"}}))
+        "full": {k: v for k, v in full.items() if k != "launches"},
+        "full_4k": {k: v for k, v in full_4k.items() if k != "launches"},
+        "long_context": long_ctx["points"]}))
 
     out = []
     for k in regs:
@@ -3718,10 +4176,15 @@ def main(argv=None):
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
                        for run in (stats, wo8, loop, memory, fleet, decode,
-                                   train, moe, options, layer, full))
+                                   train, moe, options, layer, full,
+                                   full_4k, long_ctx))
+        # the largest error of the kernel's checks, the 1.3B shapes' too
+        err = max([r["max_abs_err"]] + [
+            r13["max_abs_err"] for name, r13 in rows_1_3b.items()
+            if name.split(" ")[0] == k.name])
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "max_abs_err": err, "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]})

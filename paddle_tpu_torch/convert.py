@@ -19,6 +19,8 @@ parameter name, so that both packages can go on from one state.
 import numpy as np
 import torch
 
+from .optimizer.optimizer import host_scalar
+
 __all__ = ["load_jax_params", "load_jax_optimizer_state"]
 
 
@@ -59,7 +61,8 @@ def load_jax_optimizer_state(opt, params, jax_opt, jax_params):
     state the JAX optimizer holds for a parameter goes into the port
     optimizer's state of the parameter of the same name: tensors are
     copied in place (keeping their device or pinned placement), scalars
-    (`beta1_pow`, `beta2_pow`) become f32 host scalars. The JAX
+    (`beta1_pow`, `beta2_pow`, Lamb's `_wd`, DGC's `step`) become host
+    scalars of the port's type (f32, or int for a step count). The JAX
     scheduler's state goes into the port's when both have one. Raises
     KeyError on a name or state key the port lacks and ValueError on a
     shape mismatch; nothing is copied unless all of them check out."""
@@ -87,7 +90,7 @@ def load_jax_optimizer_state(opt, params, jax_opt, jax_params):
             if isinstance(st[k], torch.Tensor):
                 st[k].copy_(torch.from_numpy(np.array(a, copy=True)))
             else:
-                st[k] = np.float32(a)
+                st[k] = host_scalar(st[k], a)
     sched, jsched = opt._learning_rate, jax_opt._learning_rate
     if hasattr(sched, "set_state_dict") and hasattr(jsched, "state_dict"):
         sched.set_state_dict(jsched.state_dict())

@@ -1,5 +1,6 @@
-"""Optimizers — the port of paddle_tpu/optimizer/optimizer.py (the base,
-SGD, Momentum, Adam and AdamW).
+"""Optimizers — the port of paddle_tpu/optimizer/optimizer.py: the base
+and its eleven rules (SGD, Momentum, Adam, AdamW, Adamax, Adagrad,
+Adadelta, RMSProp, Lamb, LarsMomentum, DGCMomentum).
 
 The update rule is the JAX package's, in the same order of operations:
 f32 gradients, moments and velocities; a per-parameter `beta_pow` that
@@ -28,6 +29,10 @@ decoupled decay `p * (1 - lr * wd)` applied before the Adam update.
   (the reference's self-heal: where the parameter differs from the
   master's rounding, the master restarts from the parameter). The
   decoupled decay acts on the master.
+- The seven rules after AdamW take no `multi_precision`, as in the
+  reference: a bf16 parameter is updated in f32 and rounded each step.
+  Each keeps the JAX constructor's parameters in their order (`name` is
+  accepted for that and unused).
 - `state_dict` / `set_state_dict` carry every state under
   "<name>_<key>" and the scheduler's state under "LR_Scheduler".
 
@@ -40,9 +45,16 @@ import torch
 from .lr import LRScheduler
 
 __all__ = ["L1Decay", "L2Decay", "Optimizer", "SGD", "Momentum", "Adam",
-           "AdamW"]
+           "AdamW", "Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb",
+           "LarsMomentum", "DGCMomentum"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def host_scalar(like, v):
+    """`v` as a host scalar of `like`'s type (an f32 `beta_pow`, an int
+    step count)."""
+    return type(like)(np.asarray(v).item())
 
 
 class L2Decay:
@@ -167,7 +179,7 @@ class Optimizer:
                         st[k].copy_(v if isinstance(v, torch.Tensor)
                                     else torch.from_numpy(np.asarray(v)))
                     else:
-                        st[k] = np.float32(v)
+                        st[k] = host_scalar(st[k], v)
 
     # ---- per-parameter settings ------------------------------------------
     def _effective_decay(self, p):
@@ -360,3 +372,275 @@ class AdamW(Adam):
                 not self._apply_decay_param_fun(self._param_name(p)):
             return 0.0
         return super()._effective_decay(p)
+
+
+def _zeros(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+class Adamax(Optimizer):
+    """m = b1 m + (1 - b1) g; u = max(b2 u, |g| + eps);
+    p -= lr / (1 - beta1_pow) * m / u."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state(self, p):
+        return {"moment": _zeros(p), "inf_norm": _zeros(p),
+                "beta1_pow": np.float32(self._beta1)}
+
+    def _apply(self, params, grads, states, lr):
+        b1, b2 = self._beta1, self._beta2
+        m = [st["moment"] for st in states]
+        u = [st["inf_norm"] for st in states]
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        ag = torch._foreach_abs(grads)
+        torch._foreach_add_(ag, self._epsilon)
+        torch._foreach_mul_(u, b2)
+        torch._foreach_maximum_(u, ag)
+        # lr / (1 - beta1_pow) in f32 on the host, then * m / u
+        step = torch._foreach_mul(m, [
+            float(np.float32(lr) / (np.float32(1) - st["beta1_pow"]))
+            for st in states])
+        torch._foreach_div_(step, u)
+        torch._foreach_sub_(params, step)
+        for st in states:
+            st["beta1_pow"] = st["beta1_pow"] * np.float32(b1)
+
+
+class Adagrad(Optimizer):
+    """moment += g^2; p -= lr g / (sqrt(moment) + eps); the moment starts
+    at `initial_accumulator_value`."""
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_state(self, p):
+        return {"moment": torch.full(p.shape, self._init_acc,
+                                     dtype=torch.float32, device=p.device)}
+
+    def _apply(self, params, grads, states, lr):
+        mom = [st["moment"] for st in states]
+        torch._foreach_addcmul_(mom, grads, grads)
+        den = torch._foreach_sqrt(mom)
+        torch._foreach_add_(den, self._epsilon)
+        step = torch._foreach_mul(grads, lr)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(params, step)
+
+
+class Adadelta(Optimizer):
+    """asg = rho asg + (1 - rho) g^2;
+    update = g sqrt(asu + eps) / sqrt(asg + eps);
+    asu = rho asu + (1 - rho) update^2; p -= lr update."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _init_state(self, p):
+        return {"avg_squared_grad": _zeros(p),
+                "avg_squared_update": _zeros(p)}
+
+    def _apply(self, params, grads, states, lr):
+        rho, eps = self._rho, self._epsilon
+        asg = [st["avg_squared_grad"] for st in states]
+        asu = [st["avg_squared_update"] for st in states]
+        torch._foreach_mul_(asg, rho)
+        torch._foreach_addcmul_(asg, grads, grads, value=1 - rho)
+        num = torch._foreach_add(asu, eps)
+        torch._foreach_sqrt_(num)
+        update = torch._foreach_mul(grads, num)
+        den = torch._foreach_add(asg, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(update, den)
+        torch._foreach_mul_(asu, rho)
+        torch._foreach_addcmul_(asu, update, update, value=1 - rho)
+        torch._foreach_mul_(update, lr)
+        torch._foreach_sub_(params, update)
+
+
+class RMSProp(Optimizer):
+    """ms = rho ms + (1 - rho) g^2; centered: mg = rho mg + (1 - rho) g
+    and denom = sqrt(ms - mg^2 + eps), else sqrt(ms + eps);
+    momentum = momentum_coeff momentum + lr g / denom; p -= momentum."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-06, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_state(self, p):
+        st = {"mean_square": _zeros(p), "momentum": _zeros(p)}
+        if self._centered:
+            st["mean_grad"] = _zeros(p)
+        return st
+
+    def _apply(self, params, grads, states, lr):
+        rho = self._rho
+        ms = [st["mean_square"] for st in states]
+        mom = [st["momentum"] for st in states]
+        torch._foreach_mul_(ms, rho)
+        torch._foreach_addcmul_(ms, grads, grads, value=1 - rho)
+        if self._centered:
+            mg = [st["mean_grad"] for st in states]
+            torch._foreach_mul_(mg, rho)
+            torch._foreach_add_(mg, grads, alpha=1 - rho)
+            den = torch._foreach_addcmul(ms, mg, mg, value=-1)
+            torch._foreach_add_(den, self._epsilon)
+        else:
+            den = torch._foreach_add(ms, self._epsilon)
+        torch._foreach_sqrt_(den)
+        step = torch._foreach_mul(grads, lr)
+        torch._foreach_div_(step, den)
+        torch._foreach_mul_(mom, self._momentum)
+        torch._foreach_add_(mom, step)
+        torch._foreach_sub_(params, mom)
+
+
+class Lamb(Optimizer):
+    """Adam's moments with bias correction, r = mhat / (sqrt(vhat) + eps)
+    + wd p, and p -= lr trust r, where trust = |p| / |r| over the whole
+    tensor (1 where either norm is 0). `exclude_from_weight_decay_fn` is
+    called once per parameter, when its state is made, with the
+    parameter's name in `model.named_parameters()` (the JAX package
+    passes its own Parameter); True sets its decay `_wd` to 0."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
+                 beta2=0.999, epsilon=1e-06, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._lamb_weight_decay = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_state(self, p):
+        excluded = self._exclude_fn is not None \
+            and self._exclude_fn(self._param_name(p))
+        return {"moment1": _zeros(p), "moment2": _zeros(p),
+                "beta1_pow": np.float32(self._beta1),
+                "beta2_pow": np.float32(self._beta2),
+                "_wd": np.float32(0.0 if excluded
+                                  else self._lamb_weight_decay)}
+
+    def _apply(self, params, grads, states, lr):
+        b1, b2 = self._beta1, self._beta2
+        m = [st["moment1"] for st in states]
+        v = [st["moment2"] for st in states]
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+        one = np.float32(1)
+        r = torch._foreach_div(m, [float(one - st["beta1_pow"])
+                                   for st in states])
+        den = torch._foreach_div(v, [float(one - st["beta2_pow"])
+                                     for st in states])
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self._epsilon)
+        torch._foreach_div_(r, den)
+        wd = [float(st["_wd"]) for st in states]
+        if any(wd):
+            torch._foreach_add_(r, torch._foreach_mul(params, wd))
+        w_norm = torch.stack(torch._foreach_norm(params))
+        r_norm = torch.stack(torch._foreach_norm(r))
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        torch._foreach_mul_(r, list((lr * trust).unbind()))
+        torch._foreach_sub_(params, r)
+        for st in states:
+            st["beta1_pow"] = st["beta1_pow"] * np.float32(b1)
+            st["beta2_pow"] = st["beta2_pow"] * np.float32(b2)
+
+
+class LarsMomentum(Optimizer):
+    """local_lr = lr coeff |p| / (|g| + wd |p| + eps) over the whole
+    tensor (lr where either norm is 0); v = momentum v + local_lr
+    (g + wd p); p -= v."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 epsilon=0, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+        self._eps = epsilon
+
+    def _init_state(self, p):
+        return {"velocity": _zeros(p)}
+
+    def _apply(self, params, grads, states, lr):
+        wd = self._lars_weight_decay
+        p_norm = torch.stack(torch._foreach_norm(params))
+        g_norm = torch.stack(torch._foreach_norm(grads))
+        local = torch.where((p_norm > 0) & (g_norm > 0),
+                            lr * self._lars_coeff * p_norm
+                            / (g_norm + wd * p_norm + self._eps), lr)
+        step = torch._foreach_mul(params, wd)
+        torch._foreach_add_(step, grads)
+        torch._foreach_mul_(step, list(local.unbind()))
+        v = [st["velocity"] for st in states]
+        torch._foreach_mul_(v, self._momentum)
+        torch._foreach_add_(v, step)
+        torch._foreach_sub_(params, v)
+
+
+class DGCMomentum(Optimizer):
+    """Deep Gradient Compression momentum: the gradient is added to a
+    residual, and only the residual's entries at or above its k-th
+    largest magnitude (k = max(1, round(n (1 - sparsity)))) step; they
+    leave the residual, the rest stays. Before `rampup_begin_step` steps
+    it is plain momentum over the whole residual. Then v = momentum v +
+    g_eff, and p -= lr v (Nesterov: p -= lr (g_eff + momentum v)). The
+    step count is a host int, so the choice costs no device sync."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 sparsity=0.999, rampup_begin_step=0, use_nesterov=False,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+        self._sparsity = float(sparsity)
+        self._rampup_begin = int(rampup_begin_step)
+
+    def _init_state(self, p):
+        return {"velocity": _zeros(p), "residual": _zeros(p), "step": 0}
+
+    def _apply(self, params, grads, states, lr):
+        res = [st["residual"] for st in states]
+        eff = torch._foreach_add(res, grads)
+        for acc, r, st in zip(eff, res, states):
+            if st["step"] < self._rampup_begin:
+                r.zero_()
+            else:
+                n = acc.numel()
+                k = max(1, int(round(n * (1.0 - self._sparsity))))
+                mag = acc.abs()
+                thresh = torch.topk(mag.reshape(-1), k).values[-1]
+                r.copy_(acc)
+                acc.mul_(mag >= thresh)
+                r.sub_(acc)
+            st["step"] += 1
+        v = [st["velocity"] for st in states]
+        torch._foreach_mul_(v, self._momentum)
+        torch._foreach_add_(v, eff)
+        if self._use_nesterov:
+            step = torch._foreach_mul(v, self._momentum)
+            torch._foreach_add_(step, eff)
+            torch._foreach_mul_(step, lr)
+        else:
+            step = torch._foreach_mul(v, lr)
+        torch._foreach_sub_(params, step)
