@@ -100,7 +100,19 @@ ok line):
              bit, the sum and rstd at the f32 tolerance), each against
              its plain version and timed beside SDPA forward / backward
              or F.layer_norm(x + r) and its bound (the bf16 shapes
-             also without the carry);
+             also without the carry), flash_bwd and SDPA's backward
+             also in turns (flash_bwd, SDPA, SDPA, flash_bwd);
+2a. kernels 13B — the inference add + LayerNorm pair at GPT-3 13B's
+             width (1, 8, 16 and 300 rows of 5120 in f32 and bf16, an
+             x one element off its allocation, bf16 over f32, 8 rows
+             of 5118, 3 of 4104: the kernel's staged form for rows
+             wider than 4096) against its plain version, the carry bit
+             for bit, timed at 1, 8 and 16 rows of 5120 in bf16 beside
+             F.layer_norm(x + r); decode_fused at 40 heads of 128 over
+             a bf16 cache at batch 1 and every key count 64..128 of the
+             13B recipe's steps (host and device position, the same
+             bits), timed at 96 keys beside SDPA over the prefix; the
+             build fails if an instance of the staged form spills;
 2b. long context — the JAX bench's attn_16k (S 16384, B 1, 16 heads of
              128 and 12 of 64, x = N(0, 1) from RandomState(0)) and the
              single-card leg of its ringattn_128k (S 131072, 16 heads of
@@ -244,6 +256,44 @@ ok line):
              generate keeps for the native model after its first call
              (weights, loop buffers, graph pool) and what
              `generation.release` frees;
+5b. serve 13B — tools/serve_13b_w8a16.py's recipe through the port's
+             `paddle_tpu_torch.tools.serve_13b_w8a16`: GPT-3 13B (40
+             layers, hidden 5120, 40 heads of 128, vocab 50304) built
+             in f32 on the host a piece at a time from --seed (init
+             0.02), every linear quantized to int8 on the host, floats
+             cast to bf16, ~12.2 GiB moved to the card; greedy
+             `generate` at batch 1, 64 prompt tokens from
+             RandomState(--seed), 64 new, a warm and a timed call. The
+             card holds no f32 linear; the serving set's bytes, the
+             call's peak, tokens/s beside the bound of reading the set
+             once a token; exactly 40 decode_fused and 40
+             layernorm_fused launches a token step; the teacher-forced
+             bar against the same wo8 model's f32 forward on the card
+             (each linear dequantized in f32); generate's kept bytes
+             and what `generation.release` frees; then the weights
+             scaled to init 0.04 (a stream that varies) and the first
+             1..40 blocks decoded in bf16, all 40 in f32 with an f32
+             cache, each teacher-forced: a distinct-token floor and
+             the trail held at depths 1 and 2 (bf16) and 40 (f32, with
+             the agreement too);
+5c. moe serve — GPTMoE at the moe train phase's configuration (init
+             --init-range) through the engine (the serve phase's
+             configuration and 32 requests, captured steps, eager and
+             captured in turns) and `generate` (batch 8, prompt 128,
+             128 new), in bf16 at capacity factor 1.25 (tokens/s,
+             decode-step p50; the teacher-forced agreement printed,
+             not held: a token's capacity depends on the rows routed
+             with it) and in f32 at a capacity that drops nothing (the
+             teacher-forced bar, and every engine run's streams equal);
+             `generate` at cf 1.25 in f32 (held) and bf16 (printed),
+             its first 32 tokens teacher-forced through a CPU copy of
+             the model (plain versions) stepped over the same rows as
+             the card's token steps, so every routing call meets the
+             card's rows and capacity;
+             exactly one moe_gather and one moe_combine a MoE layer in
+             every step, chunk and token step; K12 and K13 at 16 and
+             128 rows of 768 in bf16 against their plain versions
+             (the gather bit for bit), timed;
 6. train   — GPT-3 125M at full width (seed 0, init 0.02) through
              TrainStep with AdamW(1e-4, weight decay 0.01): first 3 steps
              in f32 at batch 2, seq 256 on the card and on the CPU (plain
@@ -301,12 +351,13 @@ ok line):
              width or depth: GPT-3 1.3B (24 layers, seq 2048, remat,
              use_fused_ce, bf16 amp), OffloadTrainStep with bf16
              parameters and AdamW(1e-4, wd 0.01) whose f32 masters and
-             moments sit in pinned host memory, micro-batch 16 x 2048;
-             cut: K 4 (the bench's 16) and 1 warm + 1 timed round (the
+             moments sit in pinned host memory, micro-batch 16 x 2048
+             and the bench's K 16; cut: 1 warm + 1 timed round (the
              bench's 2 + 2). First /proc/meminfo's MemTotal and
              MemAvailable (under 24 GB available fails). Reports
-             tokens/s and MFU, micro-step and update-round ms, the
-             update's copy bytes and rate, peak device memory, pinned
+             tokens/s and MFU, micro-step and update-round ms (and the
+             update's share of a round), the update's copy bytes and
+             rate, peak device memory, pinned
              bytes and every round's losses (finite); each micro-step
              launches exactly 48 flash_fwd (24 + 24 recomputed), 24
              flash_bwd and 48 layernorm_fwd_saved (each writing the
@@ -315,17 +366,18 @@ ok line):
              micro-batch 8 x 4096 and the bench's K 8, 1 warm + 1 timed
              round, the same report and launches.
 
-`--phases kernels_moe,moe_train,kernels_1_3b,long_context,options,layer,
-full,full_4k` (any of them) runs the build and the named phases alone and
-prints no result line.
+`--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
+serve_13b,moe_serve,options,layer,full,full_4k` (any of them) runs the
+build and the named phases alone and prints no result line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
 (serve tokens/s, step p50/p99 and chunk p50, generate tokens/s per
 recipe, capture ms, pool bytes, launches a step), a JSON line with
 every kernel's launches, error (the largest of all its checks, the
-1.3B shapes' included) and times, a JSON line of the 1.3B
-phases, and as its last line
+1.3B, 13B and MoE serving shapes' included) and times, a JSON line of
+the 1.3B phases, one of the 13B and MoE serving phases, and as its last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is unavailable or when run
 outside a checkout of the repository.
@@ -469,14 +521,16 @@ PTXAS_SHOWN = ("fwd_wgmma", "dkdv_wgmma", "dq_wgmma", "bwd_delta",
 
 def print_pair_ptxas(_build):
     """The add + LayerNorm kernels have one instance per dtype triple and
-    width class: print, for the saving form (add_ln, K6) and the
-    inference pair (add_ln_pair, K7), their register range and which
-    spill (by their mangled template arguments), from the report kept
-    beside the built library. An add_ln instance that spills, or no
-    report, fails: K6 runs on every training path at widths up to
-    4096."""
+    width class: print, for the saving form (add_ln, K6), the inference
+    pair (add_ln_pair, K7) and K7's form for rows wider than 4096
+    (add_ln_pair_wide), their register range and which spill (by their
+    mangled template arguments), from the report kept beside the built
+    library. An add_ln or add_ln_pair_wide instance that spills, or no
+    report, fails: K6 runs on every training path at widths up to 4096,
+    the wide K7 on GPT-3 13B's decode path (add_ln_pair's spills at d >
+    1024 are reported only)."""
     info = _build.ptxas_info("add_layer_norm")
-    for kernel in ("add_ln", "add_ln_pair"):
+    for kernel in ("add_ln", "add_ln_pair", "add_ln_pair_wide"):
         mark = kernel + "I"
         inst = {fn: i for fn, i in info.items() if mark in fn}
         if not inst:
@@ -489,8 +543,8 @@ def print_pair_ptxas(_build):
         print(f"build: ptxas add_layer_norm: {len(inst)} {kernel} "
               f"instances, {min(regs)}-{max(regs)} registers, "
               f"{len(spill)} spill: {spill}")
-        if kernel == "add_ln" and spill:
-            raise AssertionError(f"add_ln: {len(spill)} of {len(inst)} "
+        if kernel != "add_ln_pair" and spill:
+            raise AssertionError(f"{kernel}: {len(spill)} of {len(inst)} "
                                  f"instances spill: {spill}")
 
 
@@ -819,17 +873,17 @@ def same_bits(torch, a, b):
         a.view(ints[a.dtype]), b.view(ints[b.dtype]))
 
 
-def ln_pair_checks(torch, gen, dev):
+def ln_pair_checks(torch, gen, dev, checks=LN_PAIR_CHECKS):
     """The inference pair of add + LayerNorm against its plain version at
-    LN_PAIR_CHECKS: out within the registry's tolerance, the carry bit
-    for bit the plain one's and torch's x + residual; -> {x dtype: max
-    abs error of out}."""
+    `checks` (LN_PAIR_CHECKS' layout): out within the registry's
+    tolerance, the carry bit for bit the plain one's and torch's x +
+    residual; -> {x dtype: max abs error of out}."""
     from paddle_tpu_torch.ops.kernel_registry import get_kernel
     from paddle_tpu_torch.ops.layernorm import (layernorm_fused_pair,
                                                 layernorm_fused_pair_plain)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     errs = {}
-    for rows, d, xd, rd, unaligned in LN_PAIR_CHECKS:
+    for rows, d, xd, rd, unaligned in checks:
         tag = (f"[pair {rows}x{d}, x {xd}, residual {rd}"
                f"{', x unaligned' if unaligned else ''}]")
         x = torch.randn((rows * d + 1,), generator=gen).to(dev, dts[xd])
@@ -2521,7 +2575,7 @@ def decode_profile(torch, model, ids, what, eager=False):
             model.generate(ids, max_new_tokens=DEC_PROFILED)
     finally:
         generation._run_steps = run
-    what = (f"generate token steps of {DEC_BATCH} rows, {what}, "
+    what = (f"generate token steps of {ids.shape[0]} rows, {what}, "
             f"{'eager' if eager else 'captured'}")
     print_profile(prof, DEC_PROFILED, wall[0], what, top=8)
     return launch_counts(prof, DEC_PROFILED, what)
@@ -3105,9 +3159,9 @@ OPT_SEQ, OPT_STEPS = 256, 3
 # the bench's gpt1_3b_layer (bench.py:496-535)
 LAYER_BATCH, LAYER_SEQ, LAYER_WARMUP, LAYER_STEPS = 8, 2048, 3, 15
 # the bench's gpt1_3b_full (bench.py:538-630) by sequence length:
-# (micro-batch, K); at 2048 K is cut from 16 to 4, at 4096 it is the
-# bench's 8; both cut the bench's 2 warm + 2 timed rounds to 1 + 1
-FULL_RUNS = {2048: (16, 4), 4096: (8, 8)}
+# (micro-batch, K), the bench's own (16 at 2048, 8 at 4096); both cut the
+# bench's 2 warm + 2 timed rounds to 1 + 1
+FULL_RUNS = {2048: (16, 16), 4096: (8, 8)}
 FULL_WARM_ROUNDS = 1
 FULL_MIN_HOST_GB = 24       # the pinned f32 master + moments: ~15.8 GB
 # micro-step launches of the 24-layer remat step: the forward and its
@@ -3262,7 +3316,22 @@ def flash_1_3b_rows(torch, gen, dev, flush, shape, tag_name):
           "flushed, ms a call): " + json.dumps(bwd_parts(
               torch, lambda: flash_bwd(q, k, v, out, lse, dout, True, scale),
               flush)))
-    del lo, lq, lk, lv, go, q, k, v, dout, out, lse
+    # K3 and SDPA's backward in turns (K3, SDPA, SDPA, K3), each after a
+    # read flush, in this one process: which of the two leads
+    fns = {"flash_bwd": lambda: flash_bwd(q, k, v, out, lse, dout, True,
+                                          scale),
+           "sdpa_bwd": lambda: torch.autograd.grad(
+               lo, (lq, lk, lv), go, retain_graph=True)}
+    turns = {"flash_bwd": [], "sdpa_bwd": []}
+    for name in ("flash_bwd", "sdpa_bwd", "sdpa_bwd", "flash_bwd"):
+        turns[name].append(median_ms(torch, fns[name], flush))
+    rows["flash_bwd"]["turns"] = turns
+    ratio = statistics.mean(turns["flash_bwd"]) / statistics.mean(
+        turns["sdpa_bwd"])
+    print(f"kernels: flash_bwd and SDPA's backward in turns at the "
+          f"{tag_name} shape (read flush, ms): {json.dumps(turns)}; "
+          f"flash_bwd / SDPA {ratio:.3f}")
+    del lo, lq, lk, lv, go, q, k, v, dout, out, lse, fns
     torch.cuda.empty_cache()
     for name, row in rows.items():
         print(f"kernels: {name} at the {tag_name} shape: " + kernel_line(row))
@@ -3681,10 +3750,10 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
     gpt3_1_3b(max_seq_len=seq, remat=True), use_fused_ce, bf16 amp,
     OffloadTrainStep(param_dtype="bfloat16") with AdamW(1e-4, wd 0.01,
     f32 masters and moments in pinned host memory), micro-batch and K
-    from FULL_RUNS (seq 2048: 16 x 2048, K 4 where the bench takes 16;
-    seq 4096: the bench's 8 x 4096, K 8), 1 warm + 1 timed round (the
-    bench: 2 + 2). Reports tokens/s and MFU (the bench's 6 N + 12 L d s
-    FLOPs a token), micro-step and update-round ms, the update's copy
+    from FULL_RUNS (the bench's: 16 x 2048 with K 16, 8 x 4096 with K
+    8), 1 warm + 1 timed round (the bench: 2 + 2). Reports tokens/s and
+    MFU (the bench's 6 N + 12 L d s FLOPs a token), micro-step and
+    update-round ms and the update's share of a round, the update's copy
     bytes and rate, peak device memory, pinned host bytes and every
     round's losses; the micro-steps' launches must be exactly
     FULL_MICRO_LAUNCHES each."""
@@ -3758,6 +3827,7 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
         tokens_per_s=tps, mfu=mfu(tps, fpt, device_peak_flops(
             torch.cuda.get_device_name(0))),
         round_s=round_s, micro_step_ms=micro_ms, update_round_ms=update_ms,
+        update_share=update_ms / (round_s * 1e3),
         update_copy_bytes=2 * state_bytes,
         update_copy_gb_per_s=2 * state_bytes / (update_ms / 1e3) / 1e9,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -3992,6 +4062,604 @@ def long_context_phase(torch, seed):
     return dict(points=points, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# GPT-3 13B weight-only-int8 decode (tools/serve_13b_w8a16.py's recipe)
+# and GPT-MoE served through the engine and generate
+# ---------------------------------------------------------------------------
+
+# K7 at GPT-3 13B's width: (rows, d, x dtype, residual dtype, unaligned).
+# Rows of 5120 take the staged form with 16-byte chunks; 5118 and an x
+# one element off its allocation take its one-element chunks; 4104 is
+# the narrowest width past the register-resident instances; 300 rows
+# are more CTAs than SMs
+LN_PAIR_13B_CHECKS = tuple(
+    (rows, 5120, dt, dt, False) for rows in (1, 8, 16)
+    for dt in ("float32", "bfloat16")) + (
+    (16, 5120, "bfloat16", "bfloat16", True),
+    (16, 5120, "float32", "float32", True),
+    (16, 5120, "bfloat16", "float32", False),
+    (8, 5118, "float32", "float32", False),
+    (8, 5118, "bfloat16", "bfloat16", False),
+    (3, 4104, "bfloat16", "bfloat16", False),
+    (300, 5120, "bfloat16", "bfloat16", False))
+LN_13B_TIMED_ROWS = (1, 8, 16)
+D_13B = 5120
+# decode_fused at 13B's 40 heads of 128 over the recipe's bf16 cache of
+# 64 + 64 positions at batch 1: every decode step's key count, 65..128
+K8_13B_HEADS, K8_13B_DIM, K8_13B_LEN = 40, 128, 128
+K8_13B_OFFS = tuple(range(63, 128))
+K8_13B_TIMED_OFF = 95               # the mean step position
+SERVE_13B_PROMPT, SERVE_13B_NEW = 64, 64
+# At the recipe's init std (GPTConfig's 0.02) the random 40-layer model's
+# greedy stream collapses to a few tokens. The witness scales the same
+# weights as if drawn at SERVE_13B_WITNESS_STD, where the stream varies,
+# and decodes the model's first D blocks at each depth D: in bf16
+# through the kernels, and at full depth in f32 with an f32 cache
+# through the same kernels' f32 instances, each stream teacher-forced
+# through the same blocks' f32 forward. A fault of what only 13B runs
+# (K7's wide form, K8 at 40 x 128, the 5120 / 20480 linears) shows at
+# every depth and in f32; bf16 rounding grown through depth shows only
+# in bf16 and grows with D. Held: the teacher-forced bar and the
+# distinct floor in f32 at full depth; in bf16 at SERVE_13B_HELD_DEPTHS
+# the trail and the floor (there many of the 50304 logits lie within
+# bf16's rounding of the best, so near-tie flips cost more than 5 % of
+# the tokens, each by a few hundredths of a std)
+SERVE_13B_WITNESS_STD = 0.04
+SERVE_13B_WITNESS_DEPTHS = (1, 2, 4, 8, 16, 40)
+SERVE_13B_HELD_DEPTHS = (1, 2)
+# the MoE serve phase: the moe train phase's model (moe_config) in bf16
+# at its capacity factor, and in f32 at a capacity where no choice is
+# ever dropped (C = n at E / k), where routing is a function of the
+# token alone, so the dense forward over a whole stream routes every
+# token as the serving steps did and the teacher-forced bar applies
+MOE_DROPLESS_CF = MOE_E / MOE_K
+MOE_SERVE_ROWS = (SLOTS, CHUNK)     # a decode step's rows, a chunk's
+MOE_SERVE_KERNELS = ("moe_gather", "moe_combine")
+MOE_REF_NEW = 32                    # tokens the CPU step-wise reference takes
+
+
+def kernels_13b_phase(torch, seed):
+    """K7 (layernorm_fused's pair) at LN_PAIR_13B_CHECKS against its
+    plain version (out at the registry's tolerance, the carry bit for
+    bit), then timed at 1, 8 and 16 rows of 5120 in bf16 beside the
+    plain version, F.layer_norm(x + r) and the bytes bound; K8
+    (decode_fused) at 40 heads of 128 over a bf16 cache of 128 keys at
+    every step position of the recipe (keys 64..128), the host position
+    and the position read from device memory bit for bit the same,
+    within the registry's bf16 tolerance of the plain version, then
+    timed at the mean position beside SDPA over the valid prefix.
+    -> rows named "layernorm_fused 8x5120 bf16", "decode_fused 40x128
+    bf16"."""
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain, decode_split)
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    from paddle_tpu_torch.ops.layernorm import (layernorm_fused_pair,
+                                                layernorm_fused_pair_plain)
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 17)
+    bf16 = torch.bfloat16
+    errs = ln_pair_checks(torch, gen, dev, LN_PAIR_13B_CHECKS)
+    for xd, e in sorted(errs.items()):
+        print(f"kernels: layernorm_fused pair at d {D_13B} (and 5118, 4104) "
+              f"{xd} max_abs_err {e:.3e} (tol rtol, atol = "
+              f"{get_kernel('layernorm_fused').tol[xd]}), the carry bit "
+              "for bit")
+    k8 = get_kernel("decode_fused")
+    B, n, h, L = 1, K8_13B_HEADS, K8_13B_DIM, K8_13B_LEN
+    nh = n * h
+    q = torch.randn((B, 1, nh), generator=gen).to(dev, bf16)
+    k, v = (torch.randn((B, L, nh), generator=gen).to(dev, bf16)
+            for _ in range(2))
+    off_dev = torch.zeros((), dtype=torch.int32, device=dev)
+    k8_err = 0.0
+    for off in K8_13B_OFFS:
+        got = decode_attention(q, k, v, off, n)
+        off_dev.fill_(off)
+        got_dev = decode_attention(q, k, v, off_dev, n, decode_split(off)[0])
+        ref = decode_attention_plain(q, k, v, off, n)
+        torch.cuda.synchronize()
+        what = f"decode_fused[q bf16, cache bf16, b=1 n={n} h={h} off={off}]"
+        k8_err = max(k8_err, hold(what, got, ref, k8.tol["bfloat16"]))
+        if not same_bits(torch, got, got_dev):
+            raise AssertionError(f"{what}: the device position differs")
+    print(f"kernels: decode_fused at 40 x 128, bf16 cache, keys "
+          f"{K8_13B_OFFS[0] + 1}..{K8_13B_OFFS[-1] + 1}: max_abs_err "
+          f"{k8_err:.3e} (tol {k8.tol['bfloat16']}), the device position's "
+          "bits")
+
+    flush = l2_flush(torch, dev)
+    rows = {}
+    for nrows in LN_13B_TIMED_ROWS:
+        a = tuple(t.to(dev, bf16) for t in (
+            torch.randn((nrows, D_13B), generator=gen),
+            torch.randn((nrows, D_13B), generator=gen),
+            1 + 0.1 * torch.randn((D_13B,), generator=gen),
+            0.1 * torch.randn((D_13B,), generator=gen)))
+        row = dict(
+            ms=median_ms(torch, lambda: layernorm_fused_pair(*a), flush),
+            warm_ms=median_ms(torch, lambda: layernorm_fused_pair(*a),
+                              None),
+            plain_ms=median_ms(torch, lambda: layernorm_fused_pair_plain(
+                *a), flush),
+            library_ms=median_ms(torch, lambda: F.layer_norm(
+                a[0] + a[1], (D_13B,), a[2], a[3]), flush),
+            bound=bound(*ln_work(nrows, D_13B, 2, 2, 2, False, carry=True),
+                        "bfloat16"),
+            max_abs_err=errs["bfloat16"])
+        name = f"layernorm_fused {nrows}x{D_13B} bf16"
+        rows[name] = row
+        print(f"kernels: {name} (the pair, with the carry): "
+              + kernel_line(row))
+    rows[f"layernorm_fused 1x{D_13B} bf16"]["f32_max_abs_err"] = \
+        errs["float32"]
+    off = K8_13B_TIMED_OFF
+    sq = q.reshape(B, 1, n, h).transpose(1, 2)
+    sk, sv = (t[:, :off + 1].reshape(B, off + 1, n, h).transpose(1, 2)
+              for t in (k, v))
+    nbytes = 2 * B * (off + 1) * nh * 2 + B * nh * (2 + 4)
+    row = dict(
+        ms=median_ms(torch, lambda: decode_attention(q, k, v, off, n), flush),
+        plain_ms=median_ms(torch, lambda: decode_attention_plain(
+            q, k, v, off, n), flush),
+        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+            sq, sk, sv), flush),
+        bound=bound(nbytes, 4 * B * n * (off + 1) * h, "bfloat16"),
+        max_abs_err=k8_err)
+    rows["decode_fused 40x128 bf16"] = row
+    print(f"kernels: decode_fused B=1 40x128 off={off} bf16 q and cache: "
+          + kernel_line(row))
+    del flush
+    return rows
+
+
+def serve_13b_phase(torch, seed):
+    """tools/serve_13b_w8a16.py's recipe through the port's entry point
+    (`paddle_tpu_torch.tools.serve_13b_w8a16`): GPT-3 13B built on the
+    host a piece at a time in f32, its linears quantized there, floats
+    cast to bf16, moved to the card; then greedy `generate` at batch 1,
+    a 64-token prompt from RandomState(seed), 64 new tokens, a warm call
+    (the capture) and a timed call. Checks: the card holds no f32 linear
+    (every linear int8, every parameter bf16, the f32 buffers only the
+    scales); the serving set's bytes against the card's allocation; the
+    call's peak; tokens/s beside its bound (the serving set read once a
+    token); exactly 40 decode_fused and 40 layernorm_fused launches a
+    token step (and 40 layernorm_fused in the prefill), nothing else;
+    the timed call's tokens = the warm call's; every token teacher-forced
+    through the same wo8 model's f32 forward on the card (each linear
+    dequantized in f32): the f32 argmax at >= TF_AGREE of positions,
+    never trailing by more than TF_MARGIN_STD; what generate keeps after
+    a call and what `generation.release` frees; then the depth witness
+    (witness_13b)."""
+    import gc
+    from paddle_tpu_torch import generation
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.quant import WeightOnlyInt8Linear
+    from paddle_tpu_torch.tools.serve_13b_w8a16 import (
+        build_w8a16, config_13b, decode, prompt_ids, serving_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total, avail = host_memory_gb()
+    base = torch.cuda.memory_allocated()
+    cfg = config_13b()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model, secs = build_w8a16(cfg, seed=seed, device=DEVICE)
+    secs["total"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    device_bytes = torch.cuda.memory_allocated() - base
+    set_bytes = serving_bytes(model)
+    linears = [m for m in model.modules()
+               if isinstance(m, WeightOnlyInt8Linear)]
+    f32_buffers = [n for n, b in model.named_buffers()
+                   if b.dtype == torch.float32]
+    if (len(linears) != 4 * L
+            or any(m.wq.dtype != torch.int8 for m in linears)
+            or any(p.dtype != torch.bfloat16 for p in model.parameters())
+            or any(not n.endswith(".w_scale") or b.dim() != 1
+                   for n, b in model.named_buffers()
+                   if b.dtype == torch.float32)):
+        raise AssertionError("serve 13b: the card holds a float linear or "
+                             "an f32 parameter")
+    codes = sum(m.wq.numel() for m in linears)
+    ids = prompt_ids(cfg.vocab_size, 1, SERVE_13B_PROMPT, seed)
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s = decode(model, ids, SERVE_13B_NEW)
+    kept = kept_bytes(torch, generation._MODEL_STEPS[model])
+    reset_launches()
+    out, dt = decode(model, ids, SERVE_13B_NEW)
+    launches = {k.name: k.launches for k in kernels()}
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {**{k: 0 for k in launches},
+            "decode_fused": L * SERVE_13B_NEW,
+            "layernorm_fused": L * (SERVE_13B_NEW + 1)}
+    if launches != want:
+        raise AssertionError(f"serve 13b: launches {launches} != {want}")
+    if not torch.equal(out, first):
+        raise AssertionError("serve 13b: the timed call's tokens differ "
+                             "from the warm call's")
+    prompt, stream = ids[0].tolist(), out[0, SERVE_13B_PROMPT:].tolist()
+    if len(stream) != SERVE_13B_NEW or not all(
+            0 <= t < cfg.vocab_size for t in stream):
+        raise AssertionError(f"serve 13b: bad ids {out.shape}")
+    with generation._decode_weights(model, torch.float32):
+        agree, trail = teacher_forced(torch, model, prompt, stream)
+    rate = sum(agree) / len(agree)
+    tps = SERVE_13B_NEW / dt
+    profile = decode_profile(torch, model, ids.to(DEVICE), "13B w8a16")
+    bound_ms = set_bytes / HBM_BYTES_PER_S * 1e3
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    generation.release(model)
+    torch.cuda.synchronize()
+    kept["freed_by_release"] = a0 - torch.cuda.memory_allocated()
+    stats = dict(
+        seconds={**secs, "first_call": first_s, "timed_call": dt},
+        host_mem_total_gb=total, host_mem_available_gb=avail,
+        serving_set_gib=set_bytes / GIB, device_alloc_gib=device_bytes / GIB,
+        int8_codes=codes, f32_scale_buffers=len(f32_buffers),
+        call_peak_gib=peak / GIB, tokens_per_s=tps,
+        ms_per_token=dt * 1e3 / SERVE_13B_NEW, bound_ms_per_token=bound_ms,
+        bound_tokens_per_s=1e3 / bound_ms, kept=kept,
+        launches_per_step={"decode_fused": launches["decode_fused"]
+                           // SERVE_13B_NEW,
+                           "layernorm_fused": (launches["layernorm_fused"]
+                                               - L) // SERVE_13B_NEW},
+        tf_agree=rate, tf_max_trail_std=max(trail),
+        distinct=len(set(stream)), profile=profile, launches=launches)
+    print(f"serve 13b[w8a16, b=1 prompt={SERVE_13B_PROMPT} "
+          f"new={SERVE_13B_NEW}] on {card_line()}: " + json.dumps(stats))
+    if rate < TF_AGREE or max(trail) > TF_MARGIN_STD:
+        raise AssertionError(
+            f"serve 13b: teacher-forced check failed: agreement {rate:.3f} "
+            f"(need {TF_AGREE}), worst trail {max(trail):.3f} std (limit "
+            f"{TF_MARGIN_STD})")
+    stats["witness"] = witness_13b(torch, model, linears, ids, prompt,
+                                   cfg.initializer_range)
+    del model, linears, first, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def depth_view(torch, model, depth, dtype):
+    """A GPTForPretraining over `model`'s embeddings, its first `depth`
+    blocks and its final LayerNorm (the same modules, nothing copied),
+    whose config gives that depth and the KV cache's `dtype`."""
+    import copy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    cfg = copy.copy(model.config)
+    cfg.num_layers, cfg.dtype = depth, dtype
+    view = GPTForPretraining(cfg, device="meta")
+    core = model.gpt
+    view.gpt.wte, view.gpt.wpe, view.gpt.ln_f = core.wte, core.wpe, core.ln_f
+    view.gpt.blocks = torch.nn.ModuleList(list(core.blocks)[:depth])
+    return view
+
+
+def witness_13b(torch, model, linears, ids, prompt, std):
+    """The 13B weights scaled in place as if drawn at
+    SERVE_13B_WITNESS_STD (every int8 linear's scales and the embedding
+    tables: a per-channel int8 code is the same at any scale), then one
+    greedy call of the first D blocks for each D of
+    SERVE_13B_WITNESS_DEPTHS in bf16, and one of all 40 in f32 with an f32
+    cache, each teacher-forced through the same blocks' f32 forward:
+    agreement, worst trail and distinct tokens. Printed, then held: a
+    stream of >= MIN_MEAN_DISTINCT distinct tokens and the worst trail
+    within TF_MARGIN_STD in bf16 at SERVE_13B_HELD_DEPTHS and in f32 at
+    full depth, where the agreement must also reach TF_AGREE."""
+    from paddle_tpu_torch import generation
+    from paddle_tpu_torch.tools.serve_13b_w8a16 import decode
+    scale = SERVE_13B_WITNESS_STD / std
+    with torch.no_grad():
+        for m in linears:
+            m.w_scale.mul_(scale)
+        for t in (model.gpt.wte.weight, model.gpt.wpe.weight):
+            t.mul_(scale)
+    runs = [(f"bf16 depth {d}", d, "bfloat16")
+            for d in SERVE_13B_WITNESS_DEPTHS]
+    runs.append((f"f32 depth {model.config.num_layers}",
+                 model.config.num_layers, "float32"))
+    out = {}
+    for what, depth, dtype in runs:
+        view = depth_view(torch, model, depth, dtype)
+        got, _ = decode(view, ids, SERVE_13B_NEW, dtype=dtype)
+        generation.release(view)
+        stream = got[0, SERVE_13B_PROMPT:].tolist()
+        with generation._decode_weights(view, torch.float32):
+            agree, trail = teacher_forced(torch, view, prompt, stream)
+        out[what] = dict(distinct=len(set(stream)),
+                         tf_agree=sum(agree) / len(agree),
+                         tf_max_trail_std=max(trail))
+        del view, got
+    print(f"serve 13b: witness at init {SERVE_13B_WITNESS_STD}, the first D "
+          f"blocks decoded and teacher-forced through their f32 forward: "
+          + json.dumps(out))
+    held = [(f"bf16 depth {d}", 0.0) for d in SERVE_13B_HELD_DEPTHS]
+    held.append((runs[-1][0], TF_AGREE))
+    for what, need in held:
+        r = out[what]
+        if (r["tf_agree"] < need or r["tf_max_trail_std"] > TF_MARGIN_STD
+                or r["distinct"] < MIN_MEAN_DISTINCT):
+            raise AssertionError(
+                f"serve 13b witness {what}: agreement {r['tf_agree']:.3f} "
+                f"(need {need}), worst trail {r['tf_max_trail_std']:.3f}"
+                f" std (limit {TF_MARGIN_STD}), {r['distinct']} distinct "
+                f"tokens (need {MIN_MEAN_DISTINCT})")
+    return out
+
+
+def moe_serve_kernels(torch, seed):
+    """K12 and K13 at the serving shapes (a decode step's 16 rows and a
+    prefill chunk's 128, d 768, bf16, maps from the port's router at
+    moe_config's capacity factor over skewed gate logits): against their
+    plain versions (the gather bit for bit, the combine within the
+    registry's bf16 tolerance), timed beside the plain versions and
+    F.embedding / F.embedding_bag, each launch after a read flush and a
+    reset of the lines the gather marks. -> rows named "moe_gather
+    serve 16" ..."""
+    from paddle_tpu_torch.moe.kernels import (combine_plain, gather_plain,
+                                              moe_combine_fwd, moe_gather_fwd,
+                                              reset_persisting_l2)
+    from paddle_tpu_torch.moe.router import capacity_for, route_top_k
+    from paddle_tpu_torch.ops.kernel_registry import get_kernel
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 19)
+    bf16, d = torch.bfloat16, N_HEADS * HEAD_DIM
+    flush = l2_flush(torch, dev)
+    rows = {}
+    for n in MOE_SERVE_ROWS:
+        C = capacity_for(n, MOE_E, MOE_K, MOE_CF)
+        logits = (torch.randn((n, MOE_E), generator=gen)
+                  + torch.linspace(1.0, -1.0, MOE_E)).to(dev)
+        comb_w, comb_slot, slot_token = route_top_k(logits, MOE_K, C)[:3]
+        tokens = torch.randn((n, d), generator=gen).to(dev, bf16)
+        eo = torch.randn((MOE_E * C, d), generator=gen).to(dev, bf16)
+        w = comb_w.to(bf16)
+        got = moe_gather_fwd(tokens, slot_token)
+        ref = gather_plain(tokens, slot_token)
+        cgot = moe_combine_fwd(eo, comb_slot, w)
+        cref = combine_plain(eo, comb_slot, w)
+        torch.cuda.synchronize()
+        tag = f"[bf16, serve {n} rows, E={MOE_E} C={C}]"
+        if not same_bits(torch, got, ref):
+            raise AssertionError(f"moe_gather{tag}: not bit for bit its "
+                                 "plain version")
+        c_err = hold(f"moe_combine{tag}", cgot, cref,
+                     get_kernel("moe_combine").tol["bfloat16"])
+        pad = torch.cat([tokens, tokens.new_zeros((1, d))])
+        eo_pad = torch.cat([eo, eo.new_zeros((1, d))])
+        g_bytes, c_bytes, _, kept_slots = moe_work(
+            torch, n, d, slot_token, comb_slot, 2)
+
+        def timed(fn):
+            return median_ms(torch, fn, flush, before=reset_persisting_l2)
+        rows[f"moe_gather serve {n}"] = dict(
+            ms=timed(lambda: moe_gather_fwd(tokens, slot_token)),
+            plain_ms=timed(lambda: gather_plain(tokens, slot_token)),
+            library_ms=timed(lambda: F.embedding(slot_token, pad)),
+            bound=bound(g_bytes, 0, "bfloat16"), max_abs_err=0.0)
+        rows[f"moe_combine serve {n}"] = dict(
+            ms=timed(lambda: moe_combine_fwd(eo, comb_slot, w)),
+            plain_ms=timed(lambda: combine_plain(eo, comb_slot, w)),
+            library_ms=timed(lambda: F.embedding_bag(
+                comb_slot, eo_pad, per_sample_weights=w, mode="sum")),
+            bound=bound(c_bytes, 2 * kept_slots * d, "bfloat16"),
+            max_abs_err=c_err)
+        for name in (f"moe_gather serve {n}", f"moe_combine serve {n}"):
+            print(f"kernels: {name} rows, d {d} bf16, C {C}: "
+                  + kernel_line(rows[name]))
+    del flush
+    reset_persisting_l2()
+    return rows
+
+
+def moe_serve_run(torch, model, prompts, ids, dtype, what, exact):
+    """One serving configuration of the MoE model: the serve phase's
+    engine (captured steps) over `prompts` (32 new tokens each) and
+    `generate` over `ids` (DEC_NEW new tokens), launches exact (one
+    moe_gather and one moe_combine a MoE layer a step or chunk), every
+    stream teacher-forced through `model`'s dense f32 forward. The
+    engine's runs in turns (eager bodies, captured, captured, eager)
+    count the streams equal to the first run's; with `exact` every one
+    must be. Without it they may differ: idle slots and a chunk's
+    padding rows attend over whatever the arenas hold and compete for
+    the experts' capacity, so a stream depends on what earlier runs left
+    there. `generate` routes no such row: its captured streams must equal
+    its eager steps' in both cases. -> stats."""
+    from paddle_tpu_torch import generation
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    L, vocab = model.config.num_layers, model.config.vocab_size
+    eng = ServingEngine(model, **{**ENGINE, "dtype": dtype})
+    for p in make_requests(1, vocab, n=2):
+        eng.submit(p[:40], SamplingParams(max_new_tokens=4))
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    d0, c0 = eng.decode_steps, eng.prefill_chunks
+    reset_launches()
+    outs, rate, step_ms, chunk_ms = serve_run(torch, eng, prompts)
+    launches = {k.name: k.launches for k in kernels()}
+    steps, chunks = eng.decode_steps - d0, eng.prefill_chunks - c0
+    eng.pool.assert_quiesced()
+    want = {**{k: 0 for k in launches}, "paged_decode": L * steps,
+            "flash_prefill_chunk": L * chunks,
+            **{k: L * (steps + chunks) for k in ("layernorm_fused",
+                                                 *MOE_SERVE_KERNELS)}}
+    if launches != want:
+        raise AssertionError(f"{what} engine: launches {launches} != "
+                             f"{want}")
+    turns, same = {"eager": [], "captured": []}, []
+    for eager in (True, False, False, True):
+        o, r, sm, cm = serve_run(torch, eng, prompts, eager=eager)
+        turns["eager" if eager else "captured"].append(run_stats(r, sm, cm))
+        same.append(sum(a == b for a, b in zip(o, outs)))
+    if exact and min(same) < len(outs):
+        raise AssertionError(f"{what} engine: a run's streams differ from "
+                             f"the first run's ({same} of {len(outs)} "
+                             "equal)")
+    captures = check_captures(eng._graphs.records, f"{what} engine")
+    eng_tf = [teacher_forced(torch, model, p, o)
+              for p, o in zip(prompts, outs)]
+    del eng
+    gdt = "bfloat16" if dtype == "bfloat16" else None
+    model.generate(ids, max_new_tokens=DEC_NEW, dtype=gdt)     # capture
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _ = model.generate(ids, max_new_tokens=DEC_NEW, dtype=gdt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    glaunch = {k.name: k.launches for k in kernels()}
+    gwant = {**{k: 0 for k in glaunch}, "decode_fused": L * DEC_NEW,
+             **{k: L * (DEC_NEW + 1) for k in ("layernorm_fused",
+                                               *MOE_SERVE_KERNELS)}}
+    if glaunch != gwant:
+        raise AssertionError(f"{what} generate: launches {glaunch} != "
+                             f"{gwant}")
+    with eager_steps():
+        eout, _ = model.generate(ids, max_new_tokens=DEC_NEW, dtype=gdt)
+    if not torch.equal(eout, out):
+        raise AssertionError(f"{what} generate: the eager steps' streams "
+                             "differ from the captured ones'")
+    streams = out[:, DEC_PROMPT:].tolist()
+    gen_tf = [teacher_forced(torch, model, p, s)
+              for p, s in zip(ids.tolist(), streams)]
+    generation.release(model)
+
+    def tf(runs):
+        agree = [a for r in runs for a in r[0]]
+        return sum(agree) / len(agree), max(t for r in runs for t in r[1])
+    distinct = [len(set(o)) for o in outs + streams]
+    stats = dict(engine=run_stats(rate, step_ms, chunk_ms),
+                 engine_turns=turns, engine_captures=captures,
+                 engine_turns_same_streams=same,
+                 decode_steps=steps, prefill_chunks=chunks,
+                 engine_tf=tf(eng_tf),
+                 generate_tokens_per_s=DEC_BATCH * DEC_NEW / gen_s,
+                 generate_step_ms=gen_s * 1e3 / DEC_NEW,
+                 generate_tf=tf(gen_tf),
+                 per_step={k: launches[k] / (steps + chunks)
+                           for k in MOE_SERVE_KERNELS},
+                 distinct_mean=sum(distinct) / len(distinct),
+                 launches={k: launches[k] + glaunch[k] for k in launches})
+    print(f"moe serve[{what}] on {card_line()}: " + json.dumps(stats))
+    return stats
+
+
+def stepwise_tf(torch, model, ids, streams):
+    """Teacher-forced agreement of greedy `streams` [b, n] after the
+    prompts `ids` [b, s0] through `model`'s f32 forward stepped as
+    `generate` steps it: the prompts in one call, then each step's b
+    previous tokens in one call over a KV cache, so a MoE layer routes
+    the rows, and meets the capacity, that the decode's call did.
+    -> (agree, trail) per token, as teacher_forced gives them."""
+    b, s0 = ids.shape
+    n = streams.shape[1]
+    with torch.inference_mode():
+        caches = model.gpt.init_cache(b, s0 + n, dtype=torch.float32)
+        lg, caches = model(ids, caches=caches, offset=0)
+        rows = [lg[:, -1]]
+        for i in range(1, n):
+            lg, caches = model(streams[:, i - 1:i], caches=caches,
+                               offset=s0 + i - 1)
+            rows.append(lg[:, -1])
+    logits = torch.stack(rows, 1).float()
+    best = logits.max(dim=-1).values
+    mine = logits.gather(2, streams[..., None])[..., 0]
+    trail = (best - mine) / logits.std(dim=-1)
+    agree = (logits.argmax(dim=-1) == streams).float()
+    return agree.flatten().tolist(), trail.flatten().tolist()
+
+
+def moe_served_cf_check(torch, model, ids):
+    """`generate` (captured token steps) at moe_config's capacity factor,
+    where tokens are dropped, in f32 and in bf16, MOE_REF_NEW new tokens:
+    every token teacher-forced through a CPU copy of the model (the plain
+    versions) by stepwise_tf. Printed; held in f32: the teacher-forced
+    bar and streams of >= MIN_MEAN_DISTINCT distinct tokens. bf16 is
+    printed only: its gate logits' rounding flips near-tied choices."""
+    import copy
+    from paddle_tpu_torch import generation
+    cpu = copy.deepcopy(model).to("cpu")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        got, _ = model.generate(ids, max_new_tokens=MOE_REF_NEW, dtype=dtype)
+        generation.release(model)
+        streams = got[:, ids.shape[1]:].cpu()
+        agree, trail = stepwise_tf(torch, cpu, ids.cpu(), streams)
+        out[dtype] = dict(tf_agree=sum(agree) / len(agree),
+                          tf_max_trail_std=max(trail),
+                          distinct_mean=sum(len(set(r)) for r in
+                                            streams.tolist()) / len(streams))
+    print(f"moe serve: generate at cf {MOE_CF}, {MOE_REF_NEW} tokens "
+          "teacher-forced through the CPU's plain versions over the same "
+          "rows: " + json.dumps(out))
+    r = out["float32"]
+    if (r["tf_agree"] < TF_AGREE or r["tf_max_trail_std"] > TF_MARGIN_STD
+            or r["distinct_mean"] < MIN_MEAN_DISTINCT):
+        raise AssertionError(
+            f"moe serve f32 cf {MOE_CF} generate vs the CPU: agreement "
+            f"{r['tf_agree']:.3f} (need {TF_AGREE}), worst trail "
+            f"{r['tf_max_trail_std']:.3f} std (limit {TF_MARGIN_STD}), "
+            f"{r['distinct_mean']:.1f} distinct tokens a stream (need "
+            f"{MIN_MEAN_DISTINCT})")
+    return out
+
+
+def moe_serve_phase(torch, seed, init_range):
+    """GPT-MoE (moe_config: GPT-3 125M width, every MLP an 8-expert top-2
+    MoEFFN; init --init-range) served through the engine (the serve
+    phase's configuration and its 32 greedy requests, 32 new tokens;
+    decode steps and prefill chunks captured, which route every row they
+    carry, idle slots and padding included) and `generate` (batch 8,
+    prompt 128, 128 new, captured token steps), twice: in bf16 at
+    moe_config's capacity factor 1.25 (the served configuration: speed,
+    decode-step p50, launches; its teacher-forced agreement is printed,
+    not held: the capacity a token meets depends on the rows routed
+    with it, so the dense forward over a whole stream drops other
+    choices than the steps did), and in f32 at a capacity where no
+    choice is dropped, held to the teacher-forced bar (exact routing,
+    so the f32 steps and the f32 dense forward compute the same
+    function) and to stream identity between runs (moe_serve_run). Then
+    `generate` at cf 1.25 against the CPU stepped over the same rows
+    (moe_served_cf_check), and K12 and K13 at the serving shapes
+    (moe_serve_kernels). -> (stats, that check's readings, kernel
+    rows)."""
+    import numpy as np
+    from paddle_tpu_torch.moe import GPTMoE, MoEFFN
+    cfg = moe_config()
+    cfg.initializer_range = init_range
+    model = GPTMoE(cfg, seed=seed)                    # f32, on the card
+    prompts = make_requests(seed, cfg.vocab_size)
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT))).to(DEVICE)
+    layers = [m for m in model.modules() if isinstance(m, MoEFFN)]
+    stats = {}
+    for what, dtype, cf in (("bf16 cf 1.25", "bfloat16", MOE_CF),
+                            ("f32 dropless", "float32", MOE_DROPLESS_CF)):
+        for m in layers:
+            m.capacity_factor = cf
+        stats[what] = moe_serve_run(torch, model, prompts, ids, dtype, what,
+                                    exact=cf == MOE_DROPLESS_CF)
+    for m in layers:
+        m.capacity_factor = MOE_CF
+    served = moe_served_cf_check(torch, model, ids)
+    for part in ("engine_tf", "generate_tf"):
+        rate, trail = stats["f32 dropless"][part]
+        if rate < TF_AGREE or trail > TF_MARGIN_STD:
+            raise AssertionError(
+                f"moe serve f32 dropless {part}: teacher-forced check "
+                f"failed: agreement {rate:.3f} (need {TF_AGREE}), worst "
+                f"trail {trail:.3f} std (limit {TF_MARGIN_STD})")
+    if stats["bf16 cf 1.25"]["distinct_mean"] < MIN_MEAN_DISTINCT:
+        raise AssertionError("moe serve: the bf16 streams barely vary")
+    del model, layers
+    torch.cuda.empty_cache()
+    return stats, served, moe_serve_kernels(torch, seed)
+
+
 def print_compiled_summary(serve, wo8, loop, memory, decode):
     """The compiled step against the eager bodies, one JSON line: what
     each phase measured, eager and captured in turns in this process."""
@@ -4024,13 +4692,18 @@ def print_compiled_summary(serve, wo8, loop, memory, decode):
 
 
 PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
-                  "long_context", "options", "layer", "full", "full_4k")
+                  "kernels_13b", "long_context", "serve_13b", "moe_serve",
+                  "options", "layer", "full", "full_4k")
 
 
 def partial_run(torch, args, lap, phase_s):
     """The build and the named phases alone (--phases); no result."""
     fns = {"kernels_moe": moe_kernels_phase, "moe_train": moe_train_phase,
            "kernels_1_3b": kernels_1_3b_phase,
+           "kernels_13b": kernels_13b_phase,
+           "serve_13b": serve_13b_phase,
+           "moe_serve": lambda torch, seed: moe_serve_phase(
+               torch, seed, INIT_RANGE),
            "long_context": long_context_phase, "options": train_options_phase,
            "layer": train_1_3b_layer_phase, "full": train_1_3b_full_phase,
            "full_4k": lambda torch, seed: train_1_3b_full_phase(
@@ -4113,6 +4786,8 @@ def main(argv=None):
     lap("kernels: moe")
     rows_1_3b = kernels_1_3b_phase(torch, args.seed)
     lap("kernels: 1.3B")
+    rows_13b = kernels_13b_phase(torch, args.seed)
+    lap("kernels: 13B")
     long_ctx = long_context_phase(torch, args.seed)
     torch.cuda.empty_cache()
     lap("long context")
@@ -4140,6 +4815,12 @@ def main(argv=None):
     decode = decode_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("decode")
+    serve_13b = serve_13b_phase(torch, args.seed)
+    lap("serve 13B")
+    moe_serve, moe_served_cf, rows_moe_serve = moe_serve_phase(
+        torch, args.seed, args.init_range)
+    torch.cuda.empty_cache()
+    lap("moe serve")
     train = train_phase(torch, args.seed)
     torch.cuda.empty_cache()
     lap("train")
@@ -4169,6 +4850,13 @@ def main(argv=None):
         "full": {k: v for k, v in full.items() if k != "launches"},
         "full_4k": {k: v for k, v in full_4k.items() if k != "launches"},
         "long_context": long_ctx["points"]}))
+    print(f"13B decode and MoE serving on {card_line()}: " + json.dumps({
+        "kernels": {k: {**r, "bound": list(r["bound"])}
+                    for k, r in {**rows_13b, **rows_moe_serve}.items()},
+        "serve_13b": {k: v for k, v in serve_13b.items() if k != "launches"},
+        "moe_serve": {what: {k: v for k, v in st.items() if k != "launches"}
+                      for what, st in moe_serve.items()},
+        "moe_served_cf_vs_cpu": moe_served_cf}))
 
     out = []
     for k in regs:
@@ -4176,11 +4864,14 @@ def main(argv=None):
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
                        for run in (stats, wo8, loop, memory, fleet, decode,
-                                   train, moe, options, layer, full,
-                                   full_4k, long_ctx))
-        # the largest error of the kernel's checks, the 1.3B shapes' too
+                                   serve_13b, *moe_serve.values(), train,
+                                   moe, options, layer, full, full_4k,
+                                   long_ctx))
+        # the largest error of the kernel's checks, the 1.3B, 13B and MoE
+        # serving shapes' too
         err = max([r["max_abs_err"]] + [
-            r13["max_abs_err"] for name, r13 in rows_1_3b.items()
+            r13["max_abs_err"] for name, r13 in {
+                **rows_1_3b, **rows_13b, **rows_moe_serve}.items()
             if name.split(" ")[0] == k.name])
         out.append({"name": k.name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "launches": launches,

@@ -70,6 +70,15 @@
 //   this one writes), then `griddepcontrol.wait` before reading x and r
 //   and writing anything, and `griddepcontrol.launch_dependents` once
 //   the row is in registers.
+// Rows wider than 4096 (GPT-3 13B's 5120) take add_ln_pair_wide: the
+// register-resident layout would hold 160-320 values of s a lane there,
+// which spills. It gives a row a CTA of up to 16 warps instead and keeps
+// s only in the row staged in shared memory (d floats, 20 KB at 5120):
+// the first pass adds x and r into the staged row and writes the carry,
+// warp 0 sums the moments from it in row_moments' order (so out is the
+// bits of the narrower instances' order), and the second pass reads s
+// back from it for out. Every thread waits on the kernel before it
+// (programmatic dependent launch) before it reads or writes anything.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -371,12 +380,111 @@ add_ln_pair(const TX* __restrict__ x, const TR* __restrict__ r,
   }
 }
 
+// V f32 values from p (shared memory): float4 loads, or one at V = 1
+template <int V>
+__device__ __forceinline__ void load_f32(const float* p, float (&s)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(p)[q];
+      s[4 * q] = v.x;
+      s[4 * q + 1] = v.y;
+      s[4 * q + 2] = v.z;
+      s[4 * q + 3] = v.w;
+    }
+  } else {
+    s[0] = *p;                          // V = 1
+  }
+}
+
+constexpr int kPairRegMaxD = 4096;      // the register-resident instances
+constexpr int kPairMaxD = 5120;         // add_ln_pair_wide up to here
+constexpr int kWideMaxWarps = 16;
+
+// A row a CTA of blockDim.x threads; thread t takes chunks t, t +
+// blockDim.x, ... of V elements. s lives only in the row staged in d
+// floats of dynamic shared memory.
+template <typename TX, typename TR, typename TW, int V>
+__global__ void __launch_bounds__(32 * kWideMaxWarps)
+add_ln_pair_wide(const TX* __restrict__ x, const TR* __restrict__ r,
+                 const TW* __restrict__ w, const TW* __restrict__ b,
+                 TX* __restrict__ y, TX* __restrict__ h, int d, float eps) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int nchunk = d / V;
+  const long long base = (long long)blockIdx.x * d;
+  extern __shared__ float4 stage[];
+  float* srow = reinterpret_cast<float*>(stage);
+  __shared__ float stat[2];
+  // every thread waits before it touches x or r, and none exits first
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll 2
+  for (int c = t; c < nchunk; c += nt) {
+    const Pack<TX, V> xp = load_pack<TX, V>(x + base + c * V);
+    const Pack<TR, V> rp = load_pack<TR, V>(r + base + c * V);
+    float s[V];
+    Pack<TX, V> ho;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      s[k] = f32(xp.v[k]) + f32(rp.v[k]);
+      ho.v[k] = cvt<TX>(s[k]);
+    }
+    store_f32<V>(srow + c * V, s);
+    if (h) store_pack<TX, V>(h + base + c * V, ho);
+  }
+  // the row is read: the next kernel may start its launch
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __syncthreads();
+  if (t < 32) {
+    float mean, rstd;
+    row_moments(srow, d, t, eps, mean, rstd);
+    if (t == 0) {
+      stat[0] = mean;
+      stat[1] = rstd;
+    }
+  }
+  __syncthreads();
+  const float mean = stat[0], rstd = stat[1];
+#pragma unroll 2
+  for (int c = t; c < nchunk; c += nt) {
+    float s[V];
+    load_f32<V>(srow + c * V, s);
+    const Pack<TW, V> wi = load_pack<TW, V>(w + c * V);
+    const Pack<TW, V> bi = load_pack<TW, V>(b + c * V);
+    Pack<TX, V> yo;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      yo.v[k] = cvt<TX>((s[k] - mean) * rstd * f32(wi.v[k]) + f32(bi.v[k]));
+    store_pack<TX, V>(y + base + c * V, yo);
+  }
+}
+
 struct PairArgs {
   const void *x, *r, *w, *b;
   void *y, *h;
   int rows, d;
   float eps;
 };
+
+template <typename TX, typename TR, typename TW, int V>
+int wide_go(const PairArgs& a, bool pdl, cudaStream_t st) {
+  // the fewest warps that leave a thread at most two chunks, up to 16
+  const int warps = min(kWideMaxWarps, (a.d / V + 63) / 64);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.rows);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = sizeof(float) * a.d;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(
+      &cfg, add_ln_pair_wide<TX, TR, TW, V>, static_cast<const TX*>(a.x),
+      static_cast<const TR*>(a.r), static_cast<const TW*>(a.w),
+      static_cast<const TW*>(a.b), static_cast<TX*>(a.y),
+      static_cast<TX*>(a.h), a.d, a.eps);
+}
 
 template <typename TX, typename TR, typename TW, int C, int V>
 int pair_go(const PairArgs& a, int warps, bool pdl, cudaStream_t st) {
@@ -401,12 +509,18 @@ int pair_go(const PairArgs& a, int warps, bool pdl, cudaStream_t st) {
 }
 
 // the fewest chunks a lane that cover the row: vector widths up to 16
-// chunks a lane (d <= 4096 in bf16, 2048 in f32), V = 1 up to 128
+// chunks a lane (d <= 4096 in bf16, 2048 in f32), V = 1 up to 128;
+// rows wider than 4096 take the staged form, 16-byte chunks or V = 1
 template <typename TX, typename TR, typename TW>
 int pair_dispatch(const PairArgs& a, int warps, bool pdl, cudaStream_t st) {
   constexpr int V = 16 / sizeof(TX);
   const uintptr_t ptrs = (uintptr_t)a.x | (uintptr_t)a.r | (uintptr_t)a.w |
                          (uintptr_t)a.b | (uintptr_t)a.y | (uintptr_t)a.h;
+  if (a.d > kPairRegMaxD) {
+    if (a.d % V == 0 && ptrs % 16 == 0)
+      return wide_go<TX, TR, TW, V>(a, pdl, st);
+    return wide_go<TX, TR, TW, 1>(a, pdl, st);
+  }
   const int per_lane = (a.d / V + 31) / 32;
   if (a.d % V == 0 && ptrs % 16 == 0 && per_lane <= 16) {
     if (per_lane <= 1) return pair_go<TX, TR, TW, 1, V>(a, warps, pdl, st);
@@ -462,8 +576,9 @@ extern "C" const char* add_layer_norm_error_string(int code) {
 
 // The inference form (K7): y = LayerNorm(x + r) * w + b and, when h is
 // not null, the carry h = x + r, both in x's dtype. dtypes as above; d
-// at most 4096; `warps` rows a CTA (1..8); `pdl` non-zero launches with
-// programmatic stream serialization. Returns a cudaError_t.
+// at most 5120 (above 4096 a row a CTA); `warps` rows a CTA (1..8) up to
+// 4096; `pdl` non-zero launches with programmatic stream serialization.
+// Returns a cudaError_t.
 extern "C" int add_layer_norm_pair_launch(const void* x, const void* r,
                                           const void* w, const void* b,
                                           void* y, void* h, int rows, int d,
@@ -471,7 +586,7 @@ extern "C" int add_layer_norm_pair_launch(const void* x, const void* r,
                                           int w_dtype, float eps, int warps,
                                           int pdl, void* stream) {
   if (rows <= 0) return 0;
-  if (d <= 0 || d > 128 * 32 || warps < 1 || warps > kPairMaxWarps ||
+  if (d <= 0 || d > kPairMaxD || warps < 1 || warps > kPairMaxWarps ||
       x_dtype < 0 || x_dtype > 1 || r_dtype < 0 || r_dtype > 1 ||
       w_dtype < 0 || w_dtype > 1)
     return (int)cudaErrorInvalidValue;

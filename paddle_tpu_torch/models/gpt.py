@@ -314,6 +314,10 @@ class GPTForPretraining(torch.nn.Module):
     the JAX model's initialisers: N(0, initializer_range) for the
     embeddings, qkv/out_proj and fc1, N(0, initializer_range /
     sqrt(2 * num_layers)) for fc2, zero biases, unit LayerNorm scales.
+    On `device="meta"` the model is a skeleton with no values to draw:
+    `tools.serve_13b_w8a16` materialises it a piece at a time, drawing
+    each parameter with `init_parameter` in this order from one
+    generator, which gives the values of a whole build.
     """
 
     # model factory hook (the MoE family: moe.GPTMoE)
@@ -325,23 +329,32 @@ class GPTForPretraining(torch.nn.Module):
         dtype = resolve_dtype(config.dtype)
         self.config = config
         self.gpt = self.model_cls(config, device=device, dtype=dtype)
-        self.init_weights(seed)
+        if device.type != "meta":
+            self.init_weights(seed)
 
     @torch.no_grad()
     def init_weights(self, seed):
-        c = self.config
         dev = self.gpt.wte.weight.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        std = c.initializer_range
-        out_std = std / math.sqrt(2 * c.num_layers)
         for name, p in self.named_parameters():
-            if ".ln" in name:
-                continue        # LayerNorm: unit scale, zero shift
-            if name.endswith(".bias"):
-                p.zero_()
+            self.init_parameter(name, p, gen)
+
+    @torch.no_grad()
+    def init_parameter(self, name, p, gen):
+        """Give the parameter `name` of this model its initial value,
+        drawing from `gen` where the initialiser is random."""
+        c = self.config
+        std = c.initializer_range
+        if ".ln" in name:       # LayerNorm: unit scale, zero shift
+            if name.endswith(".weight"):
+                p.fill_(1.0)
             else:
-                p.normal_(0.0, out_std if name.endswith("fc2.weight")
-                          else std, generator=gen)
+                p.zero_()
+        elif name.endswith(".bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, std / math.sqrt(2 * c.num_layers)
+                      if name.endswith("fc2.weight") else std, generator=gen)
 
     def forward(self, input_ids, caches=None, offset=None,
                 decode_chunks=None):

@@ -49,6 +49,14 @@ class MoEFFN(torch.nn.Module):
     config: GPTMoEConfig-shaped (hidden_size, ffn_hidden_size,
     num_experts, expert_top_k, capacity_factor). Parameters are created
     empty; the owning model initialises them.
+
+    The forward makes no host sync and no shape that depends on data
+    (capacity_for(n, E, k, cf) from the row count alone), so it runs
+    inside the serving engine's and `generate`'s captured steps, which
+    route every row they carry (idle slots, a chunk's padding) as the
+    JAX engine's compiled step does. There the stashed aux, z and stats
+    are outputs of the graph's memory pool: read them before the next
+    replay of any graph of that step.
     """
 
     def __init__(self, config, device=None, dtype=torch.float32):

@@ -14,7 +14,9 @@ plus the load-balancing aux loss over the top-1 assignment, the router
 z-loss and the health stats in `STATS_FIELDS` order. Dropped choices are
 scattered into one spare slot past the end, which is sliced off (the
 JAX scatter drops them with mode="drop"), so they never land in a real
-slot; kept choices occupy distinct slots.
+slot; kept choices occupy distinct slots. Every shape follows from n, E,
+k and C alone and nothing is read back to the host, so the serving
+engine's and `generate`'s captured steps can replay the routing.
 """
 import torch
 
@@ -34,6 +36,13 @@ def router_stats_names():
 def capacity_for(n_tokens, num_experts, k, capacity_factor):
     """Per-expert capacity: the JAX package's formula."""
     return max(1, int(capacity_factor * n_tokens * k / num_experts))
+
+
+def _one_hot_t(idx, E):
+    """[E, n] int64 with a 1 at (idx[i], i): the transposed one-hot of
+    idx, made by a comparison (one_hot checks its range on the host)."""
+    experts = torch.arange(E, dtype=idx.dtype, device=idx.device)
+    return (experts[:, None] == idx[None, :]).long()
 
 
 def route_top_k(logits, k, capacity):
@@ -62,7 +71,7 @@ def route_top_k(logits, k, capacity):
         # token axis of the [E, n] one-hot: over the [n, E] layout, as
         # the JAX code writes it, CUDA's scan of an outer dimension 8
         # wide took ~1.4 ms at n 8192 on an H100
-        onehot_t = torch.nn.functional.one_hot(idx, E).t().contiguous()
+        onehot_t = _one_hot_t(idx, E)
         rank = torch.cumsum(onehot_t, dim=1).gather(0, idx[None])[0] - 1
         pos_in_e = rank + counts[idx]
         counts = counts + onehot_t.sum(dim=1)
@@ -78,7 +87,7 @@ def route_top_k(logits, k, capacity):
     comb_w = torch.stack(comb_w, dim=1)
 
     # aux loss over the top-1 assignment (GShard): E * sum(f_e * p_e)
-    frac = torch.nn.functional.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
+    frac = _one_hot_t(gate_idx[:, 0], E).float().mean(dim=1)
     aux = E * (frac * probs.mean(dim=0)).sum()
     # router z-loss (ST-MoE eq.(5))
     z = torch.logsumexp(logits.float(), dim=-1).square().mean()

@@ -22,9 +22,11 @@ launch of the saving kernel, and its backward is the JAX package's
 The plain version copies `_ln_ref`: f32 moments and one rounding of the
 output to x's dtype; the carry is the f32 sum rounded once to x's dtype,
 bit for bit `(x + residual).to(x.dtype)`. x and residual are [rows, d]
-(any row count, d up to 4096; the pair also takes [..., d]), each f32
-or bf16; weight and bias [d]. On a CPU tensor the wrappers run the
-plain version; on a CUDA tensor they launch the kernel or raise.
+(any row count; d up to 4096 for the saving kernel and up to 5120 for
+the inference kernel, which gives a row wider than 4096 a CTA; the pair
+also takes [..., d]), each f32 or bf16; weight and bias [d]. On a CPU
+tensor the wrappers run the plain version; on a CUDA tensor they launch
+the kernel or raise.
 """
 import ctypes
 
@@ -39,7 +41,9 @@ __all__ = ["layernorm_fwd_saved", "layernorm_fused", "layernorm_fused_pair",
            "FusedAddLayerNormPair"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 4096
+# the widest row each kernel takes: the saving form (training) 4096, the
+# inference form 5120 (GPT-3 13B's hidden size)
+_MAX_D = {"layernorm_fwd_saved": 4096, "layernorm_fused": 5120}
 # f32: the JAX registry's tolerance (pallas_layernorm.py:97, :146); bf16:
 # the output rounds to bf16 once, so a 1-ulp flip (relative 2^-8) between
 # two f32 orders of summation is the largest expected difference
@@ -79,7 +83,8 @@ PDL = True
 def pair_warps(rows):
     """Rows a CTA of the inference kernel: one while the rows fit the
     card's 132 SMs a warp each, so a decode step's 8-16 rows spread over
-    8-16 SMs; four above that, so long row counts keep whole SMs busy."""
+    8-16 SMs; four above that, so long row counts keep whole SMs busy.
+    A row wider than 4096 takes a CTA of its own whatever this says."""
     return 1 if rows <= 132 else 4
 
 
@@ -122,7 +127,7 @@ def _check(name, x, residual, weight, bias, rows_2d):
             and x.is_contiguous() and residual.is_contiguous()
             and weight.is_contiguous() and bias.is_contiguous()
             and residual.shape == x.shape and weight.shape == (d,)
-            and bias.shape == (d,) and 0 < d <= _MAX_D
+            and bias.shape == (d,) and 0 < d <= _MAX_D[name]
             and (x.dim() == 2 if rows_2d else x.dim() >= 2)):
         return index
     _explain(name, x, residual, weight, bias, index, rows_2d)
@@ -147,8 +152,9 @@ def _explain(name, x, residual, weight, bias, index, rows_2d):
             raise ValueError(f"{name}: {arg} must be contiguous")
     raise ValueError(f"{name}: x and residual must be "
                      f"{'[rows, d]' if rows_2d else '[..., d]'} of one "
-                     f"shape with d <= {_MAX_D}, weight and bias [d] of one "
-                     f"dtype; got {tuple(x.shape)}, {tuple(residual.shape)}, "
+                     f"shape with d <= {_MAX_D[name]}, weight and bias [d] "
+                     f"of one dtype; got {tuple(x.shape)}, "
+                     f"{tuple(residual.shape)}, "
                      f"{tuple(weight.shape)} {weight.dtype}, "
                      f"{tuple(bias.shape)} {bias.dtype}")
 
