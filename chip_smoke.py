@@ -366,9 +366,55 @@ ok line):
              micro-batch 8 x 4096 and the bench's K 8, 1 warm + 1 timed
              round, the same report and launches.
 
+11. serving bench — `paddle_tpu_torch.tools.bench_serving` (the JAX
+             bench_serving.py's legs) at its card configuration: GPT-3
+             125M with wo8 linears (init 0.02, quantized before the
+             baseline), 16 slots, block 16, chunk 128, length 512,
+             prompts of 126-130 tokens, 128 new; the single-stream
+             `generate` baseline (median of 3 sweeps over 3 prompts,
+             every length served once first), offered levels 1, 2, 4,
+             8 and 16 (two waves each: tokens/s, TTFT and TPOT p50/p99
+             from the handles), the level rated at the tool's declared
+             SLO (2000 ms p99 TTFT, 20 ms p99 TPOT), the shared-prefix
+             leg (32 requests over 2 templates of 96 tokens, warm vs
+             cold engine) and the tracing cost at the rated level. Holds:
+             every request ends with 128 tokens, the warm prefix streams
+             equal the cold ones and the hit rate is > 0, no capture
+             inside a timed level, a baseline sweep or a tracing wave,
+             each level's launches K7 = 12 x (decode steps + chunks),
+             K10 = 12 x decode steps, K11 = 12 x chunks and no other
+             kernel, and every record of its JSONL (under
+             build/chip_smoke/) passes the port's validator;
+12. health — `TrainStep(health=)` and the telemetry runtime: the taps
+             (grad norm over the raw grads, update ratio, NaN/Inf
+             counts, loss) of 3 f32 AdamW steps at b 2, s 256, full
+             width, card against CPU within 1e-4 relative; at the train
+             shape (24 x 1024, bf16 amp) ms a step and peak memory with
+             taps off, at every_k 4 and at every_k 1, then 12 steps at
+             every_k 4 under a TelemetryRecorder (records valid, taps
+             on steps 3, 7 and 11); a 3 s host stall past a 1 s
+             hang_deadline_s: exactly one black-box dump, a
+             MetricsServer's /healthz 503 during it and 200 after; an
+             injected NaN with action="raise": HealthError, `nan`, one
+             dump; `tools.memwatch --smoke` on the card, no rule firing.
+             The memory phase holds the engine's memory rules:
+             `hbm_pressure` fires once under the tight budget and nothing
+             fires at the card's budget or without one;
+13. kernel obs — `telemetry.kernel_obs.measure_registry` over every
+             registered kernel at its registry example (the main path's
+             shape): median of 60 of the kernel and of its plain
+             version (each launch after a read flush, CUDA events),
+             `predicted_ms` from the entry's cost() over the H100 SXM
+             peaks, the bound and the fraction of it reached, and the
+             `kernel_time_drift` verdicts (printed, not held: the
+             launch-bound serving shapes sit far from their bounds);
+             the records validate and the DB is written to
+             build/paddle_tpu_torch/kernel_db.json.
+
 `--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
-serve_13b,moe_serve,options,layer,full,full_4k` (any of them) runs the
-build and the named phases alone and prints no result line.
+serve_13b,moe_serve,options,layer,full,full_4k,memory,serving_bench,
+health,kernel_obs` (any of them) runs the build and the named phases
+alone and prints no result line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
@@ -392,6 +438,10 @@ import sys
 import time
 
 DEVICE = "cuda"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# what the smoke writes (bench JSONL, black-box dumps): under build/,
+# which git ignores
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core bf16
                   "float32": 67e12}     # f32 outside the tensor cores
@@ -2333,6 +2383,9 @@ def memory_phase(torch, seed, init_range):
             f"reserved {reserved}")
     total = rec["total_bytes"]
     ledger_pool = eng._graphs.pool_bytes     # reserved inside the total
+    if eng.health.anomalies:            # no budget declared: no rule fires
+        raise AssertionError(f"memory: {eng.health.kinds()} fired without "
+                             "a budget")
     # what a snapshot costs the step that takes it (host time)
     snap_ms = []
     for i in range(MEM_SNAP_TIMED):
@@ -2349,6 +2402,11 @@ def memory_phase(torch, seed, init_range):
     low.mem_obs.snapshot(0)
     if low.mem_obs.headroom_bytes() != 0:
         raise AssertionError(f"memory: headroom {low.mem_obs.last}")
+    # the engine's detector judged that record: hbm_pressure, once
+    low_kinds = [a.kind for a in low.health.anomalies]
+    if low_kinds != ["hbm_pressure"]:
+        raise AssertionError(f"memory: the tight budget's engine fired "
+                             f"{low_kinds}, not one hbm_pressure")
     try:
         low.submit(prompts[0], SamplingParams(max_new_tokens=4))
         raise AssertionError("memory: an exhausted budget admitted")
@@ -2375,8 +2433,9 @@ def memory_phase(torch, seed, init_range):
     finally:
         srv.stop()
         low.stop()
+    low_kinds = [a.kind for a in low.health.anomalies]
     if monitor.get("serving.mem_shed", 0) != shed0 + 2 or \
-            low._counts["admitted"] != 0:
+            low._counts["admitted"] != 0 or low_kinds != ["hbm_pressure"]:
         raise AssertionError("memory: serving.mem_shed did not count the "
                              "two sheds")
     del low, srv
@@ -2415,6 +2474,9 @@ def memory_phase(torch, seed, init_range):
     finally:
         high.stop()
     recs = psink.records
+    high_kinds = [a.kind for a in high.health.anomalies]
+    if high_kinds:
+        raise AssertionError(f"memory: the card's budget fired {high_kinds}")
     posts = [i for i, r in enumerate(recs) if r.get("event") == "postmortem"]
     restarts = [i for i, r in enumerate(recs)
                 if r.get("kind") == "serving" and r.get("event") == "restart"]
@@ -2455,6 +2517,7 @@ def memory_phase(torch, seed, init_range):
                         top_array=post["top_arrays"][0]),
         oom_tf_agree=tf_rate, oom_tf_max_trail_std=tf_trail,
         recaptures=recaptures, pool_bytes=high._graphs.pool_bytes,
+        health=dict(tight=low_kinds, card=high_kinds),
         launches=launches, phase_s=time.perf_counter() - t_phase)
     print(f"memory[bf16, init {init_range}] on {card_line()}: "
           + json.dumps(stats))
@@ -4691,9 +4754,377 @@ def print_compiled_summary(serve, wo8, loop, memory, decode):
     print(f"compiled step on {card_line()}: " + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving bench (tools/bench_serving.py) at the card config
+# ---------------------------------------------------------------------------
+
+def serving_bench_phase(torch, seed):
+    """`paddle_tpu_torch.tools.bench_serving`'s single-engine bench at
+    its card configuration (the JAX tool's accelerator one): the
+    single-stream baseline, the offered-load levels 1-16, the shared
+    prefix leg and the tracing cost. Holds: exit 0 (the warm prefix
+    streams equal the cold ones), every request of every level ends
+    with max_new tokens, a prefix hit rate > 0, no capture inside a
+    timed level, a baseline sweep or a tracing wave, launches of K7 = L
+    x (decode steps + chunks), K10 = L x decode steps, K11 = L x chunks
+    in every level and no other kernel, and every record of the JSONL
+    passes the port's validator."""
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.telemetry import read_jsonl, validate_record
+    from paddle_tpu_torch.telemetry.sink import SERVING_BENCH_METRICS
+    from paddle_tpu_torch.tools import bench_serving
+    t_phase = time.perf_counter()
+    path = os.path.join(OUT_DIR, "serving_bench.jsonl")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(path):
+        os.unlink(path)
+    reset_launches()
+    rc, s = bench_serving.run(bench_serving.parse_args(
+        ["--telemetry", path, "--seed", str(seed)]))
+    launches = {k.name: k.launches for k in kernels()}
+    L, new = s["num_layers"], s["max_new_tokens"]
+    for lv in s["levels"]:
+        d, c = lv["decode_steps"], lv["prefill_chunks"]
+        want = {"layernorm_fused": L * (d + c), "paged_decode": L * d,
+                "flash_prefill_chunk": L * c}
+        if lv["launches"] != want or lv["min_tokens"] != new or \
+                lv["captures"]:
+            raise AssertionError(
+                f"serving_bench: level {lv['level']}: launches "
+                f"{lv['launches']} != {want}, fewest tokens "
+                f"{lv['min_tokens']} (want {new}) or {lv['captures']} "
+                "captures inside the timed level")
+    if rc != 0 or not s["prefix_streams_identical"] or \
+            not s["serving.prefix_hit_rate"] > 0 or \
+            s["trace_captures_timed"] or \
+            s["single_stream"]["captures_timed"]:
+        raise AssertionError(
+            f"serving_bench: rc {rc}, prefix identical "
+            f"{s['prefix_streams_identical']}, hit rate "
+            f"{s['serving.prefix_hit_rate']}, captures in the tracing "
+            f"waves {s['trace_captures_timed']} and in the baseline "
+            f"sweeps {s['single_stream']['captures_timed']}")
+    records = read_jsonl(path)
+    problems = [p for r in records for p in validate_record(r)]
+    bench = [r["metric"] for r in records if r.get("kind") == "bench"]
+    owned = [m for m in SERVING_BENCH_METRICS
+             if not m.startswith(("serving.rated_", "fleet."))]
+    if problems or bench != owned:
+        raise AssertionError(f"serving_bench: record problems "
+                             f"{problems[:5]}, bench rows {bench}")
+    card = card_line()
+    for lv in s["levels"]:
+        print(f"serving_bench: level {lv['level']} on {card}: "
+              f"{lv['tokens_per_sec']} tokens/s, TTFT p50/p99 "
+              f"{lv['ttft_p50_ms']:.2f}/{lv['ttft_p99_ms']:.2f} ms, TPOT "
+              f"p50/p99 {lv['tpot_p50_ms']:.3f}/{lv['tpot_p99_ms']:.3f} ms "
+              f"({lv['requests']} requests, {lv['decode_steps']} decode "
+              f"steps, {lv['prefill_chunks']} chunks)")
+    keys = ("best_level", "slo_met", "slo_ttft_ms", "slo_tpot_ms",
+            "serving.single_stream_tokens_per_sec",
+            "serving.throughput_vs_single", "serving.ttft_p50_ms",
+            "serving.ttft_p99_ms", "serving.tpot_p50_ms",
+            "serving.tpot_p99_ms", "serving.preemptions",
+            "serving.kv_block_utilization_peak",
+            "serving.prefix_hit_rate", "serving.prefill_tokens_saved",
+            "serving.prefill_tokens_offered", "serving.prefix_ttft_p50_ms",
+            "prefix_cold_ttft_p50_ms", "serving.prefix_ttft_speedup",
+            "serving.trace_overhead_frac", "trace_on_tokens_per_sec",
+            "trace_off_tokens_per_sec", "single_stream", "warm_captures")
+    out = {"serving.throughput_tokens_per_sec": s["value"],
+           **{k: s[k] for k in keys},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"serving_bench on {card}: " + json.dumps(out))
+    return dict(summary=s, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the health monitor, the watchdog and the memory rules
+# ---------------------------------------------------------------------------
+
+HEALTH_WARMUP, HEALTH_STEPS = 2, 12
+HEALTH_DEADLINE_S, HEALTH_STALL_S = 1.0, 3.0
+
+
+def health_phase(torch, seed):
+    """TrainStep(health=) and the telemetry runtime on the card: the taps
+    of 3 f32 AdamW steps (the train phase's card-vs-CPU check: b 2, s
+    256, full width) against the CPU's, to 1e-4 relative; at the train
+    shape under bf16 amp, ms a step with taps off, at every_k 4 and at
+    every_k 1 (and the peak memory each: the pre-update copy), then 12
+    steps at every_k 4 under a TelemetryRecorder whose step records
+    validate; a host stall past hang_deadline_s: one dump, /healthz 503
+    during it and 200 after; an injected NaN with action="raise":
+    HealthError, `nan` fired, one dump; `memwatch --smoke` on the card
+    with no rule firing."""
+    import copy
+    import shutil
+    import threading
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.telemetry import (HealthConfig, HealthError,
+                                            MetricsServer,
+                                            TelemetryRecorder,
+                                            gpt_train_flops_per_token,
+                                            validate_record)
+    from paddle_tpu_torch.tools import memwatch
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt3_125m(max_seq_len=1024, dropout=0.0)
+    L = cfg.num_layers
+    card = card_line()
+
+    def adamw(model):
+        return AdamW(learning_rate=1e-4, weight_decay=0.01,
+                     parameters=model.parameters())
+
+    def dumps(d):
+        return sorted(f for f in os.listdir(d)
+                      if f.startswith("health_blackbox_"))
+
+    def fresh_dir(name):
+        d = os.path.join(OUT_DIR, name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        return d
+
+    # the taps, card against CPU, f32, from the same weights and batch
+    cpu_model = GPTForPretraining(cfg, device="cpu", seed=seed)
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    taps = {}
+    reset_launches()
+    for name, model in (("cuda", card_model), ("cpu", cpu_model)):
+        step = TrainStep(model, model.loss, adamw(model),
+                         health=HealthConfig(every_k=1, action="record",
+                                             dump_on_exception=False))
+        batch = train_batch(torch, cfg.vocab_size, PARITY_BATCH, PARITY_SEQ,
+                            seed, model.gpt.wte.weight.device)
+        for _ in range(PARITY_STEPS):
+            step(*batch)
+        taps[name] = [{k: r[k] for k in ("loss", "grad_norm",
+                                         "update_ratio", "nan_count",
+                                         "inf_count")}
+                      for r in step.health.ring]
+        print(f"health: f32 b={PARITY_BATCH} s={PARITY_SEQ} taps on "
+              f"{name}: {json.dumps(taps[name])}")
+    check_train_launches({k.name: k.launches for k in kernels()}, L,
+                         PARITY_STEPS, "health f32 taps")
+    rel = 0.0
+    for c, p in zip(taps["cuda"], taps["cpu"]):
+        if (c["nan_count"], c["inf_count"], p["nan_count"],
+                p["inf_count"]) != (0, 0, 0, 0):
+            raise AssertionError(f"health: non-zero NaN/Inf counts {c} {p}")
+        for k in ("loss", "grad_norm", "update_ratio"):
+            rel = max(rel, abs(c[k] - p[k]) / abs(p[k]))
+    if len(taps["cuda"]) != PARITY_STEPS or not rel <= PARITY_RTOL:
+        raise AssertionError(f"health: card taps {taps['cuda']} vs CPU "
+                             f"{taps['cpu']}: relative {rel:.2e} > "
+                             f"{PARITY_RTOL}")
+    del cpu_model
+
+    # the train shape under bf16 amp: the taps' cost, then the recorder
+    model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
+    ids, labels = train_batch(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                              0, DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    fpt = gpt_train_flops_per_token(cfg, TRAIN_SEQ, n_params)
+
+    def loss_fn(i, lbl):
+        with amp.auto_cast(dtype="bfloat16"):
+            return model.loss(i, lbl)
+
+    cost = {}
+    for label, every_k in (("off", None), ("every_k 4", 4),
+                           ("every_k 1", 1)):
+        health = None if every_k is None else HealthConfig(
+            every_k=every_k, action="record", dump_on_exception=False)
+        step = TrainStep(model, loss_fn, adamw(model), health=health)
+        st = timed_train(torch, step, (ids, labels), HEALTH_WARMUP,
+                         HEALTH_STEPS, fpt)
+        check_train_launches(st["launches"], L, HEALTH_STEPS,
+                             f"health {label}")
+        fetches = 0 if health is None else len(step.health.ring)
+        cost[label] = dict(step_ms=st["step_ms"],
+                           step_p50_ms=st["step_p50_ms"],
+                           peak_mem_gb=st["peak_mem_gb"],
+                           tokens_per_s=st["tokens_per_s"],
+                           fetches=fetches, tap_bytes=step.tap_bytes)
+        if health is not None and any(
+                a.kind == "nan" for a in step.health.anomalies):
+            raise AssertionError(f"health {label}: nan fired on a "
+                                 "healthy run")
+        del step
+    if (cost["every_k 4"]["fetches"], cost["every_k 1"]["fetches"]) != (
+            (HEALTH_WARMUP + HEALTH_STEPS) // 4,
+            HEALTH_WARMUP + HEALTH_STEPS):
+        raise AssertionError(f"health: fetch counts {cost}")
+    print(f"health: ms a step at b={TRAIN_BATCH} s={TRAIN_SEQ} bf16 amp "
+          f"on {card} (taps off / every_k 4 / every_k 1): "
+          + json.dumps(cost))
+    rec = TelemetryRecorder(tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+                            flops_per_token=fpt)
+    step = TrainStep(model, loss_fn, adamw(model),
+                     health=HealthConfig(every_k=4, action="record",
+                                         dump_on_exception=False))
+    with rec:
+        for _ in range(HEALTH_STEPS):
+            step(ids, labels)
+    problems = [p for r in rec.records for p in validate_record(r)]
+    tapped = [r["step"] for r in rec.records if "grad_norm" in r]
+    if len(rec.records) != HEALTH_STEPS or problems or \
+            tapped != [3, 7, 11] or \
+            not all(math.isfinite(r["loss"]) for r in rec.records):
+        raise AssertionError(f"health: recorder records {rec.records[:2]}"
+                             f", problems {problems[:5]}, tapped {tapped}")
+    print(f"health: recorder, 12 steps at every_k 4 on {card}: "
+          + json.dumps({"step_ms": [r["step_ms"] for r in rec.records],
+                        "mfu": [r["mfu"] for r in rec.records],
+                        "mem_bytes": rec.records[-1].get("mem_bytes"),
+                        "tapped": tapped,
+                        "last_taps": {k: rec.records[-1][k] for k in (
+                            "grad_norm", "update_ratio", "nan_count",
+                            "inf_count")}}))
+    del step, model, rec
+
+    # a host stall inside a step: one dump, /healthz 503 during it, 200
+    # after
+    stall_dir = fresh_dir("health_stall")
+    calls = {"n": 0}
+
+    def stalling_loss(i, lbl):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            time.sleep(HEALTH_STALL_S)
+        return card_model.loss(i, lbl)
+
+    step = TrainStep(card_model, stalling_loss, adamw(card_model),
+                     health=HealthConfig(every_k=1, action="record",
+                                         hang_deadline_s=HEALTH_DEADLINE_S,
+                                         dump_dir=stall_dir))
+    srv = MetricsServer(health=step.health).start()
+    codes, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            codes.append(http_get(srv.url, "/healthz", timeout=10)[0])
+            time.sleep(0.1)
+
+    poller = threading.Thread(target=poll, name="healthz-poller")
+    batch = train_batch(torch, cfg.vocab_size, PARITY_BATCH, PARITY_SEQ,
+                        seed, DEVICE)
+    poller.start()
+    try:
+        for _ in range(3):
+            step(*batch)
+    finally:
+        stop.set()
+        poller.join(30)
+    after = http_get(srv.url, "/healthz", timeout=10)[0]
+    srv.stop()
+    step.health.close()
+    stall_dumps = dumps(stall_dir)
+    if poller.is_alive() or 503 not in codes or after != 200 or \
+            len(stall_dumps) != 1:
+        raise AssertionError(f"health: stall: /healthz codes {codes}, "
+                             f"after {after}, dumps {stall_dumps}")
+    box = json.load(open(os.path.join(stall_dir, stall_dumps[0])))
+    if "stalled" not in box["reason"]:
+        raise AssertionError(f"health: stall dump reason {box['reason']}")
+
+    # an injected NaN with action="raise": HealthError, nan, one dump
+    nan_dir = fresh_dir("health_nan")
+    step = TrainStep(card_model,
+                     lambda i, lbl: card_model.loss(i, lbl) * float("nan"),
+                     adamw(card_model),
+                     health=HealthConfig(every_k=1, action="raise",
+                                         dump_dir=nan_dir))
+    try:
+        step(*batch)
+        raise AssertionError("health: a NaN step did not raise")
+    except HealthError as e:
+        kinds = [a.kind for a in e.anomalies]
+    if kinds != ["nan"] or len(dumps(nan_dir)) != 1:
+        raise AssertionError(f"health: NaN fired {kinds}, dumps "
+                             f"{dumps(nan_dir)}")
+    del step, card_model
+
+    # memwatch --smoke on the card: the ledger clean, no rule firing
+    mem_path = os.path.join(OUT_DIR, "memwatch_smoke.jsonl")
+    if os.path.exists(mem_path):
+        os.unlink(mem_path)
+    rc = memwatch.main(["--smoke", "--telemetry", mem_path])
+    if rc != 0:
+        raise AssertionError(f"health: memwatch --smoke exited {rc}")
+    stats = dict(taps_rel=rel, cost=cost, stall_healthz_codes=sorted(
+        set(codes)), stall_dump=stall_dumps[0], nan_kinds=kinds,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"health on {card}: " + json.dumps(stats))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the kernel observatory over the registry
+# ---------------------------------------------------------------------------
+
+def kernel_obs_phase(torch, seed):
+    """`telemetry.kernel_obs.measure_registry` over every registered
+    kernel at its example (the main path's shape): the wrapper's and the
+    plain version's median of 60 (each launch after a read flush, CUDA
+    events), `predicted_ms` from the entry's cost() over the data-sheet
+    peaks, the bound kind and the achieved fraction; the
+    `kernel_time_drift` verdicts are printed, not held (the
+    launch-bound serving shapes sit far from their bounds by design).
+    Holds: every record validates, and the DB is written under build/."""
+    from paddle_tpu_torch.moe.kernels import reset_persisting_l2
+    from paddle_tpu_torch.telemetry.health import AnomalyDetector
+    from paddle_tpu_torch.telemetry.kernel_obs import (DEFAULT_DB_PATH,
+                                                       KernelDB,
+                                                       measure_registry)
+    from paddle_tpu_torch.telemetry.ledger_check import validate_record
+    t_phase = time.perf_counter()
+    results = measure_registry(seeds=(seed,), warmup=5, k=60)
+    reset_persisting_l2()       # the gather's evict_last lines
+    records = [r.to_record() for r in results]
+    problems = [p for r in records for p in validate_record(r)]
+    det = AnomalyDetector()
+    card = card_line()
+    rows = {}
+    for res, rec in zip(results, records):
+        verdict = det.observe(rec)
+        roof = res.roof
+        frac = roof["bw_frac"] if roof["bound"] == "memory" \
+            else roof["flops_frac"]
+        rows[res.kernel] = dict(
+            ms=res.kernel_ms, plain_ms=res.fallback_ms,
+            predicted_ms=roof["predicted_ms"], bound=roof["bound"],
+            frac=frac, bw_frac=roof["bw_frac"],
+            flops_frac=roof["flops_frac"], compile_ms=res.compile_ms,
+            sig=res.sig, drift=[a.message for a in verdict])
+        print(f"kernel_obs: {res.kernel} {res.sig} on {card}: "
+              f"{res.kernel_ms:.4f} ms (plain {res.fallback_ms:.4f}), "
+              f"predicted {roof['predicted_ms']:.5f} ms by "
+              f"{roof['bound']}, {frac:.3f} of that peak; drift: "
+              + ("; ".join(a.message for a in verdict) or "in band"))
+    db = KernelDB(DEFAULT_DB_PATH)
+    updated, refused = db.update(results)
+    db.save()
+    if problems or refused or len(results) != len(rows) or \
+            not os.path.exists(DEFAULT_DB_PATH):
+        raise AssertionError(f"kernel_obs: record problems {problems[:5]}, "
+                             f"refused {refused}")
+    print(f"kernel_obs on {card}: " + json.dumps(
+        dict(rows=rows, db=os.path.relpath(DEFAULT_DB_PATH, ROOT),
+             db_updated=len(updated),
+             phase_s=time.perf_counter() - t_phase)))
+    return rows
+
+
 PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
                   "kernels_13b", "long_context", "serve_13b", "moe_serve",
-                  "options", "layer", "full", "full_4k")
+                  "options", "layer", "full", "full_4k", "memory",
+                  "serving_bench", "health", "kernel_obs")
 
 
 def partial_run(torch, args, lap, phase_s):
@@ -4707,7 +5138,11 @@ def partial_run(torch, args, lap, phase_s):
            "long_context": long_context_phase, "options": train_options_phase,
            "layer": train_1_3b_layer_phase, "full": train_1_3b_full_phase,
            "full_4k": lambda torch, seed: train_1_3b_full_phase(
-               torch, seed, 4096)}
+               torch, seed, 4096),
+           "memory": lambda torch, seed: memory_phase(torch, seed,
+                                                      INIT_RANGE),
+           "serving_bench": serving_bench_phase, "health": health_phase,
+           "kernel_obs": kernel_obs_phase}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
         torch.cuda.empty_cache()
@@ -4788,6 +5223,9 @@ def main(argv=None):
     lap("kernels: 1.3B")
     rows_13b = kernels_13b_phase(torch, args.seed)
     lap("kernels: 13B")
+    kernel_obs_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("kernel obs")
     long_ctx = long_context_phase(torch, args.seed)
     torch.cuda.empty_cache()
     lap("long context")
@@ -4812,6 +5250,9 @@ def main(argv=None):
     fleet = fleet_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("fleet")
+    sbench = serving_bench_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("serving bench")
     decode = decode_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("decode")
@@ -4827,6 +5268,9 @@ def main(argv=None):
     moe = moe_train_phase(torch, args.seed)
     torch.cuda.empty_cache()
     lap("moe train")
+    health_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("health")
     options = train_options_phase(torch, args.seed)
     torch.cuda.empty_cache()
     lap("train options")
@@ -4863,10 +5307,10 @@ def main(argv=None):
         r = rows[k.name]
         # the launches of every main path's counted run
         launches = sum(run["launches"][k.name]
-                       for run in (stats, wo8, loop, memory, fleet, decode,
-                                   serve_13b, *moe_serve.values(), train,
-                                   moe, options, layer, full, full_4k,
-                                   long_ctx))
+                       for run in (stats, wo8, loop, memory, fleet, sbench,
+                                   decode, serve_13b, *moe_serve.values(),
+                                   train, moe, options, layer, full,
+                                   full_4k, long_ctx))
         # the largest error of the kernel's checks, the 1.3B, 13B and MoE
         # serving shapes' too
         err = max([r["max_abs_err"]] + [

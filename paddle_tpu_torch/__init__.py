@@ -33,10 +33,17 @@ Layout mirrors the JAX package so a reader finds each counterpart:
                     and CapturedStep (a fixed-shape step captured as a
                     CUDA graph and replayed: the engine's decode and
                     prefill, `generate`'s token step);
-- `telemetry`     — peak FLOP/s and the train FLOPs per token (MFU),
-                    the serving records and their JSONL sink, request
-                    traces, the Prometheus text exposition, the capture
-                    records (compile_obs);
+- `telemetry`     — peak FLOP/s and bytes/s and the train FLOPs per
+                    token (MFU), the step, bench, serving and kernelbench
+                    records and their JSONL sink, the flight recorder,
+                    the health monitor and hang watchdog (behind
+                    `TrainStep(health=)`), request traces, the
+                    Prometheus text and the training MetricsServer, the
+                    memory and kernel observatories, the capture records
+                    (compile_obs);
+- `tools`         — `bench_serving` (the serving bench's legs),
+                    `healthwatch` and `memwatch` (offline replays of
+                    the health rules), `serve_13b_w8a16`;
 - `convert`       — load JAX-package parameters into a port model;
 - `ops`           — the kernel registry, the nvcc/ctypes build step, the
                     attention entry points, every kernel with its

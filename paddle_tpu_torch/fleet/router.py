@@ -94,6 +94,7 @@ class _ReplicaState:
         self.draining = False      # router-side (rolling restart)
         self.snap = None           # last successful probe dict
         self.last_probe_t = None
+        self.incarnation = 0       # bumped by readmit (a new process)
 
 
 class FleetRouter:
@@ -206,6 +207,7 @@ class FleetRouter:
         declared dead ({} or {name})."""
         with self._mu:
             st = self._states[name]
+            incarnation = st.incarnation
         snap = None
         err = None
         try:
@@ -216,6 +218,11 @@ class FleetRouter:
             err = f"{type(e).__name__}: {e}"
         newly_dead = set()
         with self._mu:
+            if st.incarnation != incarnation:
+                # readmitted while this probe ran: its verdict is about
+                # the process the restart replaced (a probe hung on the
+                # old one would count misses against the new one)
+                return newly_dead
             # the clock is read under the lock, after the probe: two
             # probes of one replica can overlap (the prober and a failed
             # stream's miss), and a time taken before the probe could
@@ -312,9 +319,12 @@ class FleetRouter:
 
     def readmit(self, name):
         """Bring a replica back into rotation (post-restart): clears
-        dead/draining/breaker/miss state. The next probe re-validates."""
+        dead/draining/breaker/miss state. The next probe re-validates;
+        a probe still in flight from before is discarded (it judged the
+        replaced process)."""
         with self._mu:
             st = self._states[name]
+            st.incarnation += 1
             st.dead = False
             st.draining = False
             st.breaker = BREAKER_CLOSED

@@ -24,8 +24,11 @@ resets the loop state, so a weight changed between two calls shows in
 the second call's tokens. They are keyed by the model's parameter and
 buffer identities (a re-quantized model gets new ones), the decode
 dtype, the batch, the total length, the strategy and its knobs. A model
-keeps one loop state: a call with another key replaces it and its
-graphs. `release(model)` drops all of it (the counterpart of
+keeps the loop states of its last `KEPT_LOOP_STATES` keys (4), each
+with its graphs, as the JAX package keeps a compiled program per shape:
+requests that alternate among a few prompt lengths replay their graphs
+instead of recapturing on every switch; a fifth key drops the least
+recently used state and its graphs. `release(model)` drops all of it (the counterpart of
 `jax.clear_caches()`), and a `jit.TrainStep` over the model does so at
 every step, so the kept buffers never sit beside training's.
 Captures are kind=compile records (families `generate` and `beam`;
@@ -46,6 +49,7 @@ key's seed comes from torch's default generator (`torch.manual_seed`
 makes it reproducible); no such stream is claimed to match JAX's.
 `dynamic_decode`/`BeamSearchDecoder` (the RNN-cell API) are not ported.
 """
+import collections
 import contextlib
 import itertools
 import weakref
@@ -58,7 +62,7 @@ from ..jit import CapturedStep
 from ..ops.decode_attention import decode_split, device_split
 from ..telemetry.compile_obs import signature_of
 
-__all__ = ["run_generate", "capture_records", "release"]
+__all__ = ["run_generate", "capture_records", "release", "KEPT_LOOP_STATES"]
 
 _NEG_INF = -1e30
 
@@ -159,30 +163,53 @@ def _decode_weights(model, dtype, store=None):
 # the steps kept across calls
 # ---------------------------------------------------------------------------
 
+# loop states (with their graphs) a model keeps, least recently used
+# dropped first
+KEPT_LOOP_STATES = 4
+
+
 class _ModelSteps:
     """One model's `generate` state: the weights cast to the decode dtype
-    (`store`, refreshed in place every call), one loop state (static
-    buffers) and the graphs of its token step (one CapturedStep: one
-    memory pool and capture stream)."""
+    (`store`, refreshed in place every call), the loop states (static
+    buffers) of its last few keys and the graphs of their token steps
+    (one CapturedStep: one memory pool and capture stream)."""
 
     def __init__(self, device):
         self.weights_key = None
         self.weights_gen = -1       # bumped when the weights are others
         self.store = {}
-        self.loop_key, self.loop = None, None
+        self.loops = collections.OrderedDict()     # key -> _LoopState
         self.steps = CapturedStep(device)
         self.calls = 0
 
+    @property
+    def loop_key(self):
+        """The most recently used loop state's key (None: none kept)."""
+        return next(reversed(self.loops), None)
+
+    @property
+    def loop(self):
+        """The most recently used loop state (None: none kept)."""
+        key = self.loop_key
+        return None if key is None else self.loops[key]
+
     def state(self, key, make):
-        """The loop state `key`: the kept one, or one made by `make()`
-        in place of the kept one, whose graphs go with it (their pool
-        stays for the new state's graphs)."""
-        if self.loop_key != key:
-            self.steps.invalidate(keep_pool=True)
-            self.loop_key, self.loop = None, None   # freed before make()
-            self.loop = make()
-            self.loop_key = key
-        return self.loop
+        """The loop state `key`: the kept one, or one made by `make()`;
+        past `KEPT_LOOP_STATES` the least recently used state goes, with
+        its graphs (the pool stays for the others)."""
+        if key in self.loops:
+            self.loops.move_to_end(key)
+            return self.loops[key]
+        while len(self.loops) >= KEPT_LOOP_STATES:
+            old, _ = self.loops.popitem(last=False)  # freed before make()
+            self.steps.discard(lambda gkey, old=old: gkey[0] == old)
+        self.loops[key] = make()
+        return self.loops[key]
+
+    def clear(self):
+        """Drop every loop state and graph (the weights changed)."""
+        self.steps.invalidate(keep_pool=True)
+        self.loops.clear()
 
 
 _MODEL_STEPS = weakref.WeakKeyDictionary()
@@ -199,8 +226,7 @@ def _model_steps(model, dtype, device):
     if ms is None:
         ms = _MODEL_STEPS[model] = _ModelSteps(device)
     if ms.weights_key != key:
-        ms.steps.invalidate(keep_pool=True)
-        ms.loop_key, ms.loop = None, None
+        ms.clear()
         ms.store.clear()
         ms.weights_key = key
         ms.weights_gen += 1

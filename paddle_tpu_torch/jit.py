@@ -17,9 +17,31 @@ steps syncs once at its end. A model with `collect_moe_stats`
 unread, in `_last_moe`, as the JAX step does. Each step first drops
 what `generate` keeps for the model (`generation.release`: the
 decode-dtype weights, the loop buffers, the graphs), so none of it sits
-beside training's memory. `torch.compile`, CUDA graphs and the JAX
-step's `lint=`, `health=` and `resilience=` options are not carried
-over.
+beside training's memory.
+
+Telemetry, as in the JAX step: while a `telemetry.TelemetryRecorder` is
+active, every step is recorded (`telemetry.recorder.auto_step`): its
+wall time up to the loss fetch at the close (the step's sync), the
+compile split (nvcc builds and graph captures inside it), and on a
+model with `collect_moe_stats` the `moe_*` fields (one fetch of the
+stats vector; without a recorder nothing is fetched). `health=`
+(None | True | dict | `telemetry.HealthConfig` |
+`telemetry.HealthMonitor`) runs the health monitor's `guard()` around
+each step: the hang watchdog armed, a black-box dump when an exception
+escapes, and the numerics taps — global grad norm over the RAW grads
+(before the clip), the update/param norm ratio, NaN/Inf counts over the
+grads and the loss, and the loss — fetched, judged by the anomaly
+detector and noted into the step record every `every_k` steps. The JAX
+step computes the taps inside its program on every step; this eager
+step builds them only on the steps that fetch
+(`HealthMonitor.will_fetch()`), so with every_k > 1 the steps between
+add no launch and no sync. The update ratio needs the parameters'
+values before the update: a fetch step copies them first (one copy of
+the trainable parameters, `tap_bytes` bytes, freed when the taps are
+built; ~5.2 GB at GPT-3 1.3B's f32 parameters). The copy is made after
+the backward has freed the activations.
+`torch.compile`, CUDA graphs and the JAX step's `lint=` and
+`resilience=` options are not carried over.
 
 `CapturedStep` is the counterpart of `jax.jit` over a fixed-shape
 inference step (the serving engine's decode and prefill steps,
@@ -45,7 +67,9 @@ buffers and returns (or writes) static outputs. On a CUDA device:
 - a capture or replay error raises; nothing falls back to the body.
 
 On the CPU (the tests) the same body runs eagerly on every call, over
-the same static buffers. Every capture becomes a kind=compile record
+the same static buffers. A capture's host ms count as compile time of
+the open telemetry step windows (`telemetry.recorder.note_compile`).
+Every capture becomes a kind=compile record
 (telemetry/compile_obs.py: family, signature, capture ms, the pool's
 bytes, on a recapture the cause diff) on the step's sink, as the JAX
 compile observatory records a compile; `invalidate()` drops the graphs
@@ -59,12 +83,14 @@ import torch
 
 from . import monitor
 from .telemetry.compile_obs import RecompileTracker
+from .telemetry.health import as_monitor, device_health_stats, update_ratio
+from .telemetry.recorder import auto_step, note_compile
 
 __all__ = ["TrainStep", "CapturedStep"]
 
 
 class TrainStep:
-    def __init__(self, model, loss_fn, optimizer):
+    def __init__(self, model, loss_fn, optimizer, health=None):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -75,8 +101,27 @@ class TrainStep:
         for p in self.params:
             optimizer._get_state(p)
         self._last_moe = None
+        self.health = as_monitor(health)
+        self._last_health = None
+        self.tap_bytes = 0      # the last fetch step's pre-update copy
 
     def __call__(self, *batch):
+        with auto_step() as win:
+            if self.health is not None:
+                with self.health.guard(win) as g:
+                    loss = self._run_step(batch, self.health.will_fetch())
+                    g.stage(self._last_health)
+            else:
+                loss = self._run_step(batch, False)
+            if self._last_moe is not None \
+                    and getattr(win, "recorder", None) is not None:
+                from .moe.stats import note_step_stats
+                note_step_stats(win, self._last_moe,
+                                getattr(self.model, "moe_num_experts", None))
+            win.note(loss=loss)
+        return loss
+
+    def _run_step(self, batch, taps):
         from .generation import release
         release(self.model)     # generate's kept decode buffers and graphs
         for p in self.params:
@@ -88,11 +133,22 @@ class TrainStep:
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        self._last_health = None
+        if taps:
+            # the raw grads are judged before the clip may scale them
+            stats = device_health_stats(loss.detach(), grads, None, None)
+            old = [p.detach().clone() for p in self.params]
+            self.tap_bytes = sum(t.numel() * t.element_size() for t in old)
         clip = self.optimizer._grad_clip
         if clip is not None:
             with torch.no_grad():
                 grads = [g for _, g in clip(list(zip(self.params, grads)))]
         self.optimizer.update(self.params, grads)
+        if taps:
+            ratio = update_ratio([p.detach() for p in self.params], old)
+            del old
+            self._last_health = torch.cat(
+                [stats[:1], ratio.reshape(1), stats[2:]])
         return loss.detach()
 
 
@@ -172,6 +228,12 @@ class CapturedStep:
             k.launches += n
         return g.outputs
 
+    def discard(self, pred):
+        """Drop the graphs whose key satisfies `pred(key)` (the buffers
+        they read are going away); the others keep the pool alive."""
+        for key in [k for k in self.graphs if pred(k)]:
+            del self.graphs[key]
+
     def invalidate(self, keep_pool=False):
         """Drop every graph (the buffers they read are being replaced);
         the pool goes with them. With `keep_pool` the dropped graphs,
@@ -229,6 +291,7 @@ class CapturedStep:
             here.wait_stream(self._stream)
         self.pool_bytes += pool
         self.capture_ms += ms
+        note_compile(ms / 1e3)      # the open step windows' compile split
         if callable(signature):
             signature = signature()
         rec = self.tracker.observe(family, signature, ms, step,

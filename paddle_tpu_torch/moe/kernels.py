@@ -36,10 +36,11 @@ kernels read src by index from device memory at any size.
 """
 import ctypes
 
+import numpy as np
 import torch
 
 from ..ops import _build
-from ..ops.kernel_registry import get_kernel, register_kernel
+from ..ops.kernel_registry import get_kernel, randn, register_kernel
 
 __all__ = ["moe_gather", "moe_combine", "moe_gather_fwd", "moe_combine_fwd",
            "gather_plain", "combine_plain", "MoEGather", "MoECombine",
@@ -102,10 +103,60 @@ def _check(name, src, idx, *others):
         raise TypeError(f"{name}: idx must be int32, got {idx.dtype}")
 
 
+# the kernel observatory's examples: the MoE training step's dispatch
+# and combine (8 x 1024 tokens of 768, 8 experts, top 2, capacity
+# factor 1.25, f32), over maps from the port's own router with gate
+# logits skewed by a 1 to -1 ramp, so that dropped choices and empty
+# slots are real; `small` cuts the tokens to 64 and the width to 64
+def _moe_maps(rng, small):
+    from .router import capacity_for, route_top_k
+    n, E, k = (64 if small else 8192), 8, 2
+    logits = torch.from_numpy(rng.standard_normal((n, E), dtype=np.float32)
+                              + np.linspace(1.0, -1.0, E, dtype=np.float32))
+    C = capacity_for(n, E, k, 1.25)
+    comb_w, comb_slot, slot_token = route_top_k(logits, k, C)[:3]
+    return n, (64 if small else 768), comb_w, comb_slot, slot_token
+
+
+def moe_gather_example(rng, device="cpu", small=False):
+    n, d, _, _, slot_token = _moe_maps(rng, small)
+    return (randn(rng, (n, d), torch.float32, device),
+            slot_token.to(device))
+
+
+def moe_combine_example(rng, device="cpu", small=False):
+    _, d, comb_w, comb_slot, slot_token = _moe_maps(rng, small)
+    return (randn(rng, (slot_token.numel(), d), torch.float32, device),
+            comb_slot.to(device), comb_w.detach().to(device))
+
+
+def moe_gather_cost(args):
+    """Every distinct valid source row read once, all m rows written,
+    the map read; no arithmetic."""
+    src, idx = args[:2]
+    n_src, d = src.shape
+    valid = idx[(idx >= 0) & (idx < n_src)]
+    distinct = int(torch.unique(valid).numel())
+    m = idx.numel()
+    return 0, (distinct + m) * d * src.element_size() + m * 4
+
+
+def moe_combine_cost(args):
+    """Every kept slot row read once, n rows written, the maps and
+    weights read; a multiply and an add a kept row element."""
+    src, idx, w = args[:3]
+    n_slots, d = src.shape
+    kept = int((idx < n_slots).sum())
+    nbytes = (kept + idx.shape[0]) * d * src.element_size() \
+        + idx.numel() * (idx.element_size() + w.element_size())
+    return 2 * kept * d, nbytes
+
+
 @register_kernel(
     "moe_gather", plain=gather_plain, tol=_GATHER_TOL,
     source="paddle_tpu_torch/csrc/moe_kernels.cu",
-    replaces="paddle_tpu/moe/kernels.py:138")
+    replaces="paddle_tpu/moe/kernels.py:138",
+    example=moe_gather_example, cost=moe_gather_cost)
 def moe_gather_fwd(src, idx):
     """src [n_src, d] (f32 or bf16), idx int32 [m] -> [m, d]; an index
     equal to n_src gives a zero row."""
@@ -134,7 +185,8 @@ def moe_gather_fwd(src, idx):
 @register_kernel(
     "moe_combine", plain=combine_plain, tol=_COMBINE_TOL,
     source="paddle_tpu_torch/csrc/moe_kernels.cu",
-    replaces="paddle_tpu/moe/kernels.py:244")
+    replaces="paddle_tpu/moe/kernels.py:244",
+    example=moe_combine_example, cost=moe_combine_cost)
 def moe_combine_fwd(src, idx, w):
     """src [n_src, d] (f32 or bf16), idx int32 [n, k], w [n, k] (f32 or
     bf16) -> [n, d] in src's dtype; an index equal to n_src adds

@@ -21,6 +21,10 @@ kernel's registers, spills and static shared memory from the build's
 (`<name>-<hash>.log`), so a library built by an earlier process still
 has it.
 
+The seconds a build spends in nvcc are reported into the open
+telemetry step windows (`telemetry.recorder.note_compile`), so a step
+that built a kernel shows them as its compile_ms.
+
 Processes that share a checkout (the fleet's replica processes) build
 under one file lock, `build/paddle_tpu_torch/.lock` (`fcntl.flock`,
 released by the kernel when its holder exits, so a killed build leaves
@@ -38,6 +42,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 __all__ = ["build", "load", "launcher", "check_launch", "build_dir",
@@ -143,10 +148,19 @@ def _file_lock():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+def _note_build(t0, started):
+    """Report a build's host seconds into the open telemetry step
+    windows (telemetry/recorder.py's compile split), when nvcc ran."""
+    if started:
+        from ..telemetry.recorder import note_compile
+        note_compile(time.perf_counter() - t0)
+
+
 def build(names):
     """Compile every named kernel source that is not built yet, one
     nvcc process per source, all running at once."""
     with _lock, _file_lock():
+        t0 = time.perf_counter()
         started = [(n, *_start(n)) for n in names]
         errors = []
         for name, proc, tmp, so in started:
@@ -154,6 +168,7 @@ def build(names):
                 _finish(name, proc, tmp, so)
             except RuntimeError as e:
                 errors.append(str(e))
+        _note_build(t0, any(proc is not None for _, proc, _, _ in started))
         if errors:
             raise RuntimeError("\n".join(errors))
 
@@ -164,7 +179,10 @@ def load(name):
         lib = _loaded.get(name)
         if lib is None:
             with _file_lock():
-                _finish(name, *_start(name))
+                t0 = time.perf_counter()
+                proc, tmp, so = _start(name)
+                _finish(name, proc, tmp, so)
+                _note_build(t0, proc is not None)
             lib = ctypes.CDLL(str(_target(name)[1]))
             _loaded[name] = lib
         return lib

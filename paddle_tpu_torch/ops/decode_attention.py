@@ -24,7 +24,7 @@ import operator
 import torch
 
 from . import _build
-from .kernel_registry import get_kernel, register_kernel
+from .kernel_registry import get_kernel, randn, register_kernel
 from .paged_attention import _DTYPE_CODES, _check_cuda
 
 __all__ = ["decode_attention", "decode_attention_plain",
@@ -126,10 +126,38 @@ def decode_attention_split_plain(q, k_buf, v_buf, off, n_heads, chunk):
     return out.reshape(B, 1, nh)
 
 
+# the kernel observatory's example: generate's token step on GPT-3 125M
+# (the JAX bench's decode_wo8: batch 8, prompt 128 + 128 new tokens, 12
+# heads of 64), bf16 q over the f32 cache at the mean step position
+# 191; already small
+_DECODE = dict(batch=8, length=256, n_heads=12, head_dim=64, off=191)
+
+
+def decode_example(rng, device="cpu", small=False):
+    c = _DECODE
+    B, L, nh = c["batch"], c["length"], c["n_heads"] * c["head_dim"]
+    return (randn(rng, (B, 1, nh), torch.bfloat16, device),
+            randn(rng, (B, L, nh), torch.float32, device),
+            randn(rng, (B, L, nh), torch.float32, device),
+            c["off"], c["n_heads"])
+
+
+def decode_cost(args):
+    """q, the off+1 K and V rows of every batch row, the f32 output; 4
+    operations a head element a key."""
+    q, k, _, off = args[:4]
+    B, nh = q.shape[0], q.shape[2]
+    keys = min(int(off), k.shape[1] - 1) + 1
+    nbytes = 2 * B * keys * nh * k.element_size() \
+        + B * nh * (q.element_size() + 4)
+    return 4 * B * keys * nh, nbytes
+
+
 @register_kernel(
     "decode_fused", plain=decode_attention_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/decode_attention.cu",
-    replaces="paddle_tpu/ops/pallas_decode.py:606")
+    replaces="paddle_tpu/ops/pallas_decode.py:606",
+    example=decode_example, cost=decode_cost)
 def decode_attention(q, k_buf, v_buf, off, n_heads, chunks=None):
     """q [B, 1, N*H]; k_buf/v_buf FLAT [B, L, N*H] (f32 or bf16, each
     independent of q's dtype); off — q's position (keys 0..off are

@@ -33,7 +33,7 @@ import math
 import torch
 
 from . import _build
-from .kernel_registry import get_kernel, register_kernel
+from .kernel_registry import get_kernel, randn, register_kernel
 
 __all__ = ["flash_attention_fwd", "FlashAttention", "flash_fwd",
            "flash_bwd", "flash_attention_fwd_plain",
@@ -153,10 +153,71 @@ def _strides(*ts):
     return [s for t in ts for s in t.stride()[:3]]
 
 
+# the kernel observatory's example: the main path's shape, GPT-3 125M's
+# training attention (batch 24 x seq 1024, 12 heads of 64, causal,
+# bf16); `small` keeps the structure at a CPU test's size
+_EXAMPLE = (24, 1024, 12, 64)
+_EXAMPLE_SMALL = (1, 128, 2, 64)
+
+
+def _example_qkv(rng, device, small):
+    b, s, n, h = _EXAMPLE_SMALL if small else _EXAMPLE
+    qkv = [randn(rng, (b, s, n, h), torch.bfloat16, device)
+           for _ in range(3)]
+    return qkv, 1.0 / math.sqrt(h)
+
+
+def flash_fwd_example(rng, device="cpu", small=False):
+    (q, k, v), scale = _example_qkv(rng, device, small)
+    return (q, k, v, True, scale)
+
+
+def flash_bwd_example(rng, device="cpu", small=False):
+    """The forward's out and lse come from the plain forward, so the
+    backward recomputes real probabilities; out is made contiguous, as
+    the kernel forward writes it."""
+    (q, k, v), scale = _example_qkv(rng, device, small)
+    out, lse = flash_attention_fwd_plain(q, k, v, True, scale)
+    out, lse = out.contiguous(), lse.contiguous()
+    dout = randn(rng, tuple(q.shape), q.dtype, device)
+    return (q, k, v, out, lse, dout, True, scale)
+
+
+def flash_work(b, sq, sk, n, h, causal, itemsize, backward):
+    """(operations, bytes) of attention over these shapes: each input
+    read once, each output written once; 4h operations per visible
+    (query, key) pair forward, 10h backward (S and dP recomputed, dV,
+    dK, dQ)."""
+    pairs = sq * sk if not causal else sum(
+        min(i + sk - sq + 1, sk) for i in range(sq))
+    pairs *= b * n
+    qo = b * sq * n * h * itemsize
+    kv = b * sk * n * h * itemsize
+    lse = b * n * sq * 4
+    if backward:    # q, k, v, out, dout, lse in; dq, dk, dv out
+        return 10 * h * pairs, 4 * qo + 4 * kv + lse
+    return 4 * h * pairs, 2 * qo + 2 * kv + lse
+
+
+def flash_fwd_cost(args):
+    q, k, _, causal = args[:4]
+    b, sq, n, h = q.shape
+    return flash_work(b, sq, k.shape[1], n, h, causal, q.element_size(),
+                      False)
+
+
+def flash_bwd_cost(args):
+    q, k = args[:2]
+    b, sq, n, h = q.shape
+    return flash_work(b, sq, k.shape[1], n, h, args[6], q.element_size(),
+                      True)
+
+
 @register_kernel(
     "flash_fwd", plain=flash_attention_fwd_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-    replaces="paddle_tpu/ops/pallas_attention.py:461 (K2) and :393 (K1)")
+    replaces="paddle_tpu/ops/pallas_attention.py:461 (K2) and :393 (K1)",
+    example=flash_fwd_example, cost=flash_fwd_cost)
 def flash_fwd(q, k, v, causal, scale):
     """Attention forward -> (out [b, sq, n, h] in q's dtype, lse f32
     [b*n, sq])."""
@@ -183,7 +244,8 @@ def flash_fwd(q, k, v, causal, scale):
     "flash_bwd", plain=flash_attention_bwd_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     replaces="paddle_tpu/ops/pallas_attention.py:855 (K4), :774 (K3) "
-             "and :922 (K5)")
+             "and :922 (K5)",
+    example=flash_bwd_example, cost=flash_bwd_cost)
 def flash_bwd(q, k, v, out, lse, dout, causal, scale):
     """Attention backward from the forward's out and lse -> (dq, dk, dv)
     shaped and typed like q, k, v."""

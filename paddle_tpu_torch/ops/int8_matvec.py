@@ -11,10 +11,11 @@ takes it only when no gradient can flow (models/gpt.py).
 """
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
-from .kernel_registry import get_kernel, register_kernel
+from .kernel_registry import get_kernel, randn, register_kernel
 from .paged_attention import _DTYPE_CODES, _check_cuda
 
 __all__ = ["int8_matvec", "int8_matvec_plain", "int8_matvec_preferred"]
@@ -45,10 +46,33 @@ def int8_matvec_plain(h, wq, scale):
     return torch.matmul(hh, wq.float().t()) * scale.float()[None, :]
 
 
+# the kernel observatory's example: generate's int8 head on GPT-3 125M
+# (8 rows of 768 over the vocab padded to 51200, bf16 rows, f32
+# scales); `small` cuts the vocab to 1024
+def int8_matvec_example(rng, device="cpu", small=False):
+    B, D, V = 8, 768, 1024 if small else 51200
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(V, D),
+                                       dtype=np.int8)).to(device)
+    scale = (0.01 * (1.0 + rng.random(V, dtype=np.float32)))
+    return (randn(rng, (B, D), torch.bfloat16, device), wq,
+            torch.from_numpy(scale).to(device))
+
+
+def int8_matvec_cost(args):
+    """The int8 table, the rows, the scales, the f32 logits; 2
+    operations a product term."""
+    h, wq, scale = args[:3]
+    (B, D), V = h.shape, wq.shape[0]
+    nbytes = V * D + B * D * h.element_size() + V * scale.element_size() \
+        + B * V * 4
+    return 2 * B * V * D, nbytes
+
+
 @register_kernel(
     "int8_matvec", plain=int8_matvec_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/int8_matvec.cu",
-    replaces="paddle_tpu/ops/pallas_int8.py:78")
+    replaces="paddle_tpu/ops/pallas_int8.py:78",
+    example=int8_matvec_example, cost=int8_matvec_cost)
 def int8_matvec(h, wq, scale):
     """h [B, D] (f32 or bf16), wq int8 [V, D], scale [V] (any float
     dtype, used as f32) -> f32 [B, V] = bf16(h) @ (wq * scale[:, None]).T.

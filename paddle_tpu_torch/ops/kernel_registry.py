@@ -7,17 +7,32 @@ PyTorch version it is held against, the tolerance per dtype, where its
 source lives, which TPU kernel it replaces, and a launch counter: a plain
 integer the wrapper increments on every launch, and nowhere else, so a
 run can show that its main path went through the kernel.
+
+Like the JAX registry's `example`, each entry also carries what the
+kernel observatory (telemetry/kernel_obs.py) measures it with:
+
+- `example(rng, device="cpu", small=False)` — the wrapper's positional
+  arguments at the main path's shape the smoke times (PERF.md §6's row),
+  drawn from the numpy Generator `rng` and put on `device`; `small`
+  gives the same structure at a size the CPU tests can run;
+- `cost(args)` — (operations, bytes) of one call on these arguments:
+  each input read once and each output written once, each distinct byte
+  counted once, and where the work depends on the data (context
+  lengths, routing maps) what these inputs need. `cost(args)` over the
+  peaks is the bound column of PERF.md §6, computed in code.
 """
+import numpy as np
 
 __all__ = ["Kernel", "register_kernel", "get_kernel", "kernels",
-           "reset_launches"]
+           "reset_launches", "randn"]
 
 
 class Kernel:
     __slots__ = ("name", "wrapper", "plain", "tol", "source", "replaces",
-                 "launches")
+                 "launches", "example", "cost")
 
-    def __init__(self, name, wrapper, plain, tol, source, replaces):
+    def __init__(self, name, wrapper, plain, tol, source, replaces,
+                 example=None, cost=None):
         self.name = name
         self.wrapper = wrapper
         self.plain = plain
@@ -25,6 +40,8 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.example = example
+        self.cost = cost
 
     def __repr__(self):
         return f"Kernel({self.name!r}, launches={self.launches})"
@@ -33,12 +50,14 @@ class Kernel:
 _KERNELS = {}
 
 
-def register_kernel(name, plain, tol, source, replaces):
+def register_kernel(name, plain, tol, source, replaces, example=None,
+                    cost=None):
     """Decorator registering a kernel wrapper; returns it unchanged."""
     def deco(fn):
         if name in _KERNELS:
             raise ValueError(f"kernel {name!r} registered twice")
-        _KERNELS[name] = Kernel(name, fn, plain, tol, source, replaces)
+        _KERNELS[name] = Kernel(name, fn, plain, tol, source, replaces,
+                                example, cost)
         return fn
     return deco
 
@@ -59,3 +78,12 @@ def kernels():
 def reset_launches():
     for k in kernels():
         k.launches = 0
+
+
+def randn(rng, shape, dtype, device):
+    """Standard normals from the numpy Generator `rng` as a torch tensor
+    of `dtype` on `device` (drawn in f32, so a seed gives the same
+    values on every device)."""
+    import torch
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    return x.to(device=device, dtype=dtype)

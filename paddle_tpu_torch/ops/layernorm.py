@@ -33,7 +33,7 @@ import ctypes
 import torch
 
 from . import _build
-from .kernel_registry import get_kernel, register_kernel
+from .kernel_registry import get_kernel, randn, register_kernel
 
 __all__ = ["layernorm_fwd_saved", "layernorm_fused", "layernorm_fused_pair",
            "layernorm_plain", "layernorm_fused_plain",
@@ -203,10 +203,59 @@ def _launch_pair(x, residual, weight, bias, eps, carry):
     return out, h
 
 
+# the kernel observatory's examples: the main paths' shapes — GPT-3
+# 125M training's saving site (24 x 1024 rows of 768, x f32, residual
+# bf16, f32 weights under amp) and the serving decode step's pair (16
+# rows of 768 in bf16); `small` cuts the rows
+def _ln_example(rng, device, rows, dts):
+    d = 768
+    x, r = (randn(rng, (rows, d), dt, device) for dt in dts[:2])
+    w = (1.0 + 0.1 * randn(rng, (d,), torch.float32, device)).to(dts[2])
+    b = (0.1 * randn(rng, (d,), torch.float32, device)).to(dts[2])
+    return (x, r, w, b)
+
+
+def layernorm_saved_example(rng, device="cpu", small=False):
+    return _ln_example(rng, device, 64 if small else 24576,
+                       (torch.float32, torch.bfloat16, torch.float32))
+
+
+def layernorm_fused_example(rng, device="cpu", small=False):
+    return _ln_example(rng, device, 16, (torch.bfloat16,) * 3)
+
+
+def ln_work(rows, d, x_size, r_size, w_size, save, carry=False):
+    """(operations, bytes) of add + LayerNorm: x, r, w, b in, out in x's
+    dtype (and the f32 sum and rstd, or the carry in x's dtype) out;
+    ~8 operations per element."""
+    nbytes = rows * d * (2 * x_size + r_size) + 2 * d * w_size
+    if save:
+        nbytes += rows * d * 4 + rows * 4
+    if carry:
+        nbytes += rows * d * x_size
+    return 8 * rows * d, nbytes
+
+
+def _ln_cost(args, save):
+    x, r, w = args[:3]
+    carry = save and len(args) > 5 and bool(args[5])
+    return ln_work(x.shape[0], x.shape[1], x.element_size(),
+                   r.element_size(), w.element_size(), save, carry)
+
+
+def layernorm_saved_cost(args):
+    return _ln_cost(args, True)
+
+
+def layernorm_fused_cost(args):
+    return _ln_cost(args, False)
+
+
 @register_kernel(
     "layernorm_fwd_saved", plain=layernorm_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/add_layer_norm.cu",
-    replaces="paddle_tpu/ops/pallas_layernorm.py:90")
+    replaces="paddle_tpu/ops/pallas_layernorm.py:90",
+    example=layernorm_saved_example, cost=layernorm_saved_cost)
 def layernorm_fwd_saved(x, residual, weight, bias, eps=1e-5, carry=False):
     """LayerNorm(x + residual) with what the backward needs -> (out in
     x's dtype, sum f32 [rows, d], rstd f32 [rows, 1]), and with `carry`
@@ -220,7 +269,8 @@ def layernorm_fwd_saved(x, residual, weight, bias, eps=1e-5, carry=False):
 @register_kernel(
     "layernorm_fused", plain=layernorm_fused_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/add_layer_norm.cu",
-    replaces="paddle_tpu/ops/pallas_layernorm.py:141")
+    replaces="paddle_tpu/ops/pallas_layernorm.py:141",
+    example=layernorm_fused_example, cost=layernorm_fused_cost)
 def layernorm_fused(x, residual, weight, bias, eps=1e-5):
     """LayerNorm(x + residual) * weight + bias -> [rows, d] in x's
     dtype."""

@@ -18,11 +18,12 @@ import ctypes
 import math
 import operator
 
+import numpy as np
 import torch
 
 from . import _build
 from .attention import composed_attention
-from .kernel_registry import get_kernel, register_kernel
+from .kernel_registry import get_kernel, randn, register_kernel
 
 __all__ = ["paged_decode_attention", "flash_prefill_chunk",
            "paged_decode_plain", "paged_decode_split_plain",
@@ -186,10 +187,80 @@ def _check_pages(name, q, k_pages, v_pages, n_heads):
     return nh // n_heads
 
 
+# the kernel observatory's examples: the serving engine's shapes for
+# GPT-3 125M (16 slots, blocks of 16, 32 blocks a sequence: 512 keys,
+# 12 heads of 64, bf16 arenas); a decode step over contexts drawn in
+# 0..511, a prefill chunk of 128 at p0 128. Already small.
+_SERVE = dict(slots=16, block=16, max_blocks=32, n_heads=12, head_dim=64,
+              chunk=128, p0=128)
+
+
+def paged_decode_example(rng, device="cpu", small=False):
+    c = _SERVE
+    S, B, MB, nh = c["slots"], c["block"], c["max_blocks"], \
+        c["n_heads"] * c["head_dim"]
+    nb = S * MB + 1
+    ctx = rng.integers(0, B * MB, size=S)
+    perm = rng.permutation(nb - 1) + 1
+    tables = np.zeros((S, MB), np.int32)
+    for s, n in enumerate(ctx // B + 1):
+        tables[s, :n] = perm[s * MB:s * MB + n]
+    dt = torch.bfloat16
+    return (randn(rng, (S, 1, nh), dt, device),
+            randn(rng, (nb, B, nh), dt, device),
+            randn(rng, (nb, B, nh), dt, device),
+            torch.from_numpy(tables).to(device),
+            torch.from_numpy(ctx.astype(np.int32)).to(device),
+            c["n_heads"])
+
+
+def flash_prefill_example(rng, device="cpu", small=False):
+    c = _SERVE
+    B, MB, C, p0 = c["block"], c["max_blocks"], c["chunk"], c["p0"]
+    nh = c["n_heads"] * c["head_dim"]
+    nb = MB + 8
+    n = min((p0 + C - 1) // B + 1, MB)
+    row = np.zeros((MB,), np.int32)
+    row[:n] = (rng.permutation(nb - 1) + 1)[:n]
+    dt = torch.bfloat16
+    return (randn(rng, (1, C, nh), dt, device),
+            randn(rng, (nb, B, nh), dt, device),
+            randn(rng, (nb, B, nh), dt, device),
+            torch.from_numpy(row).to(device), p0, c["n_heads"])
+
+
+def paged_decode_cost(args):
+    """q, the ctx+1 K and V rows of every head, the tables and ctx, the
+    output; 4 operations a head element a key."""
+    q, kp, _, tables, ctx = args[:5]
+    S, nh = q.shape[0], q.shape[2]
+    L = kp.shape[1] * tables.shape[1]
+    keys = sum(min(int(c), L - 1) + 1 for c in ctx.tolist())
+    nbytes = (2 * keys * nh + 2 * S * nh) * q.element_size() \
+        + (tables.numel() + S) * 4
+    return 4 * keys * nh, nbytes
+
+
+def flash_prefill_cost(args):
+    """The chunk's q and out, the K and V rows of positions
+    0..p0+C-1, the table row; 4 operations a head element a visible
+    (query, key) pair."""
+    q, kp, _, row, p0 = args[:5]
+    C, nh = q.shape[1], q.shape[2]
+    p0 = int(p0)
+    L = kp.shape[1] * row.shape[0]
+    span = min(p0 + C - 1, L - 1) + 1
+    pairs = sum(min(p0 + i, L - 1) + 1 for i in range(C))
+    nbytes = (2 * span * nh + 2 * C * nh) * q.element_size() \
+        + row.numel() * 4
+    return 4 * pairs * nh, nbytes
+
+
 @register_kernel(
     "paged_decode", plain=paged_decode_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/paged_decode.cu",
-    replaces="paddle_tpu/ops/pallas_decode.py:296")
+    replaces="paddle_tpu/ops/pallas_decode.py:296",
+    example=paged_decode_example, cost=paged_decode_cost)
 def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens,
                            n_heads):
     """Decode attention (q_len == 1) over a paged KV cache.
@@ -247,7 +318,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens,
 @register_kernel(
     "flash_prefill_chunk", plain=flash_prefill_plain, tol=_TOL,
     source="paddle_tpu_torch/csrc/flash_prefill_chunk.cu",
-    replaces="paddle_tpu/ops/pallas_decode.py:485")
+    replaces="paddle_tpu/ops/pallas_decode.py:485",
+    example=flash_prefill_example, cost=flash_prefill_cost)
 def flash_prefill_chunk(q, k_pages, v_pages, table_row, p0, n_heads):
     """Chunked-prefill attention over a paged KV cache.
 

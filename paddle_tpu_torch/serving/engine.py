@@ -64,8 +64,18 @@ and buffers as `params` and the KV arenas as `kv`, samples the ledger
 every `mem_sample_every` steps into kind=memsnap records, gauges
 `serving.mem_headroom_bytes`, sheds at `submit` with
 `MemoryPressureError` once a declared `hbm_budget_mb` is used up, and
-writes an OOM postmortem before a warm restart rebuilds the arenas. Not
-ported yet: `EngineConfig.from_inference_config`.
+writes an OOM postmortem before a warm restart rebuilds the arenas.
+The engine's health detector (`engine.health`, a telemetry.health
+`AnomalyDetector`) judges each ledger record as it is sampled:
+`hbm_pressure` against the declared budget, `kv_thrash` against the
+pool's eviction and admission rates.
+
+Telemetry: every `step()` runs inside a `serving_step` span
+(telemetry.recorder), so engine steps show as a lane in a recorder's
+Chrome export and in the open spans a hang dump names.
+
+Not ported: `EngineConfig.from_inference_config`, which reads the JAX
+package's `inference` config (not ported yet).
 """
 import copy
 import itertools
@@ -83,7 +93,9 @@ from ..ops.paged_attention import flash_prefill_chunk, paged_decode_attention
 from ..quant import quantize_for_decode
 from ..resilience.retry import classify_failure
 from ..telemetry.compile_obs import signature_of
+from ..telemetry.health import AnomalyDetector
 from ..telemetry.mem_obs import MemoryObservatory, is_oom, register_provider
+from ..telemetry.recorder import span as _telemetry_span
 from ..telemetry.reqtrace import RequestTracer
 from ..telemetry.sink import make_serving_record
 from .kv_cache import NULL_BLOCK, BlockPool, PagedKVCache, PrefixIndex
@@ -338,8 +350,10 @@ class ServingEngine:
         # `mem_sample_every` steps; its headroom is what submit()'s
         # admission consult reads. Always built — without a declared
         # budget it still ledgers, it just never sheds
+        # the memsnap rules, judged as each ledger record is committed
+        self.health = AnomalyDetector()
         self.mem_obs = MemoryObservatory(   # guarded by: _mu
-            sink=sink,
+            sink=sink, health=self.health,
             hbm_budget_bytes=(int(cfg.hbm_budget_mb) * 2 ** 20
                               if cfg.hbm_budget_mb else None),
             kv_source=self._kv_accounting, engine=self.engine_id,
@@ -524,8 +538,9 @@ class ServingEngine:
     def step(self):
         """One scheduler iteration: reap (cancellations + deadlines),
         admit, at most one prefill chunk, one decode batch. Returns True
-        when any device work was done."""
-        with self._mu:
+        when any device work was done. The iteration runs inside a
+        `serving_step` telemetry span."""
+        with self._mu, _telemetry_span("serving_step", cat="serving"):
             now = time.monotonic()
             self._reap(now)
             admitted = self.sched.admit(now=now)

@@ -2,29 +2,152 @@
 
 The port of the kind=memsnap and kind=fleet rules of the JAX package's
 tools/trace_check.py (`check_memsnap_records`, `check_fleet_records`)
-and of the per-record schema checks of those two kinds from
-paddle_tpu/telemetry/sink.py's `validate_step_record`, unchanged, so a
-ledger passes here exactly when it passes there (the CPU tests hold the
-two against each other, on the same records and on the JAX package's
-fleet specimens). `check_records(records)` runs all of them over one
-combined ledger; `check_jsonl(path)` reads one first.
+and of the per-record schema checks of paddle_tpu/telemetry/sink.py's
+`validate_step_record` for the kinds the port writes — memsnap, fleet,
+and the training and bench kinds: step (the recorder's step record,
+health and MoE fields included), bench, phase and kernelbench —
+unchanged, so a ledger passes here exactly when it passes there (the
+CPU tests hold the two against each other, on the same records and on
+the JAX package's specimens). `check_records(records)` runs all of them
+over one combined ledger; `check_jsonl(path)` reads one first.
 """
 import json
 
-from .sink import (FLEET_EVENTS, FLEET_RECORD_KEYS, MEMSNAP_BUCKETS,
-                   MEMSNAP_EVENTS, MEMSNAP_RECORD_KEYS)
+from .sink import (BENCH_RECORD_KEYS, COMM_KEYS, FLEET_EVENTS,
+                   FLEET_RECORD_KEYS, HEALTH_KEYS, INPUT_KEYS,
+                   KERNELBENCH_EVENTS, KERNELBENCH_RECORD_KEYS,
+                   MEMSNAP_BUCKETS, MEMSNAP_EVENTS, MEMSNAP_RECORD_KEYS,
+                   MOE_KEYS, STEP_RECORD_KEYS)
 
 __all__ = ["validate_record", "check_memsnap_records",
            "check_fleet_records", "check_records", "check_jsonl"]
 
 
 def validate_record(rec):
-    """Schema problems of one kind=memsnap or kind=fleet record ([] ==
-    valid; records of other kinds are not judged here)."""
+    """Schema problems of one kind=memsnap, fleet, step, bench, phase
+    or kernelbench record ([] == valid; records of other kinds are not
+    judged here)."""
     problems = []
     if not isinstance(rec, dict):
         return [f"record is {type(rec).__name__}, not dict"]
     kind = rec.get("kind")
+    if kind == "phase":
+        for key in ("schema", "phase", "metrics"):
+            if key not in rec:
+                problems.append(f"phase record missing '{key}'")
+        return problems
+    if kind == "bench":
+        for key in BENCH_RECORD_KEYS:
+            if key not in rec:
+                problems.append(f"bench record missing '{key}'")
+        v = rec.get("value")
+        if v is not None and not isinstance(v, (int, float)):
+            problems.append(f"'value' not numeric: {v!r}")
+        if isinstance(v, float) and (v != v or v in (float("inf"),
+                                                     float("-inf"))):
+            problems.append(f"'value' non-finite: {v!r}")
+        if v is None and "error" not in rec:
+            problems.append("bench record with null value carries no "
+                            "'error' note")
+        return problems
+    if kind == "kernelbench":
+        for key in KERNELBENCH_RECORD_KEYS:
+            if key not in rec:
+                problems.append(f"kernelbench record missing '{key}'")
+        if not str(rec.get("kernel", "")).strip():
+            problems.append("kernelbench record names no kernel")
+        for key in ("kernel_ms", "fallback_ms", "compile_ms",
+                    "predicted_ms"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, (int, float))
+                                  or v != v or v < 0):
+                problems.append(
+                    f"'{key}' not a non-negative number: {v!r}")
+        if rec.get("kernel_ms") is None and "error" not in rec:
+            problems.append("kernelbench record with null kernel_ms "
+                            "carries no 'error' note")
+        for key in ("flops_frac", "bw_frac"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, (int, float))
+                                  or v != v or not 0.0 <= v <= 1.0):
+                problems.append(
+                    f"'{key}' not a roofline fraction in [0, 1]: {v!r}")
+        v = rec.get("speedup")
+        if v is not None and (not isinstance(v, (int, float))
+                              or v != v or v <= 0):
+            problems.append(f"'speedup' not a positive number: {v!r}")
+        for key in ("flops", "bytes_accessed", "n_samples", "warmup"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, int) or v < 0):
+                problems.append(
+                    f"'{key}' not a non-negative int: {v!r}")
+        b = rec.get("bound")
+        if b is not None and b not in ("compute", "memory"):
+            problems.append(f"'bound' not 'compute'/'memory': {b!r}")
+        ev = rec.get("event")
+        if ev is not None and ev not in KERNELBENCH_EVENTS:
+            problems.append(f"unknown kernelbench event {ev!r} "
+                            f"(expected one of "
+                            f"{list(KERNELBENCH_EVENTS)})")
+        return problems
+    if kind == "step":
+        for key in STEP_RECORD_KEYS:
+            if key not in rec:
+                problems.append(f"step record missing '{key}'")
+        for key in ("step_ms", "compile_ms", "execute_ms"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, (int, float)) or v < 0):
+                problems.append(f"'{key}' not a non-negative number: {v!r}")
+        for key in ("tokens_per_sec", "mfu", "loss"):
+            v = rec.get(key)
+            if v is not None and not isinstance(v, (int, float)):
+                problems.append(f"'{key}' not numeric: {v!r}")
+            if isinstance(v, float) and (v != v or v in (float("inf"),
+                                                         float("-inf"))):
+                problems.append(f"'{key}' non-finite: {v!r}")
+        for key in HEALTH_KEYS:
+            # numeric when present; non-finite is ALLOWED here — a NaN
+            # grad_norm is the health taps reporting a poisoned step, and
+            # the paired nan/inf counts stay machine-checkable integers
+            v = rec.get(key)
+            if v is not None and not isinstance(v, (int, float)):
+                problems.append(f"'{key}' not numeric: {v!r}")
+        for key in INPUT_KEYS:
+            v = rec.get(key)
+            if v is None:
+                continue
+            if not isinstance(v, (int, float)) or v != v or v < 0:
+                problems.append(
+                    f"'{key}' not a non-negative number: {v!r}")
+            elif key == "input_bound_frac" and v > 1.0:
+                problems.append(f"'input_bound_frac' above 1.0: {v!r}")
+        for key in MOE_KEYS:
+            v = rec.get(key)
+            if v is None:
+                continue
+            if key == "moe_num_experts":
+                if not isinstance(v, int) or v < 1:
+                    problems.append(
+                        f"'moe_num_experts' not a positive int: {v!r}")
+                continue
+            if not isinstance(v, (int, float)) or v != v:
+                problems.append(f"'{key}' not a finite number: {v!r}")
+                continue
+            if key in ("moe_entropy", "moe_dropped_frac", "moe_overflow") \
+                    and v < 0:
+                problems.append(f"'{key}' negative: {v!r}")
+            if key == "moe_dropped_frac" and v > 1.0:
+                problems.append(f"'moe_dropped_frac' above 1.0: {v!r}")
+        for key in COMM_KEYS:
+            v = rec.get(key)
+            if v is None:
+                continue
+            if not isinstance(v, (int, float)) or v != v or v < 0:
+                problems.append(
+                    f"'{key}' not a non-negative number: {v!r}")
+            elif key == "comm_frac" and v > 1.0:
+                problems.append(f"'comm_frac' above 1.0: {v!r}")
+        return problems
     if kind == "fleet":
         for key in FLEET_RECORD_KEYS:
             if key not in rec:

@@ -44,9 +44,14 @@ what the allocator reports and what the owners tag:
 No projection: the port has no compile observatory, so a record's
 `projected_bytes` / `projection_family` stay None (as in a JAX record
 without a projection) and the `mem_projection_drift` rule has no
-jurisdiction; `compile_families` is empty. The health hooks over these
-records (`hbm_pressure`, `kv_thrash`) wait for a port of
-telemetry/health.py.
+jurisdiction; `compile_families` is empty.
+
+Health: an observatory built with `health=` (an `AnomalyDetector` of
+telemetry/health.py; the serving engine passes its own) feeds every
+record it commits to the detector, as the JAX observatory does, so the
+`hbm_pressure` and `kv_thrash` rules judge the ledger in flight; the
+same records replay offline through `paddle_tpu_torch.tools.memwatch`
+and `healthwatch`.
 """
 import threading
 import weakref
@@ -269,11 +274,12 @@ class MemoryObservatory:
     the per-class dicts); `device` is the ledger's device (None: see
     `snapshot_ledger`)."""
 
-    def __init__(self, sink=None, rank=0, hbm_budget_bytes=None,
-                 kv_source=None, engine=None, device=None, top_k=8,
-                 keep=64):
+    def __init__(self, sink=None, rank=0, health=None,
+                 hbm_budget_bytes=None, kv_source=None, engine=None,
+                 device=None, top_k=8, keep=64):
         self.sink = sink
         self.rank = int(rank)
+        self.health = health
         self.hbm_budget_bytes = None if hbm_budget_bytes is None \
             else int(hbm_budget_bytes)
         self.kv_source = kv_source
@@ -404,6 +410,11 @@ class MemoryObservatory:
             except Exception:
                 pass
         _export_gauges(rec)
+        if self.health is not None:
+            try:
+                self.health.observe(rec)
+            except Exception:
+                pass    # a rule must never take the ledger down
 
     # -- the admission signal --------------------------------------------
 

@@ -3,9 +3,11 @@ Dapper move applied to continuous batching).
 
 The port's copy of `RequestTrace` and `RequestTracer` from
 paddle_tpu/telemetry/reqtrace.py, with their logic unchanged and a plain
-`threading` lock; the JAX module's offline attribution (`decompose`,
-`dominant_cause`) and Chrome export have no user in the port and are not
-copied.
+`threading` lock, and its latency attribution (`CAUSES`,
+`PATHOLOGICAL_CAUSES`, `decompose`, `dominant_cause`), which the health
+detector's `tail_latency` rule (telemetry/health.py) judges traces by.
+The JAX module's Chrome export of request lanes has no user in the port
+and is not copied.
 
 - **RequestTrace** — one request's ordered span list. Spans TILE the
   request's [submit, finish] wall-clock interval: every span begins
@@ -25,9 +27,20 @@ import itertools
 import threading
 
 from .. import monitor
-from .sink import make_reqtrace_record
+from .sink import REQTRACE_SPAN_KINDS, make_reqtrace_record
 
-__all__ = ["RequestTrace", "RequestTracer"]
+__all__ = ["RequestTrace", "RequestTracer", "CAUSES", "PATHOLOGICAL_CAUSES",
+           "decompose", "dominant_cause"]
+
+# the attribution vocabulary: every span kind maps onto exactly one of
+# these buckets (decompose below); "other" absorbs the zero-duration
+# markers (admit/finalize) and anything a newer producer adds
+CAUSES = ("queue_wait", "preemption", "restart", "prefill", "cow_fork",
+          "decode", "collective", "transfer", "other")
+# causes that are a PROBLEM when they dominate a request's latency —
+# decode and prefill are the work the user asked for; these are the
+# serving stack's own mechanisms getting in the way
+PATHOLOGICAL_CAUSES = ("queue_wait", "preemption", "restart", "cow_fork")
 
 
 class RequestTrace:
@@ -218,3 +231,57 @@ class RequestTracer:
             items = sorted(self._heap, key=lambda it: it[0], reverse=True)
         recs = [rec for _, _, rec in items]
         return recs if n is None else recs[:max(0, int(n))]
+
+
+def decompose(rec):
+    """Latency decomposition of one reqtrace record: {cause: ms} over
+    the CAUSES vocabulary. Replayed prefill chunks are charged to the
+    preemption/restart that forced them."""
+    causes = dict.fromkeys(CAUSES, 0.0)
+    for sp in rec.get("spans", ()):
+        kind = sp.get("kind")
+        if kind not in REQTRACE_SPAN_KINDS:
+            continue
+        dur = sp.get("dur_ms")
+        if not isinstance(dur, (int, float)) or dur != dur or dur < 0:
+            continue
+        if kind == "queued":
+            reason = sp.get("reason", "submit")
+            key = {"submit": "queue_wait", "preempt": "preemption",
+                   "restart": "restart"}.get(reason, "queue_wait")
+        elif kind == "prefill_chunk":
+            key = sp["replay_cause"] \
+                if sp.get("replay") and sp.get("replay_cause") in CAUSES \
+                else "prefill"
+        elif kind == "decode":
+            key = "decode"
+        elif kind == "cow_fork":
+            key = "cow_fork"
+        elif kind == "preempt":
+            key = "preemption"
+        elif kind == "restart_replay":
+            key = "restart"
+        elif kind == "shed":
+            key = "queue_wait"
+        elif kind == "collective":
+            key = "collective"
+        elif kind == "transfer":
+            key = "transfer"
+        else:                        # admit / finalize markers
+            key = "other"
+        causes[key] += float(dur)
+    return causes
+
+
+def dominant_cause(rec):
+    """(cause, ms, fraction-of-e2e) for the largest contributor. The
+    fraction denominator is the recorded e2e_ms when present (so a
+    doctored non-summing trace cannot inflate its own fractions), else
+    the span total."""
+    causes = decompose(rec)
+    total = rec.get("e2e_ms")
+    if not isinstance(total, (int, float)) or total <= 0:
+        total = sum(causes.values())
+    cause = max(causes, key=lambda k: causes[k])
+    ms = causes[cause]
+    return cause, ms, (ms / total if total else 0.0)

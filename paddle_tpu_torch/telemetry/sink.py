@@ -9,9 +9,19 @@ observatory's kind=memsnap ledger record (`make_memsnap_record`,
 record (`make_fleet_record`, `FLEET_EVENTS`), the kind=compile record
 (`make_compile_record`: here one capture of a step as a CUDA graph,
 telemetry/compile_obs.py), and `JsonlSink`, the
-append-only file they are written to. Same schema version and keys, so
+append-only file they are written to. Also the training and bench
+kinds: the kind=step record of a training step (`make_step_record`:
+`STEP_RECORD_KEYS`, the health taps' `HEALTH_KEYS`, the MoE routing
+fields' `MOE_KEYS`; telemetry/recorder.py writes it), the kind=bench
+result (`make_bench_record`, the serving family's names and gate
+directions in `SERVING_BENCH_METRICS`), the kind=phase metric dict
+(`make_phase_record`), the kernel observatory's kind=kernelbench
+measurement (`make_kernelbench_record`), `read_jsonl`, and the Chrome
+trace export of host spans (`spans_to_trace_events`,
+`export_chrome_tracing`). Same schema version and keys, so
 the JAX package's offline tools read a ledger of either engine; the
-port's own copy of the cross-record rules is telemetry/ledger_check.py.
+port's own copy of the per-record and cross-record rules is
+telemetry/ledger_check.py.
 """
 import atexit
 import json
@@ -19,7 +29,14 @@ import os
 import threading
 import weakref
 
-__all__ = ["SCHEMA_VERSION", "SERVING_EVENTS", "REQTRACE_SPAN_KINDS",
+__all__ = ["SCHEMA_VERSION", "STEP_RECORD_KEYS", "STEP_OPTIONAL_KEYS",
+           "INPUT_KEYS", "HEALTH_KEYS", "MOE_KEYS", "COMM_KEYS",
+           "BENCH_RECORD_KEYS", "SERVING_BENCH_METRICS",
+           "KERNELBENCH_RECORD_KEYS", "KERNELBENCH_EVENTS",
+           "make_step_record", "make_bench_record", "make_phase_record",
+           "make_kernelbench_record", "read_jsonl",
+           "spans_to_trace_events", "export_chrome_tracing",
+           "SERVING_EVENTS", "REQTRACE_SPAN_KINDS",
            "REQTRACE_OUTCOMES", "FLEET_RECORD_KEYS", "FLEET_EVENTS",
            "MEMSNAP_RECORD_KEYS", "MEMSNAP_BUCKETS", "MEMSNAP_EVENTS",
            "make_serving_record", "make_reqtrace_record",
@@ -39,6 +56,41 @@ def _close_live_sinks():
 
 
 SCHEMA_VERSION = 1
+
+# required keys of a per-step record (validated by tools/trace_check.py)
+STEP_RECORD_KEYS = ("schema", "kind", "rank", "step", "step_ms",
+                    "compile_ms", "execute_ms")
+# optional, present when the recorder has the inputs to compute them
+STEP_OPTIONAL_KEYS = ("loss", "tokens_per_sec", "mfu", "mem_bytes",
+                      "cache_hits", "cache_misses", "collectives",
+                      "grad_norm", "update_ratio", "nan_count",
+                      "inf_count", "input_wait_ms", "input_queue_depth",
+                      "input_bound_frac", "moe_entropy",
+                      "moe_dropped_frac", "moe_overflow", "moe_aux_loss",
+                      "moe_num_experts", "comm_ms", "comm_frac", "extra")
+# input-pipeline fields (io.prefetch loader health taps: how long the
+# step blocked waiting for its batch, ready-queue depth at fetch, and
+# the EMA input-bound fraction — host-bound vs chip-bound as a number)
+INPUT_KEYS = ("input_wait_ms", "input_queue_depth", "input_bound_frac")
+# health-tap fields (telemetry.health numerics taps; None until a fetch
+# step lands them — they appear every k-th record when taps are on)
+HEALTH_KEYS = ("grad_norm", "update_ratio", "nan_count", "inf_count")
+# MoE routing-health fields (paddle_tpu.moe.stats; present on steps of
+# models exposing collect_moe_stats): expert-load entropy (<= log E —
+# cross-checked by tools/trace_check.py against moe_num_experts),
+# dropped-token fraction in [0, 1], capacity-overflow ratio (>= 0,
+# > 1 means some expert saw more assignments than capacity), and the
+# load-balancing aux-loss value
+MOE_KEYS = ("moe_entropy", "moe_dropped_frac", "moe_overflow",
+            "moe_aux_loss", "moe_num_experts")
+# communication-attribution fields (telemetry/comm_obs + recorder):
+# wall-time collective.* span milliseconds summed over the step
+# (trace-time spans tagged traced=true are excluded) and that sum as a
+# fraction of step_ms in [0, 1] — compute-vs-communication step
+# decomposition as a number; the per-op breakdown stays in
+# 'collectives'
+COMM_KEYS = ("comm_ms", "comm_frac")
+
 
 # a serving-lifecycle record (serving.engine.ServingEngine) always
 # carries schema, kind, rank, event; optional: rid, engine, queue_depth,
@@ -434,6 +486,284 @@ def make_memsnap_record(event, step, total_bytes, rank=0,
             rec[k] = v
     return rec
 
+def make_step_record(step, step_ms, compile_ms, rank=0, loss=None,
+                     tokens_per_sec=None, mfu=None, mem_bytes=None,
+                     cache_hits=None, cache_misses=None, collectives=None,
+                     grad_norm=None, update_ratio=None, nan_count=None,
+                     inf_count=None, input_wait_ms=None,
+                     input_queue_depth=None, input_bound_frac=None,
+                     moe_entropy=None, moe_dropped_frac=None,
+                     moe_overflow=None, moe_aux_loss=None,
+                     moe_num_experts=None, comm_ms=None, comm_frac=None,
+                     **extra):
+    """Normalize one step's measurements into the schema dict."""
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "step",
+        "rank": int(rank),
+        "step": int(step),
+        "step_ms": round(float(step_ms), 4),
+        "compile_ms": round(float(compile_ms), 4),
+        "execute_ms": round(max(0.0, float(step_ms) - float(compile_ms)), 4),
+    }
+    if loss is not None:
+        rec["loss"] = float(loss)
+    if tokens_per_sec is not None:
+        rec["tokens_per_sec"] = round(float(tokens_per_sec), 2)
+    if mfu is not None:
+        rec["mfu"] = round(float(mfu), 6)
+    if mem_bytes is not None:
+        rec["mem_bytes"] = int(mem_bytes)
+    if cache_hits is not None:
+        rec["cache_hits"] = int(cache_hits)
+    if cache_misses is not None:
+        rec["cache_misses"] = int(cache_misses)
+    # health taps: keep non-finite values AS IS (NaN round-trips through
+    # json.loads) — a poisoned grad_norm is the signal, not noise; the
+    # paired nan/inf counts make it machine-checkable regardless
+    if grad_norm is not None:
+        rec["grad_norm"] = float(grad_norm)
+    if update_ratio is not None:
+        rec["update_ratio"] = float(update_ratio)
+    if nan_count is not None:
+        rec["nan_count"] = int(nan_count)
+    if inf_count is not None:
+        rec["inf_count"] = int(inf_count)
+    # input-pipeline taps (io.prefetch): numeric, wait/depth >= 0, the
+    # bound fraction in [0, 1] — validated by tools/trace_check.py
+    if input_wait_ms is not None:
+        rec["input_wait_ms"] = round(float(input_wait_ms), 4)
+    if input_queue_depth is not None:
+        rec["input_queue_depth"] = int(input_queue_depth)
+    if input_bound_frac is not None:
+        rec["input_bound_frac"] = round(float(input_bound_frac), 4)
+    # MoE routing-health taps (paddle_tpu.moe.stats): bounded fractions
+    # + the expert count that anchors the entropy bound — validated
+    # below and cross-checked by tools/trace_check.py
+    if moe_entropy is not None:
+        rec["moe_entropy"] = round(float(moe_entropy), 6)
+    if moe_dropped_frac is not None:
+        rec["moe_dropped_frac"] = round(float(moe_dropped_frac), 6)
+    if moe_overflow is not None:
+        rec["moe_overflow"] = round(float(moe_overflow), 6)
+    if moe_aux_loss is not None:
+        rec["moe_aux_loss"] = round(float(moe_aux_loss), 6)
+    if moe_num_experts is not None:
+        rec["moe_num_experts"] = int(moe_num_experts)
+    # communication attribution (telemetry/comm_obs): wall-time
+    # collective span sum + its fraction of the step — validated below
+    # and bounded by tools/trace_check.py
+    if comm_ms is not None:
+        rec["comm_ms"] = round(float(comm_ms), 4)
+    if comm_frac is not None:
+        rec["comm_frac"] = round(float(comm_frac), 6)
+    if collectives:
+        rec["collectives"] = {
+            str(k): {"ms": round(float(v[0]), 4), "calls": int(v[1])}
+            if isinstance(v, (tuple, list)) else v
+            for k, v in collectives.items()}
+    if extra:
+        rec["extra"] = extra
+    return rec
+
+
+BENCH_RECORD_KEYS = ("schema", "kind", "metric", "value")
+
+# the SERVING bench-metric family (bench_serving.py over
+# paddle_tpu/serving): one source of truth for metric names + gate
+# directions so the bench emitter, the rolling baseline
+# (tools/bench_baseline.json), and tools/trace_check.py's serving
+# cross-rules cannot drift. Directions are the bench_gate vocabulary:
+# 'higher' fails when the value drops, 'lower' when it rises (latency),
+# 'info' is recorded but never gated.
+SERVING_BENCH_METRICS = {
+    "serving.single_stream_tokens_per_sec": "higher",
+    "serving.throughput_tokens_per_sec": "higher",
+    "serving.throughput_vs_single": "higher",
+    "serving.ttft_p50_ms": "lower",
+    "serving.ttft_p99_ms": "lower",
+    "serving.tpot_p50_ms": "lower",
+    "serving.tpot_p99_ms": "lower",
+    "serving.requests": "info",
+    "serving.preemptions": "info",
+    "serving.kv_block_utilization_peak": "info",
+    # the serving-resilience drill's rated-load leg (tools/
+    # serving_drill.py --rated-only): throughput at rated load with SLO
+    # deadlines armed, queue-wait p99 under admission control, and the
+    # shed count — direction 'lower' over a 0.0 baseline means ANY shed
+    # at rated load fails the gate (the SLO sweep must run shed-free)
+    "serving.rated_throughput_tokens_per_sec": "higher",
+    "serving.rated_queue_wait_ms_p99": "lower",
+    "serving.rated_shed": "lower",
+    # the prefix-sharing sweep (bench_serving.py shared-prefix phase):
+    # N requests over K templates through a warm prefix-cache engine
+    # vs a cold-cache control with identical token streams. hit_rate
+    # and tokens_saved are deterministic for the seeded workload
+    # (direction 'higher': a drop means the matcher stopped finding
+    # prefixes it used to); tokens_offered is the denominator that
+    # makes tokens_saved auditable (info); the TTFT rows quote the
+    # WARM engine, and the speedup row is warm-vs-cold at p50 — the
+    # whole point of the cache
+    "serving.prefix_hit_rate": "higher",
+    "serving.prefill_tokens_saved": "higher",
+    "serving.prefill_tokens_offered": "info",
+    "serving.prefix_ttft_p50_ms": "lower",
+    "serving.prefix_ttft_p99_ms": "lower",
+    "serving.prefix_ttft_speedup": "higher",
+    "serving.prefix_tokens_recomputed_per_request": "lower",
+    # the request tracer's cost (bench_serving.py trace_overhead_phase):
+    # rated-level throughput with tracing on vs off as a fraction lost,
+    # direction 'lower' so bench_gate holds the tracer to its <=2%
+    # budget once a device round seeds the row — a tracer that starts
+    # doing per-token host work fails the gate like any regression
+    "serving.trace_overhead_frac": "lower",
+    # the fleet-tier rated leg (bench_serving.py --fleet N): aggregate
+    # rated throughput over N replicas, and scaling efficiency —
+    # aggregate / (N x the single-replica rated figure measured in the
+    # same run). Direction 'higher' on both: a router whose efficiency
+    # decays is paying routing/affinity overhead the ROADMAP's
+    # ~linear-scaling target does not allow. replicas is the
+    # denominator that makes the efficiency row auditable (info).
+    "fleet.rated_throughput_tokens_per_sec": "higher",
+    "fleet.scaling_efficiency": "higher",
+    "fleet.replicas": "info",
+}
+
+# required keys of a kernel-observatory measurement record
+# (telemetry/kernel_obs); optional: dtype,
+# fallback_ms, speedup, compile_ms, flops, bytes_accessed, flops_frac,
+# bw_frac, predicted_ms, bound, config, db_key, n_samples, warmup,
+# event, seed
+KERNELBENCH_RECORD_KEYS = ("schema", "kind", "rank", "kernel", "sig",
+                           "backend", "kernel_ms")
+
+# what one kernelbench record may claim to be (cross-checked by
+# tools/trace_check.py: a db_update must reference a measured row)
+KERNELBENCH_EVENTS = ("measure", "tune", "db_update")
+
+
+def make_kernelbench_record(kernel, sig, backend, kernel_ms, rank=0,
+                            dtype=None, fallback_ms=None, speedup=None,
+                            compile_ms=None, flops=None,
+                            bytes_accessed=None, flops_frac=None,
+                            bw_frac=None, predicted_ms=None, bound=None,
+                            config=None, db_key=None, n_samples=None,
+                            warmup=None, event=None, seed=None, **extra):
+    """One measured kernel data point as a first-class typed record
+    (kind='kernelbench') — the dynamic sibling of kind='kernel_lint':
+    the Kernel Doctor records what a kernel IS, the observatory records
+    how fast it RAN. `sig` + `dtype` + `backend` reproduce the DB key
+    (telemetry/kernel_obs.db_key); `kernel_ms` is the compile-excluded
+    execute median (compile_ms rides separately, the PR-4 split);
+    roofline fractions are achieved/peak in [0, 1]; `predicted_ms` is
+    the roofline floor the kernel_time_drift rule judges against.
+    Non-finite timings become None + an error note, like
+    make_bench_record — the validators fail them loudly rather than
+    letting a NaN ride the ledger."""
+    def _clean(v):
+        if v is None:
+            return None, False
+        bad = isinstance(v, float) and (v != v or v in (float("inf"),
+                                                        float("-inf")))
+        return (None if bad else float(v)), bad
+
+    kernel_ms, bad = _clean(kernel_ms)
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "kernelbench",
+        "rank": int(rank),
+        "kernel": str(kernel),
+        "sig": str(sig),
+        "backend": str(backend),
+        "kernel_ms": kernel_ms,
+    }
+    if bad:
+        rec["error"] = "non-finite kernel_ms"
+    if dtype is not None:
+        rec["dtype"] = str(dtype)
+    for key, v in (("fallback_ms", fallback_ms), ("speedup", speedup),
+                   ("compile_ms", compile_ms),
+                   ("flops_frac", flops_frac), ("bw_frac", bw_frac),
+                   ("predicted_ms", predicted_ms)):
+        v, bad = _clean(v)
+        if v is not None:
+            rec[key] = v
+        elif bad:
+            rec["error"] = f"non-finite {key}"
+    if flops is not None:
+        rec["flops"] = int(flops)
+    if bytes_accessed is not None:
+        rec["bytes_accessed"] = int(bytes_accessed)
+    if bound is not None:
+        rec["bound"] = str(bound)
+    if config is not None:
+        rec["config"] = dict(config)
+    if db_key is not None:
+        rec["db_key"] = str(db_key)
+    if n_samples is not None:
+        rec["n_samples"] = int(n_samples)
+    if warmup is not None:
+        rec["warmup"] = int(warmup)
+    if event is not None:
+        rec["event"] = str(event)
+    if seed is not None:
+        rec["seed"] = int(seed)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+def make_bench_record(metric, value, unit=None, rank=0, device=None,
+                      bench_round=None, baseline=None, **extra):
+    """One benchmark RESULT as a first-class typed record (kind='bench')
+    — the perf-regression gate's unit of account (tools/bench_gate.py).
+    Distinct from kind='phase' (a phase's raw metric dict): a bench
+    record is one tracked scalar with its identity (metric name, device,
+    round) so baselines diff record-against-record. Non-finite values
+    are kept as None + an error note (the gate fails them loudly)."""
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "bench",
+        "rank": int(rank),
+        "metric": str(metric),
+    }
+    bad = isinstance(value, float) and (value != value or
+                                        value in (float("inf"),
+                                                  float("-inf")))
+    rec["value"] = None if bad or value is None else float(value)
+    if bad:
+        rec["error"] = f"non-finite value {value!r}"
+    if unit is not None:
+        rec["unit"] = str(unit)
+    if device is not None:
+        rec["device"] = str(device)
+    if bench_round is not None:
+        rec["round"] = int(bench_round)
+    if baseline is not None:
+        rec["baseline"] = float(baseline)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+def make_phase_record(phase, metrics, rank=0):
+    """A bench-phase record (bench.py): same envelope, kind='phase', the
+    phase's metric dict under 'metrics'. Non-finite floats become None —
+    json.dumps would otherwise emit bare NaN/Infinity tokens, which are
+    invalid for strict JSON consumers (jq, Chrome)."""
+    clean = {}
+    for k, v in (metrics or {}).items():
+        if isinstance(v, float) and (v != v or v in (float("inf"),
+                                                     float("-inf"))):
+            clean[k] = None
+        elif isinstance(v, (int, float)) or v is None or isinstance(v, str):
+            clean[k] = v
+    return {"schema": SCHEMA_VERSION, "kind": "phase", "rank": int(rank),
+            "phase": str(phase), "metrics": clean}
+
+
 class JsonlSink:
     """Append-only JSONL metrics file, one record per line. Thread-safe.
 
@@ -485,3 +815,85 @@ class JsonlSink:
 
     def __len__(self):
         return self._n
+
+
+def read_jsonl(path):
+    """Load a metrics JSONL back into a list of dicts (round-trip)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace export (multi-rank)
+# ---------------------------------------------------------------------------
+
+def spans_to_trace_events(spans, default_rank=0):
+    """spans: iterable of dicts {name, t0, dur, rank?, tid?, cat?} (seconds)
+    -> chrome trace 'X' events in microseconds, pid == rank."""
+    events = []
+    ranks = set()
+    for sp in spans:
+        rank = int(sp.get("rank", default_rank))
+        ranks.add(rank)
+        ev = {
+            "name": sp["name"], "ph": "X",
+            "pid": rank, "tid": int(sp.get("tid", 0)),
+            "ts": float(sp["t0"]) * 1e6, "dur": float(sp["dur"]) * 1e6,
+            "cat": sp.get("cat", "host"),
+        }
+        if sp.get("args"):
+            ev["args"] = sp["args"]
+        events.append(ev)
+    meta = [{"name": "process_name", "ph": "M", "pid": r,
+             "args": {"name": f"rank {r}"}} for r in sorted(ranks)]
+    return meta + events
+
+
+def export_chrome_tracing(path, sources, align_on=None):
+    """Write one Chrome-trace JSON merging host spans across ranks.
+
+    `sources` is a list whose items are either TelemetryRecorder objects
+    (their `.spans` and `.rank` are used) or plain span-dict lists. Each
+    rank becomes its own trace pid. `align_on`: optional span name
+    whose start is declared t=0 per rank (a `__sync__` marker span
+    recorded at one agreed instant on every rank).
+
+    Spans still OPEN at export time (a stuck collective, an aborted
+    step) are closed at 'now' and tagged args={'open': True} rather
+    than dropped — an export made from a crash handler must show what
+    the program was inside, not pretend it was idle.
+
+    Returns the number of spans written. Output loads in chrome://tracing
+    or Perfetto.
+    """
+    all_spans = []
+    for i, src in enumerate(sources):
+        spans = getattr(src, "spans", src)
+        open_fn = getattr(src, "open_span_dicts", None)
+        if open_fn is not None:
+            spans = list(spans) + list(open_fn())
+        rank = getattr(src, "rank", None)
+        for sp in spans:
+            sp = dict(sp)
+            if "rank" not in sp:
+                sp["rank"] = i if rank is None else rank
+            all_spans.append(sp)
+    if align_on is not None:
+        zero = {}
+        for sp in all_spans:
+            if sp["name"] == align_on:
+                zero.setdefault(sp["rank"], sp["t0"])
+        for sp in all_spans:
+            sp["t0"] = sp["t0"] - zero.get(sp["rank"], 0.0)
+    events = spans_to_trace_events(all_spans)
+    path = os.fspath(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events,
+                   "displayTimeUnit": "ms"}, f)
+    return len(all_spans)

@@ -262,6 +262,37 @@ class TestHealth:
         target, _ = router._pick(LONG)
         assert target is r
 
+    def test_a_probe_from_before_a_readmit_is_discarded(self):
+        """A probe hung on the replaced process that returns after the
+        readmit counts no miss against the new one."""
+        clk = FakeClock()
+        r = FakeReplica("r0")
+        router = _router([r], clock=clk, miss_threshold=1)
+        started, release = threading.Event(), threading.Event()
+        inner = r.probe
+
+        def hung_probe():
+            started.set()
+            release.wait(10)
+            raise ConnectionError("the old process never answered")
+
+        r.probe = hung_probe
+        t = threading.Thread(target=router.probe, args=("r0",))
+        t.start()
+        assert started.wait(10)
+        r.probe = inner                 # the restarted process answers
+        router.readmit("r0")
+        release.set()
+        t.join(10)
+        assert not t.is_alive()
+        st = router.replica_states()["r0"]
+        assert not st["dead"] and st["misses"] == 0
+        assert _events(router, "declared_dead") == []
+        router.probe("r0")              # a probe after it counts
+        r.down = True
+        router.probe("r0")
+        assert router.replica_states()["r0"]["dead"]
+
     def test_health_gauges_track_registry(self):
         clk = FakeClock()
         reps = [FakeReplica(f"r{i}") for i in range(3)]

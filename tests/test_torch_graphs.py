@@ -258,8 +258,11 @@ def test_one_loop_state_a_model_released_by_a_train_step():
     kw = dict(dtype=None, device="cpu", max_new_tokens=6)
     greedy, _ = tm.generate(ids, **kw)
     tm.generate(ids, decode_strategy="beam_search", num_beams=3, **kw)
-    # one loop state a model: the beam loop's took the greedy one's place
+    # the beam loop's state is the most recently used one; the greedy
+    # state is kept beside it (a model keeps its last few loop states)
     assert generation._MODEL_STEPS[tm].loop_key[0] == "beam"
+    assert [k[0] for k in generation._MODEL_STEPS[tm].loops] \
+        == ["generate", "beam"]
     assert torch.equal(tm.generate(ids, **kw)[0], greedy)
     generation.release(tm)
     assert tm not in generation._MODEL_STEPS
@@ -365,6 +368,35 @@ def test_a_failed_capture_raises_and_keeps_nothing(stub):
     stub.fail_replay = True
     with pytest.raises(RuntimeError, match="stub replay failed"):
         steps.run("prefill", "k", lambda: 3)
+
+
+def test_a_model_keeps_the_loop_states_of_its_last_keys(stub):
+    """Alternating among a few keys (prompt lengths) replays their
+    graphs; a key past KEPT_LOOP_STATES drops the least recently used
+    state and only its graphs."""
+    from paddle_tpu_torch import generation
+    ms = generation._ModelSteps("cpu")
+    ms.steps = jit.CapturedStep("cpu", graph_cls=stub)
+    n = generation.KEPT_LOOP_STATES
+    made = []
+
+    def use(key):
+        st = ms.state(key, lambda: made.append(key) or object())
+        ms.steps.run("generate", (key, 1, 0), lambda: key)
+        return st
+
+    states = [use(("generate", k)) for k in range(n)]
+    again = [use(("generate", k)) for k in range(n)]
+    assert again == states and len(made) == n      # kept, not remade
+    assert len(ms.steps.records) == n              # replayed, not recaptured
+    use(("generate", n))                           # a new key: 0 goes
+    assert list(ms.loops) == [("generate", k) for k in range(1, n + 1)]
+    assert sorted(k[0][1] for k in ms.steps.graphs) == list(range(1, n + 1))
+    assert ms.loop_key == ("generate", n)
+    use(("generate", 0))                           # made and captured anew
+    assert len(made) == n + 2 and len(ms.steps.records) == n + 2
+    ms.clear()
+    assert ms.loops == {} and ms.steps.graphs == {} and ms.loop is None
 
 
 def test_dropped_graphs_hold_their_pool_until_the_next_capture(stub):
