@@ -410,11 +410,32 @@ ok line):
              launch-bound serving shapes sit far from their bounds);
              the records validate and the DB is written to
              build/paddle_tpu_torch/kernel_db.json.
+14. distributed — the hybrid-parallel training step
+             (`distributed.ShardedTrainStep`) as rank processes through
+             `distributed.launch` (`tools/dist_drill.py` jobs, each under
+             a hard timeout that kills its ranks): one NCCL rank (the
+             collectives of CUDA tensors against their inputs, and the
+             step at dp = mp = sp = 1 under ZeRO-0 and -1 bit for bit
+             against jit.TrainStep in f32); GPT-3 1.3B's width (2 layers
+             of 24 cut, seq 2048, batch 2) on mp 2 x sp 2 as 4 gloo ranks
+             sharing the card (after 2 ranks probe which gloo collectives
+             take a CUDA tensor themselves: 3 f32 AdamW steps with ring and with Ulysses
+             attention, within 1e-4 relative of the same model's
+             one-process jit.TrainStep here, 3 bf16-amp ring steps within
+             2e-2 of f32, each rank's launches a step exact: K6 one a
+             layer, K1/K2 and K3-K5 (i + 1) a layer on ring rank i and one
+             a layer under Ulysses); the bench's ringattn_128k over sp 4
+             (its out and dx held per head row against one K1/K3 run of
+             the whole x here, to 2e-2); GPT-3 125M's width (2 layers,
+             seq 1024, batch 4) on dp 2 x mp 2 x sp 2 as 8 gloo ranks
+             under ZeRO-0, -1 and -2 (equal parameters, each rank's
+             optimizer states half of ZeRO-0's). Times are of ranks
+             sharing one card over gloo, not scaling figures.
 
 `--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
 serve_13b,moe_serve,options,layer,full,full_4k,memory,serving_bench,
-health,kernel_obs` (any of them) runs the build and the named phases
-alone and prints no result line.
+health,kernel_obs,distributed` (any of them) runs the build and the
+named phases alone and prints no result line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
@@ -5121,10 +5142,266 @@ def kernel_obs_phase(torch, seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the hybrid-parallel step as ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DIST_LAYERS = 2                     # GPT-3 1.3B's 24 layers cut to 2
+DIST_RTOL = 1e-4                    # the train phase's card-vs-CPU bar
+DIST_BF16_ATOL = 2e-2
+DIST_128K_TOL = 2e-2
+DIST_TIMEOUT_S = {"nccl1": 240, "gloo_probe": 90, "card4": 420,
+                  "card8": 300}
+
+
+def dist_train_launches(launches, layers, sp_index, mode):
+    """A step's exact launches on a rank: K6 once a layer, K1/K2 and
+    K3-K5 (sp_index + 1) times a layer under ring, once under Ulysses,
+    no other kernel."""
+    hops = sp_index + 1 if mode == "ring" else 1
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=layers * hops, flash_bwd=layers * hops,
+                layernorm_fwd_saved=layers)
+    return want
+
+
+def one_process_losses(torch, cfg, ids, lbl, seed, steps):
+    """The same model's jit.TrainStep on the card in this process."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools.dist_drill import LR, WD
+    model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+    step = TrainStep(model, model.loss, opt)
+    tids, tlbl = (torch.from_numpy(a).to(DEVICE) for a in (ids, lbl))
+    out = [float(step(tids, tlbl)) for _ in range(steps)]
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_128k_reference(torch):
+    """One K1/K3 run of the whole 128k x (the drill's), out and dx."""
+    import numpy as np
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+    from paddle_tpu_torch.tools.dist_drill import RING_128K
+    c = RING_128K
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        1, c["S"], c["heads"], c["head_dim"]).astype(np.float32)).to(
+        DEVICE, torch.bfloat16) * c["amp"]
+    xg = x.requires_grad_()
+    o = scaled_dot_product_attention(xg, xg, xg, is_causal=True)
+    dx = torch.autograd.grad((o.float() ** 2).sum(), xg)[0]
+    return o.detach(), dx
+
+
+def distributed_phase(torch, seed):
+    """Phase 14 (see the docstring): -> its readings and the launches
+    of every rank's counted runs, summed."""
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.kernel_registry import kernels
+    from paddle_tpu_torch.tools import dist_drill as dd
+    t_phase = time.perf_counter()
+    card = card_line()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "dist_drill")
+    torch.cuda.empty_cache()
+    total = {k.name: 0 for k in kernels()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # 1-2. the untimed jobs (one NCCL rank; the gloo probe) run beside
+    # this process's references
+    jobs = {name: dd.start_job(name, os.path.join(out_dir, name), seed,
+                               DIST_TIMEOUT_S[name])
+            for name in ("nccl1", "gloo_probe")}
+    ids, lbl = dd.tiny_batch(seed, 2, dd.CARD_SEQ, 50304)
+    cfg = GPTConfig.gpt3_1_3b(num_layers=DIST_LAYERS,
+                              max_seq_len=dd.CARD_SEQ, dropout=0.0)
+    t0 = time.perf_counter()
+    ref = one_process_losses(torch, cfg, ids, lbl, seed, dd.CARD_STEPS)
+    o_ref, dx_ref = ring_128k_reference(torch)
+    ref_s = time.perf_counter() - t0
+    job_s = {}
+
+    res = jobs["nccl1"].wait()
+    job_s["nccl1"] = jobs["nccl1"].seconds
+    rec = res[0][0]
+    if not all(rec["nccl_collectives"].values()):
+        raise AssertionError(f"distributed: NCCL collectives "
+                             f"{rec['nccl_collectives']}")
+    for name in ("zero0", "zero1"):
+        r1 = rec["size1"][name]
+        if not (r1["losses_equal"] and r1["params_equal"]):
+            raise AssertionError(
+                f"distributed: ShardedTrainStep {name} at a mesh of ones "
+                f"vs jit.TrainStep: {r1} vs "
+                f"{rec['size1']['train_step_losses']} (not bit for bit)")
+    readings = {"nccl1": {"collectives": rec["nccl_collectives"],
+                          "size1": rec["size1"]}}
+    print(f"distributed: NCCL one rank on {card}: "
+          + json.dumps(readings["nccl1"]))
+
+    # which gloo collectives take a CUDA tensor (an op missing from the
+    # ranks' files aborted the process)
+    res = jobs["gloo_probe"].wait(allow_fail=True)
+    job_s["gloo_probe"] = jobs["gloo_probe"].seconds
+    probe = {}
+    for name in dd.GLOO_PROBES:
+        got = [res[k][0]["gloo_cuda_probe"].get(name) if k in res else None
+               for k in range(dd.JOBS["gloo_probe"][0])]
+        probe[name] = (f"aborted the process (rank {got.index(None)})"
+                       if None in got else got[0])
+    readings["gloo_cuda_probe"] = probe
+    print(f"distributed: gloo collectives on CUDA tensors, unstaged (torch "
+          f"{torch.__version__}) on {card}: " + json.dumps(probe))
+    from paddle_tpu_torch.distributed.collective import GLOO_CUDA_NATIVE
+    native = {name for name, got in probe.items() if got == "ok"}
+    if native != GLOO_CUDA_NATIVE:
+        raise AssertionError(f"distributed: gloo carries {sorted(native)} "
+                             "over CUDA tensors here, the collective layer "
+                             f"assumes {sorted(GLOO_CUDA_NATIVE)}")
+
+    # 3. the 4 ranks, alone on the card (timed)
+    t0 = time.perf_counter()
+    res = dd.run_job("card4", os.path.join(out_dir, "card4"), seed,
+                     DIST_TIMEOUT_S["card4"])
+    job_s["card4"] = time.perf_counter() - t0
+    runs = {}
+    for tag in ("ring_f32", "ulysses_f32", "ring_bf16"):
+        mode = tag.split("_")[0]
+        losses = [res[k][0][tag]["losses"] for k in res]
+        if any(l != losses[0] for l in losses):
+            raise AssertionError(f"distributed {tag}: ranks report "
+                                 f"different losses {losses}")
+        for k, (rk, _) in res.items():
+            for i, st in enumerate(rk[tag]["steps"]):
+                want = dist_train_launches(st["launches"], DIST_LAYERS,
+                                           rk[tag]["coords"]["sp"], mode)
+                if st["launches"] != want:
+                    raise AssertionError(
+                        f"distributed {tag}: rank {k} step {i} launches "
+                        f"{st['launches']} != {want}")
+                add(st["launches"])
+        got = losses[0]
+        if tag.endswith("f32"):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+            if not rel <= DIST_RTOL:
+                raise AssertionError(f"distributed {tag}: losses {got} vs "
+                                     f"one process {ref}: {rel:.2e}")
+        else:
+            f32 = runs["ring_f32"]["losses"]
+            dev = max(abs(a - b) for a, b in zip(got, f32))
+            if not (all(math.isfinite(a) for a in got)
+                    and dev <= DIST_BF16_ATOL):
+                raise AssertionError(f"distributed {tag}: losses {got} vs "
+                                     f"f32 {f32}: {dev:.3e}")
+            rel = dev
+        recs = [rk[f"{tag}/record"] for rk, _ in res.values()]
+        runs[tag] = {
+            "losses": got, "vs_reference": rel,
+            "comm_ms_last_step": [round(x["comm_ms"], 1) for x in recs],
+            "comm_frac_last_step": [x["comm_frac"] for x in recs],
+            "collective_ms_rank0": {k: v["ms"] for k, v in
+                                    recs[0]["collectives"].items()},
+            "step_ms": [[round(st["ms"], 1) for st in rk[tag]["steps"]]
+                        for rk, _ in res.values()],
+            "comm_bytes": res[0][0][tag]["steps"][-1]["comm"]["bytes"],
+            "staged_bytes":
+                res[0][0][tag]["steps"][-1]["comm"]["staged_bytes"],
+            "peak_mem_gb": [max(st["peak_mem_gb"]
+                                for st in rk[tag]["steps"])
+                            for rk, _ in res.values()]}
+        print(f"distributed: {tag}, GPT-3 1.3B width x {DIST_LAYERS} "
+              f"layers, mp 2 x sp 2, 4 ranks sharing one card, gloo, on "
+              f"{card}: " + json.dumps(runs[tag]))
+    runs["one_process_losses"] = ref
+    runs["reference_s"] = ref_s
+    # the 128k ring leg against the one-process run
+    n = len(res)
+    S = dd.RING_128K["S"]
+    errs, row_errs = [], []
+    for k, (rk, _) in res.items():
+        r128 = rk["ring128k"]
+        i = r128["sp_index"]
+        want = {name: 0 for name in r128["launches"]}
+        want.update(flash_fwd=i + 1, flash_bwd=i + 1)
+        if r128["launches"] != want:
+            raise AssertionError(f"distributed ring128k: rank {k} launches "
+                                 f"{r128['launches']} != {want}")
+        add(r128["launches"])
+        piece = torch.load(os.path.join(out_dir, "card4",
+                                        f"ring128k_rank{k}.pt"))
+        rows = slice(i * S // n, (i + 1) * S // n)
+        tag = f" [ringattn_128k sp 4, rank {k}]"
+        for what, got, want_t in (("out", piece["out"], o_ref),
+                                  ("dx", piece["dx"], dx_ref)):
+            g = got.to(DEVICE)[0].transpose(0, 1).float()
+            w = want_t[0, rows].transpose(0, 1).float()
+            errs.append(hold(f"distributed {what}" + tag, g, w,
+                             (DIST_128K_TOL, DIST_128K_TOL)))
+            row_errs.append(hold_rows(f"distributed {what}" + tag, g, w,
+                                      DIST_128K_TOL))
+    del o_ref, dx_ref
+    torch.cuda.empty_cache()
+    ms = max(rk["ring128k"]["ms"] for rk, _ in res.values())
+    runs["ring128k"] = {"fwd_bwd_ms": ms, "max_abs_err": max(errs),
+                        "max_row_rel_err": max(row_errs),
+                        "label": "4 ranks sharing one card, gloo"}
+    print(f"distributed: ringattn_128k fwd+bwd over sp 4 (4 ranks sharing "
+          f"one card, gloo) on {card}: " + json.dumps(runs["ring128k"]))
+    readings["card4"] = runs
+
+    # 4. ZeRO on 8 ranks
+    t0 = time.perf_counter()
+    res = dd.run_job("card8", os.path.join(out_dir, "card8"), seed,
+                     DIST_TIMEOUT_S["card8"])
+    job_s["card8"] = time.perf_counter() - t0
+    zero = {"max_diff": res[0][0]["zero_max_diff"],
+            "state_bytes": {f"zero{z}": [rk[f"zero{z}"]["state_bytes"]
+                                         for rk, _ in res.values()]
+                            for z in (0, 1, 2)}}
+    if not zero["max_diff"]["2_vs_1"] <= 1e-6:
+        raise AssertionError(f"distributed ZeRO: {zero['max_diff']}")
+    for k, (rk, _) in res.items():
+        for z in (1, 2):
+            if 2 * rk[f"zero{z}"]["state_bytes"] \
+                    != rk["zero0"]["state_bytes"]:
+                raise AssertionError(f"distributed ZeRO-{z}: rank {k} holds "
+                                     f"{zero['state_bytes']}")
+        for z in (0, 1, 2):
+            for i, st in enumerate(rk[f"zero{z}"]["steps"]):
+                want = dist_train_launches(st["launches"], DIST_LAYERS,
+                                           rk[f"zero{z}"]["coords"]["sp"],
+                                           "ring")
+                if st["launches"] != want:
+                    raise AssertionError(
+                        f"distributed zero{z}: rank {k} step {i} launches "
+                        f"{st['launches']} != {want}")
+                add(st["launches"])
+    zero["losses"] = {f"zero{z}": res[0][0][f"zero{z}"]["losses"]
+                      for z in (0, 1, 2)}
+    zero["step_ms"] = {f"zero{z}": [round(st["ms"], 1) for st in
+                                    res[0][0][f"zero{z}"]["steps"]]
+                       for z in (0, 1, 2)}
+    readings["card8"] = zero
+    print(f"distributed: ZeRO-0/1/2, GPT-3 125M width x {DIST_LAYERS} "
+          f"layers, dp 2 x mp 2 x sp 2, 8 ranks sharing one card, gloo, "
+          f"on {card}: " + json.dumps(zero))
+    readings["phase_s"] = time.perf_counter() - t_phase
+    print("distributed: job seconds " + json.dumps(
+        {k: round(v, 1) for k, v in job_s.items()}))
+    return dict(readings=readings, launches=total)
+
+
 PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
                   "kernels_13b", "long_context", "serve_13b", "moe_serve",
                   "options", "layer", "full", "full_4k", "memory",
-                  "serving_bench", "health", "kernel_obs")
+                  "serving_bench", "health", "kernel_obs", "distributed")
 
 
 def partial_run(torch, args, lap, phase_s):
@@ -5142,7 +5419,8 @@ def partial_run(torch, args, lap, phase_s):
            "memory": lambda torch, seed: memory_phase(torch, seed,
                                                       INIT_RANGE),
            "serving_bench": serving_bench_phase, "health": health_phase,
-           "kernel_obs": kernel_obs_phase}
+           "kernel_obs": kernel_obs_phase,
+           "distributed": distributed_phase}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
         torch.cuda.empty_cache()
@@ -5283,6 +5561,9 @@ def main(argv=None):
     full_4k = train_1_3b_full_phase(torch, args.seed, 4096)
     torch.cuda.empty_cache()
     lap("train 1.3B full s=4096")
+    dist = distributed_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("distributed")
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
     print_compiled_summary(stats, wo8, loop, memory, decode)
@@ -5310,7 +5591,7 @@ def main(argv=None):
                        for run in (stats, wo8, loop, memory, fleet, sbench,
                                    decode, serve_13b, *moe_serve.values(),
                                    train, moe, options, layer, full,
-                                   full_4k, long_ctx))
+                                   full_4k, long_ctx, dist))
         # the largest error of the kernel's checks, the 1.3B, 13B and MoE
         # serving shapes' too
         err = max([r["max_abs_err"]] + [

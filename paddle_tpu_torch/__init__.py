@@ -11,7 +11,8 @@ GPT-3 1.3B with its optimizer states offloaded to the host, decoding
 with `generate` and weight-only
 int8 (`ops/decode_attention.py`, `ops/int8_matvec.py`), and the
 mixture-of-experts training step (the dispatch and combine kernels,
-`moe/kernels.py`), each kernel written by hand in CUDA. The serving
+`moe/kernels.py`), each kernel written by hand in CUDA, and the
+hybrid-parallel training step over a mesh of ranks. The serving
 engine runs as a server with the JAX engine's HTTP front, metrics and
 request traces, and samples with jax.random's own draws.
 
@@ -26,8 +27,14 @@ Layout mirrors the JAX package so a reader finds each counterpart:
 - `optimizer`     — SGD, Momentum, Adam and AdamW with the JAX update
                     rule (groups, L1/L2 decay, f32 masters, state
                     dicts) and the 15 learning-rate schedules (`lr`);
-- `distributed`   — per-block recompute and the host-offloaded,
-                    gradient-accumulating `OffloadTrainStep`;
+- `distributed`   — the process group and the (dp, pp, mp, sp, ep)
+                    DeviceMesh, the collectives (eager and per mesh
+                    axis, under a deadline), the tensor-parallel
+                    layers, the hybrid-parallel `ShardedTrainStep`
+                    (ZeRO-1/2, ring and Ulysses attention over sp),
+                    DataParallel, the collective half of `fleet`, the
+                    launcher; per-block recompute and the
+                    host-offloaded `OffloadTrainStep`;
 - `flags`         — the runtime flags the port reads (`use_fused_ce`);
 - `jit`           — TrainStep (one eager step: loss, backward, update)
                     and CapturedStep (a fixed-shape step captured as a
@@ -43,12 +50,14 @@ Layout mirrors the JAX package so a reader finds each counterpart:
                     (compile_obs);
 - `tools`         — `bench_serving` (the serving bench's legs),
                     `healthwatch` and `memwatch` (offline replays of
-                    the health rules), `serve_13b_w8a16`;
+                    the health rules), `serve_13b_w8a16`, `dist_drill`
+                    (the hybrid-parallel step as rank processes);
 - `convert`       — load JAX-package parameters into a port model;
 - `ops`           — the kernel registry, the nvcc/ctypes build step, the
-                    attention entry points, every kernel with its
-                    plain version, and the fused projection + cross
-                    entropy (`fused_ce`);
+                    attention entry points (ring and Ulysses attention
+                    among them), every kernel with its plain version,
+                    and the fused projection + cross entropy
+                    (`fused_ce`);
 - `serving`       — BlockPool/PrefixIndex/PagedKVCache, the scheduler,
                     admission control, `ServingEngine` (greedy and
                     sampled decoding, the serve loop with drain and warm

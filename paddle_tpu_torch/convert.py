@@ -11,6 +11,12 @@ persistable buffers, which travel the same way:
                            *jax_model.named_buffers()]]
     load_jax_params(torch_model, arrays)
 
+For a model cut over a mesh (`distributed.shard_model`),
+`shard_jax_params` loads the full JAX arrays and keeps each rank's piece
+by the same rule, and `gather_params` rebuilds the full arrays from the
+ranks' pieces (every rank calls it), so a test compares them with the
+JAX parameters by name.
+
 `load_jax_optimizer_state` does the same for an optimizer in the middle
 of training: the JAX optimizer's per-parameter states (moments,
 velocities, f32 masters, beta powers) and its scheduler's state, by
@@ -21,7 +27,8 @@ import torch
 
 from .optimizer.optimizer import host_scalar
 
-__all__ = ["load_jax_params", "load_jax_optimizer_state"]
+__all__ = ["load_jax_params", "load_jax_optimizer_state",
+           "shard_jax_params", "gather_params"]
 
 
 def load_jax_params(model, arrays):
@@ -95,3 +102,59 @@ def load_jax_optimizer_state(opt, params, jax_opt, jax_params):
     if hasattr(sched, "set_state_dict") and hasattr(jsched, "state_dict"):
         sched.set_state_dict(jsched.state_dict())
     return opt
+
+
+def shard_jax_params(model, arrays, mesh=None):
+    """`load_jax_params` for a model cut over `mesh` (default the
+    installed one): each full array is checked against the parameter's
+    full shape and cut to this rank's piece as `shard_model` cut the
+    parameter; a model not cut yet is cut first."""
+    from .distributed import env
+    from .distributed.sharded_train import cut_piece, param_cuts, shard_model
+    mesh = mesh if mesh is not None else env.current_mesh()
+    shard_model(model, mesh)
+    cuts = param_cuts(model)
+    src = dict(arrays)
+    out = {}
+    for name, t in model.state_dict(keep_vars=True).items():
+        a = src.get(name)
+        if a is None or name not in cuts:
+            out[name] = a
+            continue
+        dim, groups, full = cuts[name]
+        a = np.asarray(a)
+        if a.shape != full:
+            raise ValueError(f"{name}: source shape {a.shape} != full "
+                             f"shape {full}")
+        out[name] = cut_piece(torch.from_numpy(np.array(a, copy=True)), dim,
+                              env.axis_size("mp", mesh),
+                              env.axis_index("mp", mesh), groups).numpy()
+    out.update({n: a for n, a in src.items() if n not in out})
+    return load_jax_params(model, [(n, a) for n, a in out.items()
+                                   if a is not None])
+
+
+def gather_params(model, mesh=None):
+    """{name: full ndarray} of `model`'s parameters: a parameter cut
+    over mp is all-gathered from the ranks of this rank's mp row and
+    joined (a collective: every rank calls it); bf16 comes back as
+    f32."""
+    from .distributed import env
+    from .distributed.collective import _all_gather, _axis
+    from .distributed.sharded_train import join_pieces, param_cuts
+    mesh = mesh if mesh is not None else env.current_mesh()
+    cuts = param_cuts(model)
+    prev = env.current_mesh()
+    env.set_mesh(mesh)
+    try:
+        out = {}
+        for name, p in model.named_parameters():
+            t = p.detach()
+            if name in cuts:
+                dim, groups, _ = cuts[name]
+                t = join_pieces(_all_gather(t, _axis("mp")[0], axis="mp"),
+                                dim, groups)
+            out[name] = t.float().cpu().numpy()
+        return out
+    finally:
+        env.set_mesh(prev)

@@ -1,8 +1,47 @@
-"""The port's distributed package (paddle_tpu/distributed counterparts),
-so far on one card: activation recompute and the host-offloaded,
-gradient-accumulating train step. Meshes, sharding, pipelines and
-collectives are not ported yet (ROADMAP Queue 1 item 6)."""
-from .offload_train import OffloadTrainStep
-from .recompute import RecomputeSequential, recompute
+"""The port's distributed package (paddle_tpu/distributed counterparts).
 
-__all__ = ["OffloadTrainStep", "recompute", "RecomputeSequential"]
+One process a rank over `torch.distributed`, where the JAX package
+drives every chip from one controller through GSPMD: the process group
+and the (dp, pp, mp, sp, ep) DeviceMesh (`env`), the topology and
+strategy (`topology`, `strategy`), the collectives with their deadline
+guard, comm spans and the axis layer's autograd Functions
+(`collective`), DataParallel (`parallel`), the tensor-parallel layers
+(`mp_layers`), the hybrid-parallel training step with ZeRO-1/2
+(`sharded_train`), the collective half of `fleet`, the launcher
+(`launch`; `python -m paddle_tpu_torch.distributed.launch`), and on one
+card activation recompute and the host-offloaded `OffloadTrainStep`.
+Not ported yet (ROADMAP Queue 1): the pipeline, ZeRO-3, offload in the
+sharded step, distributed checkpoints, the planner, elastic restarts
+and the parameter-server mode.
+"""
+from . import env  # noqa: F401
+from . import fleet  # noqa: F401
+from .env import (  # noqa: F401
+    build_mesh, clear_mesh, current_mesh, init_distributed, set_mesh,
+)
+from .topology import CommunicateTopology, HybridCommunicateGroup  # noqa: F401
+from .strategy import DistributedStrategy  # noqa: F401
+from .collective import (  # noqa: F401
+    CollectiveTimeoutError, Group, ReduceOp, all_gather, all_gather_axis,
+    all_gather_object, all_reduce, all_to_all_axis, alltoall, barrier,
+    broadcast, collective_deadline, get_group, is_initialized, new_group,
+    pmax, pmean, ppermute, psum, recv, reduce, reduce_scatter_axis, scatter,
+    send, set_collective_deadline, split, wait,
+)
+from .parallel import (  # noqa: F401
+    DataParallel, ParallelEnv, get_rank, get_world_size, init_parallel_env,
+    spawn,
+)
+from .sharded_train import ShardedTrainStep, shard_batch, shard_model  # noqa: F401
+from .mp_layers import (  # noqa: F401
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from .offload_train import OffloadTrainStep  # noqa: F401
+from .recompute import RecomputeSequential, recompute  # noqa: F401
+from . import launch as _launch_module  # noqa: E402
+
+# reference parity: paddle.distributed.launch is the callable; the
+# module stays importable for `python -m ...distributed.launch`
+launch = _launch_module.launch
+fleet.DistributedStrategy = DistributedStrategy

@@ -12,7 +12,9 @@ rides three earlier invariants instead of inventing new machinery:
   `miss_threshold` of them declare it dead — every miss and the
   declaration are `kind=fleet` records, so the ledger rules
   (telemetry/ledger_check.py) can enforce that no replica is declared
-  dead without the misses that justify it. A per-replica circuit
+  dead without the misses that justify it. One probe of a replica
+  runs at a time (a second caller skips it), so verdicts land in the
+  order they were asked for. A per-replica circuit
   breaker (closed -> open -> half-open) keeps a flapping replica from
   eating live traffic while it recovers. The clock is injectable; tests pin the schedule.
 - **Prefix affinity** hashes the SAME chunk key the radix prefix index
@@ -95,6 +97,7 @@ class _ReplicaState:
         self.snap = None           # last successful probe dict
         self.last_probe_t = None
         self.incarnation = 0       # bumped by readmit (a new process)
+        self.probing = False       # a probe of this replica is in flight
 
 
 class FleetRouter:
@@ -207,6 +210,14 @@ class FleetRouter:
         declared dead ({} or {name})."""
         with self._mu:
             st = self._states[name]
+            if st.probing:
+                # one probe of a replica at a time: the prober, the
+                # routing path and a failed stream may all ask at once,
+                # and overlapping verdicts could land out of order (a
+                # slow success after a fast miss left a replica dead
+                # with no misses); the probe in flight judges it
+                return set()
+            st.probing = True
             incarnation = st.incarnation
         snap = None
         err = None
@@ -216,8 +227,13 @@ class FleetRouter:
                 err = "replica reports dead"
         except Exception as e:            # unreachable IS the miss
             err = f"{type(e).__name__}: {e}"
+        except BaseException:
+            with self._mu:
+                st.probing = False
+            raise
         newly_dead = set()
         with self._mu:
+            st.probing = False
             if st.incarnation != incarnation:
                 # readmitted while this probe ran: its verdict is about
                 # the process the restart replaced (a probe hung on the

@@ -14,9 +14,28 @@ kernels on the card. With `remat` each block of the dense forward runs
 under `distributed.recompute` (its activations recomputed in the
 backward); with the `use_fused_ce` flag the loss is
 `ops.fused_ce.fused_linear_cross_entropy` over the tied table, which
-never forms the [tokens, vocab] logits. `sequence_parallel` (ring or
-Ulysses attention over a mesh) is not ported: a config that sets it can
-be built, and running it raises. `GPTModel.forward` is a dense causal
+never forms the [tokens, vocab] logits.
+
+Under a mesh (`distributed.env.build_mesh`, installed as the JAX
+package's global mesh is) the model runs its rank's piece, sharded
+explicitly where GSPMD infers it in JAX: activations [b/dp, s/sp, d]
+(the caller passes this rank's rows and sequence block, as
+`ShardedTrainStep` cuts them), qkv and fc1 column-parallel, out_proj
+and fc2 row-parallel, `wte` vocab-parallel and tied to a vocab-parallel
+head whose loss is `parallel_cross_entropy`, every rank's positions its
+global ones (`distributed.mp_layers`). The `mesh_axes` of each module
+(local name -> (axes, groups)) are the JAX `_tag`s; the fused qkv's
+columns are q | k | v, so each third is cut by heads (groups 3). Each
+module works from its weights' shapes, so a model cut by
+`distributed.shard_model` runs its n/mp heads. `sequence_parallel`
+"ring" or "ulysses" runs attention over the mesh's sp axis
+(`ops/ring_attention.py`); with no mesh or sp 1 it is the usual
+attention, as in JAX. An sp above 1 needs one of the two, and Ulysses
+needs the rank's n/mp heads to divide by sp (JAX checks n). Under the
+mesh `loss` returns this rank's share of the global token mean: its
+tokens' loss sum over the global token count, times dp (what
+`ShardedTrainStep` averages over dp and sums over sp).
+`GPTModel.forward` is a dense causal
 forward over a whole sequence, the training path (`loss`), or, given
 `caches=` and `offset=`, an incremental step over fixed-shape KV buffers
 (`init_cache`), the decode path of `generate`: a one-token step attends
@@ -38,6 +57,10 @@ import torch
 from .. import nn
 from ..amp import amp_state, maybe_cast_to_compute
 from ..device import resolve_device, resolve_dtype
+from ..distributed import env as dist_env
+from ..distributed.collective import c_identity, psum
+from ..distributed.mp_layers import (column_parallel, parallel_cross_entropy,
+                                     row_parallel, vocab_parallel_embedding)
 from ..distributed.recompute import recompute
 from ..flags import get_flag
 from ..ops.attention import composed_attention, flash_attention
@@ -45,6 +68,7 @@ from ..ops.decode_attention import (decode_attention,
                                     decode_attention_supported)
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.int8_matvec import int8_matvec, int8_matvec_preferred
+from ..ops.ring_attention import ring_attention, ulysses_attention
 from ..quant.wo8 import WeightOnlyInt8Embedding
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
@@ -72,7 +96,7 @@ class GPTConfig:
         # False: the composed attention instead of the flash kernels
         self.use_flash_attention = use_flash_attention
         # None | "ring" | "ulysses": context parallelism over a mesh's sp
-        # axis, not ported (ROADMAP Queue 1 item 6); running it raises
+        # axis (ops/ring_attention.py)
         self.sequence_parallel = sequence_parallel
         self.dtype = dtype
         # per-block recompute: the backward keeps only block inputs
@@ -105,8 +129,7 @@ class GPTConfig:
     @staticmethod
     def gpt3_1_3b_128k(**kw):
         """The JAX package's >= 128k-context preset: ring attention over
-        the sp mesh axis, per-block remat. Its sequence parallelism is
-        not ported, so it can be built but not run."""
+        the sp mesh axis, per-block remat."""
         return GPTConfig._preset(
             dict(hidden_size=2048, num_layers=24, num_heads=16,
                  max_seq_len=131072, sequence_parallel="ring",
@@ -122,18 +145,42 @@ class GPTAttention(torch.nn.Module):
         self.hidden_size = c.hidden_size
         self.attn_dropout = c.attn_dropout
         self.use_flash = c.use_flash_attention
+        self.sequence_parallel = c.sequence_parallel
         self.qkv_proj = nn.Linear(c.hidden_size, 3 * c.hidden_size,
                                   device=device, dtype=dtype)
         self.out_proj = nn.Linear(c.hidden_size, c.hidden_size,
                                   device=device, dtype=dtype)
+        # the JAX tags; the fused qkv's thirds are cut by heads
+        self.mesh_axes = {"qkv_proj.weight": ((None, "mp"), 3),
+                          "qkv_proj.bias": (("mp",), 3),
+                          "out_proj.weight": (("mp", None), 1)}
+        if c.sequence_parallel and c.attn_dropout > 0:
+            import warnings
+            warnings.warn(
+                "attn_dropout is not applied on the sequence-parallel "
+                "attention path (ring/ulysses); set attn_dropout=0 or "
+                "sequence_parallel=None for identical regularization")
+
+    def local_heads(self):
+        """The heads this rank's qkv columns hold: n, or under an mp
+        axis above 1 the columns' heads (n/mp once the model is cut)."""
+        if dist_env.axis_size("mp") == 1:
+            return self.num_heads
+        return self.qkv_proj.weight.shape[1] // (3 * self.head_dim)
 
     def project_qkv(self, x):
-        """[b, s, d] -> three [b, s, n, h] tensors: the single qkv
-        reshape/split the dense forward and the serving engine share."""
+        """[b, s, d] -> three [b, s, n, h] tensors (n the rank's heads):
+        the single qkv reshape/split the dense forward and the serving
+        engine share."""
         b, s = x.shape[0], x.shape[1]
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
-                                       self.head_dim)
+        qkv = _column(self.qkv_proj, x).reshape(b, s, 3, self.local_heads(),
+                                                self.head_dim)
         return qkv.unbind(dim=2)
+
+    def _sp_active(self):
+        if not self.sequence_parallel:
+            return False
+        return dist_env.axis_size("sp") > 1
 
     def forward(self, x, cache=None, offset=None, decode_chunks=None):
         """cache: optional (k_buf, v_buf) of fixed shape from
@@ -149,7 +196,11 @@ class GPTAttention(torch.nn.Module):
                 q, k, v, cache[0], cache[1], _offset(offset), decode_chunks)
             return (self.out_proj(out.reshape(b, s, self.hidden_size)),
                     (k_buf, v_buf))
-        if self.use_flash:
+        if self._sp_active():
+            attn = ring_attention if self.sequence_parallel == "ring" \
+                else ulysses_attention
+            out = attn(q, k, v, causal=True)
+        elif self.use_flash:
             out = flash_attention(q, k, v, dropout=self.attn_dropout,
                                   causal=True, training=self.training)
         else:
@@ -158,7 +209,22 @@ class GPTAttention(torch.nn.Module):
             out = composed_attention(
                 q, k, v, valid, dropout_p=self.attn_dropout
                 if self.training else 0.0)
-        return self.out_proj(out.reshape(b, s, self.hidden_size))
+        return _row(self.out_proj, out.reshape(b, s, -1))
+
+
+def _column(layer, x):
+    """`layer(x)`, or with an mp axis above 1 its column-parallel form
+    over this rank's columns."""
+    if dist_env.axis_size("mp") == 1:
+        return layer(x)
+    return column_parallel(x, layer.weight, layer.bias)
+
+
+def _row(layer, x):
+    """`layer(x)`, or with an mp axis above 1 its row-parallel form."""
+    if dist_env.axis_size("mp") == 1:
+        return layer(x)
+    return row_parallel(x, layer.weight, layer.bias)
 
 
 def _offset(offset):
@@ -207,9 +273,12 @@ class GPTMLP(torch.nn.Module):
                              device=device, dtype=dtype)
         self.fc2 = nn.Linear(c.ffn_hidden_size, c.hidden_size,
                              device=device, dtype=dtype)
+        self.mesh_axes = {"fc1.weight": ((None, "mp"), 1),
+                          "fc1.bias": (("mp",), 1),
+                          "fc2.weight": (("mp", None), 1)}
 
     def forward(self, x):
-        return self.fc2(nn.gelu(self.fc1(x)))
+        return _row(self.fc2, nn.gelu(_column(self.fc1, x)))
 
 
 class GPTBlock(torch.nn.Module):
@@ -257,6 +326,7 @@ class GPTModel(torch.nn.Module):
             [self.block_cls(c, device=device, dtype=dtype)
              for _ in range(c.num_layers)])
         self.ln_f = nn.LayerNorm(c.hidden_size, device=device, dtype=dtype)
+        self.mesh_axes = {"wte.weight": (("mp", None), 1)}   # vocab-parallel
 
     def init_cache(self, batch_size, max_len, dtype=None):
         """Fixed-shape KV buffers, one (k, v) pair per block, zeroed, in
@@ -285,15 +355,18 @@ class GPTModel(torch.nn.Module):
         tensor on the model's device; `decode_chunks` is the
         `decode_fused` chunk count a one-token step at a device offset
         launches with (ops.decode_attention.decode_split)."""
-        if self.config.sequence_parallel is not None:
-            raise NotImplementedError(
-                f"sequence_parallel={self.config.sequence_parallel!r}: ring "
-                "and Ulysses attention are not ported yet (ROADMAP Queue 1 "
-                "item 6)")
         s = input_ids.shape[1]
         off = _offset(offset)
+        sharded = self._check_mesh(caches)
+        if sharded:
+            # this rank's sequence block starts at its global position
+            off = dist_env.axis_index("sp") * s
+            emb = vocab_parallel_embedding(input_ids, self.wte.weight,
+                                           self.config.vocab_size)
+        else:
+            emb = self.wte(input_ids)
         pos = (off + torch.arange(s, device=input_ids.device))[None, :]
-        h = self.drop(self.wte(input_ids) + self.wpe(pos))
+        h = self.drop(emb + self.wpe(pos))
         if caches is not None:
             new_caches = []
             for block, cache in zip(self.blocks, caches):
@@ -304,6 +377,35 @@ class GPTModel(torch.nn.Module):
         for block in self.blocks:
             h = recompute(block, h) if self.config.remat else block(h)
         return self.ln_f(h)
+
+    def _check_mesh(self, caches):
+        """Whether a mesh with mp or sp above 1 is installed (the
+        explicit-sharding path), after checking the model can run it."""
+        mp, sp = dist_env.axis_size("mp"), dist_env.axis_size("sp")
+        if mp == 1 and sp == 1:
+            return False
+        c = self.config
+        if caches is not None or isinstance(self.wte,
+                                            WeightOnlyInt8Embedding):
+            raise NotImplementedError(
+                "the cached decode path and int8 tables run without a "
+                "mesh (mp and sp of 1)")
+        if sp > 1 and c.sequence_parallel not in ("ring", "ulysses"):
+            raise ValueError(
+                f"an sp mesh axis of {sp} needs sequence_parallel='ring' "
+                f"or 'ulysses' (got {c.sequence_parallel!r})")
+        heads = self.blocks[0].attn.local_heads() if len(self.blocks) \
+            else c.num_heads // mp
+        if heads * mp != c.num_heads:
+            raise RuntimeError(
+                f"mp {mp}: the model holds {heads} of {c.num_heads} heads; "
+                "cut it with distributed.shard_model first")
+        if c.sequence_parallel == "ulysses" and sp > 1 and heads % sp:
+            raise ValueError(
+                f"ulysses under mp {mp}: each rank holds {heads} of the "
+                f"{c.num_heads} heads, which do not divide by sp ({sp}); "
+                "use sequence_parallel='ring'")
+        return True
 
 
 class GPTForPretraining(torch.nn.Module):
@@ -378,6 +480,7 @@ class GPTForPretraining(torch.nn.Module):
         if isinstance(wte, WeightOnlyInt8Embedding):
             return self._head_q(h, wte)
         w = wte.weight
+        h = c_identity(h)       # the tied head is column-parallel over mp
         if amp_state().enabled:
             return torch.matmul(maybe_cast_to_compute(h, "matmul"),
                                 maybe_cast_to_compute(w, "matmul").t())
@@ -429,18 +532,46 @@ class GPTForPretraining(torch.nn.Module):
         positions `loss_mask` keeps when it is given. With the
         `use_fused_ce` flag: the fused projection + cross entropy over the
         tied table (h cast as the head casts it under amp, the table in
-        its own dtype); otherwise the logits and `cross_entropy`."""
+        its own dtype); otherwise the logits and `cross_entropy`
+        (`parallel_cross_entropy` over the vocab-parallel logits when
+        mp > 1). Under a mesh with dp, mp or sp above 1: this rank's
+        share of the global mean (`_mesh_mean`)."""
+        mp = dist_env.axis_size("mp")
         if get_flag("use_fused_ce"):
+            if mp > 1:
+                raise NotImplementedError("use_fused_ce under an mp mesh "
+                                          "axis above 1")
             h = self.gpt(input_ids)
             losses = fused_linear_cross_entropy(
                 maybe_cast_to_compute(h, "matmul").reshape(-1, h.shape[-1]),
                 self.gpt.wte.weight, labels.reshape(-1))
         else:
             logits = self(input_ids)
-            losses = nn.functional.cross_entropy(
-                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
-                reduction="none")
+            losses = parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+        if mp > 1 or dist_env.axis_size("sp") > 1 \
+                or dist_env.axis_size("dp") > 1:
+            return _mesh_mean(losses, loss_mask)
         if loss_mask is not None:
             m = loss_mask.reshape(-1)
             return (losses * m).sum() / m.sum()
         return losses.mean()
+
+
+def _mesh_mean(losses, loss_mask):
+    """This rank's share of the global (masked) token mean: its tokens'
+    loss sum over the global token count (the mask's global sum, summed
+    over sp and dp with no gradient), times dp. ShardedTrainStep sums
+    the gradients over sp and averages them over dp; the global mean is
+    the sum of the shares over sp and dp, over dp."""
+    dp = dist_env.axis_size("dp")
+    if loss_mask is None:
+        # every rank holds as many tokens: the count is n * sp * dp
+        sp = dist_env.axis_size("sp")
+        mean = losses.mean()
+        return mean / sp if sp > 1 else mean
+    m = loss_mask.reshape(-1)
+    with torch.no_grad():
+        count = psum(psum(m.sum().float(), "sp"), "dp")
+    share = (losses * m).sum() / count
+    return share * dp if dp > 1 else share

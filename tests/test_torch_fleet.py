@@ -293,6 +293,38 @@ class TestHealth:
         router.probe("r0")
         assert router.replica_states()["r0"]["dead"]
 
+    def test_a_probe_in_flight_is_the_only_one(self):
+        """The routing path asks while the prober's slow probe is in
+        flight: the second ask is skipped, so a miss cannot land before
+        the slow probe's success and leave the replica dead with no
+        misses (what two overlapping probes did)."""
+        clk = FakeClock()
+        r = FakeReplica("r0")
+        router = _router([r], clock=clk, miss_threshold=1)
+        started, release = threading.Event(), threading.Event()
+        inner = r.probe
+
+        def slow_probe():
+            snap = inner()              # answered, its reply still coming
+            started.set()
+            release.wait(10)
+            return snap
+
+        r.probe = slow_probe
+        t = threading.Thread(target=router.probe, args=("r0",))
+        t.start()
+        assert started.wait(10)
+        r.probe = inner
+        r.down = True
+        assert router.probe("r0") == set()      # skipped: one in flight
+        release.set()
+        t.join(10)
+        assert not t.is_alive()
+        st = router.replica_states()["r0"]
+        assert not st["dead"] and st["misses"] == 0
+        assert _events(router, "declared_dead") == []
+        assert router.probe("r0") == {"r0"}     # the next probe judges
+
     def test_health_gauges_track_registry(self):
         clk = FakeClock()
         reps = [FakeReplica(f"r{i}") for i in range(3)]

@@ -294,8 +294,13 @@ def test_flash_switch_and_the_128k_preset():
     for k in ("hidden_size", "num_heads", "max_seq_len",
               "sequence_parallel", "remat"):
         assert getattr(got, k) == getattr(ref, k), k
-    m = GPTForPretraining(GPTConfig.gpt3_1_3b_128k(
-        num_layers=1, vocab_size=64, hidden_size=64, num_heads=4,
-        max_seq_len=128), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        m(ids)
+    small = dict(num_layers=1, vocab_size=64, hidden_size=64, num_heads=4,
+                 max_seq_len=128)
+    m = GPTForPretraining(GPTConfig.gpt3_1_3b_128k(**small), device="cpu",
+                          seed=4)
+    # with no mesh the preset's ring attention is the usual attention,
+    # as the JAX model falls through when sp is 1
+    plain = GPTForPretraining(GPTConfig.gpt3_1_3b_128k(
+        sequence_parallel=None, **small), device="cpu", seed=4)
+    with torch.no_grad():
+        assert torch.equal(m(ids), plain(ids))

@@ -51,8 +51,15 @@ def _batch():
     return ids, lbl
 
 
-@pytest.fixture(scope="module")
-def records():
+def _record_runs():
+    """Four JAX and four port TrainSteps under their recorders. The JAX
+    recorder pops the JAX input pipeline's one-shot stash into the first
+    step it records (`paddle_tpu.io.prefetch.consume_step_input_stats`);
+    a stash left filled by an earlier test in the same process (the
+    prefetch tests) would add its `input_*` keys to that record alone,
+    so it is drained first: the port has no input pipeline yet."""
+    from paddle_tpu.io.prefetch import consume_step_input_stats
+    consume_step_input_stats()
     paddle.seed(5)
     jm = JaxGPT(JaxGPTConfig(**_MODEL))
     arrays = [(n, np.asarray(p._value)) for n, p in jm.named_parameters()]
@@ -79,6 +86,11 @@ def records():
     return jrec.records, trec.records
 
 
+@pytest.fixture(scope="module")
+def records():
+    return _record_runs()
+
+
 def test_step_records_carry_the_jax_key_set(records):
     jr, tr = records
     assert len(jr) == len(tr) == 4
@@ -86,6 +98,18 @@ def test_step_records_carry_the_jax_key_set(records):
         assert sorted(t) == sorted(j)
     # the health taps land on the fetch steps only (every_k 2)
     assert ["grad_norm" in t for t in tr] == [False, True, False, True]
+
+
+def test_a_stash_left_by_the_input_pipeline_does_not_move_the_key_set():
+    """A filled stash (as tests/test_io_prefetch.py leaves it) before the
+    runs: both key sets still agree on every step."""
+    from paddle_tpu.io.prefetch import _note_input_stats
+    _note_input_stats(1.5, 2, 0.25)
+    jr, tr = _record_runs()
+    assert len(jr) == len(tr) == 4
+    for j, t in zip(jr, tr):
+        assert sorted(t) == sorted(j)
+        assert not any(k.startswith("input_") for k in j)
 
 
 def test_step_records_pass_both_validators(records):
