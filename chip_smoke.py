@@ -429,8 +429,25 @@ ok line):
              the whole x here, to 2e-2); GPT-3 125M's width (2 layers,
              seq 1024, batch 4) on dp 2 x mp 2 x sp 2 as 8 gloo ranks
              under ZeRO-0, -1 and -2 (equal parameters, each rank's
-             optimizer states half of ZeRO-0's). Times are of ranks
-             sharing one card over gloo, not scaling figures.
+             optimizer states half of ZeRO-0's); expert parallelism
+             (`ep4`, 4 ranks): GPT-MoE at the bench's width (d 768, E
+             8, top-2, 2 layers, 8 x 1024) on ep 4, dp 2 x ep 2 and ep
+             2 x mp 2, 3 dropless f32 SGD steps within 1e-5 relative
+             of the one-process jit.TrainStep (losses and every
+             parameter), capacity-bound moe_ffn_values (cf 1.25) per
+             rank within 1e-5 of its blocks run alone, bf16 amp
+             within 5e-3 of f32, K12/K13 launches exact (2 and 1 a
+             layer a step); the pipeline (`pp4`, 4 ranks): GPT-3 1.3B's
+             width as a PipelineLayer (tied embedding, 8 blocks),
+             8 micro-batches of 1 x 2048: 1F1B at pp 4, interleaved at
+             pp 4 x vpp 2, pp 2 x mp 2, 2 f32 SGD steps within 1e-5
+             of the one-process sequential train_batch (losses and
+             each stage's parameters), bf16 1F1B within 5e-3, stage
+             0's peak at 16 micro-batches within 5 % of its peak at 8
+             (4 printed), K1/K3/K6
+             launches exact (the rank's blocks x micro-batches). Times
+             are of ranks sharing one card over gloo, not scaling
+             figures.
 
 `--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
 serve_13b,moe_serve,options,layer,full,full_4k,memory,serving_bench,
@@ -5151,7 +5168,15 @@ DIST_RTOL = 1e-4                    # the train phase's card-vs-CPU bar
 DIST_BF16_ATOL = 2e-2
 DIST_128K_TOL = 2e-2
 DIST_TIMEOUT_S = {"nccl1": 240, "gloo_probe": 90, "card4": 420,
-                  "card8": 300}
+                  "card8": 300, "ep4": 420, "pp4": 420}
+# the ep and pp legs: f32 SGD parameters and losses against the
+# one-process run (Adam's update is blind to a gradient's scale), bf16
+# losses against f32, capacity-bound MoE values against the block-by-
+# block run, stage 0's peak memory between 8 and 16 micro-batches
+DIST_EP_PP_RTOL = 1e-5
+DIST_EP_PP_BF16_ATOL = 5e-3
+DIST_EP_BOUND_RTOL = 1e-5
+DIST_PP_MEM_GROWTH = 0.05
 
 
 def dist_train_launches(launches, layers, sp_index, mode):
@@ -5392,10 +5417,169 @@ def distributed_phase(torch, seed):
     print(f"distributed: ZeRO-0/1/2, GPT-3 125M width x {DIST_LAYERS} "
           f"layers, dp 2 x mp 2 x sp 2, 8 ranks sharing one card, gloo, "
           f"on {card}: " + json.dumps(zero))
+
+    # 5-6. expert parallelism and the pipeline, 4 ranks each
+    for job, check in (("ep4", check_ep4), ("pp4", check_pp4)):
+        t0 = time.perf_counter()
+        res = dd.run_job(job, os.path.join(out_dir, job), seed,
+                         DIST_TIMEOUT_S[job])
+        job_s[job] = time.perf_counter() - t0
+        readings[job] = check(res, add, card)
     readings["phase_s"] = time.perf_counter() - t_phase
     print("distributed: job seconds " + json.dumps(
         {k: round(v, 1) for k, v in job_s.items()}))
     return dict(readings=readings, launches=total)
+
+
+def _same_losses(what, res, tag):
+    """The losses every rank reports for run `tag` (they must agree)."""
+    losses = [rk[tag]["losses"] for rk, _ in res.values()]
+    if any(l != losses[0] for l in losses):
+        raise AssertionError(f"{what} {tag}: ranks report different losses "
+                             f"{losses}")
+    return losses[0]
+
+
+def _rel_max(got, ref):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+
+def _step_rows(res, tag, comm):
+    """Per rank per step: launches of the kernels that ran, `comm`
+    bytes, ms, peak GB."""
+    return {f"rank{k}": [{"launches": {n: v for n, v in st["launches"]
+                                       .items() if v},
+                          f"{comm}_bytes": st["comm"]["bytes"].get(comm, 0),
+                          "ms": round(st["ms"], 1),
+                          "peak_gb": round(st.get("peak_mem_gb", 0.0), 3)}
+                         for st in rk[tag]["steps"]]
+            for k, (rk, _) in res.items()}
+
+
+def check_ep4(res, add, card):
+    """The ep4 job (tools/dist_drill.py): GPT-MoE at the bench's width x
+    2 layers, global batch 8 x 1024, on ep 4, dp 2 x ep 2, ep 2 x mp 2."""
+    from paddle_tpu_torch.tools import dist_drill as dd
+    L = dd.EP_CARD["num_layers"]
+    ref = res[0][0]["ep4/reference"]["losses"]
+    out = {"one_process_losses": ref}
+    for sizes in dd.EP_CARD_MESHES:
+        tag = "ep4/" + "x".join(f"{a}{n}" for a, n in sizes.items())
+        got = _same_losses("distributed", res, tag)
+        rel = _rel_max(got, ref)
+        prm = res[0][0][tag]["param_rel"]
+        bound = {f"rank{k}": rk[tag]["bound"] for k, (rk, _) in res.items()}
+        out[tag] = {"losses": got, "vs_one_process": rel,
+                    "param_rel_max": prm, "capacity_bound": bound,
+                    "steps": _step_rows(res, tag, "all_to_all")}
+        print(f"distributed: {tag}, GPT-MoE at 768 x {L} layers, E 8 "
+              f"top-2, 8 x 1024, 4 ranks sharing one card (gloo; not a "
+              f"scaling figure), on {card}: " + json.dumps(out[tag]))
+        if not (rel <= DIST_EP_PP_RTOL and prm["max"] <= DIST_EP_PP_RTOL):
+            raise AssertionError(f"distributed {tag}: losses {got} vs one "
+                                 f"process {ref} ({rel:.2e}), parameters "
+                                 f"{prm}")
+        for k, (rk, _) in res.items():
+            for i, st in enumerate(rk[tag]["steps"]):
+                check_train_launches(st["launches"], L, 1,
+                                     f"distributed {tag} rank {k} step {i}",
+                                     MOE_TRAIN_KERNELS)
+                add(st["launches"])
+            b = rk[tag]["bound"]
+            if not (b["out_rel"] <= DIST_EP_BOUND_RTOL
+                    and b["dx_rel"] <= DIST_EP_BOUND_RTOL
+                    and b["dropped_frac"] > 0):
+                raise AssertionError(f"distributed {tag} cf "
+                                     f"{dd.EP_BOUND_CF}: rank {k} {b} "
+                                     "against its blocks run alone")
+    f32 = out["ep4/ep4"]["losses"]
+    for tag in ("ep4/ep4_bf16", "ep4/ep4_cf1.25"):
+        got = _same_losses("distributed", res, tag)
+        for k, (rk, _) in res.items():
+            for i, st in enumerate(rk[tag]["steps"]):
+                check_train_launches(st["launches"], L, 1,
+                                     f"distributed {tag} rank {k} step {i}",
+                                     MOE_TRAIN_KERNELS)
+                add(st["launches"])
+        if not all(math.isfinite(a) for a in got):
+            raise AssertionError(f"distributed {tag}: losses {got}")
+        if tag.endswith("bf16"):
+            dev = max(abs(a - b) for a, b in zip(got, f32))
+            if not dev <= DIST_EP_PP_BF16_ATOL:
+                raise AssertionError(f"distributed {tag}: losses {got} vs "
+                                     f"f32 {f32}: {dev:.3e}")
+            out[tag] = {"losses": got, "vs_f32": dev}
+        else:
+            out[tag] = {"losses": got}
+        out[tag]["steps"] = _step_rows(res, tag, "all_to_all")
+        print(f"distributed: {tag} on {card}: " + json.dumps(out[tag]))
+    return out
+
+
+def check_pp4(res, add, card):
+    """The pp4 job (tools/dist_drill.py): GPT-3 1.3B's width as a
+    PipelineLayer (tied embedding, 8 blocks, final LN, tied head),
+    micro-batch 1 x 2048."""
+    from paddle_tpu_torch.tools import dist_drill as dd
+    ref = res[0][0]["pp4/reference"]["losses"]
+    out = {"one_process_losses": ref}
+    for tag, sizes, vpp, amp_on, acc, steps in dd.PP_CARD_RUNS:
+        key = f"pp4/{tag}"
+        got = _same_losses("distributed", res, key)
+        for k, (rk, _) in res.items():
+            r = rk[key]
+            n = r["local_blocks"] * r["acc"]
+            for i, st in enumerate(r["steps"]):
+                want = {name: 0 for name in st["launches"]}
+                want.update(flash_fwd=n, flash_bwd=n, layernorm_fwd_saved=n)
+                if st["launches"] != want:
+                    raise AssertionError(f"distributed {key}: rank {k} step "
+                                         f"{i} launches {st['launches']} != "
+                                         f"{want}")
+                add(st["launches"])
+        row = {"losses": got, "steps": _step_rows(res, key, "ppermute")}
+        bad = None
+        if amp_on:
+            dev = max(abs(a - b) for a, b in zip(
+                got, out["pp4/1f1b"]["losses"]))
+            row["vs_f32"] = dev
+            if not dev <= DIST_EP_PP_BF16_ATOL:
+                bad = f"losses {got} vs f32 1F1B: {dev:.3e}"
+        elif steps == dd.PP_CARD_STEPS:
+            rel = _rel_max(got, ref)
+            prm = {f"rank{k}": rk[key]["param_rel"]
+                   for k, (rk, _) in res.items()}
+            worst = max(p["max"] for p in prm.values())
+            row.update(vs_one_process=rel, param_rel=prm)
+            if not (rel <= DIST_EP_PP_RTOL and worst <= DIST_EP_PP_RTOL):
+                bad = (f"losses {got} vs one process {ref} ({rel:.2e}), "
+                       f"parameters {prm}")
+        out[key] = row
+        print(f"distributed: {key}, GPT-3 1.3B width x "
+              f"{dd.PP_CARD_BLOCKS} blocks, {acc} micro-batches of 1 x "
+              f"{dd.CARD_SEQ}, vpp {vpp}, 4 ranks sharing one card (gloo; "
+              f"not a scaling figure), on {card}: " + json.dumps(row))
+        if bad:
+            raise AssertionError(f"distributed {key}: {bad}")
+    # stage 0's peak memory under 1F1B: pp = 4 micro-batches in flight
+    # once the steady phase exists (from pp + 1 on); at 4 the in-flight
+    # peak comes before the first backward allocates the gradients
+    peaks = {}
+    for acc, key in ((4, "pp4/1f1b_acc4"), (8, "pp4/1f1b"),
+                     (16, "pp4/1f1b_acc16")):
+        for rk, _ in res.values():
+            if rk[key]["coords"]["pp"] == 0 and rk[key]["coords"]["mp"] == 0:
+                peaks[acc] = max(st["peak_mem_gb"] for st in rk[key]["steps"])
+    growth = peaks[16] / peaks[8] - 1.0
+    out["stage0_peak_gb"] = {"acc4": peaks[4], "acc8": peaks[8],
+                             "acc16": peaks[16], "growth_8_to_16": growth,
+                             "growth_4_to_8": peaks[8] / peaks[4] - 1.0}
+    print(f"distributed: pp4 stage 0 peak memory, 1F1B at 4, 8 and 16 "
+          f"micro-batches, on {card}: " + json.dumps(out["stage0_peak_gb"]))
+    if not growth <= DIST_PP_MEM_GROWTH:
+        raise AssertionError(f"distributed pp4: stage 0's peak grew "
+                             f"{growth:.3f} from 8 to 16 micro-batches")
+    return out
 
 
 PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",

@@ -110,7 +110,7 @@ def shard_jax_params(model, arrays, mesh=None):
     full shape and cut to this rank's piece as `shard_model` cut the
     parameter; a model not cut yet is cut first."""
     from .distributed import env
-    from .distributed.sharded_train import cut_piece, param_cuts, shard_model
+    from .distributed.sharded_train import cut_full, param_cuts, shard_model
     mesh = mesh if mesh is not None else env.current_mesh()
     shard_model(model, mesh)
     cuts = param_cuts(model)
@@ -121,14 +121,13 @@ def shard_jax_params(model, arrays, mesh=None):
         if a is None or name not in cuts:
             out[name] = a
             continue
-        dim, groups, full = cuts[name]
+        full = cuts[name][2]
         a = np.asarray(a)
         if a.shape != full:
             raise ValueError(f"{name}: source shape {a.shape} != full "
                              f"shape {full}")
-        out[name] = cut_piece(torch.from_numpy(np.array(a, copy=True)), dim,
-                              env.axis_size("mp", mesh),
-                              env.axis_index("mp", mesh), groups).numpy()
+        out[name] = cut_full(torch.from_numpy(np.array(a, copy=True)),
+                             cuts[name], mesh).numpy()
     out.update({n: a for n, a in src.items() if n not in out})
     return load_jax_params(model, [(n, a) for n, a in out.items()
                                    if a is not None])
@@ -136,12 +135,11 @@ def shard_jax_params(model, arrays, mesh=None):
 
 def gather_params(model, mesh=None):
     """{name: full ndarray} of `model`'s parameters: a parameter cut
-    over mp is all-gathered from the ranks of this rank's mp row and
-    joined (a collective: every rank calls it); bf16 comes back as
-    f32."""
+    over mp (or ep) is all-gathered from the ranks of this rank's rows
+    along those axes and joined (a collective: every rank calls it);
+    bf16 comes back as f32."""
     from .distributed import env
-    from .distributed.collective import _all_gather, _axis
-    from .distributed.sharded_train import join_pieces, param_cuts
+    from .distributed.sharded_train import gather_full, param_cuts
     mesh = mesh if mesh is not None else env.current_mesh()
     cuts = param_cuts(model)
     prev = env.current_mesh()
@@ -151,9 +149,7 @@ def gather_params(model, mesh=None):
         for name, p in model.named_parameters():
             t = p.detach()
             if name in cuts:
-                dim, groups, _ = cuts[name]
-                t = join_pieces(_all_gather(t, _axis("mp")[0], axis="mp"),
-                                dim, groups)
+                t = gather_full(t, cuts[name])
             out[name] = t.float().cpu().numpy()
         return out
     finally:

@@ -6,13 +6,18 @@ and the (dp, pp, mp, sp, ep) DeviceMesh (`env`), the topology and
 strategy (`topology`, `strategy`), the collectives with their deadline
 guard, comm spans and the axis layer's autograd Functions
 (`collective`), DataParallel (`parallel`), the tensor-parallel layers
-(`mp_layers`), the hybrid-parallel training step with ZeRO-1/2
-(`sharded_train`), the collective half of `fleet`, the launcher
-(`launch`; `python -m paddle_tpu_torch.distributed.launch`), and on one
-card activation recompute and the host-offloaded `OffloadTrainStep`.
-Not ported yet (ROADMAP Queue 1): the pipeline, ZeRO-3, offload in the
-sharded step, distributed checkpoints, the planner, elastic restarts
-and the parameter-server mode.
+(`mp_layers`), the hybrid-parallel training step with ZeRO-1/2 and
+expert parallelism (`sharded_train`; the MoE layer's ep body is
+`moe/layer.py`), the pipeline (`pipeline`: PipelineLayer, GPipe, 1F1B,
+interleaved, PipelineParallel), the expert exchange
+(`utils.global_scatter`/`global_gather`) and the deprecated `MoELayer`
+(`moe`), the collective half of `fleet`, the launcher (`launch`;
+`python -m paddle_tpu_torch.distributed.launch`), and on one card
+activation recompute and the host-offloaded `OffloadTrainStep`. Not
+ported yet (ROADMAP Queue 1 item 6): ZeRO-3, offload in the sharded
+step, distributed checkpoints, the planner, ep with sp or pp, elastic
+restarts, the launch helpers of `dist_utils` and the parameter-server
+mode.
 """
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
@@ -26,7 +31,8 @@ from .collective import (  # noqa: F401
     all_gather_object, all_reduce, all_to_all_axis, alltoall, barrier,
     broadcast, collective_deadline, get_group, is_initialized, new_group,
     pmax, pmean, ppermute, psum, recv, reduce, reduce_scatter_axis, scatter,
-    send, set_collective_deadline, split, wait,
+    send, set_collective_deadline, split, wait, split_axis, gather_axis,
+    all_to_all_uneven,
 )
 from .parallel import (  # noqa: F401
     DataParallel, ParallelEnv, get_rank, get_world_size, init_parallel_env,
@@ -38,6 +44,17 @@ from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding,
 )
 from .offload_train import OffloadTrainStep  # noqa: F401
+from .pipeline import (  # noqa: F401
+    LayerDesc, PipelineLayer, PipelineParallel, SegmentLayers,
+    SharedLayerDesc, pipeline_apply, pipeline_train_step_1f1b,
+    pipeline_train_step_interleaved,
+)
+from .moe import MoELayer  # noqa: F401
+from . import dist_utils as utils  # noqa: F401
+from .dist_utils import global_gather, global_scatter  # noqa: F401
+import sys as _sys
+# reference parity: `import paddle.distributed.utils` is a module path
+_sys.modules[__name__ + ".utils"] = utils
 from .recompute import RecomputeSequential, recompute  # noqa: F401
 from . import launch as _launch_module  # noqa: E402
 

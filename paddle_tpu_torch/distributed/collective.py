@@ -14,11 +14,17 @@ process a rank, so both regimes are message passing over
    process group of a mesh axis (`env.axis_group`), each a
    `torch.autograd.Function` whose backward is the adjoint collective
    (psum's is psum, all_gather's reduce_scatter, ppermute's the inverse
-   permutation, all_to_all's the swapped all_to_all). Beside them the
-   reference's two tensor-parallel operators, `c_identity` (identity
-   forward, all-reduce backward) and `mp_allreduce` (all-reduce forward,
-   identity backward), which `mp_layers` builds on. An axis of size 1
-   makes every one of them the identity, without a call.
+   permutation, all_to_all's the swapped all_to_all, the uneven
+   all_to_all's the exchange back). Beside them the reference's two
+   tensor-parallel operators, `c_identity` (identity forward, all-reduce
+   backward) and `mp_allreduce` (all-reduce forward, identity backward),
+   which `mp_layers` builds on, and the pair for a tensor whose ranks
+   hold the same rows and each count the whole loss (the expert-parallel
+   token blocks, `moe/layer.py`): `split_axis` (this rank's chunk
+   forward, the chunks' gradients all-gathered backward) and
+   `gather_axis` (all-gather forward, this rank's chunk of the gradient
+   backward). An axis of size 1 makes every one of them the identity,
+   without a call.
 
 Every collective runs under the deadline machinery: with a deadline
 armed (`set_collective_deadline` / `collective_deadline`) the backend's
@@ -59,8 +65,8 @@ __all__ = ["CollectiveTimeoutError", "set_collective_deadline",
            "all_gather", "all_gather_object", "scatter", "alltoall", "send",
            "recv", "psum", "pmean", "pmax", "all_gather_axis",
            "reduce_scatter_axis", "ppermute", "all_to_all_axis",
-           "c_identity", "mp_allreduce", "exchange", "split",
-           "GLOO_CUDA_NATIVE"]
+           "c_identity", "mp_allreduce", "split_axis", "gather_axis",
+           "all_to_all_uneven", "exchange", "split", "GLOO_CUDA_NATIVE"]
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +199,8 @@ def _comm_span(name, tensor=None, axis_name=None, nbytes=None, staged=False):
 # gloo_probe job); point-to-point is staged: gloo hands the CUDA
 # pointer to the socket and the process aborts
 GLOO_CUDA_NATIVE = frozenset({"all_reduce", "broadcast", "reduce",
-                              "all_gather", "reduce_scatter", "all_to_all"})
+                              "all_gather", "reduce_scatter", "all_to_all",
+                              "all_to_all_uneven"})
 
 
 def _pg(group):
@@ -345,6 +352,34 @@ def _all_to_all(chunks, group, name="all_to_all", axis=None):
     return list(out.view(len(chunks), *like.shape).unbind(0))
 
 
+def _all_to_all_uneven(x, in_splits, out_splits, group,
+                       name="all_to_all_uneven", axis=None):
+    """Send rows [sum(in_splits[:k]), +in_splits[k]) of `x` to the
+    group's rank k; -> the rows received, out_splits[k] of them from
+    rank k, in group order (`all_to_all_single` with split sizes)."""
+    x = x.contiguous()
+    in_splits = [int(c) for c in in_splits]
+    out_splits = [int(c) for c in out_splits]
+    if sum(in_splits) != x.shape[0]:
+        raise ValueError(f"all_to_all: the input splits {in_splits} do not "
+                         f"sum to the {x.shape[0]} rows given")
+    shape = (sum(out_splits),) + tuple(x.shape[1:])
+    stage = _staged("all_to_all_uneven", [x], group)
+    with _comm_span(name, x, axis, staged=stage):
+        src = _to_host(name, [x])[0] if stage else x
+        out = torch.empty(shape, dtype=x.dtype,
+                          pin_memory=True) if stage else \
+            torch.empty(shape, dtype=x.dtype, device=x.device)
+        work = dist.all_to_all_single(out, src, output_split_sizes=out_splits,
+                                      input_split_sizes=in_splits,
+                                      group=_pg(group), async_op=True)
+        guarded_wait(name, work, axis, shape=_shape(x))
+        if stage:
+            out = _to_dev(name, out, torch.empty(shape, dtype=x.dtype,
+                                                 device=x.device))
+    return out
+
+
 class Exchange:
     """A posted point-to-point exchange: `send` to global rank `dst`
     and a tensor like it from global rank `src` (either may be None),
@@ -353,7 +388,7 @@ class Exchange:
     None). Its span runs from the post to the end of the wait."""
 
     def __init__(self, name, send, group, dst, src, axis=None,
-                 like=None):
+                 like=None, tag=0):
         self.name, self.axis = name, axis
         like = send if like is None else like
         self.stage = _staged("p2p", [like], group)
@@ -365,7 +400,8 @@ class Exchange:
             if send is not None:
                 buf = _to_host(name, [send.contiguous()])[0] if self.stage \
                     else send.contiguous()
-                ops.append(dist.P2POp(dist.isend, buf, dst, _pg(group)))
+                ops.append(dist.P2POp(dist.isend, buf, dst, _pg(group),
+                                      tag))
                 self._send = buf
             self.recv = None
             if src is not None:
@@ -373,7 +409,7 @@ class Exchange:
                                         device=like.device)
                 self._rbuf = _host_empty(like) if self.stage else self.recv
                 ops.append(dist.P2POp(dist.irecv, self._rbuf, src,
-                                      _pg(group)))
+                                      _pg(group), tag))
             self.works = dist.batch_isend_irecv(ops) if ops else []
         except BaseException:
             self._span.__exit__(None, None, None)
@@ -390,16 +426,17 @@ class Exchange:
         return self.recv
 
 
-def exchange(send, axis_name, dst, src, like=None):
+def exchange(send, axis_name, dst, src, like=None, tag=0):
     """Post a send of `send` to axis index `dst` and a receive from axis
     index `src` (like `like`, default `send`) over mesh axis
     `axis_name` (None: no send / no receive); -> an `Exchange` to
-    `wait()` on. Its span is the ppermute's."""
+    `wait()` on. Its span is the ppermute's. Under gloo a message goes
+    to the receive of the same `tag` (NCCL matches in posting order)."""
     group, _, ranks = _axis(axis_name)
     return Exchange("ppermute", send, group,
                     None if dst is None else ranks[dst],
                     None if src is None else ranks[src], axis=axis_name,
-                    like=like)
+                    like=like, tag=tag)
 
 
 # ---------------------------------------------------------------------------
@@ -718,6 +755,49 @@ class _AllToAll(torch.autograd.Function):
         return _a2a_raw(g, axis_name, concat, split), None, None, None
 
 
+class _AllToAllUneven(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis_name, in_splits, out_splits):
+        ctx.args = (group, axis_name, in_splits, out_splits)
+        return _all_to_all_uneven(x, in_splits, out_splits, group,
+                                  axis=axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis_name, in_splits, out_splits = ctx.args
+        return _all_to_all_uneven(g, out_splits, in_splits, group,
+                                  axis=axis_name), None, None, None, None
+
+
+class _SplitAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        n = env.axis_size(axis_name)
+        ctx.args = (axis_name, dim)
+        return x.chunk(n, dim=dim)[env.axis_index(axis_name)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, dim = ctx.args
+        return _gather_cat(g.contiguous(), axis_name, dim, True,
+                           name="split_axis"), None, None
+
+
+class _GatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.args = (axis_name, dim)
+        return _gather_cat(x.contiguous(), axis_name, dim, True,
+                           name="gather_axis")
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, dim = ctx.args
+        n = env.axis_size(axis_name)
+        return g.chunk(n, dim=dim)[env.axis_index(axis_name)].contiguous(), \
+            None, None
+
+
 class _CIdentity(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis_name):
@@ -786,6 +866,41 @@ def all_to_all_axis(tensor, axis_name, split_axis, concat_axis):
     if _trivial(axis_name):
         return tensor
     return _AllToAll.apply(tensor, axis_name, split_axis, concat_axis)
+
+
+def all_to_all_uneven(tensor, axis_name, in_splits, out_splits):
+    """Rows of `tensor` in blocks of `in_splits` to the axis ranks in
+    order, `out_splits[k]` rows received from axis rank k, concatenated
+    in axis order; backward: the exchange back."""
+    if _trivial(axis_name):
+        return tensor
+    return _AllToAllUneven.apply(tensor, _axis(axis_name)[0], axis_name,
+                                 list(in_splits), list(out_splits))
+
+
+def split_axis(tensor, axis_name, axis=0):
+    """This rank's chunk (dim `axis`) of a tensor every rank of the axis
+    holds alike; backward: the chunks' gradients all-gathered. The
+    adjoint when each rank's loss counts every chunk (its consumers
+    downstream are replicated over the axis): the split of the
+    expert-parallel token blocks."""
+    if _trivial(axis_name):
+        return tensor
+    n = env.axis_size(axis_name)
+    if tensor.shape[axis] % n:
+        raise ValueError(f"split over {axis_name!r}: dim {axis} of "
+                         f"{tuple(tensor.shape)} does not divide by {n}")
+    return _SplitAxis.apply(tensor, axis_name, axis)
+
+
+def gather_axis(tensor, axis_name, axis=0):
+    """Every rank's `tensor` concatenated along dim `axis`; backward:
+    this rank's chunk of the gradient (the consumers are replicated over
+    the axis, so every rank's cotangent is the whole one). The inverse
+    of `split_axis`."""
+    if _trivial(axis_name):
+        return tensor
+    return _GatherAxis.apply(tensor, axis_name, axis)
 
 
 def c_identity(tensor, axis_name="mp"):

@@ -5,11 +5,15 @@ init, distributed_optimizer:828, distributed_model:881, minimize:1341;
 
 `init` builds the hybrid mesh from the strategy's `hybrid_configs`
 (the dp degree absorbs what the others leave of the world, as fleet's
-auto dp_degree does); `distributed_model` cuts the model to this rank
-(`shard_model`); `distributed_optimizer` wraps the optimizer with the
-strategy, which `ShardedTrainStep` reads for its ZeRO stage. The
-parameter-server mode (`ps.py`, `heter.py`, `kvstore.py`) and the
-pipeline wrapper are not ported (ROADMAP Queue 1 item 6).
+auto dp_degree does; `ep_degree` gives the mesh's ep axis);
+`distributed_model` cuts the model to this rank (`shard_model`) and
+wraps a `PipelineLayer` in `PipelineParallel` when the mesh's pp axis
+is above 1 (JAX fleet.py:60-78; `pipeline_configs["accumulate_steps"]`
+is its micro-batch count, the topology gives the stage and the pipe
+group); `distributed_optimizer` wraps the optimizer with the strategy,
+which `ShardedTrainStep` reads for its ZeRO stage. The parameter-server
+mode (`ps.py`, `heter.py`, `kvstore.py`) is not ported (ROADMAP Queue 1
+item 6.5).
 """
 import os
 
@@ -72,10 +76,17 @@ def get_hybrid_communicate_group():
 
 def distributed_model(model):
     """Cut `model` to this rank's piece of the mesh (`init` first, or an
-    installed mesh)."""
-    if env.current_mesh() is None:
+    installed mesh); a PipelineLayer under a pp axis above 1 comes back
+    wrapped in PipelineParallel."""
+    from .pipeline import PipelineLayer, PipelineParallel
+    mesh = env.current_mesh()
+    if mesh is None:
         raise RuntimeError("distributed_model: call fleet.init first")
-    return shard_model(model, env.current_mesh())
+    shard_model(model, mesh)
+    if isinstance(model, PipelineLayer) and env.axis_size("pp", mesh) > 1:
+        return PipelineParallel(model, hcg=_state.hcg,
+                                strategy=_state.strategy)
+    return model
 
 
 class _DistributedOptimizer:

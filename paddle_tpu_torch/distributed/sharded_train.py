@@ -7,31 +7,39 @@ and inserts every collective. The port runs a process a rank and does
 each of those by hand:
 
 - `shard_model` cuts each parameter tagged in its module's `mesh_axes`
-  (local name -> (axes, groups)) to this rank's piece along the dim
-  tagged "mp": a contiguous 1/mp, or, with groups g, the rank's 1/mp of
-  each of g equal blocks (the fused qkv's q | k | v thirds are cut by
-  heads). The counterpart of `device_put` with a NamedSharding; every
-  rank builds the same full model (the same seed) and cuts its own.
+  (local name -> (axes, groups)) to this rank's piece along every dim
+  tagged "mp" or "ep" whose axis is above 1: a contiguous 1/n, or, with
+  groups g, the rank's 1/n of each of g equal blocks (the fused qkv's
+  q | k | v thirds are cut by heads). An expert weight is cut twice,
+  its expert dim over ep and its f dim over mp. The counterpart of
+  `device_put` with a NamedSharding; every rank builds the same full
+  model (the same seed) and cuts its own.
 - `shard_batch` cuts the global batch each rank is given to its rows
   (dim 0 over dp) and, with `seq_axis`, its sequence block (dim 1 over
   sp); a dim that does not divide raises (the JAX rule replicates it,
   which here would count those rows twice).
 - `ShardedTrainStep` runs the model's loss on the rank's piece under
   the mesh (`env.set_mesh`) — the model shards its activations and
-  places the tensor- and sequence-parallel collectives itself
-  (models/gpt.py, mp_layers.py, ops/ring_attention.py) — backpropagates,
-  and then, on flat gradient buffers (one a dtype): sums them over sp
-  and averages them over dp (the loss is each rank's share of the global
-  token mean, `models.gpt._mesh_mean`); clips (`ClipGradByGlobalNorm`
-  and `ClipGradByNorm` count each mp-cut parameter's squares over mp and
-  each replicated one once; `ClipGradByValue` is elementwise); and
-  applies the optimizer's rule. The reported loss is the global mean
-  (the shares summed over sp and dp, over dp).
+  places the tensor-, sequence- and expert-parallel collectives itself
+  (models/gpt.py, mp_layers.py, ops/ring_attention.py, moe/layer.py) —
+  backpropagates, and then, on flat gradient buffers (one a dtype):
+  sums them over sp and averages them over dp (the loss is each rank's
+  share of the global token mean, `models.gpt._mesh_mean`; the ranks of
+  an ep group hold the same rows and each keeps the whole share, so no
+  gradient is reduced over ep here: the MoE layer sums its gate's
+  gradient over ep itself, and the experts' gradients arrive whole);
+  clips (`ClipGradByGlobalNorm` and `ClipGradByNorm` count each cut
+  parameter's squares over the axes it is cut over and each replicated
+  one once; `ClipGradByValue` is elementwise); and applies the
+  optimizer's rule. The reported loss is the global mean (the shares
+  summed over sp and dp, over dp). ep with sp or pp above 1 raises
+  NotImplementedError (ROADMAP Queue 1 item 6.6).
 
 ZeRO (`zero_stage`, default the fleet strategy's `sharding_configs
 ["stage"]` when `strategy.sharding` is on, else 1, as in JAX):
-- 0: every rank keeps the optimizer states of its whole (mp-cut)
-  parameters and updates them (the rule's `update`, as jit.TrainStep);
+- 0: every rank keeps the optimizer states of its whole (mp- and
+  ep-cut) parameters and updates them (the rule's `update`, as
+  jit.TrainStep);
 - 1: dp rank k owns the k-th 1/dp of every parameter's elements, keeps
   the states of only those (1/dp of stage 0's bytes) and updates them
   from the all-reduced gradients; the pieces are then all-gathered over
@@ -56,7 +64,10 @@ from .collective import (ReduceOp, _all_gather, _all_reduce_, _axis,
                          _reduce_scatter)
 
 __all__ = ["shard_model", "shard_batch", "ShardedTrainStep", "param_cuts",
-           "cut_piece", "join_pieces"]
+           "cut_piece", "join_pieces", "cut_full", "gather_full"]
+
+# the mesh axes a parameter may be cut over
+CUT_AXES = ("mp", "ep")
 
 
 # ---------------------------------------------------------------------------
@@ -74,17 +85,17 @@ def _tags(model):
     return out
 
 
-def _cut_dim(name, axes, shape, mesh):
-    """The dim tagged with an mesh axis of size > 1 (or None)."""
-    dims = [i for i, a in enumerate(axes[:len(shape)])
-            if a is not None and env.axis_size(a, mesh) > 1]
-    if not dims:
-        return None
-    if len(dims) > 1 or axes[dims[0]] != "mp":
+def _cut_dims(name, axes, shape, mesh):
+    """((dim, axis), ...) of the dims tagged with a mesh axis of size
+    > 1, in dim order (empty when none)."""
+    dims = tuple((i, a) for i, a in enumerate(axes[:len(shape)])
+                 if a is not None and env.axis_size(a, mesh) > 1)
+    bad = [a for _, a in dims if a not in CUT_AXES]
+    if bad or len({a for _, a in dims}) < len(dims):
         raise NotImplementedError(
-            f"parameter {name!r}: tag {axes}: only a single 'mp' cut is "
-            "ported (expert parallelism waits: ROADMAP Queue 1 item 4)")
-    return dims[0]
+            f"parameter {name!r}: tag {axes}: only cuts over "
+            f"{' and '.join(CUT_AXES)}, each axis once, are ported")
+    return dims
 
 
 def cut_piece(full, dim, n, idx, groups=1):
@@ -105,14 +116,35 @@ def join_pieces(pieces, dim, groups=1):
 
 
 def param_cuts(model):
-    """{full name: (dim, groups, full shape)} of the parameters
-    `shard_model` cut."""
+    """{full name: (((dim, axis), ...), groups, full shape)} of the
+    parameters `shard_model` cut."""
     out = {}
     for full, mod, local, _, groups in _tags(model):
         cut = getattr(mod, "_mesh_cut", {}).get(local)
         if cut is not None:
             out[full] = cut
     return out
+
+
+def cut_full(full, cut, mesh=None):
+    """This rank's piece of the full tensor `full` of a parameter cut as
+    `cut` (a `param_cuts` value) says."""
+    dims, groups, _ = cut
+    for dim, axis in dims:
+        full = cut_piece(full, dim, env.axis_size(axis, mesh),
+                         env.axis_index(axis, mesh), groups)
+    return full
+
+
+def gather_full(piece, cut):
+    """The full tensor from this rank's piece of a parameter cut as `cut`
+    says: all-gathered over each axis it is cut over and joined (a
+    collective over those axes of the installed mesh)."""
+    dims, groups, _ = cut
+    for dim, axis in reversed(dims):
+        piece = join_pieces(_all_gather(piece.contiguous(), _axis(axis)[0],
+                                        axis=axis), dim, groups)
+    return piece
 
 
 def shard_model(model, mesh=None, rules=None):
@@ -135,14 +167,12 @@ def shard_model(model, mesh=None, rules=None):
                 p = None
             if p is None or local in cuts:
                 continue
-            dim = _cut_dim(full, axes, p.shape, mesh)
-            if dim is None:
+            dims = _cut_dims(full, axes, p.shape, mesh)
+            if not dims:
                 continue
-            n = env.axis_size("mp", mesh)
-            shape = tuple(p.shape)
-            p.data = cut_piece(p.data, dim, n, env.axis_index("mp", mesh),
-                               groups).contiguous()
-            cuts[local] = (dim, groups, shape)
+            cut = (dims, groups, tuple(p.shape))
+            p.data = cut_full(p.data, cut, mesh).contiguous()
+            cuts[local] = cut
     return model
 
 
@@ -280,6 +310,10 @@ class ShardedTrainStep:
         self.dp = env.axis_size("dp", self.mesh)
         self.sp = env.axis_size("sp", self.mesh)
         self.mp = env.axis_size("mp", self.mesh)
+        self.ep = env.axis_size("ep", self.mesh)
+        if self.ep > 1 and (self.sp > 1 or env.axis_size("pp", self.mesh) > 1):
+            _unported("an ep axis with sp or pp above 1",
+                      "6.6: ep x sp and ep x pp")
         if seq_shard_batch is None:
             seq_shard_batch = self.sp > 1
         if self.sp > 1 and not seq_shard_batch:
@@ -298,7 +332,9 @@ class ShardedTrainStep:
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
         cuts = param_cuts(model)
-        self._cut = [n in cuts for n in self.param_names]
+        # the axes each parameter is cut over (its squares sum over them)
+        self._cut_axes = [{a for _, a in cuts[n][0]} if n in cuts else set()
+                          for n in self.param_names]
         dp_rank = env.axis_index("dp", self.mesh)
         by_dtype = {}
         for p in self.params:
@@ -454,7 +490,7 @@ class ShardedTrainStep:
     def _square_sums(self, items, sharded):
         """f32 sums of squares of each parameter's whole gradient: the
         pieces' squares, summed over dp when the pieces are dp chunks,
-        and over mp for the parameters cut over mp."""
+        and over mp and ep for the parameters cut over them."""
         dev = items[0][1].device
         sq = torch.zeros(len(self.params), dtype=torch.float32, device=dev)
         norms = torch._foreach_norm([g for _, g in items], 2.0,
@@ -463,10 +499,13 @@ class ShardedTrainStep:
         sq.index_add_(0, idx, torch.stack(norms).square())
         if sharded and self.dp > 1:
             _all_reduce_(sq, ReduceOp.SUM, _axis("dp")[0], axis="dp")
-        if self.mp > 1 and any(self._cut):
-            cut = torch.tensor(self._cut, device=dev)
+        for axis in CUT_AXES:
+            flags = [axis in a for a in self._cut_axes]
+            if env.axis_size(axis, self.mesh) == 1 or not any(flags):
+                continue
+            cut = torch.tensor(flags, device=dev)
             part = torch.where(cut, sq, 0.0)
-            _all_reduce_(part, ReduceOp.SUM, _axis("mp")[0], axis="mp")
+            _all_reduce_(part, ReduceOp.SUM, _axis(axis)[0], axis=axis)
             sq = torch.where(cut, part, sq)
         return sq
 

@@ -120,6 +120,9 @@ class HybridCommunicateGroup:
     def get_sep_parallel_rank(self):
         return env.axis_index("sp", self.mesh)
 
+    def get_expert_parallel_rank(self):
+        return env.axis_index("ep", self.mesh)
+
     def get_stage_id(self):
         return env.axis_index("pp", self.mesh)
 
@@ -134,6 +137,9 @@ class HybridCommunicateGroup:
 
     def get_pipe_parallel_group(self):
         return env.axis_group("pp", self.mesh)
+
+    def get_expert_parallel_group(self):
+        return env.axis_group("ep", self.mesh)
 
     def topology(self):
         return self.mesh

@@ -44,7 +44,10 @@ attention. `offset` is a host integer or, as the JAX forward takes a
 traced scalar, a 0-dim int32 tensor on the model's device: the position
 then stays device data end to end (the cache write is an `index_copy_`,
 `decode_fused` reads it from device memory), so `generate`'s token step
-can be captured once and replayed at every position. Under weight-only int8 (`quant.wo8`) the tied head reads the
+can be captured once and replayed at every position.
+`gpt_pipeline_descs` lays the same model out as a
+`distributed.PipelineLayer`: the embedding (`GPTEmbeddingPipe`, wte +
+wpe) shared with the tied head, the GPTBlocks, the final LayerNorm. Under weight-only int8 (`quant.wo8`) the tied head reads the
 int8 table, through the `int8_matvec` kernel at decode sizes on the
 card. The serving engine drives the blocks itself over the paged cache
 (serving/engine.py).
@@ -72,7 +75,8 @@ from ..ops.ring_attention import ring_attention, ulysses_attention
 from ..quant.wo8 import WeightOnlyInt8Embedding
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "GPTForPretraining"]
+           "GPTForPretraining", "GPTEmbeddingPipe", "gpt_pipe_head",
+           "gpt_pipe_loss", "gpt_pipeline_descs"]
 
 
 class GPTConfig:
@@ -575,3 +579,65 @@ def _mesh_mean(losses, loss_mask):
         count = psum(psum(m.sum().float(), "sp"), "dp")
     share = (losses * m).sum() / count
     return share * dp if dp > 1 else share
+
+
+# ---------------------------------------------------------------------------
+# the GPT as a PipelineLayer
+# ---------------------------------------------------------------------------
+
+class GPTEmbeddingPipe(torch.nn.Module):
+    """The pipeline's first layer: wte(ids) + wpe(positions), then
+    dropout; wte vocab-parallel under mp (its `mesh_axes` tag), as in
+    GPTModel's mesh path. Shared with the tied head
+    (`gpt_pipe_head`)."""
+
+    def __init__(self, config, device=None, dtype=torch.float32):
+        super().__init__()
+        c = config
+        self.vocab_size = c.vocab_size
+        self.wte = nn.Embedding(c.vocab_size, c.hidden_size, device=device,
+                                dtype=dtype)
+        self.wpe = nn.Embedding(c.max_seq_len, c.hidden_size,
+                                device=device, dtype=dtype)
+        self.drop = nn.Dropout(c.dropout)
+        self.mesh_axes = {"wte.weight": (("mp", None), 1)}
+
+    def forward(self, input_ids):
+        if dist_env.axis_size("mp") > 1:
+            emb = vocab_parallel_embedding(input_ids, self.wte.weight,
+                                           self.vocab_size)
+        else:
+            emb = self.wte(input_ids)
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        return self.drop(emb + self.wpe(pos[None, :]))
+
+
+def gpt_pipe_head(layer, h):
+    """The tied head over the shared embedding's wte: the logits
+    `GPTForPretraining.lm_head` computes (column-parallel over mp)."""
+    w = layer.wte.weight
+    h = c_identity(h)
+    if amp_state().enabled:
+        return torch.matmul(maybe_cast_to_compute(h, "matmul"),
+                            maybe_cast_to_compute(w, "matmul").t())
+    return torch.matmul(h.float(), w.float().t())
+
+
+def gpt_pipe_loss(logits, labels):
+    """Mean next-token cross entropy (vocab-parallel under mp)."""
+    return parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  labels.reshape(-1)).mean()
+
+
+def gpt_pipeline_descs(config, num_blocks=None):
+    """The GPT as PipelineLayer descs: the embedding shared with the tied
+    head, `num_blocks` (default the config's) GPTBlocks, the final
+    LayerNorm, the head (loss: `gpt_pipe_loss`)."""
+    from ..distributed.pipeline import LayerDesc, SharedLayerDesc
+    n = config.num_layers if num_blocks is None else num_blocks
+    return ([SharedLayerDesc("embed", GPTEmbeddingPipe, None, "wte.weight",
+                             config)]
+            + [LayerDesc(GPTBlock, config) for _ in range(n)]
+            + [LayerDesc(nn.LayerNorm, config.hidden_size),
+               SharedLayerDesc("embed", GPTEmbeddingPipe, gpt_pipe_head,
+                               "wte.weight", config)])

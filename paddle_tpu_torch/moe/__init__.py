@@ -1,4 +1,4 @@
-"""Mixture-of-Experts: the port of paddle_tpu/moe on one device.
+"""Mixture-of-Experts: the port of paddle_tpu/moe.
 
   kernels.py  — dispatch (row gather) and combine (k-way weighted
                 gather) as CUDA kernels, their plain versions, and the
@@ -6,12 +6,11 @@
                 backwards;
   router.py   — top-k routing, GShard capacity bucketing, aux and z
                 losses, routing-health stats;
-  layer.py    — MoEFFN and moe_ffn_values (the ep == 1 body);
+  layer.py    — MoEFFN and moe_ffn_values (one device, or expert
+                parallel over a mesh's ep axis);
   model.py    — GPTMoEConfig/GPTMoE: GPT blocks with routed FFNs, the
                 aux losses folded into loss();
   stats.py    — the moe_* fields of a step record.
-
-Expert parallelism waits for the port's distributed slice.
 """
 from .kernels import (combine_plain, gather_plain, moe_combine,
                       moe_gather)  # noqa: F401

@@ -8,7 +8,14 @@ hooks (`GPTBlock.mlp_cls`, `GPTModel.block_cls`,
 `collect_moe_stats` hands the routing health to `jit.TrainStep`.
 `GPTForPretraining.init_weights` draws w_gate, w_in and w_out from
 N(0, initializer_range), as the JAX MoEFFN's initialiser does.
+
+Under a mesh the LM loss is this rank's share of the global mean
+(`models.gpt._mesh_mean`); the layers' aux and z (and the five `moe.*`
+gauges) are already means over ep (`moe/layer.py`), and under an sp
+axis above 1 they take the same 1/sp share as the LM loss, since
+`ShardedTrainStep` sums the gradients over sp.
 """
+from ..distributed import env as dist_env
 from ..models.gpt import GPTBlock, GPTConfig, GPTForPretraining, GPTModel
 from .layer import MoEFFN
 
@@ -59,8 +66,9 @@ class GPTMoE(GPTForPretraining):
             return lm
         c = self.config
         n = float(len(auxes))
-        aux = sum(auxes[1:], auxes[0]) * (1.0 / n)
-        z = sum(zs[1:], zs[0]) * (1.0 / n)
+        share = 1.0 / (n * dist_env.axis_size("sp"))
+        aux = sum(auxes[1:], auxes[0]) * share
+        z = sum(zs[1:], zs[0]) * share
         return lm + c.aux_loss_weight * aux + c.z_loss_weight * z
 
     def collect_moe_stats(self):

@@ -2,6 +2,7 @@
 run as rank processes through `distributed.launch`.
 
     python -m paddle_tpu_torch.tools.dist_drill --device cpu --tiny
+    python -m paddle_tpu_torch.tools.dist_drill --job cpu_pp --device cpu
     python -m paddle_tpu_torch.tools.dist_drill --job card4   # on the card
 
 The counterpart of the JAX package's multichip dry run
@@ -26,6 +27,17 @@ package. Jobs:
   (forward, and the backward against the adjoint); the topology queries;
   DataParallel; the divisibility errors; and last a collective that
   never completes, under a deadline.
+- `cpu_ep` (4 ranks, gloo on the CPU): `moe_ffn_values` on dp 2 x ep 2
+  and ep 2 x mp 2 (outputs and the four gradients), the tiny GPT-MoE's
+  ShardedTrainStep on dp 2 x ep 2 (dropless, no aux loss; AdamW under
+  ZeRO-1, ZeRO-2 and a clip, and SGD), global_scatter/global_gather
+  over the 4 ranks, the deprecated MoELayer at ep 2, the divisibility
+  errors, ep with sp, the topology's ep queries.
+- `cpu_pp` (4 ranks, gloo on the CPU): PipelineParallel.train_batch
+  on each of PP_CASES (the JAX tests' tiny descs at pp 4, tied, dp 2 x
+  pp 2, vpp 2, MpBlocks at pp 2 x mp 2, a tiny GPT pipe), eval_batch,
+  the scaler, the no-plan warning, the options that raise, the
+  functional executors at pp 4, fleet's wrapping.
 - `nccl1` (1 rank, NCCL, on the card): all_reduce, all_gather, alltoall
   and broadcast of CUDA tensors; ShardedTrainStep at dp = mp = sp = 1
   (ZeRO-0 and ZeRO-1) against jit.TrainStep, every loss and parameter
@@ -46,6 +58,18 @@ package. Jobs:
   seq 1024, batch 4) on dp 2 x mp 2 x sp 2 with ring attention, 2 f32
   steps each under ZeRO-0, -1 and -2: the parameters and the ranks'
   optimizer-state bytes.
+- `ep4` (4 ranks sharing card 0, gloo): GPT-MoE at the bench's width
+  (d 768, E 8, top-2, 2 layers, 8 x 1024) on ep 4, dp 2 x ep 2 and ep 2
+  x mp 2: 3 dropless f32 SGD steps against the one-process jit.TrainStep
+  (rank 0 runs it first), `moe_ffn_values` at cf 1.25 against its
+  blocks run alone, 3 bf16 amp steps on ep 4, one step at cf 1.25.
+- `pp4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width as a
+  PipelineLayer (tied embedding, 8 blocks, final LN, tied head), 8
+  micro-batches of 1 x 2048: 2 f32 SGD steps each of 1F1B at pp 4,
+  interleaved at pp 4 x vpp 2 and pp 2 x mp 2 against the one-process
+  sequential train_batch (rank 0 runs it first and leaves its
+  parameters in a file), 2 bf16 amp 1F1B steps, one 1F1B step each at 4
+  and 16 micro-batches (stage 0's memory).
 """
 import argparse
 import json
@@ -70,35 +94,69 @@ TINY_BATCH, TINY_SEQ = 4, 32
 LR, WD = 1e-4, 0.01
 CLIP_NORM = 0.05
 # job -> (ranks, backend, ranks per device)
-JOBS = {"cpu": (8, "gloo", 8), "nccl1": (1, "nccl", 1),
+JOBS = {"cpu": (8, "gloo", 8), "cpu_ep": (4, "gloo", 4),
+        "cpu_pp": (4, "gloo", 4), "nccl1": (1, "nccl", 1),
         "gloo_probe": (2, "gloo", 2), "card4": (4, "gloo", 4),
-        "card8": (8, "gloo", 8)}
+        "card8": (8, "gloo", 8), "ep4": (4, "gloo", 4),
+        "pp4": (4, "gloo", 4)}
 # the probe's collectives, point-to-point last: gloo may write a CUDA
 # pointer as host memory, which aborts the process
 GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_to_all",
-               "reduce_scatter", "reduce", "p2p")
+               "all_to_all_uneven", "reduce_scatter", "reduce", "p2p")
 DEADLINE_S = 120.0          # the collective deadline inside every case
 TIMEOUT_PROBE_S = 1.5       # the never-completing collective's deadline
 CARD_SEQ = 2048
 CARD_STEPS = 3
 RING_128K = dict(S=131072, heads=16, head_dim=128, amp=0.3)
 ZERO_SEQ, ZERO_BATCH, ZERO_STEPS = 1024, 4, 2
+# the expert-parallel cases: a tiny GPT-MoE, dropless (cf = E / k) and
+# with no aux loss (its product of per-block means depends on how the
+# tokens are blocked, in JAX's ep path as here, so only a run without it
+# can equal the one-device step), and moe_ffn_values' inputs
+MOE_TINY = dict(TINY, num_experts=4, expert_top_k=2, capacity_factor=2.0,
+                aux_loss_weight=0.0, use_flash_attention=False)
+EP_OP = dict(E=4, d=16, f=24, batch=2, seq=8, cf=1.0, aux=0.3, z=0.7)
+EP_MESHES = ({"dp": 2, "ep": 2}, {"ep": 2, "mp": 2})
+# the card's ep legs: GPT-MoE at the bench's width (bench.py:725-728),
+# 2 layers, global batch 8 x 1024
+EP_CARD = dict(vocab_size=50304, hidden_size=768, num_layers=2,
+               num_heads=12, max_seq_len=1024, dropout=0.0, num_experts=8,
+               expert_top_k=2, aux_loss_weight=0.0)
+EP_CARD_BATCH, EP_CARD_SEQ, EP_CARD_STEPS = 8, 1024, 3
+EP_CARD_MESHES = ({"ep": 4}, {"dp": 2, "ep": 2}, {"ep": 2, "mp": 2})
+EP_DROPLESS_CF, EP_BOUND_CF = 4.0, 1.25
+# the parameter checks step with SGD: Adam's update is blind to the
+# scale of a tensor's gradient (m / sqrt(v)), so only SGD's shows a
+# gradient that is ep or mp times off
+SGD_LR = 0.1
+# the pipeline cases: the JAX tests' tiny Embed/Block/Head (vocab 64,
+# width 32), and a GPT pipe (tied embedding, GPTBlocks, final LN, tied
+# head) at the tiny width
+PP_V, PP_D = 64, 32
+PP_SGD_LR = 0.1
+PP_STEPS = 1
+PP_GPT_TINY = dict(TINY, use_flash_attention=False)
+# the card's pp legs: GPT-3 1.3B's width, 8 blocks, micro-batch 1
+PP_CARD_BLOCKS, PP_CARD_ACC, PP_CARD_STEPS = 8, 8, 2
 
 
 # ---------------------------------------------------------------------------
 # inputs, shared with the tests
 # ---------------------------------------------------------------------------
 
-def numpy_weights(cfg, seed):
-    """{name: f32 ndarray} for every parameter of GPTForPretraining(cfg),
-    drawn from RandomState(seed) in named_parameters() order: matrices
-    N(0, std), biases N(0, std), LayerNorm scales 1 + N(0, std) (all
-    nonzero, so a wrongly cut bias or scale shows)."""
+def numpy_weights(cfg, seed, model=None):
+    """{name: f32 ndarray} for every parameter of GPTForPretraining(cfg)
+    (or of `model`, a module), drawn from RandomState(seed) in
+    named_parameters() order: matrices N(0, std), biases N(0, std),
+    LayerNorm scales 1 + N(0, std) (all nonzero, so a wrongly cut bias
+    or scale shows)."""
     from ..models.gpt import GPTForPretraining
     rs = np.random.RandomState(seed)
     std = cfg.initializer_range
     out = {}
-    for name, p in GPTForPretraining(cfg, device="meta").named_parameters():
+    if model is None:
+        model = GPTForPretraining(cfg, device="meta")
+    for name, p in model.named_parameters():
         a = rs.randn(*p.shape).astype(np.float32) * np.float32(std)
         if ".ln" in name and name.endswith(".weight"):
             a += np.float32(1.0)
@@ -140,7 +198,7 @@ class _Rank:
         self.torch, self.env, self.coll = torch, env, collective
         self.job, self.out, self.seed = job, out, seed
         _, backend, _ = JOBS[job]
-        if job == "cpu":
+        if job.startswith("cpu"):
             torch.set_num_threads(1)
             self.dev = env.init_distributed(backend, device="cpu",
                                             timeout_s=DEADLINE_S)
@@ -181,11 +239,13 @@ def _launch_counts():
 
 
 def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
-           clip=None, amp_on=False, record_step=None, tag="", mask=None):
-    """Build GPTForPretraining(cfg) on the rank's device (weights from
-    `weights`, else from `seed`), cut it to the installed mesh and run
-    `steps` ShardedTrainStep steps on the global batch; -> (step, model,
-    per-step dicts)."""
+           clip=None, amp_on=False, record_step=None, tag="", mask=None,
+           model_cls=None, sgd_lr=None):
+    """Build model_cls(cfg) (default GPTForPretraining) on the rank's
+    device (weights from `weights`, else from `seed`), cut it to the
+    installed mesh and run `steps` ShardedTrainStep steps on the global
+    batch (AdamW, or SGD at `sgd_lr`); -> (step, model, per-step
+    dicts)."""
     torch = r.torch
     from .. import amp
     from ..convert import shard_jax_params
@@ -194,13 +254,15 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
     from ..models.gpt import GPTForPretraining
     from ..nn.clip import ClipGradByGlobalNorm
     from ..ops.kernel_registry import reset_launches
-    from ..optimizer import AdamW
-    model = GPTForPretraining(cfg, device=r.dev, seed=seed)
+    from ..optimizer import SGD, AdamW
+    model = (model_cls or GPTForPretraining)(cfg, device=r.dev, seed=seed)
     if weights is not None:
         shard_jax_params(model, weights)
-    opt = AdamW(learning_rate=LR, weight_decay=WD,
-                parameters=model.parameters(),
-                grad_clip=ClipGradByGlobalNorm(clip) if clip else None)
+    clip = ClipGradByGlobalNorm(clip) if clip else None
+    opt = SGD(learning_rate=sgd_lr, parameters=model.parameters(),
+              grad_clip=clip) if sgd_lr else \
+        AdamW(learning_rate=LR, weight_decay=WD,
+              parameters=model.parameters(), grad_clip=clip)
 
     def loss_fn(i, l, *m):
         with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
@@ -246,6 +308,10 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
 
 def _gpt_case(r, tag, cfg, ids, lbl, zero_stage, steps, save_params,
               **kw):
+    """One `_train` run recorded under `tag` (losses, each step's
+    readings, the optimizer-state bytes, the rank's coordinates); ->
+    the gathered full parameters (rank 0 saves them with
+    `save_params`)."""
     from ..convert import gather_params
     step, model, per = _train(r, cfg, ids, lbl, zero_stage, steps, tag=tag,
                               **kw)
@@ -256,6 +322,7 @@ def _gpt_case(r, tag, cfg, ids, lbl, zero_stage, steps, save_params,
     if save_params and r.rank == 0:
         for n, a in params.items():
             r.arr[f"{tag}/{n}"] = a
+    del step, model
     return params
 
 
@@ -330,8 +397,8 @@ def _cpu_mp_layers(r):
     from ..distributed import (ColumnParallelLinear, ParallelCrossEntropy,
                                RowParallelLinear, VocabParallelEmbedding)
     from ..distributed.collective import _all_gather, _axis
-    from ..distributed.sharded_train import (join_pieces, param_cuts,
-                                             shard_model)
+    from ..distributed.sharded_train import (gather_full, join_pieces,
+                                             param_cuts, shard_model)
     r.mesh(dp=2, mp=2, sp=2)
     rs = np.random.RandomState(r.seed + 11)
     f32 = np.float32
@@ -371,8 +438,7 @@ def _cpu_mp_layers(r):
         for n, p in layer.named_parameters():
             g = p.grad
             if n in cuts:
-                g = join_pieces(_all_gather(g, _axis("mp")[0]), cuts[n][0],
-                                cuts[n][1])
+                g = gather_full(g, cuts[n])
             grads[n] = g.numpy()
         if r.rank == 0:
             r.arr[f"mp/{name}/x"] = x
@@ -542,6 +608,447 @@ def _cpu_timeout(r):
     C.barrier()
 
 
+# ---- expert parallelism (cpu_ep) -------------------------------------------
+
+def ep_op_inputs(seed):
+    """x [dp rows 2, batch, seq, d], the cotangent, w_gate, w_in, w_out
+    of the moe_ffn_values checks (f32)."""
+    c = EP_OP
+    rs = np.random.RandomState(seed + 31)
+    f32 = np.float32
+    x = rs.randn(2, c["batch"], c["seq"], c["d"]).astype(f32)
+    ct = rs.randn(*x.shape).astype(f32)
+    wg = rs.randn(c["d"], c["E"]).astype(f32)
+    wi = (rs.randn(c["E"], c["d"], c["f"]) * 0.3).astype(f32)
+    wo = (rs.randn(c["E"], c["f"], c["d"]) * 0.3).astype(f32)
+    return x, ct, wg, wi, wo
+
+
+def _expert_cut(mesh_axes, shape):
+    """The `param_cuts` value of an expert weight tagged `mesh_axes` on
+    the installed mesh."""
+    from ..distributed.sharded_train import _cut_dims
+    return (_cut_dims("", mesh_axes, shape, None), 1, tuple(shape))
+
+
+def _cpu_ep_values(r):
+    """moe_ffn_values on dp 2 x ep 2 and ep 2 x mp 2: the output, aux, z,
+    stats and the gradients of L = sum(out * ct) + a aux + b z (the
+    expert weights' gathered to full), each rank's."""
+    torch = r.torch
+    from ..distributed.sharded_train import cut_full, gather_full
+    from ..moe.layer import moe_ffn_values
+    c = EP_OP
+    x, ct, wg, wi, wo = ep_op_inputs(r.seed)
+    for sizes in EP_MESHES:
+        r.mesh(**sizes)
+        tag = "ep_values/" + "x".join(f"{a}{n}" for a, n in sizes.items())
+        di = r.env.axis_index("dp")
+        cut_i = _expert_cut(("ep", None, "mp"), wi.shape)
+        cut_o = _expert_cut(("ep", "mp", None), wo.shape)
+        xt = torch.from_numpy(x[di]).requires_grad_()
+        g = torch.from_numpy(wg).requires_grad_()
+        i = cut_full(torch.from_numpy(wi), cut_i).requires_grad_()
+        o = cut_full(torch.from_numpy(wo), cut_o).requires_grad_()
+        out, aux, z, stats = moe_ffn_values(
+            xt, g, i, o, num_experts=c["E"], k=2, capacity_factor=c["cf"])
+        ((out * torch.from_numpy(ct[di])).sum() + c["aux"] * aux
+         + c["z"] * z).backward()
+        got = {"out": out, "aux": aux, "z": z, "stats": stats,
+               "dx": xt.grad, "dwg": g.grad,
+               "dwi": gather_full(i.grad, cut_i),
+               "dwo": gather_full(o.grad, cut_o)}
+        for k, v in got.items():
+            r.arr[f"{tag}/{k}"] = v.detach().numpy()
+        r.rec[tag] = {"coords": r.coords()}
+    errs = r.rec.setdefault("errors", {})
+    r.mesh(dp=2, ep=2)
+    w = torch.zeros(4, 24), torch.zeros(4, 16, 24)
+    errs["ep_tokens"] = _error(lambda: moe_ffn_values(
+        torch.zeros(3, 16), torch.zeros(16, 4), w[1],
+        torch.zeros(4, 24, 16), num_experts=4))
+    errs["ep_experts"] = _error(lambda: moe_ffn_values(
+        torch.zeros(4, 16), torch.zeros(16, 3), w[1],
+        torch.zeros(3, 24, 16), num_experts=3))
+
+
+def _cpu_ep_train(r):
+    """The tiny GPT-MoE on dp 2 x ep 2, dropless, 2 AdamW steps (ZeRO-1
+    and ZeRO-2, and with a global-norm clip) and 2 SGD steps; rank 0
+    saves the gathered parameters."""
+    from ..moe import GPTMoE, GPTMoEConfig
+    r.mesh(dp=2, ep=2)
+    cfg = GPTMoEConfig(**MOE_TINY)
+    weights = numpy_weights(cfg, r.seed, GPTMoE(cfg, device="meta"))
+    ids, lbl = tiny_batch(r.seed)
+    for tag, zero, clip, lr in (("moe_z1", 1, None, None),
+                                ("moe_z2", 2, None, None),
+                                ("moe_z1_clip", 1, CLIP_NORM, None),
+                                ("moe_sgd", 1, None, SGD_LR)):
+        _gpt_case(r, tag, cfg, ids, lbl, zero, 2, True, weights=weights,
+                  model_cls=GPTMoE, clip=clip, sgd_lr=lr)
+    r.rec["moe_cuts"] = _cut_table(cfg, GPTMoE)
+    # ep with sp above 1 is not ported
+    r.mesh(sp=2, ep=2)
+    r.rec.setdefault("errors", {})["ep_sp"] = _error(lambda: _train(
+        r, GPTMoEConfig(**MOE_TINY, sequence_parallel="ring"), ids, lbl, 1,
+        1, model_cls=GPTMoE))
+
+
+def _cut_table(cfg, model_cls):
+    """{name: [[dim, axis], ...]} of the parameters shard_model cuts on
+    the installed mesh."""
+    from ..distributed import shard_model
+    from ..distributed.sharded_train import param_cuts
+    m = shard_model(model_cls(cfg, device="meta"))
+    return {n: [list(d) for d in cut[0]] for n, cut in param_cuts(m).items()}
+
+
+def _cpu_ep_exchange(r):
+    """global_scatter / global_gather over the 4 ranks (2 experts a
+    rank), their round trip and the scatter's backward; MoELayer on
+    dp 2 x ep 2 (out, aux and the gradients of sum(out * ct) + aux / 2)."""
+    torch = r.torch
+    from ..distributed import MoELayer
+    from ..distributed.collective import _all_gather
+    from ..distributed.dist_utils import global_gather, global_scatter
+    from ..distributed.sharded_train import gather_full, param_cuts
+    world, ne = r.env.get_world_size(), 2
+    lcs = [np.random.RandomState(50 + k).randint(0, 4, world * ne)
+           for k in range(world)]
+    lc = lcs[r.rank]
+    gc = np.array([lcs[src][r.rank * ne + e] for src in range(world)
+                   for e in range(ne)])
+    rows = int(lc.sum())
+    x = (torch.arange(rows * 3, dtype=torch.float32).reshape(rows, 3)
+         + 1000.0 * r.rank).requires_grad_()
+    out = global_scatter(x, lc, gc)
+    wgt = torch.from_numpy(np.random.RandomState(60 + r.rank).randn(
+        *out.shape).astype(np.float32))
+    (out * wgt).sum().backward()
+    back = global_gather(out.detach(), lc, gc)
+    r.arr["exchange/out"] = out.detach().numpy()
+    r.arr["exchange/back"] = back.numpy()
+    r.arr["exchange/x"] = x.detach().numpy()
+    r.arr["exchange/dx"] = x.grad.numpy()
+    r.arr["exchange/w"] = wgt.numpy()
+    r.arr["exchange/lc"] = lc
+    r.arr["exchange/gc"] = gc
+    # the deprecated einsum layer at ep 2
+    r.mesh(dp=2, ep=2)
+    c = EP_OP
+    layer = MoELayer(c["d"], c["f"], c["E"], k=2, capacity_factor=c["cf"])
+    rs = np.random.RandomState(r.seed + 41)
+    full = {n: (rs.randn(*p.shape) * 0.3).astype(np.float32)
+            for n, p in layer.named_parameters()}
+    with torch.no_grad():
+        for n, p in layer.named_parameters():
+            p.copy_(torch.from_numpy(full[n]))
+    from ..distributed import shard_model
+    shard_model(layer)
+    di = r.env.axis_index("dp")
+    xs = rs.randn(2, c["batch"], c["seq"], c["d"]).astype(np.float32)
+    ct = rs.randn(*xs.shape).astype(np.float32)
+    xt = torch.from_numpy(xs[di]).requires_grad_()
+    out = layer(xt)
+    ((out * torch.from_numpy(ct[di])).sum() + 0.5 * layer.aux_loss()) \
+        .backward()
+    cuts = param_cuts(layer)
+    r.arr["moelayer/out"] = out.detach().numpy()
+    r.arr["moelayer/aux"] = layer.aux_loss().detach().numpy()
+    r.arr["moelayer/dx"] = xt.grad.numpy()
+    for n, p in layer.named_parameters():
+        g = gather_full(p.grad, cuts[n]) if n in cuts else p.grad
+        r.arr[f"moelayer/g/{n}"] = g.numpy()
+        r.arr[f"moelayer/w/{n}"] = full[n]
+    r.arr["moelayer/x"] = xs
+    r.arr["moelayer/ct"] = ct
+    r.rec["moelayer"] = {"coords": r.coords(),
+                         "local_w_in": list(layer.w_in.shape)}
+    # every rank's piece of w_in, to see the ep cut
+    r.arr["moelayer/w_in_pieces"] = torch.stack(_all_gather(
+        layer.w_in.detach(), None)).numpy()
+
+
+def _cpu_ep_topology(r):
+    from ..distributed import fleet
+    from ..distributed.strategy import DistributedStrategy
+    s = DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2, "ep_degree": 2}
+    hcg = fleet.init(is_collective=True, strategy=s)
+    r.rec["ep_topology"] = {
+        "size": hcg.get_expert_parallel_world_size(),
+        "rank": hcg.get_expert_parallel_rank(),
+        "group": r.torch.distributed.get_process_group_ranks(
+            hcg.get_expert_parallel_group()),
+        "dp_rank": hcg.get_data_parallel_rank()}
+
+
+# ---- the pipeline (cpu_pp) --------------------------------------------------
+
+def _pp_classes():
+    """The JAX pipeline tests' tiny Embed, Block, MpBlock and Head, in
+    the port's layers (the blocks' gelu is the exact one, as the JAX
+    tests' `F.gelu`)."""
+    import torch
+    from .. import nn
+    from ..distributed.mp_layers import ColumnParallelLinear, \
+        RowParallelLinear
+    F = torch.nn.functional
+
+    class Embed(torch.nn.Module):
+        def __init__(self, vocab, d):
+            super().__init__()
+            self.emb = nn.Embedding(vocab, d)
+
+        def forward(self, ids):
+            return self.emb(ids)
+
+    class Block(torch.nn.Module):
+        def __init__(self, d):
+            super().__init__()
+            self.ln = nn.LayerNorm(d)
+            self.fc1 = nn.Linear(d, 2 * d)
+            self.fc2 = nn.Linear(2 * d, d)
+
+        def forward(self, x):
+            return x + self.fc2(F.gelu(self.fc1(self.ln(x))))
+
+    class MpBlock(torch.nn.Module):
+        def __init__(self, d):
+            super().__init__()
+            self.ln = nn.LayerNorm(d)
+            self.fc1 = ColumnParallelLinear(d, 2 * d, gather_output=False)
+            self.fc2 = RowParallelLinear(2 * d, d, input_is_parallel=True)
+
+        def forward(self, x):
+            return x + self.fc2(F.gelu(self.fc1(self.ln(x))))
+
+    class Head(torch.nn.Module):
+        def __init__(self, d, vocab):
+            super().__init__()
+            self.ln = nn.LayerNorm(d)
+            self.proj = nn.Linear(d, vocab)
+
+        def forward(self, x):
+            return self.proj(self.ln(x))
+
+    return Embed, Block, MpBlock, Head
+
+
+def pp_ce(out, y):
+    """The JAX tests' `_ce`: mean cross entropy over the flattened
+    logits."""
+    from ..nn import functional as F
+    return F.cross_entropy(out.reshape(-1, out.shape[-1]), y.reshape(-1))
+
+
+def pp_tied_head(layer, h):
+    return h @ layer.weight.t()
+
+
+def pp_descs(kind, blocks):
+    """The PipelineLayer descs of a case: "plain" Embed + Block x blocks
+    + Head, "tied" an Embedding shared with the head's projection, "mp"
+    MpBlocks."""
+    from .. import nn
+    from ..distributed.pipeline import LayerDesc, SharedLayerDesc
+    Embed, Block, MpBlock, Head = _pp_classes()
+    blk = MpBlock if kind == "mp" else Block
+    body = [LayerDesc(blk, PP_D) for _ in range(blocks)]
+    if kind == "tied":
+        return ([SharedLayerDesc("emb", nn.Embedding, None, "weight", PP_V,
+                                 PP_D)] + body
+                + [SharedLayerDesc("emb", nn.Embedding, pp_tied_head,
+                                   "weight", PP_V, PP_D)])
+    return [LayerDesc(Embed, PP_V, PP_D)] + body + [LayerDesc(Head, PP_D,
+                                                              PP_V)]
+
+
+def pp_weights(model, seed):
+    """{name: f32 ndarray} for every parameter of a PipelineLayer, drawn
+    from RandomState(seed) in named_parameters() order, N(0, 0.3)."""
+    rs = np.random.RandomState(seed)
+    return {n: (rs.randn(*p.shape) * 0.3).astype(np.float32)
+            for n, p in model.named_parameters()}
+
+
+def pp_data(seed, batch, seq=8, vocab=PP_V):
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, vocab, (batch, seq)).astype(np.int64),
+            rs.randint(0, vocab, (batch, seq)).astype(np.int64))
+
+
+# cases: (tag, mesh, descs kind, blocks, vpp, micro-batches, batch)
+PP_CASES = (("pp4", {"pp": 4}, "plain", 8, 1, 4, 8),
+            ("pp4_tied", {"pp": 4}, "tied", 8, 1, 4, 8),
+            ("pp2_dp2", {"dp": 2, "pp": 2}, "plain", 8, 1, 4, 16),
+            ("pp2_vpp2", {"dp": 2, "pp": 2}, "plain", 8, 2, 4, 16),
+            ("pp2_mp2", {"pp": 2, "mp": 2}, "mp", 4, 1, 2, 4),
+            ("pp2_gpt", {"dp": 2, "pp": 2}, "gpt", 4, 1, 2, 8))
+
+
+def _strategy(n_micro):
+    from ..distributed.strategy import DistributedStrategy
+    st = DistributedStrategy()
+    st.pipeline_configs = {"accumulate_steps": n_micro}
+    return st
+
+
+def _pp_model(kind, blocks, vpp, seed):
+    import torch
+    from ..distributed.pipeline import PipelineLayer
+    if kind == "gpt":
+        from ..models.gpt import (GPTConfig, gpt_pipe_loss,
+                                  gpt_pipeline_descs)
+        cfg = GPTConfig(**PP_GPT_TINY)
+        descs, loss = gpt_pipeline_descs(cfg, blocks), gpt_pipe_loss
+    else:
+        descs, loss = pp_descs(kind, blocks), pp_ce
+    m = PipelineLayer(descs, loss_fn=loss, num_virtual_pipeline_stages=vpp)
+    w = pp_weights(m, seed)
+    with torch.no_grad():
+        for n, p in m.named_parameters():
+            p.copy_(torch.from_numpy(w[n]))
+    return m
+
+
+def _cpu_pp_train(r):
+    """train_batch on each PP_CASES mesh, PP_STEPS SGD steps: each rank
+    saves the losses and its stage's parameters (gathered over mp)."""
+    torch = r.torch
+    from ..distributed import PipelineParallel
+    from ..distributed.sharded_train import gather_full, param_cuts
+    from ..optimizer import SGD
+    for tag, sizes, kind, blocks, vpp, n_micro, batch in PP_CASES:
+        r.mesh(**sizes)
+        m = _pp_model(kind, blocks, vpp, r.seed)
+        pipe = PipelineParallel(m, strategy=_strategy(n_micro))
+        opt = SGD(learning_rate=PP_SGD_LR, parameters=m.parameters())
+        losses = []
+        for k in range(PP_STEPS):
+            x, y = pp_data(r.seed + k, batch)
+            losses.append(float(pipe.train_batch(
+                (torch.from_numpy(x), torch.from_numpy(y)), opt)))
+        cuts = param_cuts(m)
+        names = []
+        for n, p in pipe.stage_parameters():
+            t = gather_full(p.detach(), cuts[n]) if n in cuts else p.detach()
+            r.arr[f"{tag}/p/{n}"] = t.numpy()
+            names.append(n)
+        plan = pipe._pipe_plan
+        r.rec[tag] = {"losses": losses, "coords": r.coords(),
+                      "params": names, "blocks": len(plan["blocks"]),
+                      "tied": len(plan["tied"]),
+                      "chunks": [len(c) for c in plan["chunks"]]}
+
+
+def _cpu_pp_extras(r):
+    """eval_batch (loss and outputs, the generators untouched), the
+    scaler path, the no-plan warning, fleet's wrapping, the functional
+    executors at pp 4 against their pp 1 runs, and the options that
+    raise."""
+    import warnings
+    torch = r.torch
+    from ..amp import GradScaler
+    from ..distributed import PipelineParallel, fleet
+    from ..distributed.pipeline import (PipelineLayer,
+                                        pipeline_train_step_1f1b,
+                                        pipeline_train_step_interleaved)
+    from ..distributed.strategy import DistributedStrategy
+    from ..optimizer import SGD
+    out = r.rec["pp_extras"] = {}
+    # eval_batch after a train step
+    r.mesh(pp=4)
+    m = _pp_model("plain", 8, 1, r.seed)
+    pipe = PipelineParallel(m, strategy=_strategy(4))
+    opt = SGD(learning_rate=PP_SGD_LR, parameters=m.parameters())
+    x, y = (torch.from_numpy(a) for a in pp_data(r.seed + 7, 8))
+    pipe.train_batch((x, y), opt)
+    rng = torch.get_rng_state()
+    out["eval_loss"] = float(pipe.eval_batch((x, y), compute_loss=True))
+    r.arr["pp_extras/eval_out"] = pipe.eval_batch((x, y)).numpy()
+    out["rng_untouched"] = bool(torch.equal(rng, torch.get_rng_state()))
+    # the scaler path
+    m = _pp_model("plain", 8, 1, r.seed)
+    pipe = PipelineParallel(m, strategy=_strategy(4))
+    opt = SGD(learning_rate=PP_SGD_LR, parameters=m.parameters())
+    scaler = GradScaler(init_loss_scaling=1024.0)
+    out["scaler_loss"] = float(pipe.train_batch((x, y), opt, scaler=scaler))
+    for n, p in pipe.stage_parameters():
+        r.arr[f"pp_scaler/p/{n}"] = p.detach().numpy()
+    out["scaler_scale"] = scaler._scale
+    # no run of >= pp identical layers: a warning, the sequential step
+    lin = PipelineLayer([torch.nn.Linear(4, 8), torch.tanh,
+                         torch.nn.Linear(8, 2)],
+                        loss_fn=lambda o, t: torch.nn.functional
+                        .cross_entropy(o, t))
+    pipe = PipelineParallel(lin, strategy=_strategy(2))
+    opt = SGD(learning_rate=PP_SGD_LR, parameters=lin.parameters())
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        loss = pipe.train_batch((torch.randn(8, 4), torch.randint(0, 2, (8,))),
+                                opt)
+    out["warned"] = [str(w.message) for w in rec
+                     if "SEQUENTIAL" in str(w.message)]
+    out["warned_loss"] = float(loss)
+    # the options that raise
+    errs = r.rec.setdefault("errors", {})
+    for attr in ("lint", "resilience"):
+        p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed))
+        setattr(p2, attr, True)
+        errs[f"pp_{attr}"] = _error(lambda p2=p2: p2.train_batch(
+            (x, y), SGD(parameters=p2.parameters())))
+    errs["pp_apply_plan"] = _error(lambda: PipelineParallel(
+        _pp_model("plain", 8, 1, r.seed)).apply_plan(object()))
+    # the functional executors at pp 4 (x, y on every rank)
+    rs = np.random.RandomState(r.seed + 9)
+    L, D = 8, 16
+    ws = torch.from_numpy((rs.randn(L, D, D) * 0.3).astype(np.float32))
+    hw = torch.from_numpy((rs.randn(D, 5) * 0.3).astype(np.float32))
+    xf = torch.from_numpy(rs.randn(8, D).astype(np.float32))
+    yf = torch.from_numpy(rs.randint(0, 5, (8,)))
+    for tag, fn in (("f1b", lambda: pipeline_train_step_1f1b(
+            pp_stage_fn, pp_head_loss_fn, [ws], [hw], xf, yf, 4)),
+            ("finter", lambda: pipeline_train_step_interleaved(
+                pp_stage_fn, pp_head_loss_fn, [ws], [hw], xf, yf, 4, 2))):
+        loss, pg, hg, dx = fn()
+        r.arr[f"pp_fn/{tag}/loss"] = loss.detach().numpy()
+        r.arr[f"pp_fn/{tag}/pg"] = pg[0].numpy()
+        r.arr[f"pp_fn/{tag}/hg"] = hg[0].numpy()
+        r.arr[f"pp_fn/{tag}/dx"] = dx.numpy()
+    r.arr["pp_fn/inputs/ws"] = ws.numpy()
+    r.arr["pp_fn/inputs/hw"] = hw.numpy()
+    r.arr["pp_fn/inputs/x"] = xf.numpy()
+    r.arr["pp_fn/inputs/y"] = yf.numpy()
+    # fleet wraps a PipelineLayer under pp > 1, not a plain module
+    s = DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": 4, "dp_degree": 1}
+    s.pipeline_configs = {"accumulate_steps": 2}
+    fleet.init(is_collective=True, strategy=s)
+    wrapped = fleet.distributed_model(_pp_model("plain", 8, 1, r.seed))
+    plain = torch.nn.Linear(2, 2)
+    out["fleet"] = {"wrapped": type(wrapped).__name__,
+                    "micro": getattr(wrapped, "_num_micro", None),
+                    "plain_kept": fleet.distributed_model(plain) is plain,
+                    "stage": fleet.get_hybrid_communicate_group()
+                    .get_stage_id()}
+
+
+def pp_stage_fn(params, h):
+    """The JAX 1F1B tests' stage: tanh(h W) over the stage's rows."""
+    import torch
+    for w in params[0]:
+        h = torch.tanh(h @ w)
+    return h
+
+
+def pp_head_loss_fn(hp, h, y_mb):
+    import torch
+    lp = torch.log_softmax(h @ hp[0], -1)
+    return -lp.gather(1, y_mb[:, None].long()).mean()
+
+
 # ---- card jobs --------------------------------------------------------------
 
 def _nccl1(r):
@@ -628,6 +1135,17 @@ def _gloo_probe(r):
                           for k in range(n)])
         return torch.equal(out.cpu(), want)
 
+    def all_to_all_uneven():
+        # rank k sends k + 1 rows to each rank (n = 2)
+        rows = me + 1
+        src = x[:rows * n]
+        out = torch.empty(sum(k + 1 for k in range(n)), device=r.dev)
+        dist.all_to_all_single(out, src, output_split_sizes=[
+            k + 1 for k in range(n)], input_split_sizes=[rows] * n)
+        want = torch.cat([(torch.arange(8.0) + 100 * k)[
+            (k + 1) * me:(k + 1) * (me + 1)] for k in range(n)])
+        return torch.equal(out.cpu(), want)
+
     def reduce_scatter():
         out = torch.empty(8 // n, device=r.dev)
         dist.reduce_scatter(out, list(x.clone().chunk(n)))
@@ -649,6 +1167,7 @@ def _gloo_probe(r):
 
     probes = {"all_reduce": all_reduce, "broadcast": broadcast,
               "all_gather": all_gather, "all_to_all": all_to_all,
+              "all_to_all_uneven": all_to_all_uneven,
               "reduce_scatter": reduce_scatter, "reduce": reduce,
               "p2p": p2p}
     out = r.rec["gloo_cuda_probe"] = {}
@@ -732,10 +1251,291 @@ def _card8(r):
         for a, b in ((1, 0), (2, 1), (2, 0))}
 
 
+# ---- the card's expert-parallel and pipeline legs ---------------------------
+
+def _peak_gb(r):
+    torch = r.torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if r.dev.type == "cuda" else 0.0
+
+
+def _reset_step(r):
+    from ..distributed.collective import reset_comm_stats
+    from ..ops.kernel_registry import reset_launches
+    r.sync()
+    if r.dev.type == "cuda":
+        r.torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_comm_stats()
+
+
+def _rel_errors(params, ref):
+    """{name: ||p - ref|| / ||ref||} of full parameters (ndarrays)
+    against the reference's (CPU tensors)."""
+    out = {}
+    for n, a in params.items():
+        b = ref[n].float().numpy()
+        out[n] = float(np.linalg.norm(a - b)) / (float(np.linalg.norm(b))
+                                                 or 1.0)
+    return out
+
+
+def _ep4(r):
+    """GPT-MoE at the bench's width on ep 4, dp 2 x ep 2 and ep 2 x mp 2:
+    (i) dropless f32 SGD steps against the one-process TrainStep (run on
+    rank 0 first), (ii) capacity-bound moe_ffn_values against its
+    block-by-block run in the same process and one step's loss, (iii)
+    bf16 amp steps against the f32 ones."""
+    torch = r.torch
+    from ..jit import TrainStep
+    from ..moe import GPTMoE, GPTMoEConfig
+    from ..optimizer import SGD
+    ids, lbl = tiny_batch(r.seed, EP_CARD_BATCH, EP_CARD_SEQ,
+                          EP_CARD["vocab_size"])
+    cfg = GPTMoEConfig(**EP_CARD, capacity_factor=EP_DROPLESS_CF)
+    ref = None
+    if r.rank == 0:
+        r.env.set_mesh(None)
+        model = GPTMoE(cfg, device=r.dev, seed=r.seed)
+        step = TrainStep(model, model.loss, SGD(
+            learning_rate=SGD_LR, parameters=model.parameters()))
+        tids, tlbl = (torch.from_numpy(a).to(r.dev) for a in (ids, lbl))
+        t0 = time.perf_counter()
+        losses = [float(step(tids, tlbl)) for _ in range(EP_CARD_STEPS)]
+        r.rec["ep4/reference"] = {"losses": losses,
+                                  "s": time.perf_counter() - t0}
+        ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model, step, tids, tlbl
+        if r.dev.type == "cuda":
+            torch.cuda.empty_cache()
+    r.coll.barrier()
+    for sizes in EP_CARD_MESHES:
+        r.mesh(**sizes)
+        tag = "ep4/" + "x".join(f"{a}{n}" for a, n in sizes.items())
+        params = _gpt_case(r, tag, cfg, ids, lbl, 1, EP_CARD_STEPS, False,
+                           seed=r.seed, model_cls=GPTMoE, sgd_lr=SGD_LR)
+        if ref is not None:
+            rel = _rel_errors(params, ref)
+            worst = max(rel, key=rel.get)
+            r.rec[tag]["param_rel"] = {"max": rel[worst], "name": worst}
+        del params
+        if r.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _ep_bound(r, tag, cfg)
+    del ref
+    # (iii) bf16 amp on ep 4 against the f32 run there
+    r.mesh(ep=4)
+    _gpt_case(r, "ep4/ep4_bf16", cfg, ids, lbl, 1, EP_CARD_STEPS, False,
+              seed=r.seed, model_cls=GPTMoE, amp_on=True, sgd_lr=SGD_LR)
+    # a capacity-bound step (cf 1.25), its loss finite
+    _gpt_case(r, "ep4/ep4_cf1.25", GPTMoEConfig(
+        **EP_CARD, capacity_factor=EP_BOUND_CF), ids, lbl, 1, 1, False,
+        seed=r.seed, model_cls=GPTMoE, sgd_lr=SGD_LR)
+
+
+def _ep_bound(r, tag, cfg):
+    """moe_ffn_values at cf 1.25 on the installed mesh: this rank's rows
+    through the experts (f32), out and dx against the same function run
+    on each ep block of those rows with no mesh."""
+    torch = r.torch
+    from ..distributed.collective import comm_stats
+    from ..distributed.sharded_train import cut_full
+    from ..moe.layer import moe_ffn_values
+    gen = torch.Generator(device=r.dev).manual_seed(r.seed + 5)
+    d, E = cfg.hidden_size, cfg.num_experts
+    f = cfg.ffn_hidden_size
+    std = cfg.initializer_range
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=r.dev) * scale
+
+    # the gate leans toward the higher experts (x has a mean of 0.5 a
+    # component, column e of w_gate one of 0.0005 e), so that cf 1.25
+    # drops choices
+    wg = draw(d, E, scale=std) + 5e-4 * torch.arange(E, device=r.dev)
+    wi, wo = draw(E, d, f, scale=std), draw(E, f, d, scale=std)
+    dp = r.env.axis_size("dp")
+    rows = EP_CARD_BATCH // dp
+    x_all = draw(EP_CARD_BATCH, EP_CARD_SEQ, d) + 0.5
+    ct_all = draw(EP_CARD_BATCH, EP_CARD_SEQ, d)
+    di = r.env.axis_index("dp")
+    x = x_all[di * rows:(di + 1) * rows].clone()
+    ct = ct_all[di * rows:(di + 1) * rows]
+    cut_i = _expert_cut(("ep", None, "mp"), wi.shape)
+    cut_o = _expert_cut(("ep", "mp", None), wo.shape)
+    xg = x.clone().requires_grad_()
+    _reset_step(r)
+    out, aux, z, stats = moe_ffn_values(
+        xg, wg, cut_full(wi, cut_i).contiguous(),
+        cut_full(wo, cut_o).contiguous(), num_experts=E,
+        k=cfg.expert_top_k, capacity_factor=EP_BOUND_CF)
+    (out * ct).sum().backward()
+    r.sync()
+    a2a = comm_stats()["bytes"].get("all_to_all", 0)
+    ep = r.env.axis_size("ep")
+    mesh = r.env.current_mesh()
+    r.env.set_mesh(None)
+    refs, grads = [], []
+    for b, cb in zip(x.chunk(ep), ct.chunk(ep)):
+        bg = b.clone().requires_grad_()
+        o, _, _, _ = moe_ffn_values(bg, wg, wi, wo, num_experts=E,
+                                    k=cfg.expert_top_k,
+                                    capacity_factor=EP_BOUND_CF)
+        (o * cb).sum().backward()
+        refs.append(o.detach())
+        grads.append(bg.grad)
+    r.env.set_mesh(mesh)
+    o_ref, g_ref = torch.cat(refs), torch.cat(grads)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    r.rec[tag]["bound"] = {"out_rel": rel(out.detach(), o_ref),
+                           "dx_rel": rel(xg.grad, g_ref),
+                           "dropped_frac": float(stats[1]),
+                           "all_to_all_bytes_fwd_bwd": a2a}
+    del x_all, ct_all, wi, wo
+
+
+def init_pipe_weights(model, seed, std=0.02):
+    """Seeded weights for a PipelineLayer, drawn on its device in
+    named_parameters() order: LayerNorm scales 1 and shifts 0, other
+    biases 0, every other tensor N(0, std)."""
+    import torch
+    from .. import nn
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    lns = {id(p) for m in model.modules() if isinstance(m, nn.LayerNorm)
+           for p in m.parameters()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if id(p) in lns:
+                p.fill_(1.0) if n.endswith("weight") else p.zero_()
+            elif n.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, std, generator=gen)
+
+
+# (tag, mesh, vpp, amp, accumulate steps, steps)
+PP_CARD_RUNS = (("1f1b", {"pp": 4}, 1, False, PP_CARD_ACC, PP_CARD_STEPS),
+                ("interleaved", {"pp": 4}, 2, False, PP_CARD_ACC,
+                 PP_CARD_STEPS),
+                ("pp2_mp2", {"pp": 2, "mp": 2}, 1, False, PP_CARD_ACC,
+                 PP_CARD_STEPS),
+                ("1f1b_bf16", {"pp": 4}, 1, True, PP_CARD_ACC,
+                 PP_CARD_STEPS),
+                ("1f1b_acc4", {"pp": 4}, 1, False, 4, 1),
+                ("1f1b_acc16", {"pp": 4}, 1, False, 16, 1))
+
+
+def pp_card_config():
+    from ..models.gpt import GPTConfig
+    return GPTConfig.gpt3_1_3b(num_layers=PP_CARD_BLOCKS,
+                               max_seq_len=CARD_SEQ, dropout=0.0)
+
+
+def _pp_pipe(r, cfg, vpp):
+    from ..distributed.pipeline import PipelineLayer
+    from ..models.gpt import gpt_pipe_loss, gpt_pipeline_descs
+    with r.torch.device(r.dev):
+        m = PipelineLayer(gpt_pipeline_descs(cfg), loss_fn=gpt_pipe_loss,
+                          num_virtual_pipeline_stages=vpp)
+    init_pipe_weights(m, r.seed, cfg.initializer_range)
+    return m
+
+
+def _pp4(r):
+    """GPT-3 1.3B's width as a PipelineLayer (tied embedding, 8 blocks,
+    final LN, tied head), micro-batch 1 x CARD_SEQ: rank 0 runs the
+    one-process sequential train_batch first and leaves its parameters
+    in a file; then 1F1B at pp 4, interleaved at pp 4 x vpp 2, pp 2 x
+    mp 2 (f32), 1F1B in bf16 amp, and 1F1B at 4 and 16 micro-batches
+    (memory); each rank checks its stage's parameters against the
+    file."""
+    torch = r.torch
+    from .. import amp
+    from ..distributed import PipelineParallel
+    from ..distributed.collective import comm_stats
+    from ..distributed.sharded_train import gather_full, param_cuts
+    from ..optimizer import SGD
+    cfg = pp_card_config()
+    ref_path = os.path.join(r.out, "pp4_reference.pt")
+    if r.rank == 0:
+        r.env.set_mesh(None)
+        m = _pp_pipe(r, cfg, 1)
+        pipe = PipelineParallel(m, strategy=_strategy(PP_CARD_ACC))
+        opt = SGD(learning_rate=SGD_LR, parameters=m.parameters())
+        t0 = time.perf_counter()
+        losses = []
+        for k in range(PP_CARD_STEPS):
+            ids, lbl = tiny_batch(r.seed + k, PP_CARD_ACC, CARD_SEQ,
+                                  cfg.vocab_size)
+            losses.append(float(pipe.train_batch(
+                (torch.from_numpy(ids).to(r.dev),
+                 torch.from_numpy(lbl).to(r.dev)), opt)))
+        r.rec["pp4/reference"] = {"losses": losses,
+                                  "s": time.perf_counter() - t0}
+        torch.save({n: p.detach().cpu() for n, p in m.named_parameters()},
+                   ref_path)
+        del m, pipe, opt
+        if r.dev.type == "cuda":
+            torch.cuda.empty_cache()
+    r.coll.barrier()
+    ref = torch.load(ref_path, mmap=True)
+    for tag, sizes, vpp, amp_on, acc, steps in PP_CARD_RUNS:
+        r.mesh(**sizes)
+        m = _pp_pipe(r, cfg, vpp)
+        pipe = PipelineParallel(m, strategy=_strategy(acc))
+        opt = SGD(learning_rate=SGD_LR, parameters=m.parameters())
+        per = []
+        for k in range(steps):
+            ids, lbl = tiny_batch(r.seed + k, acc, CARD_SEQ, cfg.vocab_size)
+            batch = (torch.from_numpy(ids).to(r.dev),
+                     torch.from_numpy(lbl).to(r.dev))
+            r.coll.barrier()
+            _reset_step(r)
+            t0 = time.perf_counter()
+            with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
+                loss = float(pipe.train_batch(batch, opt))
+            r.sync()
+            per.append({"loss": loss,
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": _launch_counts(), "comm": comm_stats(),
+                        "peak_mem_gb": _peak_gb(r)})
+        rec = {"losses": [d["loss"] for d in per], "steps": per,
+               "coords": r.coords(), "acc": acc, "vpp": vpp,
+               "local_blocks": sum(len(c) for c in
+                                   pipe._pipe_plan["chunks"])}
+        if not amp_on and steps == PP_CARD_STEPS:
+            cuts = param_cuts(m)
+            rel = {}
+            for n, p in pipe.stage_parameters():
+                t = gather_full(p.detach(), cuts[n]) if n in cuts \
+                    else p.detach()
+                rel[n] = float((t.float().cpu() - ref[n]).norm()
+                               / ref[n].norm())
+            worst = max(rel, key=rel.get)
+            rec["param_rel"] = {"max": rel[worst], "name": worst,
+                                "count": len(rel)}
+        r.rec[f"pp4/{tag}"] = rec
+        del m, pipe, opt
+        if r.dev.type == "cuda":
+            torch.cuda.empty_cache()
+    del ref
+    r.coll.barrier()
+    if r.rank == 0:
+        os.remove(ref_path)
+
+
 CASES = {"cpu": (_cpu_hybrid, _cpu_ops, _cpu_mp_layers, _cpu_collectives,
                  _cpu_topology, _cpu_data_parallel, _cpu_timeout),
+         "cpu_ep": (_cpu_ep_values, _cpu_ep_train, _cpu_ep_exchange,
+                    _cpu_ep_topology),
+         "cpu_pp": (_cpu_pp_train, _cpu_pp_extras),
          "nccl1": (_nccl1,), "gloo_probe": (_gloo_probe,),
-         "card4": (_card4,), "card8": (_card8,)}
+         "card4": (_card4,), "card8": (_card8,), "ep4": (_ep4,),
+         "pp4": (_pp4,)}
 
 
 def worker(job, out, seed):
@@ -778,7 +1578,7 @@ class Job:
         self._store = tempfile.mkdtemp(prefix="store_", dir=out)
         env = dict(os.environ)
         env["PYTHONPATH"] = _ROOT + os.pathsep + env.get("PYTHONPATH", "")
-        if job == "cpu":
+        if job.startswith("cpu"):
             env["OMP_NUM_THREADS"] = "1"
         self._watch = watch_local_trainers
         self.procs = start_local_trainers(
@@ -848,13 +1648,16 @@ def main(argv=None):
         return 0
     if args.device == "cpu" or args.tiny:
         jobs = [args.job or "cpu"]
+        if not jobs[0].startswith("cpu"):
+            raise ValueError(f"job {jobs[0]!r} runs on the card")
     else:
         import torch
         if not torch.cuda.is_available():
             raise RuntimeError("dist_drill runs on the CUDA card by default "
                                "and none is available; pass --device cpu "
                                "to run on the CPU")
-        jobs = [args.job] if args.job else ["nccl1", "card4", "card8"]
+        jobs = [args.job] if args.job else ["nccl1", "card4", "card8", "ep4",
+                                            "pp4"]
     out = args.out or os.path.join(_ROOT, "build", "dist_drill")
     summary = {}
     for job in jobs:
