@@ -448,11 +448,48 @@ ok line):
              launches exact (the rank's blocks x micro-batches). Times
              are of ranks sharing one card over gloo, not scaling
              figures.
+15. resilience — ZeRO-3, offload and checkpoints, as rank processes
+             (`tools/dist_drill.py` jobs) beside the chaos drill; in a
+             full run on a thread beside the 13B phase's host build
+             (joined before its first decode; the smoke's 1200 s do
+             not hold the two in turn):
+             `zero3_4` (4 ranks): GPT-3 1.3B's width x 2 blocks, 4 x
+             2048 on dp 4, f32 AdamW, 3 steps a leg: ZeRO-2 and ZeRO-3
+             (every rank's pieces compared, the sums all-reduced,
+             within 1e-6 relative), ZeRO-3 offloaded (bit for bit),
+             bf16 amp (losses within 2e-2), dp 2 x mp 2 (losses within
+             1e-5); between steps each rank's parameter storage is
+             exactly its pieces and its states twice that (0 on the
+             device and all pinned under offload); rank 0's peak under
+             ZeRO-3 below ZeRO-2's; K1/K3/K6 2 a rank a step. The ckpt
+             jobs at 2 blocks, dp 4 ZeRO-3, dropout 0.1, a save every 2
+             steps: `ckpt4` runs 3 uninterrupted steps, then a run with
+             preemption requested on rank 2 alone before its first
+             step, after which all four ranks exit 102 at the first
+             boundary with step_1 committed; `ckpt4_resume` resumes it
+             (direct; the stitched losses and the parameters' digest
+             equal the uninterrupted run's) and restores the
+             uninterrupted run's step_2 at dp 4 for 2 steps at dropout
+             0; `ckpt2_reshard` (dp 2, ZeRO-2) and `ckpt4_reshard` (dp 2
+             x mp 2, ZeRO-3), side by side, restore that step_2 through
+             the reshard path: every logical leaf bit for bit
+             (assembled on rank 0 from the pieces the ranks hold,
+             against the saved one), the elastic record, the 2 steps
+             within 1e-5 of the direct restore's. The chaos drill
+             (`tools/chaos_drill.py`, started with zero3_4, beside which
+             it fits at these depths; GPT-3 125M's width x 4 layers, 8 x
+             1024, bf16, dropout 0.1, a save every step from step 4, 5 %
+             injected I/O faults; the baseline and the crashed run side
+             by side): SIGKILL after step 5's save starts, the resume
+             from step_4 bit for bit (losses, weights, RNG), a corrupt
+             piece named and walked past. Prints step ms, gather,
+             reduce-scatter and offload bytes, the offload's GB/s,
+             snapshot, commit and restore ms and bytes.
 
 `--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
 serve_13b,moe_serve,options,layer,full,full_4k,memory,serving_bench,
-health,kernel_obs,distributed` (any of them) runs the build and the
-named phases alone and prints no result line.
+health,kernel_obs,distributed,resilience` (any of them) runs the build
+and the named phases alone and prints no result line.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
@@ -473,6 +510,7 @@ import math
 import os
 import statistics
 import sys
+import threading
 import time
 
 DEVICE = "cuda"
@@ -4314,7 +4352,7 @@ def kernels_13b_phase(torch, seed):
     return rows
 
 
-def serve_13b_phase(torch, seed):
+def serve_13b_phase(torch, seed, after_build=None):
     """tools/serve_13b_w8a16.py's recipe through the port's entry point
     (`paddle_tpu_torch.tools.serve_13b_w8a16`): GPT-3 13B built on the
     host a piece at a time in f32, its linears quantized there, floats
@@ -4331,7 +4369,10 @@ def serve_13b_phase(torch, seed):
     dequantized in f32): the f32 argmax at >= TF_AGREE of positions,
     never trailing by more than TF_MARGIN_STD; what generate keeps after
     a call and what `generation.release` frees; then the depth witness
-    (witness_13b)."""
+    (witness_13b). `after_build()` runs once the model is on the card,
+    before any decode (the smoke joins there the resilience phase, which
+    runs beside the host build: the f32 teacher forcing takes ~50 GB of
+    the card, and the timed call is then alone on it)."""
     import gc
     from paddle_tpu_torch import generation
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
@@ -4347,6 +4388,8 @@ def serve_13b_phase(torch, seed):
     t0 = time.perf_counter()
     model, secs = build_w8a16(cfg, seed=seed, device=DEVICE)
     secs["total"] = time.perf_counter() - t0
+    if after_build is not None:
+        after_build()
     torch.cuda.synchronize()
     device_bytes = torch.cuda.memory_allocated() - base
     set_bytes = serving_bytes(model)
@@ -5228,6 +5271,7 @@ def distributed_phase(torch, seed):
     import numpy as np
     from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.ops.kernel_registry import kernels
+    from paddle_tpu_torch.tools import chaos_drill as cd
     from paddle_tpu_torch.tools import dist_drill as dd
     t_phase = time.perf_counter()
     card = card_line()
@@ -5582,10 +5626,323 @@ def check_pp4(res, add, card):
     return out
 
 
+# the resilience phase's jobs (tools/dist_drill.py) and their limits
+RES_TIMEOUT_S = {"zero3_4": 300, "ckpt4": 240, "ckpt4_resume": 240,
+                 "ckpt2_reshard": 180, "ckpt4_reshard": 180}
+RES_ZERO_RTOL = 1e-6        # ZeRO-3 against ZeRO-2 (PR 18's ZeRO bar)
+RES_BF16_RTOL = 2e-2        # bf16 amp losses against f32
+RES_MESH_RTOL = 1e-5        # dp 2 x mp 2 against dp 4; the continuation
+RES_TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
+CHAOS_TIMEOUT_S = 420
+
+
+def zero3_pieces(cfg, dp, rank):
+    """Bytes of rank `rank`'s ZeRO pieces of GPT(cfg)'s f32 parameters:
+    ceil(n / dp) elements of each parameter's n, the last rank's
+    shorter."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    out = 0
+    for _, p in GPTForPretraining(cfg, device="meta").named_parameters():
+        n = p.numel()
+        c = -(-n // dp)
+        out += 4 * (min((rank + 1) * c, n) - min(rank * c, n))
+    return out
+
+
+def check_step_launches(what, launches, blocks):
+    """K1, K3 and K6 once a block a rank a step; no other kernel."""
+    want = {k: (blocks if k in RES_TRAIN_KERNELS else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"resilience {what}: launches {launches} != "
+                             f"{want}")
+
+
+def resilience_phase(torch, seed):
+    """Phase 15 (see the docstring): -> its readings and the launches
+    of every rank's steps, summed."""
+    import shutil
+    import signal
+    import subprocess
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.kernel_registry import kernels
+    from paddle_tpu_torch.tools import chaos_drill as cd
+    from paddle_tpu_torch.tools import dist_drill as dd
+    t_phase = time.perf_counter()
+    card = card_line()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "resilience")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    total = {k.name: 0 for k in kernels()}
+    job_s = {}
+    readings = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def run(job, allow_fail=False):
+        t0 = time.perf_counter()
+        j = dd.start_job(job, os.path.join(out_dir, job), seed,
+                         RES_TIMEOUT_S[job])
+        res = j.wait(allow_fail=allow_fail)
+        job_s[job] = time.perf_counter() - t0
+        return res, j.rc
+
+    drill_proc = None
+    drill_log = {k: os.path.join(out_dir, f"chaos_{k}.log")
+                 for k in ("stdout", "stderr")}
+    try:
+        # 4 (beside 1-3). the chaos drill: GPT-3 125M's width, a SIGKILL
+        # mid-save, a resume; started first, read last; its output goes
+        # to files, read once it has exited
+        t_drill = time.perf_counter()
+        report = os.path.join(out_dir, "chaos_report.json")
+        os.makedirs(out_dir, exist_ok=True)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        with open(drill_log["stdout"], "w") as out, \
+                open(drill_log["stderr"], "w") as err:
+            drill_proc = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_drill",
+                 "--dir", os.path.join(out_dir, "chaos"), "--report",
+                 report, "--io-error-rate", "0.05",
+                 "--leg-timeout", str(CHAOS_TIMEOUT_S)],
+                cwd=ROOT, env=env, stdout=out, stderr=err,
+                start_new_session=True)
+
+        # 1. zero3_4: ZeRO-2, ZeRO-3, offload, bf16 and dp 2 x mp 2
+        res, _ = run("zero3_4")
+        cfg = GPTConfig.gpt3_1_3b(num_layers=dd.ZERO3_CARD_BLOCKS,
+                                  max_seq_len=dd.CARD_SEQ, dropout=0.0)
+        cmp = res[0][0]["zero3_cmp"]
+        tags = ("z2", "z3", "z3_off", "z3_bf16", "z3_mp")
+        z = {"cmp": cmp, "losses": {t: _same_losses("resilience", res, t)
+                                    for t in tags}}
+        bad = []
+        c3 = cmp["z3"]
+        if not (c3["rel"] <= RES_ZERO_RTOL and max(c3["loss_rel"])
+                <= RES_ZERO_RTOL):
+            bad.append(f"ZeRO-3 vs ZeRO-2 {c3}")
+        off = cmp["z3_off"]
+        if not (off["equal"] and max(off["loss_rel"]) == 0):
+            bad.append(f"offload vs none {off}")
+        if not max(cmp["z3_bf16"]["loss_rel"]) <= RES_BF16_RTOL:
+            bad.append(f"bf16 vs f32 {cmp['z3_bf16']}")
+        if not max(cmp["z3_mp"]["loss_rel"]) <= RES_MESH_RTOL:
+            bad.append(f"dp 2 x mp 2 vs dp 4 {cmp['z3_mp']}")
+        mem, peaks = {}, {}
+        for k, (rk, _) in res.items():
+            want = zero3_pieces(cfg, 4, k)
+            for t in ("z3", "z3_off", "z3_bf16"):
+                for st in rk[t]["steps"]:
+                    m = st["memory"]
+                    if not (m["param_storage"] == 0 and m["owned"] == want
+                            and m["state"] == 2 * want):
+                        bad.append(f"rank {k} {t} between steps {m}, pieces "
+                                   f"{want}")
+                    if t == "z3_off" and not (m["state_device"] == 0 and
+                                              m["state_pinned"] == m["state"]):
+                        bad.append(f"rank {k} offload holds {m}")
+            mem[f"rank{k}"] = rk["z3_off"]["steps"][-1]["memory"]
+            for t in tags:
+                for i, st in enumerate(rk[t]["steps"]):
+                    check_step_launches(f"zero3_4 {t} rank {k} step {i}",
+                                        st["launches"], dd.ZERO3_CARD_BLOCKS)
+                    add(st["launches"])
+            if k == 0:
+                peaks = {t: max(st["peak_mem_gb"] for st in rk[t]["steps"])
+                         for t in tags}
+        if not peaks["z3"] < peaks["z2"]:
+            bad.append(f"rank 0's peak under ZeRO-3 {peaks['z3']:.3f} GB "
+                       f"is not below ZeRO-2's {peaks['z2']:.3f}")
+        rows = {}
+        for t in tags:
+            st = res[0][0][t]["steps"]
+            row = {"ms": [round(s["ms"], 1) for s in st],
+                   "all_gather_bytes": st[-1]["comm"]["bytes"].get(
+                       "all_gather", 0),
+                   "reduce_scatter_bytes": st[-1]["comm"]["bytes"].get(
+                       "reduce_scatter", 0),
+                   "peak_gb": round(peaks[t], 3)}
+            if t == "z3_off":
+                h2d, d2h = st[-1]["offload_ms"]
+                nbytes = mem["rank0"]["state_pinned"]
+                row.update(offload_bytes=2 * nbytes, h2d_ms=round(h2d, 3),
+                           d2h_ms=round(d2h, 3),
+                           h2d_gbps=round(nbytes / h2d / 1e6, 2),
+                           d2h_gbps=round(nbytes / d2h / 1e6, 2))
+            rows[t] = row
+        z.update(steps=rows, memory=mem,
+                 pieces_bytes=[zero3_pieces(cfg, 4, k) for k in range(4)])
+        readings["zero3_4"] = z
+        print(f"resilience: zero3_4, GPT-3 1.3B width x "
+              f"{dd.ZERO3_CARD_BLOCKS} blocks, 4 x {dd.CARD_SEQ} (a row a "
+              f"rank), dp 4 (and dp 2 x mp 2), f32 AdamW (and bf16 amp), 4 "
+              f"ranks sharing one card (gloo; not a scaling figure), on "
+              f"{card}: " + json.dumps(z))
+        if bad:
+            raise AssertionError("resilience zero3_4: " + "; ".join(bad))
+        del res
+        torch.cuda.empty_cache()
+
+        # 2. the checkpoint jobs: a baseline and a run preempted on one rank
+        plan = dd.CKPT_CARD
+        stop = plan["preempt_at"] + 1
+        kept = sorted({*range(plan["save_every"], stop, plan["save_every"]),
+                       stop})[-dd.CKPT_KEEP:]
+        res, rc = run("ckpt4", allow_fail=True)
+        if rc != 102 or sorted(res) != [0, 1, 2, 3]:
+            raise AssertionError(f"resilience ckpt4: the job exited {rc} with "
+                                 f"the records of ranks {sorted(res)}")
+        ck = {}
+        base = _same_losses("resilience", res, "ckpt_base")
+        for k, (rk, _) in res.items():
+            pre = rk["ckpt_preempt"]
+            if rk.get("exit_code") != 102 or pre["exit"] != {
+                    "code": 102, "step": stop} or pre["steps_on_disk"] != kept:
+                raise AssertionError(
+                    f"resilience ckpt4: rank {k} stopped with "
+                    f"{rk.get('exit_code')} {pre['exit']}, committed "
+                    f"{pre['steps_on_disk']}")
+            for leg in ("ckpt_base", "ckpt_preempt"):
+                for i, l in enumerate(rk[leg]["launches"]):
+                    check_step_launches(f"ckpt4 {leg} rank {k} step {i}", l,
+                                        dd.CKPT_CARD_BLOCKS)
+                    add(l)
+        b0 = res[0][0]["ckpt_base"]
+        commits = [x for x in b0["records"] if x["event"] == "commit"]
+        saves = [x for x in b0["records"] if x["event"] == "save"]
+        ck["base"] = {
+            "losses": base, "step_ms": [round(x, 1) for x in b0["ms"]],
+            "save_in_flight": b0["in_flight"],
+            "snapshot_ms": [x.get("snapshot_ms") for x in saves],
+            "commit_ms": [x["save_ms"] for x in commits],
+            "bytes": [x["bytes"] for x in commits]}
+        ck["preempt"] = {"exit": res[0][0]["ckpt_preempt"]["exit"],
+                         "committed": kept}
+        # 3. side by side: the resume at dp 4, and step_2 of the
+        # uninterrupted run restored at dp 2 (ZeRO-2) and dp 2 x mp 2
+        t0 = time.perf_counter()
+        jobs = {job: dd.start_job(job, os.path.join(out_dir, job), seed,
+                                  RES_TIMEOUT_S[job])
+                for job in ("ckpt4_resume", "ckpt2_reshard",
+                            "ckpt4_reshard")}
+        done = {}
+        for job, j in jobs.items():
+            done[job] = j.wait()
+            job_s[job] = time.perf_counter() - t0
+        res = done["ckpt4_resume"]
+        for k, (rk, _) in res.items():
+            rr = rk["ckpt_resume"]
+            if rr["resumed_via"] != "direct" or rr["start"] != stop:
+                raise AssertionError(f"resilience ckpt4_resume: rank {k} "
+                                     f"{rr['resumed_via']} from {rr['start']}")
+            for leg in ("ckpt_resume", "ckpt_direct"):
+                for i, l in enumerate(rk[leg]["launches"]):
+                    check_step_launches(
+                        f"ckpt4_resume {leg} rank {k} step {i}", l,
+                        dd.CKPT_CARD_BLOCKS)
+                    add(l)
+        r0 = res[0][0]
+        got = {int(i): v for i, v in r0["ckpt_resume"]["losses"].items()}
+        want = {int(i): v for i, v in base.items() if int(i) >= stop}
+        ck["resume"] = {"losses": r0["ckpt_resume"]["losses"],
+                        "restore_ms": round(
+                            r0["ckpt_resume"]["restore_ms"], 1),
+                        "digest_equal": r0["ckpt_resume"]["digest"]
+                        == b0["digest"]}
+        if got != want or not ck["resume"]["digest_equal"]:
+            raise AssertionError(f"resilience ckpt4_resume: losses {got} vs "
+                                 f"the uninterrupted {want}, digests equal "
+                                 f"{ck['resume']['digest_equal']}")
+        direct = r0["ckpt_direct"]
+        ck["direct"] = {"losses": direct["losses"],
+                        "restore_ms": round(direct["restore_ms"], 1)}
+        for job in ("ckpt2_reshard", "ckpt4_reshard"):
+            res = done[job]
+            r0 = res[0][0]
+            rs = r0["ckpt_reshard"]
+            leaves = r0["ckpt_reshard/leaves"]
+            rel = max(abs(rs["losses"][i] - direct["losses"][i])
+                      / abs(direct["losses"][i]) for i in direct["losses"])
+            ck[job] = {"losses": rs["losses"], "vs_direct": rel,
+                       "leaves": leaves,
+                       "restore_ms": round(rs["restore_ms"], 1),
+                       "elastic": rs["elastic"]}
+            for k, (rk, _) in res.items():
+                if rk["ckpt_reshard"]["resumed_via"] != "reshard":
+                    raise AssertionError(
+                        f"resilience {job}: rank {k} resumed "
+                        f"{rk['ckpt_reshard']['resumed_via']}")
+                for i, l in enumerate(rk["ckpt_reshard"]["launches"]):
+                    check_step_launches(f"{job} rank {k} step {i}", l,
+                                        dd.CKPT_CARD_BLOCKS)
+                    add(l)
+            if leaves["n_differ"] or not rel <= RES_MESH_RTOL:
+                raise AssertionError(f"resilience {job}: {ck[job]}")
+        readings["ckpt"] = ck
+        print(f"resilience: ckpt4, GPT-3 1.3B width x {dd.CKPT_CARD_BLOCKS} "
+              f"blocks, dp 4 ZeRO-3, f32 AdamW, dropout {dd.CKPT_DROPOUT}, a "
+              f"save every {plan['save_every']} steps, preemption on rank "
+              f"{dd.CKPT_PREEMPT_RANK} alone, 4 ranks sharing one card "
+              f"(gloo), on {card}: " + json.dumps(ck))
+        shutil.rmtree(os.path.join(out_dir, "ckpt"), ignore_errors=True)
+
+        # 4. the chaos drill's verdict
+        drill_proc.wait(timeout=3 * CHAOS_TIMEOUT_S)
+        job_s["chaos_drill"] = time.perf_counter() - t_drill
+        with open(drill_log["stdout"]) as f:
+            print(f.read().strip())
+        with open(drill_log["stderr"]) as f:
+            stderr = f.read()
+        with open(report) as f:
+            rep = json.load(f)
+        if drill_proc.returncode != 0:
+            raise AssertionError(f"resilience chaos drill exited "
+                                 f"{drill_proc.returncode}: {rep['failures']} "
+                                 f"{stderr[-2000:]}")
+        for leg, steps in (("baseline", 6), ("resume", 2)):
+            got = rep[leg]["launches"]
+            want = {k: (cd.CARD_LAYERS * steps if k in RES_TRAIN_KERNELS
+                        else 0) for k in got}
+            if got != want:
+                raise AssertionError(f"resilience chaos drill {leg}: launches "
+                                     f"{got} != {want}")
+            add(got)
+        drill = {"losses": rep["losses"], "corrupt": rep["corrupt"],
+                 "husks": rep["husks"],
+                 "baseline_step_ms": [round(x, 1)
+                                      for x in rep["baseline"]["step_ms"]],
+                 "snapshot_ms": rep["baseline"]["snapshot_ms"],
+                 "commit_ms": rep["baseline"]["save_ms"],
+                 "bytes": rep["baseline"]["bytes"],
+                 "restore_ms": rep["resume"]["restore_ms"],
+                 "faults": [rep["baseline"]["chaos_faults"],
+                            rep["resume"]["chaos_faults"]],
+                 "legs_s": [round(rep[k], 1) for k in (
+                     "baseline_s", "crash_s", "resume_s", "corrupt_s")]}
+        readings["chaos_drill"] = drill
+        print(f"resilience: chaos drill, GPT-3 125M's width x "
+              f"{cd.CARD_LAYERS} layers, 8 x 1024, bf16 amp, "
+              f"dropout 0.1, 5% injected I/O faults, SIGKILL after step 5's "
+              f"save starts, on {card}: " + json.dumps(drill))
+        shutil.rmtree(os.path.join(out_dir, "chaos"), ignore_errors=True)
+    finally:
+        if drill_proc is not None and drill_proc.poll() is None:
+            # the phase failed first
+            os.killpg(drill_proc.pid, signal.SIGKILL)
+            drill_proc.wait()
+    readings["phase_s"] = time.perf_counter() - t_phase
+    print("resilience: job seconds " + json.dumps(
+        {k: round(v, 1) for k, v in job_s.items()}))
+    return dict(readings=readings, launches=total)
+
+
 PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
                   "kernels_13b", "long_context", "serve_13b", "moe_serve",
                   "options", "layer", "full", "full_4k", "memory",
-                  "serving_bench", "health", "kernel_obs", "distributed")
+                  "serving_bench", "health", "kernel_obs", "distributed",
+                  "resilience")
 
 
 def partial_run(torch, args, lap, phase_s):
@@ -5604,7 +5961,8 @@ def partial_run(torch, args, lap, phase_s):
                                                       INIT_RANGE),
            "serving_bench": serving_bench_phase, "health": health_phase,
            "kernel_obs": kernel_obs_phase,
-           "distributed": distributed_phase}
+           "distributed": distributed_phase,
+           "resilience": resilience_phase}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
         torch.cuda.empty_cache()
@@ -5718,8 +6076,31 @@ def main(argv=None):
     decode = decode_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("decode")
-    serve_13b = serve_13b_phase(torch, args.seed)
-    lap("serve 13B")
+    # the resilience phase's rank jobs and drill run beside the 13B
+    # phase's host build (~160 s: one host thread drawing normals, then
+    # the host quantizing), joined before its first decode
+    resil_box = {}
+
+    def resilience_beside():
+        t = time.perf_counter()
+        try:
+            resil_box["out"] = resilience_phase(torch, args.seed)
+        except BaseException as e:      # re-raised on the main thread
+            resil_box["err"] = e
+        resil_box["s"] = time.perf_counter() - t
+
+    resil_thread = threading.Thread(target=resilience_beside,
+                                    name="resilience")
+    resil_thread.start()
+    try:
+        serve_13b = serve_13b_phase(torch, args.seed,
+                                    after_build=resil_thread.join)
+    finally:
+        resil_thread.join()
+    if "err" in resil_box:
+        raise resil_box["err"]
+    resil = resil_box["out"]
+    lap("serve 13B (the resilience phase beside)")
     moe_serve, moe_served_cf, rows_moe_serve = moe_serve_phase(
         torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
@@ -5749,7 +6130,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lap("distributed")
     print("phase seconds: " + json.dumps(
-        {k: round(v, 1) for k, v in phase_s.items()}))
+        {k: round(v, 1) for k, v in {
+            **phase_s, "resilience (beside serve 13B)": resil_box["s"]}
+         .items()}))
     print_compiled_summary(stats, wo8, loop, memory, decode)
     print(f"1.3B on {card_line()}: " + json.dumps({
         "kernels": {k: {**r, "bound": list(r["bound"])}
@@ -5775,7 +6158,7 @@ def main(argv=None):
                        for run in (stats, wo8, loop, memory, fleet, sbench,
                                    decode, serve_13b, *moe_serve.values(),
                                    train, moe, options, layer, full,
-                                   full_4k, long_ctx, dist))
+                                   full_4k, long_ctx, dist, resil))
         # the largest error of the kernel's checks, the 1.3B, 13B and MoE
         # serving shapes' too
         err = max([r["max_abs_err"]] + [

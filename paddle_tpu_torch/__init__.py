@@ -51,7 +51,8 @@ Layout mirrors the JAX package so a reader finds each counterpart:
 - `tools`         — `bench_serving` (the serving bench's legs),
                     `healthwatch` and `memwatch` (offline replays of
                     the health rules), `serve_13b_w8a16`, `dist_drill`
-                    (the hybrid-parallel step as rank processes);
+                    (the hybrid-parallel step as rank processes),
+                    `chaos_drill` (kill mid-save and resume);
 - `convert`       — load JAX-package parameters into a port model;
 - `ops`           — the kernel registry, the nvcc/ctypes build step, the
                     attention entry points (ring and Ulysses attention
@@ -66,7 +67,10 @@ Layout mirrors the JAX package so a reader finds each counterpart:
                     uniform, gumbel, categorical) in torch;
 - `monitor`       — the stat registry (counters, gauges, histograms)
                     the engine's `serving.*` metrics live in;
-- `resilience`    — transient-vs-permanent failure classification;
+- `resilience`    — failure classification and retry, step checkpoints
+                    (a piece a rank, atomic commit, restore past
+                    corruption), preemption and auto-resume (the
+                    `resilience=` hook), cross-layout restore, chaos;
 - `generation`    — `run_generate` (greedy, sampling, beam search);
 - `quant`         — weight-only int8 linears and embeddings;
 - `moe`           — the router, MoEFFN, GPTMoE and the dispatch and

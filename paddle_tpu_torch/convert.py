@@ -15,7 +15,10 @@ For a model cut over a mesh (`distributed.shard_model`),
 `shard_jax_params` loads the full JAX arrays and keeps each rank's piece
 by the same rule, and `gather_params` rebuilds the full arrays from the
 ranks' pieces (every rank calls it), so a test compares them with the
-JAX parameters by name.
+JAX parameters by name. Under a ZeRO-3 `ShardedTrainStep`, whose
+parameters are only this rank's flat pieces between steps, both run
+inside the step's `gathered()` (the pieces all-gathered over dp first;
+`shard_jax_params` keeps the loaded values' pieces after).
 
 `load_jax_optimizer_state` does the same for an optimizer in the middle
 of training: the JAX optimizer's per-parameter states (moments,
@@ -110,9 +113,23 @@ def shard_jax_params(model, arrays, mesh=None):
     full shape and cut to this rank's piece as `shard_model` cut the
     parameter; a model not cut yet is cut first."""
     from .distributed import env
-    from .distributed.sharded_train import cut_full, param_cuts, shard_model
+    from .distributed.sharded_train import shard_model
     mesh = mesh if mesh is not None else env.current_mesh()
     shard_model(model, mesh)
+    with _gathered(model, write_back=True):
+        return _shard_jax_params(model, arrays, mesh)
+
+
+def _gathered(model, write_back=False):
+    import contextlib
+    step = getattr(model, "_sharded_step", None)
+    step = step() if step is not None else None
+    return step.gathered(write_back) if step is not None \
+        else contextlib.nullcontext()
+
+
+def _shard_jax_params(model, arrays, mesh):
+    from .distributed.sharded_train import cut_full, param_cuts
     cuts = param_cuts(model)
     src = dict(arrays)
     out = {}
@@ -146,11 +163,13 @@ def gather_params(model, mesh=None):
     env.set_mesh(mesh)
     try:
         out = {}
-        for name, p in model.named_parameters():
-            t = p.detach()
-            if name in cuts:
-                t = gather_full(t, cuts[name])
-            out[name] = t.float().cpu().numpy()
+        with _gathered(model):
+            for name, p in model.named_parameters():
+                t = p.detach()
+                if name in cuts:
+                    t = gather_full(t, cuts[name])
+                # a copy: numpy would pin a ZeRO-3 parameter's storage
+                out[name] = t.float().cpu().clone().numpy()
         return out
     finally:
         env.set_mesh(prev)

@@ -6,18 +6,19 @@ and the (dp, pp, mp, sp, ep) DeviceMesh (`env`), the topology and
 strategy (`topology`, `strategy`), the collectives with their deadline
 guard, comm spans and the axis layer's autograd Functions
 (`collective`), DataParallel (`parallel`), the tensor-parallel layers
-(`mp_layers`), the hybrid-parallel training step with ZeRO-1/2 and
-expert parallelism (`sharded_train`; the MoE layer's ep body is
-`moe/layer.py`), the pipeline (`pipeline`: PipelineLayer, GPipe, 1F1B,
+(`mp_layers`), the hybrid-parallel training step with ZeRO-1/2/3,
+optimizer-state offload and expert parallelism (`sharded_train`; the
+MoE layer's ep body is `moe/layer.py`), the pipeline (`pipeline`: PipelineLayer, GPipe, 1F1B,
 interleaved, PipelineParallel), the expert exchange
 (`utils.global_scatter`/`global_gather`) and the deprecated `MoELayer`
 (`moe`), the collective half of `fleet`, the launcher (`launch`;
-`python -m paddle_tpu_torch.distributed.launch`), and on one card
-activation recompute and the host-offloaded `OffloadTrainStep`. Not
-ported yet (ROADMAP Queue 1 item 6): ZeRO-3, offload in the sharded
-step, distributed checkpoints, the planner, ep with sp or pp, elastic
-restarts, the launch helpers of `dist_utils` and the parameter-server
-mode.
+`python -m paddle_tpu_torch.distributed.launch`), the distributed
+checkpoints (`checkpoint`: a piece a rank, restored onto any layout;
+`TrainEpochRange`), and on one card activation recompute and the
+host-offloaded `OffloadTrainStep`. Not ported yet (ROADMAP Queue 1
+item 6): the planner, ep with sp or pp, ZeRO-3 under pp, elastic
+restarts, HDFS (`fs.py`), the launch helpers of `dist_utils` and the
+parameter-server mode.
 """
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
@@ -44,6 +45,10 @@ from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding,
 )
 from .offload_train import OffloadTrainStep  # noqa: F401
+from . import checkpoint  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    TrainEpochRange, load_checkpoint, save_checkpoint, train_epoch_range,
+)
 from .pipeline import (  # noqa: F401
     LayerDesc, PipelineLayer, PipelineParallel, SegmentLayers,
     SharedLayerDesc, pipeline_apply, pipeline_train_step_1f1b,

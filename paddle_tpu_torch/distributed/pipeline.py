@@ -594,9 +594,14 @@ class PipelineParallel(torch.nn.Module):
     PipelineLayer has vpp > 1); without a plan (warned once) or pp of 1
     it runs the sequential accumulation, as JAX does. The batch is cut
     over dp when the mesh has a dp axis above 1. `lint`, `plan`,
-    `health` and `resilience` are attributes as in JAX; setting one
-    makes train_batch raise NotImplementedError naming its ROADMAP
-    item, and `apply_plan` raises."""
+    `health` and `resilience` are attributes as in JAX. `resilience`
+    (a ResilienceManager, CheckpointManager, directory or kwargs) is
+    attached to the PipelineLayer and the optimizer at the first
+    train_batch and its `step_boundary` runs after each; under a
+    pipelined plan each rank checkpoints and restores its stage's
+    parameters. Setting `lint`, `plan` or `health` makes train_batch
+    raise NotImplementedError naming its ROADMAP item, and `apply_plan`
+    raises."""
 
     def __init__(self, layers, hcg=None, strategy=None):
         super().__init__()
@@ -616,7 +621,22 @@ class PipelineParallel(torch.nn.Module):
         self.lint = False
         self.health = None
         self.resilience = None
+        self._resilience_mgr = None
+        self._resilience_key = None
         self.plan = None
+
+    def _resilience_manager(self):
+        """Normalize and cache the `resilience` attribute."""
+        if self.resilience is None or self.resilience is False:
+            self._resilience_mgr = None
+            self._resilience_key = self.resilience
+            return None
+        if self._resilience_mgr is None or \
+                self._resilience_key is not self.resilience:
+            from ..resilience.preempt import as_resilience
+            self._resilience_mgr = as_resilience(self.resilience)
+            self._resilience_key = self.resilience
+        return self._resilience_mgr
 
     def stage_parameters(self):
         """[(name, parameter)] this rank holds: every parameter, or under
@@ -768,14 +788,20 @@ class PipelineParallel(torch.nn.Module):
             _unported("plan", "6.4 (the planner and cost model)")
         if self.health is not None:
             _unported("health", "6 (the runtime around the sharded step)")
-        if self.resilience is not None:
-            _unported("resilience",
-                      "6.3 (ZeRO-3, offload and distributed checkpoints)")
         monitor.incr("pipeline.train_batches")
         with auto_step() as win:
             out = self._train_batch_impl(data, optimizer, lr_scheduler,
                                          scaler)
             win.note(loss=out)
+        res = self._resilience_manager()
+        if res is not None:
+            plan = self._pipe_plan
+            # a pipelined rank holds (and checkpoints) its stage's layers
+            self._layers._ckpt_param_ids = plan["local_ids"] \
+                if isinstance(plan, dict) and "local_ids" in plan else None
+            if res.ckpt.model is None:
+                res.attach(self._layers, optimizer)
+            res.step_boundary(loss=out)
         return out
 
     def _train_batch_impl(self, data, optimizer, lr_scheduler, scaler):

@@ -45,20 +45,54 @@ ZeRO (`zero_stage`, default the fleet strategy's `sharding_configs
   from the all-reduced gradients; the pieces are then all-gathered over
   dp into every rank's parameters;
 - 2: as 1, but the gradients are reduce-scattered over dp, so each
-  rank only ever holds its 1/dp of the summed gradients.
-The update runs on views of the parameters' own storage, in the groups of
-(learning-rate scale, decay) the optimizer's `update` forms, so every
-rule and option of the optimizer applies; with dp 1 the three stages
-are the same arithmetic as jit.TrainStep. Stage 3, `offload=`, `plan=`,
-`lint=`, `health=` and `resilience=` raise NotImplementedError naming
-their ROADMAP item; `donate` is accepted and has no meaning in an eager
-step.
+  rank only ever holds its 1/dp of the summed gradients;
+- 3: as 2, and between steps a rank keeps only its pieces of the
+  parameters too (`_Shards.own`; the parameters' storage is freed,
+  `untyped_storage().resize_(0)`). The gather unit is one child of the
+  model's `blocks` ModuleList (a GPTBlock); the rest of the trainable
+  parameters (the embeddings, the final LayerNorm, the tied head) are
+  one unit, gathered from the step's start to its backward's end. A
+  block's parameters are all-gathered over dp before its forward and
+  freed after it, gathered again when the gradient of its output
+  arrives, and once its last parameter's gradient has accumulated
+  (`register_post_accumulate_grad_hook`) its gradients are
+  reduce-scattered into this rank's sections and freed with the
+  parameters. The update on the pieces is stage 2's, so the two give
+  the same numbers. `gathered()` makes every parameter whole for
+  reading the model outside a step (`convert.gather_params` uses it).
+The update runs on views of the parameters' own storage (stage 3: of
+the pieces), in the groups of (learning-rate scale, decay) the
+optimizer's `update` forms, so every rule and option of the optimizer
+applies; with dp 1 the stages are the same arithmetic as
+jit.TrainStep.
+
+`offload=True` (any stage; default the strategy's
+`sharding_configs["offload"]`) keeps the states of the update's
+operands (the whole parameters at stage 0, the pieces at stages 1-3) in
+pinned host memory between steps: copied in on a side stream before the
+update and back after it, under the `sharded.offload_h2d` and
+`sharded.offload_d2h` spans (`_Offload`); the numbers are those of the
+same stage without it.
+
+`optimizer.state_dict()` under the step returns every logical slot
+under the JAX key "<param name>_<slot>" as a `SlotPiece` (this rank's
+piece and its cut and range), and `set_state_dict` takes those or whole
+logical slots. A checkpoint (`resilience=`, distributed/checkpoint.py)
+writes each rank's pieces and restores them onto the live layout, so a
+ZeRO-3 resume comes back sharded. `resilience=` calls the manager's
+`step_boundary` after each step and stamps the step's layout (mesh and
+stage) into its checkpoints. `plan=`, `lint=` and `health=` raise
+NotImplementedError naming their ROADMAP item; `donate` is accepted and
+has no meaning in an eager step.
 """
+import contextlib
+import weakref
+
 import torch
 
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                        ClipGradByValue, need_clip)
-from ..telemetry.recorder import auto_step
+from ..telemetry.recorder import auto_step, span
 from . import env
 from .collective import (ReduceOp, _all_gather, _all_reduce_, _axis,
                          _reduce_scatter)
@@ -208,12 +242,15 @@ def _unported(what, item):
 
 
 class _Shards:
-    """The trainable parameters of one dtype cut for ZeRO: dp rank k
-    owns piece k of every parameter's flat elements (ceil(n / dp) of
-    them, the last piece shorter or empty). A "section" is one rank's
-    pieces laid end to end, each padded to its full length; the flat
-    gradient is the dp sections in rank order, so that chunk k of a
-    reduce-scatter is rank k's section."""
+    """The trainable parameters of one dtype (of one gather unit under
+    ZeRO-3) cut for ZeRO: dp rank k owns piece k of every parameter's
+    flat elements (ceil(n / dp) of them, the last piece shorter or
+    empty). A "section" is one rank's pieces laid end to end, each padded
+    to its full length; the flat gradient is the dp sections in rank
+    order, so that chunk k of a reduce-scatter is rank k's section.
+    Under ZeRO-3 `own` holds this rank's pieces end to end (the only
+    copy of the parameters between steps) and `views` its piece of each
+    parameter, in `owned()`'s order."""
 
     def __init__(self, params, dp, dp_rank):
         self.params = params
@@ -226,6 +263,8 @@ class _Shards:
             self.offsets.append(off)
             off += c
         self.section = off
+        self.own = None
+        self.views = []
 
     def owned(self):
         """[(param index, a, b)]: the elements [a, b) of the parameter's
@@ -262,6 +301,11 @@ class _Shards:
 
     def my_section(self):
         """This rank's current pieces of the parameters as one section."""
+        if self.own is not None:
+            sec = self.own.new_zeros(self.section)
+            for (k, a, b), v in zip(self.owned(), self.views):
+                sec[self.offsets[k]:self.offsets[k] + (b - a)].copy_(v)
+            return sec
         return self._sections([p.detach() for p in self.params])[self.rank]
 
     def scatter_back(self, sections):
@@ -270,6 +314,133 @@ class _Shards:
         for p, n, c, o in zip(self.params, self.numels, self.pieces,
                               self.offsets):
             p.data.view(-1).copy_(sections[:, o:o + c].reshape(-1)[:n])
+
+    def keep_own(self):
+        """ZeRO-3: copy this rank's pieces out of the parameters into
+        `own` (allocated on the first call)."""
+        owned = self.owned()
+        if self.own is None:
+            p0 = self.params[0]
+            self.own = torch.empty(sum(b - a for _, a, b in owned),
+                                   dtype=p0.dtype, device=p0.device)
+            off = 0
+            for _, a, b in owned:
+                self.views.append(self.own[off:off + b - a])
+                off += b - a
+        with torch.no_grad():
+            for (k, a, b), v in zip(owned, self.views):
+                v.copy_(self.params[k].data.view(-1)[a:b])
+
+
+class _Unit:
+    """ZeRO-3's gather unit: a module's trainable parameters (one
+    GPTBlock), or the rest of the model's (`module` None)."""
+
+    def __init__(self, module, shards):
+        self.module = module
+        self.shards = shards
+        self.params = [p for sh in shards for p in sh.params]
+        self.gathered = True        # as built: every parameter whole
+        self.pending = 0
+
+
+def _free(p):
+    p.data.untyped_storage().resize_(0)
+
+
+def _materialize(p):
+    st = p.data.untyped_storage()
+    need = p.numel() * p.element_size()
+    if st.nbytes() < need:
+        st.resize_(need)
+
+
+class _Offload:
+    """The optimizer states of the update's operands kept in pinned host
+    memory between steps: `to_device()` copies them in on a side stream
+    before the update (the dicts then hold the device copies), and
+    `to_host()` copies them back on that stream after it (the dicts hold
+    the pinned buffers again; read them on the host only after
+    `torch.cuda.synchronize()`). On the CPU the states stay where they
+    are and both are no-ops."""
+
+    def __init__(self, states, device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.slots = []             # (state dict, key, host tensor)
+        for st in states:
+            for k, v in st.items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                if self.cuda:
+                    h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    h.copy_(v)
+                    st[k] = h
+                self.slots.append((st, k, st[k]))
+        self.nbytes = sum(h.numel() * h.element_size()
+                          for _, _, h in self.slots)
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self._events = None
+
+    def to_device(self):
+        if not self.cuda:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            ev[0].record(self.stream)
+            devs = [h.to(self.device, non_blocking=True)
+                    for _, _, h in self.slots]
+            ev[1].record(self.stream)
+        cur.wait_stream(self.stream)
+        for (st, k, _), d in zip(self.slots, devs):
+            d.record_stream(cur)
+            st[k] = d
+        self._events = ev
+
+    def to_host(self):
+        if not self.cuda:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        ev = self._events
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            ev[2].record(self.stream)
+            for st, k, h in self.slots:
+                h.copy_(st[k], non_blocking=True)
+            ev[3].record(self.stream)
+        for st, k, h in self.slots:
+            st[k] = h
+
+    def last_ms(self):
+        """(h2d ms, d2h ms) of the last step's copies (synchronises on
+        them), or None."""
+        if self._events is None:
+            return None
+        ev = self._events
+        ev[3].synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+
+
+class SlotPiece:
+    """One logical optimizer slot as this rank holds it (an entry of the
+    sharded step's `optimizer.state_dict()`): `value` this rank's piece
+    (a tensor, a host scalar, or an empty tensor where the rank owns no
+    element), `shape` the slot's logical shape, `cut` the rank's mp/ep
+    cut ([[dim, index, n, groups], ...]), `flat` its ZeRO element range
+    of that cut piece (None: all of it), `rank` the global rank — the
+    piece metadata a checkpoint's manifest keeps."""
+
+    __slots__ = ("value", "shape", "cut", "flat", "rank")
+
+    def __init__(self, value, shape, cut, flat, rank):
+        self.value, self.shape, self.cut = value, tuple(shape), cut
+        self.flat, self.rank = flat, rank
+
+    def __repr__(self):
+        return (f"SlotPiece(shape={self.shape}, cut={self.cut}, "
+                f"flat={self.flat}, rank={self.rank})")
 
 
 class ShardedTrainStep:
@@ -282,31 +453,27 @@ class ShardedTrainStep:
                  seq_shard_batch=None, donate=True, offload=None,
                  lint=False, health=None, resilience=None, plan=None):
         if plan is not None:
-            _unported("plan=", "the planner and cost model")
-        if offload:
-            _unported("offload=", "ZeRO-3, offload and checkpoint")
+            _unported("plan=", "6.4: the planner and cost model")
         if lint:
-            _unported("lint=", "the planner and cost model")
+            _unported("lint=", "6.4: the planner and cost model")
         if health is not None:
             _unported("health=", "the runtime around the sharded step")
-        if resilience is not None:
-            _unported("resilience=", "elastic, launch restarts")
         strat = getattr(optimizer, "user_defined_strategy", None)
         scfg = (strat.sharding_configs
                 if strat is not None and getattr(strat, "sharding", False)
                 else {})
         if zero_stage is None:
             zero_stage = int(scfg.get("stage", 1))
-        if zero_stage >= 3:
-            _unported(f"zero_stage={zero_stage}",
-                      "ZeRO-3, offload and checkpoint")
-        if zero_stage < 0:
+        if offload is None:
+            offload = bool(scfg.get("offload", False))
+        if not 0 <= zero_stage <= 3:
             raise ValueError(f"zero_stage {zero_stage}")
         self.mesh = mesh if mesh is not None else env.current_mesh()
         if self.mesh is None:
             raise ValueError("ShardedTrainStep needs a mesh "
                              "(env.build_mesh or mesh=)")
         self.zero_stage = zero_stage
+        self.offload = bool(offload)
         self.dp = env.axis_size("dp", self.mesh)
         self.sp = env.axis_size("sp", self.mesh)
         self.mp = env.axis_size("mp", self.mesh)
@@ -314,6 +481,11 @@ class ShardedTrainStep:
         if self.ep > 1 and (self.sp > 1 or env.axis_size("pp", self.mesh) > 1):
             _unported("an ep axis with sp or pp above 1",
                       "6.6: ep x sp and ep x pp")
+        if zero_stage == 3 and getattr(getattr(model, "config", None),
+                                       "remat", False):
+            raise NotImplementedError(
+                "ShardedTrainStep(zero_stage=3) with remat: a recomputed "
+                "block would need its parameters gathered a third time")
         if seq_shard_batch is None:
             seq_shard_batch = self.sp > 1
         if self.sp > 1 and not seq_shard_batch:
@@ -335,32 +507,175 @@ class ShardedTrainStep:
         # the axes each parameter is cut over (its squares sum over them)
         self._cut_axes = [{a for _, a in cuts[n][0]} if n in cuts else set()
                           for n in self.param_names]
-        dp_rank = env.axis_index("dp", self.mesh)
-        by_dtype = {}
-        for p in self.params:
-            by_dtype.setdefault(p.dtype, []).append(p)
-        self._shards = [_Shards(ps, self.dp, dp_rank)
-                        for ps in by_dtype.values()]
         self._index = {id(p): k for k, p in enumerate(self.params)}
+        self._units = []
+        self._gsec = {}
+        self._in_step = False
+        if zero_stage == 3:
+            self._shards = self._build_units()
+        else:
+            self._shards = self._by_dtype(self.params)
         if zero_stage == 0:
             for p in self.params:
                 optimizer._get_state(p)
+            op_states = [optimizer._states[id(p)] for p in self.params]
         else:
             # this rank's views of its pieces and their states
             self._owned = []        # (shards, owned entry, param, view)
             for sh in self._shards:
-                for k, a, b in sh.owned():
+                if zero_stage == 3:
+                    sh.keep_own()
+                for i, (k, a, b) in enumerate(sh.owned()):
                     p = sh.params[k]
-                    self._owned.append((sh, (k, a, b), p,
-                                        p.data.view(-1)[a:b]))
+                    view = sh.views[i] if zero_stage == 3 \
+                        else p.data.view(-1)[a:b]
+                    self._owned.append((sh, (k, a, b), p, view))
             self._states = [optimizer._get_state(v)
                             for _, _, _, v in self._owned]
+            op_states = self._states
+            if zero_stage == 3:
+                for u in self._units:
+                    self._free_unit(u)
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self._offload = _Offload(op_states, dev) if self.offload else None
+        # the model's checkpoint places and the optimizer's state dict
+        # come from this step (distributed/checkpoint.py)
+        model._sharded_step = weakref.ref(self)
+        optimizer._sharded_view = weakref.ref(self)
+        from ..resilience.preempt import as_resilience
+        self.resilience = as_resilience(resilience)
+        if self.resilience is not None:
+            self.resilience.attach(model, optimizer, layout=self.layout())
+
+    def layout(self):
+        """This step's layout (mesh axis sizes and ZeRO stage)."""
+        out = {a: env.axis_size(a, self.mesh) for a in env.MESH_AXES}
+        out["zero_stage"] = self.zero_stage
+        return out
+
+    def _by_dtype(self, params):
+        dp_rank = env.axis_index("dp", self.mesh)
+        by_dtype = {}
+        for p in params:
+            by_dtype.setdefault(p.dtype, []).append(p)
+        return [_Shards(ps, self.dp, dp_rank) for ps in by_dtype.values()]
+
+    # ---- ZeRO-3 ----------------------------------------------------------
+    def _build_units(self):
+        """Gather units: each child of the model's `blocks` ModuleList
+        (GPT, GPT-MoE), and the rest of the trainable parameters (the
+        embeddings, the final LayerNorm and the tied head), which stay
+        gathered from the step's start to its backward's end. The
+        parameters get storage of their own, freed between uses."""
+        blocks = None
+        for name, mod in self.model.named_modules():
+            if isinstance(mod, torch.nn.ModuleList) and \
+                    name.rsplit(".", 1)[-1] == "blocks":
+                blocks = mod
+                break
+        with torch.no_grad():
+            for p in self.params:
+                p.data = p.data.clone()
+        taken = set()
+        shards = []
+        for mod in (blocks if blocks is not None else ()):
+            ids = {id(p) for p in mod.parameters()}
+            ps = [p for p in self.params if id(p) in ids]
+            if not ps:
+                continue
+            taken |= ids
+            u = _Unit(mod, self._by_dtype(ps))
+            mod.register_forward_pre_hook(
+                lambda m, args, u=u: self._gather_unit(u))
+            mod.register_forward_hook(
+                lambda m, args, out, u=u: self._after_forward(u, out))
+            for p in ps:
+                p.register_post_accumulate_grad_hook(
+                    lambda p, u=u: self._grad_ready(u))
+            self._units.append(u)
+            shards += u.shards
+        rest = [p for p in self.params if id(p) not in taken]
+        if rest:
+            u = _Unit(None, self._by_dtype(rest))
+            self._units.append(u)
+            shards += u.shards
+        return shards
+
+    def _gather_unit(self, u):
+        """All-gather a unit's parameters over dp into their storage."""
+        if u.gathered:
+            return
+        with torch.no_grad():
+            for sh in u.shards:
+                sec = sh.my_section()
+                parts = _all_gather(sec, _axis("dp")[0], axis="dp") \
+                    if self.dp > 1 else [sec]
+                for p in sh.params:
+                    _materialize(p)
+                sh.scatter_back(torch.stack(parts))
+        u.gathered = True
+
+    def _free_unit(self, u):
+        for p in u.params:
+            _free(p)
+        u.gathered = False
+
+    def _after_forward(self, u, out):
+        self._free_unit(u)
+        if torch.is_grad_enabled() and isinstance(out, torch.Tensor) \
+                and out.requires_grad:
+            def regather(g, u=u):
+                self._gather_unit(u)
+            out.register_hook(regather)
+
+    def _grad_ready(self, u):
+        if not self._in_step:
+            return
+        u.pending -= 1
+        if u.pending == 0:
+            self._reduce_unit(u)
+
+    def _reduce_unit(self, u):
+        """A unit's gradients complete: reduce-scatter them into this
+        rank's sections, then free them and the parameters."""
+        with torch.no_grad():
+            for sh in u.shards:
+                self._gsec[id(sh)] = self._reduce(sh.grads(), sh.section)
+        for p in u.params:
+            p.grad = None
+        self._free_unit(u)
+
+    @contextlib.contextmanager
+    def gathered(self, write_back=False):
+        """Every parameter whole (this rank's mp/ep piece) inside the
+        block, for reading the model outside a step (under ZeRO-3 a
+        collective over dp: every rank enters it); with `write_back`,
+        this rank's pieces are taken back from the parameters at the
+        end (after loading values into them). Other stages: a no-op."""
+        if self.zero_stage != 3:
+            yield self
+            return
+        prev = env.current_mesh()
+        env.set_mesh(self.mesh)
+        try:
+            for u in self._units:
+                self._gather_unit(u)
+            yield self
+            if write_back:
+                for sh in self._shards:
+                    sh.keep_own()
+        finally:
+            for u in self._units:
+                self._free_unit(u)
+            env.set_mesh(prev)
 
     # ---- the step ------------------------------------------------------
     def __call__(self, *batch):
         with auto_step() as win:
             loss = self._run_step(batch)
             win.note(loss=loss)
+        if self.resilience is not None:
+            self.resilience.step_boundary(loss=loss)
         return loss
 
     def _run_step(self, batch):
@@ -372,14 +687,32 @@ class ShardedTrainStep:
         env.set_mesh(self.mesh)
         try:
             local = shard_batch(batch, self.mesh, self.seq_shard)
+            if self.zero_stage == 3:
+                self._gsec = {}
+                for u in self._units:
+                    u.pending = len(u.params) if u.module is not None else -1
+                self._in_step = True
+                for u in self._units:
+                    if u.module is None:
+                        self._gather_unit(u)
             loss = self.loss_fn(*local)
             loss.backward()
+            if self.zero_stage == 3:
+                self._in_step = False
+                for u in self._units:
+                    if u.pending != 0:
+                        self._reduce_unit(u)
             if self.zero_stage == 0:
                 self._update_replicated()
             else:
                 self._update_sharded()
             return self._global_loss(loss.detach())
         finally:
+            self._in_step = False
+            if self.zero_stage == 3:
+                for u in self._units:
+                    if u.gathered:
+                        self._free_unit(u)
             env.set_mesh(prev)
 
     def _global_loss(self, share):
@@ -393,8 +726,8 @@ class ShardedTrainStep:
 
     def _reduce(self, flat_grad, section=None):
         """Sum over sp and average over dp, in place; with `section`
-        (stages 1-2) -> this rank's section of the result (stage 2 by a
-        reduce-scatter)."""
+        (stages 1-3) -> this rank's section of the result (stages 2-3 by
+        a reduce-scatter)."""
         if self.sp > 1:
             _all_reduce_(flat_grad, ReduceOp.SUM, _axis("sp")[0], axis="sp")
         if self.dp > 1:
@@ -408,6 +741,24 @@ class ShardedTrainStep:
             return flat_grad
         return flat_grad.view(self.dp, section)[
             env.axis_index("dp", self.mesh)]
+
+    @contextlib.contextmanager
+    def _states_on_device(self):
+        """The update's states on the device (offload: copied in before,
+        back to pinned host memory after, under the
+        sharded.offload_h2d / sharded.offload_d2h spans)."""
+        if self._offload is None:
+            yield
+            return
+        with span("sharded.offload_h2d", cat="h2d",
+                  bytes=self._offload.nbytes):
+            self._offload.to_device()
+        try:
+            yield
+        finally:
+            with span("sharded.offload_d2h", cat="d2h",
+                      bytes=self._offload.nbytes):
+                self._offload.to_host()
 
     def _update_replicated(self):
         """Stage 0: the whole gradients, then the optimizer's update."""
@@ -427,14 +778,18 @@ class ShardedTrainStep:
                 o += n
         gl = self._clip([(k, grads[id(p)])
                          for k, p in enumerate(self.params)], sharded=False)
-        self.optimizer.update(self.params, [g for _, g in gl])
+        with self._states_on_device():
+            self.optimizer.update(self.params, [g for _, g in gl])
 
     def _update_sharded(self):
-        """Stages 1-2: this rank's section of the reduced gradients, the
-        rule on its pieces, then the sections all-gathered over dp."""
+        """Stages 1-3: this rank's section of the reduced gradients
+        (ZeRO-3's were reduce-scattered in the backward, a unit at a
+        time), the rule on its pieces, then (stages 1-2) the sections
+        all-gathered over dp into the parameters."""
         gpieces = {}
         for sh in self._shards:
-            sec = self._reduce(sh.grads(), sh.section)
+            sec = self._gsec.pop(id(sh)) if self.zero_stage == 3 \
+                else self._reduce(sh.grads(), sh.section)
             owned = [e for s_, e, _, _ in self._owned if s_ is sh]
             for e, g in zip(owned, sh.mine(sec, owned)):
                 gpieces[(id(sh), e)] = g
@@ -451,9 +806,10 @@ class ShardedTrainStep:
                 lst.append(x)
         lr = opt.get_lr()
         with torch.no_grad():
-            for (scale, wd), (views, gs, sts) in groups.items():
-                opt._update_group(views, gs, sts, lr * scale, wd)
-            if self.dp > 1:
+            with self._states_on_device():
+                for (scale, wd), (views, gs, sts) in groups.items():
+                    opt._update_group(views, gs, sts, lr * scale, wd)
+            if self.dp > 1 and self.zero_stage < 3:
                 dpg = _axis("dp")[0]
                 for sh in self._shards:
                     parts = _all_gather(sh.my_section(), dpg, axis="dp")
@@ -509,10 +865,176 @@ class ShardedTrainStep:
             sq = torch.where(cut, part, sq)
         return sq
 
+    # ---- checkpoint places and the optimizer's view ---------------------
+    def _places(self, optimizer, prime=False):
+        """This rank's checkpoint places (distributed/checkpoint.py) of
+        the model's state dict and `optimizer`'s slots: at stage 0 each
+        whole (mp/ep-cut) piece, at stages 1-3 the ZeRO piece this rank
+        owns (a parameter comes back whole at stages 1-2)."""
+        from .checkpoint import (Place, _copy_into, cut_coords,
+                                 first_holder, slot_places)
+        mesh = self.mesh
+        cuts = param_cuts(self.model)
+        owned = {}
+        if self.zero_stage >= 1:
+            for (sh, (k, a, b), p, view), st in zip(self._owned,
+                                                     self._states):
+                owned[id(p)] = (a, b, view, st)
+        rank = env.axis_index("dp", mesh)
+        places = []
+        for key, t in self.model.state_dict(keep_vars=True).items():
+            cut = cuts.get(key)
+            axes = [a for _, a in cut[0]] if cut else []
+            coords = cut_coords(cut, mesh)
+            logical = cut[2] if cut else t.shape
+            if id(t) not in self._index or self.zero_stage == 0:
+                places.append(Place(
+                    f"model.{key}", logical, t.dtype, coords, None, None,
+                    first_holder(axes, False, mesh),
+                    (lambda t=t: t.detach()), _copy_into(t)))
+                continue
+            n = t.numel()
+            a, b, view, _ = owned.get(id(t), (min(rank * -(-n // self.dp),
+                                                  n),) * 2 + (None, None))
+            if self.zero_stage == 3:
+                get = (lambda v=view: v)
+                set_ = _copy_into(view) if view is not None \
+                    else (lambda v: None)
+                load = (a, b)
+            else:
+                get = (lambda t=t, a=a, b=b: t.detach().reshape(-1)[a:b])
+                set_, load = _copy_into(t), None
+            places.append(Place(f"model.{key}", logical, t.dtype, coords,
+                                (a, b), load, first_holder(axes, True, mesh),
+                                get, set_))
+        if optimizer is None:
+            return places
+        for name, p in zip(self.param_names, self.params):
+            cut = cuts.get(name)
+            axes = [a for _, a in cut[0]] if cut else []
+            logical = cut[2] if cut else p.shape
+            if self.zero_stage == 0:
+                w = first_holder(axes, False, mesh)
+                first = w and all(c[1] == 0 for c in cut_coords(cut, mesh))
+                places += slot_places(name, logical, p.shape,
+                                      optimizer._states[id(p)], cut, None,
+                                      None, w, first, mesh)
+                continue
+            ent = owned.get(id(p))
+            w = first_holder(axes, True, mesh)
+            if ent is None:
+                n = p.numel()
+                a = min(rank * -(-n // self.dp), n)
+                st = self._empty_slots(p)
+                places += slot_places(name, logical, (0,), st, cut,
+                                      (a, a), (a, a), False, False, mesh)
+                continue
+            a, b, view, st = ent
+            first = w and a == 0 and all(
+                c[1] == 0 for c in cut_coords(cut, mesh))
+            places += slot_places(name, logical, view.shape, st, cut,
+                                  (a, b), (a, b), w, first, mesh)
+        return places
+
+    def _empty_slots(self, p):
+        """A state dict of `p`'s slot names over no elements (a rank that
+        owns none of `p`)."""
+        st = self.optimizer._init_state(p.new_empty(0))
+        if self.optimizer._multi_precision and p.dtype in (torch.bfloat16,
+                                                           torch.float16):
+            st["master"] = p.new_empty(0, dtype=torch.float32)
+        return st
+
+    def optimizer_state_dict(self):
+        """What `optimizer.state_dict()` returns under this step: every
+        logical slot under the JAX key "<param name>_<slot>", each a
+        `SlotPiece` (this rank's piece with its piece metadata), and the
+        scheduler's state under "LR_Scheduler". Under offload the pieces
+        are the pinned host buffers (read them after
+        `torch.cuda.synchronize()`)."""
+        from ..optimizer.lr import LRScheduler
+        out = {}
+        opt = self.optimizer
+        if isinstance(opt._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = opt._learning_rate.state_dict()
+        rank = env.get_rank()
+        for pl in self._places(opt):
+            if not pl.name.startswith("optimizer."):
+                continue
+            pname, slot = pl.name[len("optimizer."):].rsplit(".", 1)
+            out[f"{pname}_{slot}"] = SlotPiece(
+                pl.get(), pl.shape, pl.cut, pl.load_flat, rank)
+        return out
+
+    def set_optimizer_state_dict(self, state_dict):
+        """Load what `optimizer_state_dict()` gave (pieces of this
+        layout), or whole logical slots (tensors or arrays of the slot's
+        logical shape, cut here to this rank's piece), or host scalars."""
+        import numpy as np
+        from ..optimizer.lr import LRScheduler
+        from .checkpoint import cut_for
+        opt = self.optimizer
+        if "LR_Scheduler" in state_dict and isinstance(opt._learning_rate,
+                                                       LRScheduler):
+            opt._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+        for pl in self._places(opt):
+            if not pl.name.startswith("optimizer."):
+                continue
+            pname, slot = pl.name[len("optimizer."):].rsplit(".", 1)
+            v = state_dict.get(f"{pname}_{slot}")
+            if v is None:
+                continue
+            if isinstance(v, SlotPiece):
+                if (v.cut, v.flat) != (pl.cut, pl.load_flat):
+                    raise ValueError(
+                        f"{pname}_{slot}: a piece of cut {v.cut} range "
+                        f"{v.flat}, this rank holds cut {pl.cut} range "
+                        f"{pl.load_flat}")
+                v = v.value
+            elif not pl.scalar:
+                t = v if isinstance(v, torch.Tensor) else \
+                    torch.from_numpy(np.asarray(v))
+                if tuple(t.shape) != pl.shape:
+                    raise ValueError(f"{pname}_{slot}: shape "
+                                     f"{tuple(t.shape)} != {pl.shape}")
+                v = cut_for(t, pl.cut, pl.load_flat)
+            if pl.scalar:
+                pl.set(np.asarray(v))
+            elif pl.load_flat is None or pl.load_flat[0] < pl.load_flat[1]:
+                pl.set(v.to(pl.dtype))
+
     # ---- readings --------------------------------------------------------
     def state_bytes(self):
-        """Bytes of optimizer-state tensors this rank holds."""
+        """Bytes of optimizer-state tensors this rank holds (wherever
+        they are)."""
         sts = self._states if self.zero_stage >= 1 else [
             self.optimizer._states[id(p)] for p in self.params]
         return sum(v.numel() * v.element_size() for st in sts
                    for v in st.values() if isinstance(v, torch.Tensor))
+
+    def memory(self):
+        """This rank's bytes, between steps: `param_storage` (the
+        trainable parameters' own storage: 0 under ZeRO-3), `owned` (the
+        ZeRO-3 pieces), `state` (the optimizer's state tensors),
+        `state_device` and `state_pinned` (where they are)."""
+        sts = self._states if self.zero_stage >= 1 else [
+            self.optimizer._states[id(p)] for p in self.params]
+        tens = [v for st in sts for v in st.values()
+                if isinstance(v, torch.Tensor)]
+        nb = [v.numel() * v.element_size() for v in tens]
+        return {
+            "param_storage": sum(p.data.untyped_storage().nbytes()
+                                 for p in self.params),
+            "owned": sum(sh.own.numel() * sh.own.element_size()
+                         for sh in self._shards if sh.own is not None),
+            "state": sum(nb),
+            "state_device": sum(n for n, v in zip(nb, tens)
+                                if v.device.type != "cpu"),
+            "state_pinned": sum(n for n, v in zip(nb, tens)
+                                if v.device.type == "cpu" and v.is_pinned()),
+        }
+
+    def offload_ms(self):
+        """(h2d ms, d2h ms) of the last step's offload copies on the
+        card, or None."""
+        return None if self._offload is None else self._offload.last_ms()

@@ -40,8 +40,13 @@ values before the update: a fetch step copies them first (one copy of
 the trainable parameters, `tap_bytes` bytes, freed when the taps are
 built; ~5.2 GB at GPT-3 1.3B's f32 parameters). The copy is made after
 the backward has freed the activations.
-`torch.compile`, CUDA graphs and the JAX step's `lint=` and
-`resilience=` options are not carried over.
+`resilience=` (None | `resilience.ResilienceManager` |
+`CheckpointManager` | a checkpoint directory | kwargs) attaches the
+model and optimizer at init and calls the manager's `step_boundary`
+after each step record closes, as the JAX step does: periodic
+checkpoints, and on SIGTERM a final checkpoint and exit 102.
+`torch.compile`, CUDA graphs and the JAX step's `lint=` option are not
+carried over.
 
 `CapturedStep` is the counterpart of `jax.jit` over a fixed-shape
 inference step (the serving engine's decode and prefill steps,
@@ -90,7 +95,8 @@ __all__ = ["TrainStep", "CapturedStep"]
 
 
 class TrainStep:
-    def __init__(self, model, loss_fn, optimizer, health=None):
+    def __init__(self, model, loss_fn, optimizer, health=None,
+                 resilience=None):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -104,6 +110,10 @@ class TrainStep:
         self.health = as_monitor(health)
         self._last_health = None
         self.tap_bytes = 0      # the last fetch step's pre-update copy
+        from .resilience.preempt import as_resilience
+        self.resilience = as_resilience(resilience)
+        if self.resilience is not None:
+            self.resilience.attach(model, optimizer)
 
     def __call__(self, *batch):
         with auto_step() as win:
@@ -119,6 +129,8 @@ class TrainStep:
                 note_step_stats(win, self._last_moe,
                                 getattr(self.model, "moe_num_experts", None))
             win.note(loss=loss)
+        if self.resilience is not None:
+            self.resilience.step_boundary(loss=loss)
         return loss
 
     def _run_step(self, batch, taps):

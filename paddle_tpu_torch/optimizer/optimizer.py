@@ -148,10 +148,20 @@ class Optimizer:
     def _init_state(self, p):
         return {}
 
+    def _sharded(self):
+        view = getattr(self, "_sharded_view", None)
+        return view() if view is not None else None
+
     def state_dict(self):
         """{"<name>_<key>": state} for every parameter that has state,
         and the scheduler's state under "LR_Scheduler". Tensors are the
-        optimizer's own (read them after the step's work is done)."""
+        optimizer's own (read them after the step's work is done). Under
+        a `distributed.ShardedTrainStep` every logical slot is a
+        `SlotPiece`: this rank's piece with its piece metadata
+        (`ShardedTrainStep.optimizer_state_dict`)."""
+        step = self._sharded()
+        if step is not None:
+            return step.optimizer_state_dict()
         out = {}
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()
@@ -163,7 +173,12 @@ class Optimizer:
     def set_state_dict(self, state_dict):
         """Load what `state_dict` gave: tensors are copied into the
         existing states (keeping their device or pinned host placement),
-        scalars replace them."""
+        scalars replace them. Under a `distributed.ShardedTrainStep`,
+        pieces of this layout or whole logical slots
+        (`ShardedTrainStep.set_optimizer_state_dict`)."""
+        step = self._sharded()
+        if step is not None:
+            return step.set_optimizer_state_dict(state_dict)
         if "LR_Scheduler" in state_dict and isinstance(
                 self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])

@@ -1,11 +1,13 @@
 """The ledger rules the fleet drill gates on: the port's own copy.
 
-The port of the kind=memsnap and kind=fleet rules of the JAX package's
-tools/trace_check.py (`check_memsnap_records`, `check_fleet_records`)
+The port of the kind=memsnap, fleet, ckpt and elastic rules of the JAX
+package's tools/trace_check.py (`check_memsnap_records`,
+`check_fleet_records`, `check_ckpt_records`, `check_elastic_records`)
 and of the per-record schema checks of paddle_tpu/telemetry/sink.py's
 `validate_step_record` for the kinds the port writes — memsnap, fleet,
-and the training and bench kinds: step (the recorder's step record,
-health and MoE fields included), bench, phase and kernelbench —
+ckpt, elastic, and the training and bench kinds: step (the recorder's
+step record, health and MoE fields included), bench, phase and
+kernelbench —
 unchanged, so a ledger passes here exactly when it passes there (the
 CPU tests hold the two against each other, on the same records and on
 the JAX package's specimens). `check_records(records)` runs all of them
@@ -13,24 +15,44 @@ over one combined ledger; `check_jsonl(path)` reads one first.
 """
 import json
 
-from .sink import (BENCH_RECORD_KEYS, COMM_KEYS, FLEET_EVENTS,
+from .sink import (BENCH_RECORD_KEYS, CKPT_EVENTS, CKPT_RECORD_KEYS,
+                   COMM_KEYS, ELASTIC_EVENTS, ELASTIC_RECORD_KEYS,
+                   FLEET_EVENTS,
                    FLEET_RECORD_KEYS, HEALTH_KEYS, INPUT_KEYS,
                    KERNELBENCH_EVENTS, KERNELBENCH_RECORD_KEYS,
                    MEMSNAP_BUCKETS, MEMSNAP_EVENTS, MEMSNAP_RECORD_KEYS,
                    MOE_KEYS, STEP_RECORD_KEYS)
 
 __all__ = ["validate_record", "check_memsnap_records",
-           "check_fleet_records", "check_records", "check_jsonl"]
+           "check_fleet_records", "check_ckpt_records",
+           "check_elastic_records", "check_records", "check_jsonl"]
 
 
 def validate_record(rec):
-    """Schema problems of one kind=memsnap, fleet, step, bench, phase
-    or kernelbench record ([] == valid; records of other kinds are not
-    judged here)."""
+    """Schema problems of one kind=memsnap, fleet, ckpt, elastic, step,
+    bench, phase or kernelbench record ([] == valid; records of other
+    kinds are not judged here)."""
     problems = []
     if not isinstance(rec, dict):
         return [f"record is {type(rec).__name__}, not dict"]
     kind = rec.get("kind")
+    if kind == "ckpt":
+        for key in CKPT_RECORD_KEYS:
+            if key not in rec:
+                problems.append(f"ckpt record missing '{key}'")
+        ev = rec.get("event")
+        if ev is not None and ev not in CKPT_EVENTS:
+            problems.append(f"unknown ckpt event {ev!r} "
+                            f"(expected one of {list(CKPT_EVENTS)})")
+        for key in ("save_ms", "bytes"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, (int, float)) or v < 0):
+                problems.append(f"'{key}' not a non-negative number: {v!r}")
+        if ev == "commit" and "save_ms" not in rec:
+            problems.append("ckpt commit record carries no save_ms")
+        return problems
+    if kind == "elastic":
+        return _validate_elastic(rec)
     if kind == "phase":
         for key in ("schema", "phase", "metrics"):
             if key not in rec:
@@ -542,6 +564,125 @@ def check_fleet_records(records, path):
     return problems
 
 
+def _validate_elastic(rec):
+    problems = []
+    for key in ELASTIC_RECORD_KEYS:
+        if key not in rec:
+            problems.append(f"elastic record missing '{key}'")
+    ev = rec.get("event")
+    if ev is not None and ev not in ELASTIC_EVENTS:
+        problems.append(f"unknown elastic event {ev!r} "
+                        f"(expected one of {list(ELASTIC_EVENTS)})")
+    if ev in ("heartbeat_miss", "declared_dead"):
+        if not str(rec.get("host", "")).strip():
+            problems.append(f"elastic {ev} record names no host")
+        mc = rec.get("miss_count")
+        if mc is not None and (not isinstance(mc, int) or mc < 1):
+            problems.append(f"'miss_count' not a positive int: {mc!r}")
+    for key in ("world_from", "world_to"):
+        v = rec.get(key)
+        if v is not None and (not isinstance(v, int) or v < 1):
+            problems.append(f"'{key}' not a positive int: {v!r}")
+    for key in ("layout_from", "layout_to"):
+        v = rec.get(key)
+        if v is None:
+            continue
+        if not isinstance(v, dict) or not v:
+            problems.append(f"'{key}' not a non-empty layout dict: {v!r}")
+            continue
+        for a, n in v.items():
+            if not isinstance(n, int) or n < 1:
+                problems.append(f"'{key}' axis {a!r} size not a positive "
+                                f"int: {n!r}")
+    if ev == "reshard_restore":
+        for key in ("layout_from", "layout_to", "step"):
+            if rec.get(key) is None:
+                problems.append(f"reshard_restore record missing '{key}'")
+    return problems
+
+
+def check_ckpt_records(records, path="ledger"):
+    """Cross-record rules for checkpoint events: per rank, commit steps
+    are monotonic non-decreasing; every commit follows a save event of
+    the same step and rank; a restore or fallback references a step
+    some commit in the ledger landed, when the ledger holds commits."""
+    problems = []
+    last_commit = {}
+    saved = set()
+    committed = set()
+    any_commits = False
+    for i, rec in enumerate(records):
+        if not isinstance(rec, dict) or rec.get("kind") != "ckpt":
+            continue
+        rank = rec.get("rank", 0)
+        step = rec.get("step")
+        event = rec.get("event")
+        if not isinstance(step, (int, float)):
+            continue
+        if event == "save":
+            saved.add((rank, step))
+        elif event == "commit":
+            any_commits = True
+            committed.add((rank, step))
+            if (rank, step) not in saved:
+                problems.append(
+                    f"{path}:{i + 1}: ckpt commit at step {step} "
+                    f"(rank {rank}) with no preceding save event")
+            prev = last_commit.get(rank)
+            if prev is not None and step < prev:
+                problems.append(
+                    f"{path}:{i + 1}: ckpt commit at step {step} after "
+                    f"one at step {prev} (rank {rank}, non-monotonic)")
+            last_commit[rank] = step
+        elif event in ("restore", "fallback") and any_commits and \
+                (rank, step) not in committed:
+            problems.append(
+                f"{path}:{i + 1}: ckpt {event} references step {step} "
+                f"(rank {rank}) that no commit in this ledger landed")
+    return problems
+
+
+def check_elastic_records(records, path="ledger"):
+    """Cross-record rules for elastic events: a declared_dead follows a
+    heartbeat_miss of the same host; a reshard_restore references a
+    step some ckpt commit in the ledger landed, when the ledger holds
+    commits; a relaunch follows a replan."""
+    problems = []
+    missed = set()
+    committed = set()
+    any_commits = any_replan = False
+    for i, rec in enumerate(records):
+        if not isinstance(rec, dict):
+            continue
+        kind = rec.get("kind")
+        if kind == "ckpt" and rec.get("event") == "commit" and \
+                isinstance(rec.get("step"), (int, float)):
+            any_commits = True
+            committed.add(rec["step"])
+            continue
+        if kind != "elastic":
+            continue
+        event, host = rec.get("event"), rec.get("host")
+        if event == "heartbeat_miss":
+            missed.add(host)
+        elif event == "declared_dead" and host not in missed:
+            problems.append(f"{path}:{i + 1}: host {host!r} declared dead "
+                            "with no preceding heartbeat_miss record")
+        elif event == "replan":
+            any_replan = True
+        elif event == "relaunch" and not any_replan:
+            problems.append(f"{path}:{i + 1}: elastic relaunch with no "
+                            "preceding replan record")
+        elif event == "reshard_restore":
+            step = rec.get("step")
+            if any_commits and isinstance(step, (int, float)) and \
+                    step not in committed:
+                problems.append(
+                    f"{path}:{i + 1}: reshard_restore references step "
+                    f"{step} that no ckpt commit in this ledger landed")
+    return problems
+
+
 def check_records(records, path="ledger"):
     """Every rule of this module over one ledger (a list of records,
     e.g. the concatenation of every process's JSONL): per-record schema
@@ -553,6 +694,8 @@ def check_records(records, path="ledger"):
             problems.append(f"{path}:{i + 1}: {p}")
     problems += check_memsnap_records(records, path)
     problems += check_fleet_records(records, path)
+    problems += check_ckpt_records(records, path)
+    problems += check_elastic_records(records, path)
     return problems
 
 

@@ -16,7 +16,11 @@ fields' `MOE_KEYS`; telemetry/recorder.py writes it), the kind=bench
 result (`make_bench_record`, the serving family's names and gate
 directions in `SERVING_BENCH_METRICS`), the kind=phase metric dict
 (`make_phase_record`), the kernel observatory's kind=kernelbench
-measurement (`make_kernelbench_record`), `read_jsonl`, and the Chrome
+measurement (`make_kernelbench_record`), the checkpoint lifecycle's
+kind=ckpt record (`make_ckpt_record`, `CKPT_EVENTS`) and the
+kind=elastic record a cross-layout restore writes
+(`make_elastic_record`, `ELASTIC_EVENTS`) with `emit_record`, their
+sink fallback chain, `read_jsonl`, and the Chrome
 trace export of host spans (`spans_to_trace_events`,
 `export_chrome_tracing`). Same schema version and keys, so
 the JAX package's offline tools read a ledger of either engine; the
@@ -41,7 +45,9 @@ __all__ = ["SCHEMA_VERSION", "STEP_RECORD_KEYS", "STEP_OPTIONAL_KEYS",
            "MEMSNAP_RECORD_KEYS", "MEMSNAP_BUCKETS", "MEMSNAP_EVENTS",
            "make_serving_record", "make_reqtrace_record",
            "make_fleet_record", "make_memsnap_record",
-           "make_compile_record", "JsonlSink"]
+           "make_compile_record", "JsonlSink", "CKPT_RECORD_KEYS",
+           "CKPT_EVENTS", "ELASTIC_RECORD_KEYS", "ELASTIC_EVENTS",
+           "make_ckpt_record", "make_elastic_record", "emit_record"]
 
 # one process-wide atexit hook over weak refs: sinks stay collectable
 # (a per-instance atexit.register would pin every sink + its fd for the
@@ -186,6 +192,109 @@ MEMSNAP_BUCKETS = ("params_bytes", "opt_state_bytes", "kv_bytes",
 # validates both), so an OOM
 # is diagnosable offline from the ledger alone
 MEMSNAP_EVENTS = ("snapshot", "postmortem")
+
+
+# required keys of a checkpoint-event record (resilience.ckpt);
+# optional: save_ms, bytes, op, error, problems, removed, signal
+CKPT_RECORD_KEYS = ("schema", "kind", "rank", "step", "event")
+# the event vocabulary the ledger checks accept
+CKPT_EVENTS = ("save", "commit", "restore", "fallback", "failed", "gc",
+               "preempt")
+
+# required keys of an elastic record (resilience.reshard); optional:
+# host, step, miss_count, detect_s, world_from, world_to, layout_from,
+# layout_to
+ELASTIC_RECORD_KEYS = ("schema", "kind", "rank", "event")
+ELASTIC_EVENTS = ("heartbeat_miss", "declared_dead", "replan",
+                  "reshard_restore", "relaunch")
+
+
+def make_ckpt_record(event, step, rank=0, save_ms=None, bytes=None,  # noqa: A002
+                     **extra):
+    """One checkpoint-lifecycle event as a first-class record
+    (kind='ckpt', resilience.ckpt). `event` is one of CKPT_EVENTS: save
+    (async kickoff), commit (manifest + atomic rename landed), restore,
+    fallback (a corrupt checkpoint was skipped), failed (retries
+    exhausted), gc (retention sweep), preempt (graceful-shutdown
+    checkpoint)."""
+    if event not in CKPT_EVENTS:
+        raise ValueError(f"ckpt event must be one of {CKPT_EVENTS}, "
+                         f"got {event!r}")
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "ckpt",
+        "rank": int(rank),
+        "step": int(step),
+        "event": str(event),
+    }
+    if save_ms is not None:
+        rec["save_ms"] = round(float(save_ms), 4)
+    if bytes is not None:
+        rec["bytes"] = int(bytes)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+def make_elastic_record(event, rank=0, host=None, step=None,
+                        miss_count=None, detect_s=None, world_from=None,
+                        world_to=None, layout_from=None, layout_to=None,
+                        **extra):
+    """One elastic lifecycle event as a first-class record
+    (kind='elastic'). `event` is one of ELASTIC_EVENTS; `layout_from`/
+    `layout_to` are axis dicts (resilience.reshard.normalize_layout
+    canonical form)."""
+    if event not in ELASTIC_EVENTS:
+        raise ValueError(f"elastic event must be one of {ELASTIC_EVENTS}, "
+                         f"got {event!r}")
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "elastic",
+        "rank": int(rank),
+        "event": str(event),
+    }
+    if host is not None:
+        rec["host"] = str(host)
+    if step is not None:
+        rec["step"] = int(step)
+    if miss_count is not None:
+        rec["miss_count"] = int(miss_count)
+    if detect_s is not None:
+        rec["detect_s"] = float(detect_s)
+    if world_from is not None:
+        rec["world_from"] = int(world_from)
+    if world_to is not None:
+        rec["world_to"] = int(world_to)
+    if layout_from is not None:
+        rec["layout_from"] = dict(layout_from)
+    if layout_to is not None:
+        rec["layout_to"] = dict(layout_to)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+def emit_record(rec, *sinks):
+    """Write one record through the sink fallback chain: the first
+    candidate that is not None wins (a sink object, anything with
+    .write, or a path, opened append as a JsonlSink), else the
+    context-active recorder's sink, else the record is returned
+    unwritten."""
+    out = None
+    for s in sinks:
+        if s is None:
+            continue
+        out = JsonlSink(s) if isinstance(s, str) else s
+        break
+    if out is None:
+        from .recorder import current_recorder
+        r = current_recorder()
+        out = r.sink if r is not None else None
+    if out is not None:
+        out.write(rec)
+    return rec
 
 
 def make_serving_record(event, rank=0, rid=None, engine=None,

@@ -70,6 +70,30 @@ package. Jobs:
   sequential train_batch (rank 0 runs it first and leaves its
   parameters in a file), 2 bf16 amp 1F1B steps, one 1F1B step each at 4
   and 16 micro-batches (stage 0's memory).
+- `cpu_zero3` (4 ranks, gloo on the CPU): the tiny GPT for 3 AdamW
+  steps under ZeRO-2 and ZeRO-3 at dp 4 (rank 0 saves both's gathered
+  parameters), ZeRO-1, the offload of stages 1-3 against the same stage
+  without it, ZeRO-3 at dp 2 x mp 2; each step's memory (a rank's
+  parameter storage, ZeRO-3 pieces, state bytes) and the optimizer's
+  state-dict keys; then the checkpoint legs at dp 4 ZeRO-3, dropout 0.1,
+  a save every 2 steps: a baseline of 6 steps, a run with preemption
+  requested on rank 2 alone before step index 2 (every rank stops at
+  the boundary after step 3), its resume in the same processes, and
+  step_4 restored at dp 4 and at dp 2 x mp 2 (every leaf assembled on
+  rank 0 from the pieces the ranks hold against the saved one, then 2
+  steps at dropout 0). Each run's ckpt records go to
+  `<out>/<leg>_<rank>.jsonl`.
+- `zero3_4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width x 8
+  blocks, 4 x 2048 on dp 4: 3 f32 AdamW steps each of ZeRO-2, ZeRO-3,
+  ZeRO-3 offloaded, ZeRO-3 under bf16 amp, and ZeRO-3 at dp 2 x mp 2
+  (rank 0 compares the gathered parameters).
+- `ckpt4` (4 ranks sharing card 0): the checkpoint legs at 1.3B width x
+  4 blocks; the preempted run really exits 102 (every rank saves its
+  record and meets the others first). `ckpt4_resume` (4 ranks) resumes
+  it, then restores step_4 at dp 4; `ckpt2_reshard` (2 ranks, dp 2
+  ZeRO-2) and `ckpt4_reshard` (4 ranks, dp 2 x mp 2 ZeRO-3) restore
+  step_4 under another layout. Their checkpoints live in `ckpt/` beside
+  the jobs' output directories.
 """
 import argparse
 import json
@@ -98,7 +122,10 @@ JOBS = {"cpu": (8, "gloo", 8), "cpu_ep": (4, "gloo", 4),
         "cpu_pp": (4, "gloo", 4), "nccl1": (1, "nccl", 1),
         "gloo_probe": (2, "gloo", 2), "card4": (4, "gloo", 4),
         "card8": (8, "gloo", 8), "ep4": (4, "gloo", 4),
-        "pp4": (4, "gloo", 4)}
+        "pp4": (4, "gloo", 4), "cpu_zero3": (4, "gloo", 4),
+        "zero3_4": (4, "gloo", 4), "ckpt4": (4, "gloo", 4),
+        "ckpt4_resume": (4, "gloo", 4), "ckpt2_reshard": (2, "gloo", 2),
+        "ckpt4_reshard": (4, "gloo", 4)}
 # the probe's collectives, point-to-point last: gloo may write a CUDA
 # pointer as host memory, which aborts the process
 GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_to_all",
@@ -240,7 +267,7 @@ def _launch_counts():
 
 def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
            clip=None, amp_on=False, record_step=None, tag="", mask=None,
-           model_cls=None, sgd_lr=None):
+           model_cls=None, sgd_lr=None, offload=False):
     """Build model_cls(cfg) (default GPTForPretraining) on the rank's
     device (weights from `weights`, else from `seed`), cut it to the
     installed mesh and run `steps` ShardedTrainStep steps on the global
@@ -268,7 +295,8 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
         with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
             return model.loss(i, l, *m)
 
-    step = ShardedTrainStep(model, loss_fn, opt, zero_stage=zero_stage)
+    step = ShardedTrainStep(model, loss_fn, opt, zero_stage=zero_stage,
+                            offload=offload)
     batch = [torch.from_numpy(a).to(r.dev)
              for a in (ids, lbl) + (() if mask is None else (mask,))]
     per = []
@@ -299,9 +327,11 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
             loss = float(step(*batch))
         ms = (time.perf_counter() - t0) * 1e3
         d = {"loss": loss, "ms": ms, "launches": _launch_counts(),
-             "comm": comm_stats()}
+             "comm": comm_stats(), "memory": step.memory()}
         if r.dev.type == "cuda":
             d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if offload:
+                d["offload_ms"] = step.offload_ms()
         per.append(d)
     return step, model, per
 
@@ -317,7 +347,9 @@ def _gpt_case(r, tag, cfg, ids, lbl, zero_stage, steps, save_params,
                               **kw)
     r.rec[tag] = {"losses": [d["loss"] for d in per], "steps": per,
                   "state_bytes": step.state_bytes(),
-                  "coords": r.coords()}
+                  "coords": r.coords(),
+                  "state_dict": sorted(k for k in step.optimizer.state_dict()
+                                       if k != "LR_Scheduler")}
     params = gather_params(model)
     if save_params and r.rank == 0:
         for n, a in params.items():
@@ -992,13 +1024,20 @@ def _cpu_pp_extras(r):
     out["warned"] = [str(w.message) for w in rec
                      if "SEQUENTIAL" in str(w.message)]
     out["warned_loss"] = float(loss)
-    # the options that raise
+    # the options that raise, and resilience, which trains and commits
     errs = r.rec.setdefault("errors", {})
-    for attr in ("lint", "resilience"):
-        p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed))
-        setattr(p2, attr, True)
-        errs[f"pp_{attr}"] = _error(lambda p2=p2: p2.train_batch(
-            (x, y), SGD(parameters=p2.parameters())))
+    p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed))
+    p2.lint = True
+    errs["pp_lint"] = _error(lambda: p2.train_batch(
+        (x, y), SGD(parameters=p2.parameters())))
+    p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed))
+    p2.resilience = {"checkpoint_dir": os.path.join(r.out, "pp_ckpt"),
+                     "save_every": 1, "preempt": False}
+    p2.train_batch((x, y), SGD(parameters=p2.parameters()))
+    res = p2._resilience_manager()
+    res.ckpt.drain()
+    errs["pp_resilience"] = f"accepted: committed {res.ckpt.steps()}"
+    res.close()
     errs["pp_apply_plan"] = _error(lambda: PipelineParallel(
         _pp_model("plain", 8, 1, r.seed)).apply_plan(object()))
     # the functional executors at pp 4 (x, y on every rank)
@@ -1528,6 +1567,356 @@ def _pp4(r):
         os.remove(ref_path)
 
 
+# ---- ZeRO-3, offload and checkpoints ----------------------------------------
+
+# the ZeRO-3 legs, ZERO3_STEPS steps each: (tag, stage, offload, bf16
+# amp); the CPU job runs every stage's offload, the card (whose steps
+# cross the host over gloo, ~4-10 s each) ZeRO-3's alone and bf16
+ZERO3_STEPS = 3
+ZERO3_LEGS = (("z2", 2, False, False), ("z3", 3, False, False),
+              ("z3_off", 3, True, False), ("z1", 1, False, False),
+              ("z1_off", 1, True, False), ("z2_off", 2, True, False),
+              ("z3_bf16", 3, False, True))
+ZERO3_CPU_TAGS = ("z2", "z3", "z3_off", "z1", "z1_off", "z2_off")
+ZERO3_CARD_TAGS = ("z2", "z3", "z3_off", "z3_bf16")
+# the checkpoint legs: a save every `save_every` steps, 2 kept; the
+# preemption requested on rank 2 alone before step index `preempt_at`
+# (every rank stops at the boundary after it); the resumed run's step
+# `from` restored under other layouts and `cont` steps run at dropout 0
+CKPT_KEEP, CKPT_PREEMPT_RANK, CKPT_DROPOUT = 2, 2, 0.1
+# `source` names the run whose step `start` the other layouts restore:
+# on the card the uninterrupted run's, so that the resume and the
+# reshards run side by side
+CKPT_CPU = dict(steps=6, save_every=2, preempt_at=2, start=4, cont=2,
+                source="drill")
+CKPT_CARD = dict(steps=3, save_every=2, preempt_at=0, start=2, cont=2,
+                 source="base")
+# the card's legs: GPT-3 1.3B's width cut to 2 blocks (the distributed
+# phase's card4 depth), one row of 2048 a rank
+ZERO3_CARD_BLOCKS, CKPT_CARD_BLOCKS = 2, 2
+
+
+def ckpt_batch(i, batch, seq, vocab):
+    """Step i's global batch (ids, labels): a function of the step, as
+    a seekable loader's would be."""
+    rs = np.random.RandomState(10_000 + i)
+    return (rs.randint(0, vocab, (batch, seq)).astype(np.int32),
+            rs.randint(0, vocab, (batch, seq)).astype(np.int32))
+
+
+def _pieces(step):
+    """{name: f32 ndarray} of this rank's ZeRO pieces of the parameters
+    (the flat range it owns), copied to the host."""
+    return {pl.name: pl.get().float().cpu().numpy().copy()
+            for pl in step._places(None) if pl.save_flat is not None}
+
+
+def _piece_diff(r, pieces, ref):
+    """(||p - ref|| / ||ref||, max |p - ref|, equal) over every rank's
+    pieces at once (an all-reduce): the numbers a comparison of the
+    gathered parameters gives."""
+    t = r.torch.tensor([sum(float(np.square(pieces[n] - ref[n]).sum())
+                            for n in ref),
+                        sum(float(np.square(ref[n]).sum()) for n in ref),
+                        sum(int((pieces[n] != ref[n]).sum()) for n in ref)],
+                       dtype=r.torch.float64)
+    mx = r.torch.tensor([max(float(np.abs(pieces[n] - ref[n]).max())
+                             for n in ref)], dtype=r.torch.float64)
+    r.coll.all_reduce(t)
+    r.coll.all_reduce(mx, op=r.coll.ReduceOp.MAX)
+    return float(t[0] / t[1]) ** 0.5, float(mx[0]), int(t[2]) == 0
+
+
+def _zero3_cases(r, cfg, ids, lbl, weights=None, card=False):
+    """ZeRO-2 and ZeRO-3 at dp 4, the offloaded stages against the same
+    stage without offload, bf16 amp against f32 (ZERO3_LEGS), then
+    ZeRO-3 at dp 2 x mp 2 against dp 4's losses. Every rank compares
+    its pieces and the sums are all-reduced; on the CPU rank 0 also
+    saves the gathered parameters of z2, z3 and z3_mp."""
+    from ..convert import gather_params
+    r.mesh(dp=4)
+    kept, cmp = {}, {}
+
+    def leg(tag, zero, **kw):
+        step, model, per = _train(r, cfg, ids, lbl, zero, ZERO3_STEPS,
+                                  weights=weights, seed=r.seed, tag=tag, **kw)
+        r.rec[tag] = {"losses": [d["loss"] for d in per], "steps": per,
+                      "state_bytes": step.state_bytes(),
+                      "coords": r.coords(),
+                      "state_dict": sorted(
+                          k for k in step.optimizer.state_dict()
+                          if k != "LR_Scheduler")}
+        if not card and tag in ("z2", "z3", "z3_mp"):
+            params = gather_params(model)
+            if r.rank == 0:
+                for n, a in params.items():
+                    r.arr[f"{tag}/{n}"] = a
+            del params
+        return step
+
+    def loss_rel(tag, base):
+        return [abs(a - b) / abs(b) for a, b in zip(r.rec[tag]["losses"],
+                                                    r.rec[base]["losses"])]
+
+    tags = ZERO3_CARD_TAGS if card else ZERO3_CPU_TAGS
+    for tag, zero, off, amp_on in ZERO3_LEGS:
+        if tag not in tags:
+            continue
+        step = leg(tag, zero, offload=off, amp_on=amp_on)
+        params = _pieces(step)
+        del step
+        base = tag.split("_")[0] if off else (
+            "z3" if tag == "z3_bf16" else "z2" if tag != "z2" else None)
+        if base is not None:
+            rel, mx, equal = _piece_diff(r, params, kept[base])
+            cmp[tag] = {"vs": base, "loss_rel": loss_rel(tag, base),
+                        "rel": rel, "max_abs": mx, "equal": equal}
+        if tag in ("z1", "z2", "z3"):
+            kept[tag] = params
+        del params
+        if card:
+            r.torch.cuda.empty_cache()
+    r.mesh(dp=2, mp=2)
+    leg("z3_mp", 3)
+    cmp["z3_mp"] = {"vs": "z2", "loss_rel": loss_rel("z3_mp", "z2")}
+    if r.rank == 0:
+        r.rec["zero3_cmp"] = cmp
+
+
+def _cpu_zero3(r):
+    from ..models.gpt import GPTConfig
+    cfg = GPTConfig(**TINY)
+    ids, lbl = tiny_batch(r.seed)
+    _zero3_cases(r, cfg, ids, lbl, weights=numpy_weights(cfg, r.seed))
+
+
+def _zero3_card(r):
+    from ..models.gpt import GPTConfig
+    cfg = GPTConfig.gpt3_1_3b(num_layers=ZERO3_CARD_BLOCKS,
+                              max_seq_len=CARD_SEQ, dropout=0.0)
+    ids, lbl = tiny_batch(r.seed, 4, CARD_SEQ, cfg.vocab_size)
+    _zero3_cases(r, cfg, ids, lbl, card=True)
+
+
+def _param_digest(model):
+    """sha256 of the gathered parameters (a collective)."""
+    import hashlib
+    from ..convert import gather_params
+    h = hashlib.sha256()
+    for n, a in sorted(gather_params(model).items()):
+        h.update(n.encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _ckpt_run(r, cfg, zero, ckdir, batch_fn, steps, save_every, weights=None,
+              seed=0, preempt_at=None, resume_step=None, sink=None,
+              after_resume=None):
+    """A ShardedTrainStep(resilience=ResilienceManager(ckdir)) run on the
+    installed mesh: resume (the newest checkpoint, or `resume_step`),
+    then steps up to `steps`, or up to a preemption (requested on rank
+    CKPT_PREEMPT_RANK alone before step index `preempt_at`);
+    `after_resume(manager)` runs between the resume and the first step.
+    -> (record, step, model, manager)."""
+    torch = r.torch
+    from ..convert import shard_jax_params
+    from ..distributed import ShardedTrainStep
+    from ..models.gpt import GPTForPretraining
+    from ..ops.kernel_registry import reset_launches
+    from ..optimizer import AdamW
+    from ..resilience import ResilienceManager
+    model = GPTForPretraining(cfg, device=r.dev, seed=seed)
+    if weights is not None:
+        shard_jax_params(model, weights)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+    res = ResilienceManager(ckdir, save_every=save_every,
+                            keep_last=CKPT_KEEP, sink=sink)
+    step = ShardedTrainStep(model, model.loss, opt, zero_stage=zero,
+                            resilience=res)
+    torch.manual_seed(1234 + r.rank)
+    r.sync()
+    t0 = time.perf_counter()
+    start = res.resume(step=resume_step) or 0
+    rec = {"start": start, "resumed_via": res.resumed_via,
+           "restore_ms": (time.perf_counter() - t0) * 1e3, "losses": {},
+           "ms": [], "in_flight": [], "launches": [], "exit": None}
+    if after_resume is not None:
+        after_resume(res)
+    for i in range(start, steps):
+        if preempt_at == i and r.rank == CKPT_PREEMPT_RANK:
+            res.handler.request()
+        batch = [torch.from_numpy(a).to(r.dev) for a in batch_fn(i)]
+        pend = res.ckpt._pending
+        rec["in_flight"].append(pend is not None and not pend[2].done())
+        r.sync()
+        reset_launches()
+        t1 = time.perf_counter()
+        try:
+            rec["losses"][str(i)] = float(step(*batch))
+        except SystemExit as e:
+            rec["losses"][str(i)] = float(res.last_loss)
+            rec["exit"] = {"code": e.code, "step": res.preempted_at}
+            rec["launches"].append(_launch_counts())
+            break
+        rec["ms"].append((time.perf_counter() - t1) * 1e3)
+        rec["launches"].append(_launch_counts())
+    res.ckpt.drain()
+    rec["records"] = [x for x in res.ckpt.records
+                      if x.get("event") in ("save", "commit", "restore")]
+    rec["steps_on_disk"] = res.ckpt.steps()
+    return rec, step, model, res
+
+
+def _leaves_check(r, res, tag):
+    """Every logical leaf of the restored state against the checkpoint
+    it came from, bit for bit: each rank sends rank 0 the pieces a save
+    would write (`state_leaves`' places), and rank 0 assembles the live
+    leaf from them and the saved one from its files
+    (`assemble_leaf`)."""
+    import torch.distributed as dist
+    from ..distributed.checkpoint import assemble_leaf, state_leaves
+    from ..resilience.ckpt import load_manifest
+    src = res.ckpt.step_dir(res.resumed_from)
+    saved = load_manifest(src)["leaves"]
+    places = sorted(state_leaves(res.ckpt.model, res.ckpt.optimizer),
+                    key=lambda pl: pl.name)
+    bad = []
+    for pl in places:
+        flat = pl.save_flat
+        mine = None
+        if pl.writes and (flat is None or flat[0] < flat[1]):
+            v = pl.get()
+            mine = (pl.piece_meta(r.rank), r.torch.as_tensor(
+                np.array(v) if pl.scalar else v.detach().cpu()))
+        every = [None] * r.rec["world"] if r.rank == 0 else None
+        dist.gather_object(mine, every, dst=0)
+        if r.rank != 0:
+            continue
+        got = [x for x in every if x is not None]
+        metas = [dict(m, file=str(k)) for k, (m, _) in enumerate(got)]
+        live = assemble_leaf(None, {"shape": list(pl.shape),
+                                    "pieces": metas},
+                             load=lambda pc: got[int(pc["file"])][1])
+        meta = saved.get(pl.name)
+        if meta is None or meta["dtype"] != pl.meta()["dtype"] or \
+                not r.torch.equal(live.reshape(pl.shape),
+                                  assemble_leaf(src, meta)):
+            bad.append(pl.name)
+    if r.rank == 0:
+        r.rec[f"{tag}/leaves"] = {"n": len(saved), "checked": len(places),
+                                  "differ": bad[:8], "n_differ": len(bad)}
+
+
+def _ckpt_legs(r, cfg, batch_fn, root, plan, weights=None, real_exit=False):
+    """The baseline run and the run preempted on one rank (both dp 4
+    ZeRO-3); with `real_exit` the preempted run leaves the process with
+    the exit code, else the resume follows in this process."""
+    r.mesh(dp=4)
+    base, _, model, _ = _ckpt_run(
+        r, cfg, 3, os.path.join(root, "base"), batch_fn, plan["steps"],
+        plan["save_every"], weights=weights, seed=r.seed,
+        sink=os.path.join(r.out, f"base_{r.rank}.jsonl"))
+    base["digest"] = _param_digest(model)
+    r.rec["ckpt_base"] = base
+    del model
+    pre, _, _, res = _ckpt_run(
+        r, cfg, 3, os.path.join(root, "drill"), batch_fn, plan["steps"],
+        plan["save_every"], weights=weights, seed=r.seed,
+        preempt_at=plan["preempt_at"],
+        sink=os.path.join(r.out, f"drill_{r.rank}.jsonl"))
+    r.rec["ckpt_preempt"] = pre
+    if real_exit and pre["exit"] is not None:
+        raise SystemExit(pre["exit"]["code"])
+
+
+def _ckpt_resume(r, cfg, batch_fn, root, plan):
+    """Relaunch at the same layout: the stitched losses and the final
+    parameters must be the baseline's."""
+    r.mesh(dp=4)
+    rec, _, model, _ = _ckpt_run(
+        r, cfg, 3, os.path.join(root, "drill"), batch_fn, plan["steps"],
+        plan["save_every"], seed=r.seed + 7,
+        sink=os.path.join(r.out, f"drill_{r.rank}.jsonl"))
+    rec["digest"] = _param_digest(model)
+    r.rec["ckpt_resume"] = rec
+
+
+def _ckpt_reshard(r, cfg0, batch_fn, root, plan, mesh, zero, tag,
+                  check=True):
+    """Resume step plan["start"] of the plan["source"] run under a
+    layout: with `check` every logical leaf bit for bit
+    (`_leaves_check`), then plan["cont"] steps at dropout 0."""
+    r.mesh(**mesh)
+    rec, _, _, res = _ckpt_run(
+        r, cfg0, zero, os.path.join(root, plan["source"]), batch_fn,
+        plan["start"] + plan["cont"], 0, seed=r.seed + 11,
+        resume_step=plan["start"],
+        sink=os.path.join(r.out, f"{tag}_{r.rank}.jsonl"),
+        after_resume=(lambda res: _leaves_check(r, res, tag)) if check
+        else None)
+    rec["elastic"] = [x for x in res.ckpt.records
+                      if x.get("kind") == "elastic"]
+    r.rec[tag] = rec
+
+
+def _cpu_ckpt(r):
+    from ..models.gpt import GPTConfig
+    cfg = GPTConfig(**dict(TINY, dropout=CKPT_DROPOUT))
+    weights = numpy_weights(cfg, r.seed)
+    root = os.path.join(r.out, "ckpt")
+
+    def batch_fn(i):
+        return ckpt_batch(i, TINY_BATCH, TINY_SEQ, TINY["vocab_size"])
+
+    _ckpt_legs(r, cfg, batch_fn, root, CKPT_CPU, weights=weights)
+    _ckpt_resume(r, cfg, batch_fn, root, CKPT_CPU)
+    cfg0 = GPTConfig(**TINY)
+    _ckpt_reshard(r, cfg0, batch_fn, root, CKPT_CPU, {"dp": 4}, 3,
+                  "ckpt_direct")
+    _ckpt_reshard(r, cfg0, batch_fn, root, CKPT_CPU, {"dp": 2, "mp": 2}, 3,
+                  "ckpt_reshard")
+
+
+def _ckpt_card_config(dropout=CKPT_DROPOUT):
+    from ..models.gpt import GPTConfig
+    return GPTConfig.gpt3_1_3b(num_layers=CKPT_CARD_BLOCKS,
+                               max_seq_len=CARD_SEQ, dropout=dropout)
+
+
+def _card_batch_fn(cfg):
+    def batch_fn(i):
+        return ckpt_batch(i, 4, CARD_SEQ, cfg.vocab_size)
+    return batch_fn
+
+
+def _ckpt_root(r):
+    return os.path.join(os.path.dirname(os.path.abspath(r.out)), "ckpt")
+
+
+def _ckpt4(r):
+    cfg = _ckpt_card_config()
+    _ckpt_legs(r, cfg, _card_batch_fn(cfg), _ckpt_root(r), CKPT_CARD,
+               real_exit=True)
+
+
+def _ckpt4_resume(r):
+    cfg = _ckpt_card_config()
+    root = _ckpt_root(r)
+    _ckpt_resume(r, cfg, _card_batch_fn(cfg), root, CKPT_CARD)
+    r.torch.cuda.empty_cache()
+    cfg0 = _ckpt_card_config(0.0)
+    _ckpt_reshard(r, cfg0, _card_batch_fn(cfg0), root, CKPT_CARD,
+                  {"dp": 4}, 3, "ckpt_direct", check=False)
+
+
+def _ckpt_card_reshard(r):
+    cfg0 = _ckpt_card_config(0.0)
+    mesh, zero = ({"dp": 2}, 2) if r.rec["world"] == 2 \
+        else ({"dp": 2, "mp": 2}, 3)
+    _ckpt_reshard(r, cfg0, _card_batch_fn(cfg0), _ckpt_root(r), CKPT_CARD,
+                  mesh, zero, "ckpt_reshard")
+
 CASES = {"cpu": (_cpu_hybrid, _cpu_ops, _cpu_mp_layers, _cpu_collectives,
                  _cpu_topology, _cpu_data_parallel, _cpu_timeout),
          "cpu_ep": (_cpu_ep_values, _cpu_ep_train, _cpu_ep_exchange,
@@ -1535,7 +1924,11 @@ CASES = {"cpu": (_cpu_hybrid, _cpu_ops, _cpu_mp_layers, _cpu_collectives,
          "cpu_pp": (_cpu_pp_train, _cpu_pp_extras),
          "nccl1": (_nccl1,), "gloo_probe": (_gloo_probe,),
          "card4": (_card4,), "card8": (_card8,), "ep4": (_ep4,),
-         "pp4": (_pp4,)}
+         "pp4": (_pp4,), "cpu_zero3": (_cpu_zero3, _cpu_ckpt),
+         "zero3_4": (_zero3_card,), "ckpt4": (_ckpt4,),
+         "ckpt4_resume": (_ckpt4_resume,),
+         "ckpt2_reshard": (_ckpt_card_reshard,),
+         "ckpt4_reshard": (_ckpt_card_reshard,)}
 
 
 def worker(job, out, seed):
@@ -1546,6 +1939,14 @@ def worker(job, out, seed):
             case(r)
             r.rec.setdefault("case_s", {})[case.__name__] = \
                 time.perf_counter() - t0
+    except SystemExit as e:
+        # a graceful preemption exit (ckpt4): every rank saves its record,
+        # meets the others, then leaves with the code
+        r.rec["exit_code"] = e.code
+        r.save()
+        r.coll.barrier()
+        sys.stdout.flush()
+        os._exit(int(e.code))
     except BaseException:
         r.rec["error"] = traceback.format_exc()
         r.save()

@@ -39,6 +39,18 @@ from paddle_tpu_torch.ops.fused_ce import (_pick_chunks,
                                            fused_linear_cross_entropy)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_mesh():
+    """The JAX references run on one device with no mesh; a JAX test
+    file run earlier in this worker may have left its global mesh
+    installed (`--dist loadfile`)."""
+    from paddle_tpu.distributed import env as jax_env
+    prev = jax_env.current_mesh()
+    jax_env.set_mesh(None)
+    yield
+    jax_env.set_mesh(prev)
+
+
 def _inputs(n, d, v, seed=0, bad=True):
     rs = np.random.RandomState(seed)
     h = rs.randn(n, d).astype(np.float32)

@@ -20,6 +20,18 @@ _MODEL = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
               max_seq_len=128, dropout=0.0, initializer_range=0.2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_mesh():
+    """The JAX references run on one device with no mesh; a JAX test
+    file run earlier in this worker may have left its global mesh
+    installed (`--dist loadfile`)."""
+    from paddle_tpu.distributed import env as jax_env
+    prev = jax_env.current_mesh()
+    jax_env.set_mesh(None)
+    yield
+    jax_env.set_mesh(prev)
+
+
 @pytest.fixture(scope="module")
 def models():
     paddle.seed(5)

@@ -374,6 +374,10 @@ def test_fleet_wraps_a_pipeline_layer(run):
                                        ("pp_apply_plan", "6.4")])
 def test_unported_options_raise(run, case, item):
     msg = _rec(run, 0)["errors"][case]
+    if case == "pp_resilience":
+        # ported since: a checkpoint directory trains and commits a step
+        assert msg == "accepted: committed [1]"
+        return
     assert msg.startswith("NotImplementedError") and f"item {item}" in msg
 
 
