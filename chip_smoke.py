@@ -258,10 +258,11 @@ ok line):
              `generation.release` frees;
 5b. serve 13B — tools/serve_13b_w8a16.py's recipe through the port's
              `paddle_tpu_torch.tools.serve_13b_w8a16`: GPT-3 13B (40
-             layers, hidden 5120, 40 heads of 128, vocab 50304) built
-             in f32 on the host a piece at a time from --seed (init
-             0.02), every linear quantized to int8 on the host, floats
-             cast to bf16, ~12.2 GiB moved to the card; greedy
+             layers, hidden 5120, 40 heads of 128, vocab 50304) drawn
+             in f32 on the card a piece at a time from a CUDA generator
+             seeded with --seed (init 0.02), every linear quantized to
+             int8 there, floats cast to bf16 (a serving set of ~12.2
+             GiB); greedy
              `generate` at batch 1, 64 prompt tokens from
              RandomState(--seed), 64 new, a warm and a timed call. The
              card holds no f32 linear; the serving set's bytes, the
@@ -295,7 +296,7 @@ ok line):
              128 rows of 768 in bf16 against their plain versions
              (the gather bit for bit), timed;
 6. train   — GPT-3 125M at full width (seed 0, init 0.02) through
-             TrainStep with AdamW(1e-4, weight decay 0.01): first 3 steps
+             TrainStep with AdamW(1e-4, weight decay 0.01): first 2 steps
              in f32 at batch 2, seq 256 on the card and on the CPU (plain
              versions) from the same weights, losses within 1e-4
              relative; then the training shape of the JAX package's
@@ -306,7 +307,7 @@ ok line):
 7. moe train — the JAX bench's moe_train: GPT-3 125M with every MLP an
              8-expert top-2 MoEFFN at capacity factor 1.25 (GPTMoE, seed
              0, init 0.02), TrainStep with AdamW(1e-4, weight decay 0.01)
-             over GPTMoE.loss (LM + aux + z). First 3 f32 steps at full
+             over GPTMoE.loss (LM + aux + z). First 2 f32 steps at full
              width but 2 layers, batch 2, seq 256, on the card and on the
              CPU from the same weights: losses within 1e-4 relative, the
              tokens whose routing map differs printed (expected 0). Then
@@ -319,14 +320,14 @@ ok line):
              in the f32 steps too), a 3-step profile and the MoE
              regions timed alone;
 8. train options — one GPT-3 1.3B-width block (b 1, s 256; loss the
-             mean square of its output) for 3 steps on the card and on
+             mean square of its output) for 2 steps on the card and on
              the CPU from the same weights, losses within 1e-4
              relative: Momentum with a global-norm clip (1.0) and a
              warm-up into a cosine schedule, in f32; AdamW over bf16
              parameters with f32 masters; Adamax, Adagrad, Adadelta,
              RMSProp (centered, momentum), Lamb (biases and LayerNorms
              excluded by name), LarsMomentum and DGCMomentum (Nesterov,
-             sparse from step 2) in f32, Lamb and Adamax over bf16
+             sparse from the second step) in f32, Lamb and Adamax over bf16
              parameters; 4 eager steps of Lookahead(Momentum, k 2) with
              an EMA and of GradientMerge(AdamW, k 2) with a ModelAverage,
              whose apply() losses agree too and whose restore() gives
@@ -347,20 +348,20 @@ ok line):
              steps: tokens/s, MFU (the bench's 6 layer_params + 12 h seq
              FLOPs a token over 989 TFLOP/s), step ms, peak memory; one
              launch of each training kernel a step;
-10. train 1.3B full — the JAX bench's gpt1_3b_full with nothing cut in
-             width or depth: GPT-3 1.3B (24 layers, seq 2048, remat,
+10. train 1.3B full — the JAX bench's gpt1_3b_full at its width:
+             GPT-3 1.3B (12 of its 24 layers, seq 2048, remat,
              use_fused_ce, bf16 amp), OffloadTrainStep with bf16
              parameters and AdamW(1e-4, wd 0.01) whose f32 masters and
              moments sit in pinned host memory, micro-batch 16 x 2048
-             and the bench's K 16; cut: 1 warm + 1 timed round (the
-             bench's 2 + 2). First /proc/meminfo's MemTotal and
-             MemAvailable (under 24 GB available fails). Reports
-             tokens/s and MFU, micro-step and update-round ms (and the
-             update's share of a round), the update's copy bytes and
-             rate, peak device memory, pinned
+             and the bench's K 16; cut: 12 layers and 1 warm + 1 timed
+             round (the bench's 24 and 2 + 2). First /proc/meminfo's
+             MemTotal and MemAvailable (under 16 GB available fails).
+             Reports tokens/s and MFU, micro-step and update-round ms
+             (and the update's share of a round), the update's copy
+             bytes and rate, peak device memory, pinned
              bytes and every round's losses (finite); each micro-step
-             launches exactly 48 flash_fwd (24 + 24 recomputed), 24
-             flash_bwd and 48 layernorm_fwd_saved (each writing the
+             launches exactly 24 flash_fwd (12 + 12 recomputed), 12
+             flash_bwd and 24 layernorm_fwd_saved (each writing the
              bf16 carry: one device launch a residual site). Then the
              bench's seq-4096 point the same way: max_seq_len 4096,
              micro-batch 8 x 4096 and the bench's K 8, 1 warm + 1 timed
@@ -387,7 +388,7 @@ ok line):
              build/chip_smoke/) passes the port's validator;
 12. health — `TrainStep(health=)` and the telemetry runtime: the taps
              (grad norm over the raw grads, update ratio, NaN/Inf
-             counts, loss) of 3 f32 AdamW steps at b 2, s 256, full
+             counts, loss) of 2 f32 AdamW steps at b 2, s 256, full
              width, card against CPU within 1e-4 relative; at the train
              shape (24 x 1024, bf16 amp) ms a step and peak memory with
              taps off, at every_k 4 and at every_k 1, then 12 steps at
@@ -419,10 +420,16 @@ ok line):
              against jit.TrainStep in f32); GPT-3 1.3B's width (2 layers
              of 24 cut, seq 2048, batch 2) on mp 2 x sp 2 as 4 gloo ranks
              sharing the card (after 2 ranks probe which gloo collectives
-             take a CUDA tensor themselves: 3 f32 AdamW steps with ring and with Ulysses
-             attention, within 1e-4 relative of the same model's
-             one-process jit.TrainStep here, 3 bf16-amp ring steps within
-             2e-2 of f32, each rank's launches a step exact: K6 one a
+             take a CUDA tensor themselves: f32 AdamW steps with ring
+             (3) and with Ulysses attention (2), within 1e-4 relative
+             of the same model's 2 one-process jit.TrainStep steps
+             here, 2 bf16-amp ring steps within 2e-2 of f32, 3 f32 ring
+             steps with the loss under use_fused_ce (the fused CE over
+             each rank's half of the vocab-parallel table) within 1e-5
+             of the unfused ring steps' losses with a lower forward
+             peak on every rank
+             (the step's peak lies in the AdamW update), each
+             rank's launches a step exact: K6 one a
              layer, K1/K2 and K3-K5 (i + 1) a layer on ring rank i and one
              a layer under Ulysses); the bench's ringattn_128k over sp 4
              (its out and dx held per head row against one K1/K3 run of
@@ -432,7 +439,7 @@ ok line):
              optimizer states half of ZeRO-0's); expert parallelism
              (`ep4`, 4 ranks): GPT-MoE at the bench's width (d 768, E
              8, top-2, 2 layers, 8 x 1024) on ep 4, dp 2 x ep 2 and ep
-             2 x mp 2, 3 dropless f32 SGD steps within 1e-5 relative
+             2 x mp 2, 2 dropless f32 SGD steps within 1e-5 relative
              of the one-process jit.TrainStep (losses and every
              parameter), capacity-bound moe_ffn_values (cf 1.25) per
              rank within 1e-5 of its blocks run alone, bf16 amp
@@ -444,21 +451,44 @@ ok line):
              of the one-process sequential train_batch (losses and
              each stage's parameters), bf16 1F1B within 5e-3, stage
              0's peak at 16 micro-batches within 5 % of its peak at 8
-             (4 printed), K1/K3/K6
-             launches exact (the rank's blocks x micro-batches). Times
+             (4 printed), 1F1B at pp 4 and pp 2 x mp 2 under
+             ClipGradByNorm with the health taps at every_k 1, 2 SGD
+             steps within 1e-5 (losses) and 1e-4 (parameters) of the
+             sequential run with the same clip, which must differ from
+             the unclipped run, the taps within 1e-5 of its taps, K1/K3/K6
+             launches exact (the rank's blocks x micro-batches); then
+             GPipe (`pipeline_apply`) forward and backward through the
+             8 blocks stacked at pp 4: rank 2's gradients of the stack
+             and of x within 1e-5 of its one-process gradient, every
+             rank's the same, K1 twice and K3, K6 and K7 once a block
+             a micro-batch (K7 in the forward, which keeps no graph).
+             Times
              are of ranks sharing one card over gloo, not scaling
              figures.
 15. resilience — ZeRO-3, offload and checkpoints, as rank processes
-             (`tools/dist_drill.py` jobs) beside the chaos drill; in a
-             full run on a thread beside the 13B phase's host build
-             (joined before its first decode; the smoke's 1200 s do
-             not hold the two in turn):
+             (`tools/dist_drill.py` jobs) beside the chaos drill, in
+             turn after the 13B phase:
              `zero3_4` (4 ranks): GPT-3 1.3B's width x 2 blocks, 4 x
-             2048 on dp 4, f32 AdamW, 3 steps a leg: ZeRO-2 and ZeRO-3
-             (every rank's pieces compared, the sums all-reduced,
-             within 1e-6 relative), ZeRO-3 offloaded (bit for bit),
-             bf16 amp (losses within 2e-2), dp 2 x mp 2 (losses within
-             1e-5); between steps each rank's parameter storage is
+             2048 on dp 4, f32 AdamW, ZeRO-3 3 steps and ZeRO-2 2
+             (every rank's pieces compared with ZeRO-3's after 2
+             steps, the sums all-reduced, within 1e-6 relative),
+             ZeRO-3 offloaded, 2 steps (bit for bit), bf16 amp, 2
+             steps (losses within 2e-2), ZeRO-3 with remat, 3 steps
+             (within 1e-6 of ZeRO-3, the same all_gather bytes a step,
+             K1 and K6 twice a block; torch._dynamo's import, which
+             torch.utils.checkpoint's first call makes, timed before
+             it), ZeRO-3 with the health taps at every_k 1, 3 steps
+             (each step's stats within 1e-5 of `jit.TrainStep
+             (health=)` run first on rank 0, counts equal), dp 2 x mp
+             2 with the taps, 2 steps (losses within 1e-5, taps within
+             1e-5); each leg's model collected before the next is
+             built, and the three f32 ZeRO-3 legs' steps start from
+             the same memory (within 16 MiB: nothing of an earlier leg
+             left), remat's step peak below ZeRO-3's and the taps' at
+             most ZeRO-3's plus their copy, on every rank (each rank's
+             step peak, start, what the forward keeps and its peak,
+             and the taps' bytes printed);
+             between steps each rank's parameter storage is
              exactly its pieces and its states twice that (0 on the
              device and all pinned under offload); rank 0's peak under
              ZeRO-3 below ZeRO-2's; K1/K3/K6 2 a rank a step. The ckpt
@@ -525,7 +555,7 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core bf16
 # training shape of GPT-3 125M (the JAX package's gpt_train_bench)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 24, 1024, 3, 10
 # f32 parity of the training step, card against CPU
-PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_RTOL = 2, 256, 3, 1e-4
+PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_RTOL = 2, 256, 2, 1e-4
 # flash checks: (batch, sq, sk, heads, head_dim, causal)
 # (1, 130, 190): the forward's last key tile is partial (190 = 2 x 64 +
 # 62) and so is its last query tile
@@ -3299,14 +3329,17 @@ OPT_SEQ, OPT_STEPS = 256, 3
 LAYER_BATCH, LAYER_SEQ, LAYER_WARMUP, LAYER_STEPS = 8, 2048, 3, 15
 # the bench's gpt1_3b_full (bench.py:538-630) by sequence length:
 # (micro-batch, K), the bench's own (16 at 2048, 8 at 4096); both cut the
-# bench's 2 warm + 2 timed rounds to 1 + 1
+# bench's 2 warm + 2 timed rounds to 1 + 1, and its 24 layers to
+# FULL_LAYERS (the smoke's time limit)
 FULL_RUNS = {2048: (16, 16), 4096: (8, 8)}
 FULL_WARM_ROUNDS = 1
-FULL_MIN_HOST_GB = 24       # the pinned f32 master + moments: ~15.8 GB
-# micro-step launches of the 24-layer remat step: the forward and its
-# recomputation each run flash_fwd and the add + LayerNorm site
-FULL_MICRO_LAUNCHES = {"flash_fwd": 48, "flash_bwd": 24,
-                       "layernorm_fwd_saved": 48}
+FULL_LAYERS = 12
+FULL_MIN_HOST_GB = 16       # the pinned f32 master + moments: ~8.5 GB
+# micro-step launches of the remat step: the forward and its
+# recomputation each run flash_fwd and the add + LayerNorm site a layer
+FULL_MICRO_LAUNCHES = {"flash_fwd": 2 * FULL_LAYERS,
+                       "flash_bwd": FULL_LAYERS,
+                       "layernorm_fwd_saved": 2 * FULL_LAYERS}
 
 
 def kernel_line(row):
@@ -3572,12 +3605,12 @@ def options_optimizer(name, block):
 # (recipe, parameter dtype, steps) of the block runs: the wrappers step
 # eagerly 4 times, so that each updates (or syncs) twice; EMA rides on
 # the Lookahead run and ModelAverage on the GradientMerge run
-OPTION_RUNS = (("momentum", "float32", 3), ("adamw", "bfloat16", 3),
-               ("adamax", "float32", 3), ("adagrad", "float32", 3),
-               ("adadelta", "float32", 3), ("rmsprop", "float32", 3),
-               ("lamb", "float32", 3), ("lars", "float32", 3),
-               ("dgc", "float32", 3), ("lamb", "bfloat16", 3),
-               ("adamax", "bfloat16", 3), ("lookahead", "float32", 4),
+OPTION_RUNS = (("momentum", "float32", 2), ("adamw", "bfloat16", 2),
+               ("adamax", "float32", 2), ("adagrad", "float32", 2),
+               ("adadelta", "float32", 2), ("rmsprop", "float32", 2),
+               ("lamb", "float32", 2), ("lars", "float32", 2),
+               ("dgc", "float32", 2), ("lamb", "bfloat16", 2),
+               ("adamax", "bfloat16", 2), ("lookahead", "float32", 4),
                ("gradient_merge", "float32", 4))
 
 
@@ -3885,8 +3918,9 @@ def host_memory_gb():
 
 
 def train_1_3b_full_phase(torch, seed, seq=2048):
-    """The bench's gpt1_3b_full with nothing cut in width or depth:
-    gpt3_1_3b(max_seq_len=seq, remat=True), use_fused_ce, bf16 amp,
+    """The bench's gpt1_3b_full at its width, FULL_LAYERS of its 24
+    layers: gpt3_1_3b(max_seq_len=seq, num_layers=FULL_LAYERS,
+    remat=True), use_fused_ce, bf16 amp,
     OffloadTrainStep(param_dtype="bfloat16") with AdamW(1e-4, wd 0.01,
     f32 masters and moments in pinned host memory), micro-batch and K
     from FULL_RUNS (the bench's: 16 x 2048 with K 16, 8 x 4096 with K
@@ -3912,9 +3946,10 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
     if avail < FULL_MIN_HOST_GB:
         raise AssertionError(f"{what}: {avail:.1f} GB of host "
                              f"memory available, the pinned states need "
-                             f"~16 GB (at least {FULL_MIN_HOST_GB} GB asked)")
-    cfg = GPTConfig.gpt3_1_3b(max_seq_len=seq, dropout=0.0,
-                              attn_dropout=0.0, remat=True)
+                             f"~8.5 GB (at least {FULL_MIN_HOST_GB} GB "
+                             "asked)")
+    cfg = GPTConfig.gpt3_1_3b(max_seq_len=seq, num_layers=FULL_LAYERS,
+                              dropout=0.0, attn_dropout=0.0, remat=True)
     model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
@@ -3975,8 +4010,9 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
         warm_round_s=warm_s, losses_warm=warm, losses=losses,
         host_mem_total_gb=total, host_mem_available_gb=avail,
         launches=launches)
-    print(f"{what}[remat, fused CE, bf16 params, offloaded AdamW, "
-          f"K={K} x {batch}x{seq}] on {card_line()}: "
+    print(f"{what}[{FULL_LAYERS} of 24 layers, remat, fused CE, bf16 "
+          f"params, offloaded AdamW, K={K} x {batch}x{seq}] on "
+          f"{card_line()}: "
           + json.dumps(stats))
     want = {k: K * FULL_MICRO_LAUNCHES.get(k, 0) for k in launches}
     if launches != want:
@@ -4352,11 +4388,11 @@ def kernels_13b_phase(torch, seed):
     return rows
 
 
-def serve_13b_phase(torch, seed, after_build=None):
+def serve_13b_phase(torch, seed):
     """tools/serve_13b_w8a16.py's recipe through the port's entry point
-    (`paddle_tpu_torch.tools.serve_13b_w8a16`): GPT-3 13B built on the
-    host a piece at a time in f32, its linears quantized there, floats
-    cast to bf16, moved to the card; then greedy `generate` at batch 1,
+    (`paddle_tpu_torch.tools.serve_13b_w8a16`): GPT-3 13B drawn on the
+    card a piece at a time in f32, its linears quantized there, floats
+    cast to bf16; then greedy `generate` at batch 1,
     a 64-token prompt from RandomState(seed), 64 new tokens, a warm call
     (the capture) and a timed call. Checks: the card holds no f32 linear
     (every linear int8, every parameter bf16, the f32 buffers only the
@@ -4369,10 +4405,7 @@ def serve_13b_phase(torch, seed, after_build=None):
     dequantized in f32): the f32 argmax at >= TF_AGREE of positions,
     never trailing by more than TF_MARGIN_STD; what generate keeps after
     a call and what `generation.release` frees; then the depth witness
-    (witness_13b). `after_build()` runs once the model is on the card,
-    before any decode (the smoke joins there the resilience phase, which
-    runs beside the host build: the f32 teacher forcing takes ~50 GB of
-    the card, and the timed call is then alone on it)."""
+    (witness_13b)."""
     import gc
     from paddle_tpu_torch import generation
     from paddle_tpu_torch.ops.kernel_registry import kernels, reset_launches
@@ -4388,8 +4421,6 @@ def serve_13b_phase(torch, seed, after_build=None):
     t0 = time.perf_counter()
     model, secs = build_w8a16(cfg, seed=seed, device=DEVICE)
     secs["total"] = time.perf_counter() - t0
-    if after_build is not None:
-        after_build()
     torch.cuda.synchronize()
     device_bytes = torch.cuda.memory_allocated() - base
     set_bytes = serving_bytes(model)
@@ -4929,7 +4960,7 @@ HEALTH_DEADLINE_S, HEALTH_STALL_S = 1.0, 3.0
 
 def health_phase(torch, seed):
     """TrainStep(health=) and the telemetry runtime on the card: the taps
-    of 3 f32 AdamW steps (the train phase's card-vs-CPU check: b 2, s
+    of 2 f32 AdamW steps (the train phase's card-vs-CPU check: b 2, s
     256, full width) against the CPU's, to 1e-4 relative; at the train
     shape under bf16 amp, ms a step with taps off, at every_k 4 and at
     every_k 1 (and the peak memory each: the pre-update copy), then 12
@@ -5211,7 +5242,7 @@ DIST_RTOL = 1e-4                    # the train phase's card-vs-CPU bar
 DIST_BF16_ATOL = 2e-2
 DIST_128K_TOL = 2e-2
 DIST_TIMEOUT_S = {"nccl1": 240, "gloo_probe": 90, "card4": 420,
-                  "card8": 300, "ep4": 420, "pp4": 420}
+                  "card8": 300, "ep4": 420, "pp4": 600}
 # the ep and pp legs: f32 SGD parameters and losses against the
 # one-process run (Adam's update is blind to a gradient's scale), bf16
 # losses against f32, capacity-bound MoE values against the block-by-
@@ -5220,6 +5251,7 @@ DIST_EP_PP_RTOL = 1e-5
 DIST_EP_PP_BF16_ATOL = 5e-3
 DIST_EP_BOUND_RTOL = 1e-5
 DIST_PP_MEM_GROWTH = 0.05
+DIST_PP_CLIP_PARAM_RTOL = 1e-4      # the clipped runs' parameters
 
 
 def dist_train_launches(launches, layers, sp_index, mode):
@@ -5341,7 +5373,7 @@ def distributed_phase(torch, seed):
                      DIST_TIMEOUT_S["card4"])
     job_s["card4"] = time.perf_counter() - t0
     runs = {}
-    for tag in ("ring_f32", "ulysses_f32", "ring_bf16"):
+    for tag in ("ring_f32", "ulysses_f32", "ring_bf16", "ring_fce_f32"):
         mode = tag.split("_")[0]
         losses = [res[k][0][tag]["losses"] for k in res]
         if any(l != losses[0] for l in losses):
@@ -5388,6 +5420,30 @@ def distributed_phase(torch, seed):
         print(f"distributed: {tag}, GPT-3 1.3B width x {DIST_LAYERS} "
               f"layers, mp 2 x sp 2, 4 ranks sharing one card, gloo, on "
               f"{card}: " + json.dumps(runs[tag]))
+    # the fused CE over mp: the unfused ring step's losses, and a lower
+    # peak in the forward, where no rank holds [tokens, vocab / mp]
+    # logits (the step's peak lies in the AdamW update, the same in both)
+    fce, base = runs["ring_fce_f32"], runs["ring_f32"]
+    fce["vs_unfused"] = _rel_max(fce["losses"], base["losses"])
+    fwd = {t: [max(st["forward_peak_gb"] for st in rk[t]["steps"])
+               for rk, _ in res.values()] for t in ("ring_f32",
+                                                    "ring_fce_f32")}
+    fce["forward_peak_gb"] = fwd["ring_fce_f32"]
+    fce["forward_peak_saved_gb"] = [b - a for a, b in zip(
+        fwd["ring_fce_f32"], fwd["ring_f32"])]
+    fce["step_peak_saved_gb"] = [b - a for a, b in zip(
+        fce["peak_mem_gb"], base["peak_mem_gb"])]
+    print(f"distributed: use_fused_ce over mp 2 against the unfused ring "
+          f"step on {card}: " + json.dumps(
+              {k: fce[k] for k in ("vs_unfused", "forward_peak_gb",
+                                   "forward_peak_saved_gb",
+                                   "step_peak_saved_gb")}))
+    if not (fce["vs_unfused"] <= DIST_EP_PP_RTOL
+            and min(fce["forward_peak_saved_gb"]) > 0):
+        raise AssertionError(f"distributed ring_fce_f32: losses "
+                             f"{fce['losses']} vs unfused {base['losses']}, "
+                             f"forward peak saved "
+                             f"{fce['forward_peak_saved_gb']} GB")
     runs["one_process_losses"] = ref
     runs["reference_s"] = ref_s
     # the 128k ring leg against the one-process run
@@ -5565,10 +5621,16 @@ def check_pp4(res, add, card):
     PipelineLayer (tied embedding, 8 blocks, final LN, tied head),
     micro-batch 1 x 2048."""
     from paddle_tpu_torch.tools import dist_drill as dd
-    ref = res[0][0]["pp4/reference"]["losses"]
-    out = {"one_process_losses": ref}
-    for tag, sizes, vpp, amp_on, acc, steps in dd.PP_CARD_RUNS:
+    refs = {False: res[0][0]["pp4/reference"],
+            True: res[1][0]["pp4/reference_clip"]}
+    out = {"one_process_losses": refs[False]["losses"],
+           "one_process_clip": refs[True]}
+    if not refs[True]["tensors_changed"] > 0:
+        raise AssertionError(f"distributed pp4: ClipGradByNorm("
+                             f"{dd.PP_CARD_CLIP}) scaled no gradient")
+    for tag, sizes, vpp, amp_on, acc, steps, clip in dd.PP_CARD_RUNS:
         key = f"pp4/{tag}"
+        ref = refs[clip]["losses"]
         got = _same_losses("distributed", res, key)
         for k, (rk, _) in res.items():
             r = rk[key]
@@ -5595,9 +5657,19 @@ def check_pp4(res, add, card):
                    for k, (rk, _) in res.items()}
             worst = max(p["max"] for p in prm.values())
             row.update(vs_one_process=rel, param_rel=prm)
-            if not (rel <= DIST_EP_PP_RTOL and worst <= DIST_EP_PP_RTOL):
+            bar = DIST_PP_CLIP_PARAM_RTOL if clip else DIST_EP_PP_RTOL
+            if not (rel <= DIST_EP_PP_RTOL and worst <= bar):
                 bad = (f"losses {got} vs one process {ref} ({rel:.2e}), "
                        f"parameters {prm}")
+            if clip:
+                taps = [[st["health"] for st in rk[key]["steps"]]
+                        for rk, _ in res.values()]
+                row["health"] = taps[0]
+                found = [f for t in taps for f in health_mismatch(
+                    f"{key} taps", t, refs[True]["health"],
+                    RES_HEALTH_RTOL)]
+                if found:
+                    bad = "; ".join(found)
         out[key] = row
         print(f"distributed: {key}, GPT-3 1.3B width x "
               f"{dd.PP_CARD_BLOCKS} blocks, {acc} micro-batches of 1 x "
@@ -5623,15 +5695,43 @@ def check_pp4(res, add, card):
     if not growth <= DIST_PP_MEM_GROWTH:
         raise AssertionError(f"distributed pp4: stage 0's peak grew "
                              f"{growth:.3f} from 8 to 16 micro-batches")
+    # GPipe's backward: every rank's whole gradient, rank 2's against the
+    # one-process gradient; K1 twice a block a micro-batch (the forward,
+    # without a graph, and the backward's rerun), K7 in the forward's
+    # add + LN and K6 in the rerun's, K3 once
+    g = {k: rk["pp4/gpipe"] for k, (rk, _) in res.items()}
+    n = dd.PP_CARD_BLOCKS // 4 * dd.PP_CARD_ACC
+    for k, gk in g.items():
+        want = {name: 0 for name in gk["launches"]}
+        want.update(flash_fwd=2 * n, flash_bwd=n, layernorm_fwd_saved=n,
+                    layernorm_fused=n)
+        if gk["launches"] != want:
+            raise AssertionError(f"distributed pp4 gpipe: rank {k} launches "
+                                 f"{gk['launches']} != {want}")
+        add(gk["launches"])
+    rel = g[2]["grad_rel"]      # rank 2 holds the one-process gradient
+    out["gpipe"] = {"grad_rel": rel,
+                    "ms": [round(gk["ms"], 1) for gk in g.values()],
+                    "peak_gb": [gk["peak_mem_gb"] for gk in g.values()],
+                    "fingerprints": [gk["fingerprint"] for gk in g.values()]}
+    print(f"distributed: pp4 GPipe forward + backward, GPT-3 1.3B width x "
+          f"{dd.PP_CARD_BLOCKS} blocks stacked, {dd.PP_CARD_ACC} "
+          f"micro-batches of 1 x {dd.CARD_SEQ}, pp 4 (4 ranks sharing one "
+          f"card, gloo), on {card}: " + json.dumps(out["gpipe"]))
+    if not (rel["max"] <= DIST_EP_PP_RTOL and len(
+            set(out["gpipe"]["fingerprints"])) == 1):
+        raise AssertionError(f"distributed pp4 gpipe: {out['gpipe']}")
     return out
 
 
 # the resilience phase's jobs (tools/dist_drill.py) and their limits
-RES_TIMEOUT_S = {"zero3_4": 300, "ckpt4": 240, "ckpt4_resume": 240,
+RES_TIMEOUT_S = {"zero3_4": 420, "ckpt4": 240, "ckpt4_resume": 240,
                  "ckpt2_reshard": 180, "ckpt4_reshard": 180}
 RES_ZERO_RTOL = 1e-6        # ZeRO-3 against ZeRO-2 (PR 18's ZeRO bar)
 RES_BF16_RTOL = 2e-2        # bf16 amp losses against f32
 RES_MESH_RTOL = 1e-5        # dp 2 x mp 2 against dp 4; the continuation
+RES_HEALTH_RTOL = 1e-5      # the sharded taps against jit.TrainStep's
+RES_MEM_TOL_GB = 1 / 64     # 16 MiB: the allocator's rounding
 RES_TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
 CHAOS_TIMEOUT_S = 420
 
@@ -5649,9 +5749,29 @@ def zero3_pieces(cfg, dp, rank):
     return out
 
 
-def check_step_launches(what, launches, blocks):
-    """K1, K3 and K6 once a block a rank a step; no other kernel."""
-    want = {k: (blocks if k in RES_TRAIN_KERNELS else 0) for k in launches}
+def health_mismatch(what, got, want, rtol):
+    """The findings of holding health stats, step by step, against a
+    reference's: the gradient norm, the update ratio and the loss within
+    `rtol` relative, the NaN and Inf counts equal."""
+    bad = []
+    if len(got) != len(want):
+        return [f"{what}: {len(got)} steps against {len(want)}"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("grad_norm", "update_ratio", "loss"):
+            if not abs(g[k] - w[k]) <= rtol * abs(w[k]):
+                bad.append(f"{what} step {i}: {k} {g[k]!r} against "
+                           f"{w[k]!r}")
+        if (g["nan_count"], g["inf_count"]) != (w["nan_count"],
+                                                w["inf_count"]):
+            bad.append(f"{what} step {i}: counts {g} against {w}")
+    return bad
+
+
+def check_step_launches(what, launches, blocks, remat=False):
+    """K1, K3 and K6 once a block a rank a step (with `remat` K1 and K6
+    twice: the forward and the backward's rerun); no other kernel."""
+    want = {k: (blocks * (2 if remat and k != "flash_bwd" else 1)
+                if k in RES_TRAIN_KERNELS else 0) for k in launches}
     if launches != want:
         raise AssertionError(f"resilience {what}: launches {launches} != "
                              f"{want}")
@@ -5710,19 +5830,21 @@ def resilience_phase(torch, seed):
                 cwd=ROOT, env=env, stdout=out, stderr=err,
                 start_new_session=True)
 
-        # 1. zero3_4: ZeRO-2, ZeRO-3, offload, bf16 and dp 2 x mp 2
+        # 1. zero3_4: ZeRO-2, ZeRO-3, offload, bf16, remat, the health
+        # taps and dp 2 x mp 2
         res, _ = run("zero3_4")
         cfg = GPTConfig.gpt3_1_3b(num_layers=dd.ZERO3_CARD_BLOCKS,
                                   max_seq_len=dd.CARD_SEQ, dropout=0.0)
         cmp = res[0][0]["zero3_cmp"]
-        tags = ("z2", "z3", "z3_off", "z3_bf16", "z3_mp")
+        tags = dd.ZERO3_CARD_TAGS + ("z3_mp",)
         z = {"cmp": cmp, "losses": {t: _same_losses("resilience", res, t)
                                     for t in tags}}
         bad = []
-        c3 = cmp["z3"]
-        if not (c3["rel"] <= RES_ZERO_RTOL and max(c3["loss_rel"])
-                <= RES_ZERO_RTOL):
-            bad.append(f"ZeRO-3 vs ZeRO-2 {c3}")
+        for t in ("z3", "z3_remat"):
+            c3 = cmp[t]
+            if not (c3["rel"] <= RES_ZERO_RTOL and max(c3["loss_rel"])
+                    <= RES_ZERO_RTOL):
+                bad.append(f"{t} vs {c3['vs']} {c3}")
         off = cmp["z3_off"]
         if not (off["equal"] and max(off["loss_rel"]) == 0):
             bad.append(f"offload vs none {off}")
@@ -5730,10 +5852,18 @@ def resilience_phase(torch, seed):
             bad.append(f"bf16 vs f32 {cmp['z3_bf16']}")
         if not max(cmp["z3_mp"]["loss_rel"]) <= RES_MESH_RTOL:
             bad.append(f"dp 2 x mp 2 vs dp 4 {cmp['z3_mp']}")
+        ref = res[0][0]["z3_health/reference"]
+        z["health"] = {"reference": ref}
+        for t, n in (("z3_health", dd.ZERO3_STEPS),
+                     ("z3_mp", dd.ZERO3_CARD_STEPS)):
+            got = [st["health"] for st in res[0][0][t]["steps"]]
+            z["health"][t] = got
+            bad += health_mismatch(f"{t} taps", got, ref[:n],
+                                   RES_HEALTH_RTOL)
         mem, peaks = {}, {}
         for k, (rk, _) in res.items():
             want = zero3_pieces(cfg, 4, k)
-            for t in ("z3", "z3_off", "z3_bf16"):
+            for t in ("z3", "z3_off", "z3_bf16", "z3_remat", "z3_health"):
                 for st in rk[t]["steps"]:
                     m = st["memory"]
                     if not (m["param_storage"] == 0 and m["owned"] == want
@@ -5747,11 +5877,42 @@ def resilience_phase(torch, seed):
             for t in tags:
                 for i, st in enumerate(rk[t]["steps"]):
                     check_step_launches(f"zero3_4 {t} rank {k} step {i}",
-                                        st["launches"], dd.ZERO3_CARD_BLOCKS)
+                                        st["launches"], dd.ZERO3_CARD_BLOCKS,
+                                        remat=t == "z3_remat")
                     add(st["launches"])
             if k == 0:
                 peaks = {t: max(st["peak_mem_gb"] for st in rk[t]["steps"])
                          for t in tags}
+        # each rank's memory a step: the peak, what the step started
+        # with, what the forward kept for the backward, the forward's
+        # peak (GB), and the taps' pre-update copy (bytes); rank 0 alone
+        # ran the one-process health reference first
+        mem_rows = {t: {f"rank{k}": [
+            {key: round(st[key], 3) for key in (
+                "peak_mem_gb", "start_gb", "after_forward_gb",
+                "forward_peak_gb")} | ({"tap_bytes": st["tap_bytes"]}
+                                       if "tap_bytes" in st else {})
+            for st in rk[t]["steps"]] for k, (rk, _) in res.items()}
+            for t in ("z3", "z3_remat", "z3_health", "z3_mp")}
+        # nothing of an earlier leg is left on the card (the f32 ZeRO-3
+        # legs start their steps from the same bytes: their pieces and
+        # states); remat's peak lies below ZeRO-3's; the taps add at
+        # most their pre-update copy to ZeRO-3's
+        fam = ("z3", "z3_remat", "z3_health")
+        for k, (rk, _) in res.items():
+            start = {t: rk[t]["steps"][0]["start_gb"] for t in fam}
+            pk = {t: max(st["peak_mem_gb"] for st in rk[t]["steps"])
+                  for t in fam}
+            tap = rk["z3_health"]["steps"][-1]["tap_bytes"] / 2 ** 30
+            if max(start.values()) - min(start.values()) > RES_MEM_TOL_GB:
+                bad.append(f"rank {k} steps start from {start} GB")
+            if not pk["z3_remat"] < pk["z3"]:
+                bad.append(f"rank {k} remat's peak {pk['z3_remat']:.3f} GB "
+                           f"is not below ZeRO-3's {pk['z3']:.3f}")
+            if not pk["z3_health"] <= pk["z3"] + tap + RES_MEM_TOL_GB:
+                bad.append(f"rank {k} the taps' peak {pk['z3_health']:.3f} "
+                           f"GB above ZeRO-3's {pk['z3']:.3f} + their "
+                           f"copy {tap:.3f}")
         if not peaks["z3"] < peaks["z2"]:
             bad.append(f"rank 0's peak under ZeRO-3 {peaks['z3']:.3f} GB "
                        f"is not below ZeRO-2's {peaks['z2']:.3f}")
@@ -5772,7 +5933,14 @@ def resilience_phase(torch, seed):
                            h2d_gbps=round(nbytes / h2d / 1e6, 2),
                            d2h_gbps=round(nbytes / d2h / 1e6, 2))
             rows[t] = row
-        z.update(steps=rows, memory=mem,
+        # remat: the rerun reuses the gather its output's gradient made
+        if rows["z3_remat"]["all_gather_bytes"] != \
+                rows["z3"]["all_gather_bytes"]:
+            bad.append(f"remat all_gather bytes {rows['z3_remat']} against "
+                       f"{rows['z3']}")
+        z.update(steps=rows, memory=mem, step_memory=mem_rows,
+                 dynamo_import_s=[rk["z3_remat/dynamo_import_s"]
+                                  for rk, _ in res.values()],
                  pieces_bytes=[zero3_pieces(cfg, 4, k) for k in range(4)])
         readings["zero3_4"] = z
         print(f"resilience: zero3_4, GPT-3 1.3B width x "
@@ -6076,31 +6244,11 @@ def main(argv=None):
     decode = decode_phase(torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
     lap("decode")
-    # the resilience phase's rank jobs and drill run beside the 13B
-    # phase's host build (~160 s: one host thread drawing normals, then
-    # the host quantizing), joined before its first decode
-    resil_box = {}
-
-    def resilience_beside():
-        t = time.perf_counter()
-        try:
-            resil_box["out"] = resilience_phase(torch, args.seed)
-        except BaseException as e:      # re-raised on the main thread
-            resil_box["err"] = e
-        resil_box["s"] = time.perf_counter() - t
-
-    resil_thread = threading.Thread(target=resilience_beside,
-                                    name="resilience")
-    resil_thread.start()
-    try:
-        serve_13b = serve_13b_phase(torch, args.seed,
-                                    after_build=resil_thread.join)
-    finally:
-        resil_thread.join()
-    if "err" in resil_box:
-        raise resil_box["err"]
-    resil = resil_box["out"]
-    lap("serve 13B (the resilience phase beside)")
+    serve_13b = serve_13b_phase(torch, args.seed)
+    lap("serve 13B")
+    resil = resilience_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("resilience")
     moe_serve, moe_served_cf, rows_moe_serve = moe_serve_phase(
         torch, args.seed, args.init_range)
     torch.cuda.empty_cache()
@@ -6130,9 +6278,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lap("distributed")
     print("phase seconds: " + json.dumps(
-        {k: round(v, 1) for k, v in {
-            **phase_s, "resilience (beside serve 13B)": resil_box["s"]}
-         .items()}))
+        {k: round(v, 1) for k, v in phase_s.items()}))
     print_compiled_summary(stats, wo8, loop, memory, decode)
     print(f"1.3B on {card_line()}: " + json.dumps({
         "kernels": {k: {**r, "bound": list(r["bound"])}

@@ -16,9 +16,9 @@ interleaved, PipelineParallel), the expert exchange
 checkpoints (`checkpoint`: a piece a rank, restored onto any layout;
 `TrainEpochRange`), and on one card activation recompute and the
 host-offloaded `OffloadTrainStep`. Not ported yet (ROADMAP Queue 1
-item 6): the planner, ep with sp or pp, ZeRO-3 under pp, elastic
-restarts, HDFS (`fs.py`), the launch helpers of `dist_utils` and the
-parameter-server mode.
+item 6): the planner, ep with sp or pp, elastic restarts, the launch
+helpers of `dist_utils` and the parameter-server mode. The filesystem
+layer (`fs`: LocalFS, HDFSClient over the hadoop CLI) is JAX's.
 """
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
@@ -55,6 +55,8 @@ from .pipeline import (  # noqa: F401
     pipeline_train_step_interleaved,
 )
 from .moe import MoELayer  # noqa: F401
+from . import fs  # noqa: F401
+from .fs import HDFSClient, LocalFS  # noqa: F401
 from . import dist_utils as utils  # noqa: F401
 from .dist_utils import global_gather, global_scatter  # noqa: F401
 import sys as _sys

@@ -11,13 +11,20 @@ wraps a `PipelineLayer` in `PipelineParallel` when the mesh's pp axis
 is above 1 (JAX fleet.py:60-78; `pipeline_configs["accumulate_steps"]`
 is its micro-batch count, the topology gives the stage and the pipe
 group); `distributed_optimizer` wraps the optimizer with the strategy,
-which `ShardedTrainStep` reads for its ZeRO stage. The parameter-server
+which `ShardedTrainStep` reads for its ZeRO stage. `utils` is JAX's
+`fleet.utils` namespace: `fs` (the module `distributed/fs.py`),
+`LocalFS`, `HDFSClient` and `recompute`; `LocalFS` and `HDFSClient`
+are also names of this module. The parameter-server
 mode (`ps.py`, `heter.py`, `kvstore.py`) is not ported (ROADMAP Queue 1
 item 6.5).
 """
 import os
+import types
 
 from . import env
+from . import fs
+from .fs import HDFSClient, LocalFS
+from .recompute import recompute
 from .parallel import DataParallel, init_parallel_env  # noqa: F401
 from .sharded_train import ShardedTrainStep, shard_model  # noqa: F401
 from .strategy import DistributedStrategy
@@ -27,7 +34,13 @@ __all__ = ["init", "get_hybrid_communicate_group", "distributed_model",
            "distributed_optimizer", "minimize", "worker_index", "worker_num",
            "is_first_worker", "worker_endpoints", "barrier_worker",
            "HybridParallelOptimizer", "DistributedStrategy",
-           "CommunicateTopology", "HybridCommunicateGroup"]
+           "CommunicateTopology", "HybridCommunicateGroup", "utils",
+           "LocalFS", "HDFSClient"]
+
+# JAX's `fleet.utils` (fleet.py:345-373): the fs and recompute
+# re-exports (its DistributedInfer belongs to the parameter-server mode)
+utils = types.SimpleNamespace(fs=fs, LocalFS=LocalFS, HDFSClient=HDFSClient,
+                              recompute=recompute)
 
 
 class _FleetState:

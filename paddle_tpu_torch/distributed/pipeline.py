@@ -21,8 +21,10 @@ each message matched by a tag, sends posted asynchronously):
   `num_virtual_pipeline_stages` > 1): vpp chunks a rank, chunk l of
   stage s being virtual stage l * pp + s; Megatron's interleaved order,
   which needs the micro-batch count to divide by pp.
-- GPipe forward (`pipeline_apply`, `eval_batch`): every micro-batch
-  through every stage, no backward.
+- GPipe (`pipeline_apply`, `eval_batch`): every micro-batch through
+  every stage; `pipeline_apply`'s backward (`_GPipe`) reruns each
+  stage's micro-batches in reverse from their kept inputs, as JAX
+  differentiates its scan.
 `pipeline_schedule_model` is the JAX tick model of the masked scan,
 copied as the same arithmetic; it does not describe these schedules.
 
@@ -45,13 +47,16 @@ batches is what the next batch uses.
 Dropout inside a stage draws from the rank's own torch generator, not
 from JAX's per-step key folded per block (ROADMAP Queue 3).
 """
+import contextlib
 import warnings
 
 import torch
 import torch.distributed as dist
 
 from .. import monitor
-from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue, need_clip
+from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                       ClipGradByValue, clip_by_norm, need_clip)
+from ..telemetry.health import health_rows, sharded_health_stats
 from ..telemetry.recorder import auto_step
 from . import env
 from .collective import ReduceOp, _all_reduce_, _axis, exchange
@@ -203,6 +208,27 @@ def _leaf(t):
     return t.detach().requires_grad_()
 
 
+def _rng_state(device):
+    """The host generator's state and, for a CUDA `device`, its
+    generator's: what a rerun restores to draw the same numbers."""
+    cuda = torch.cuda.get_rng_state(device) if device.type == "cuda" \
+        else None
+    return torch.get_rng_state(), cuda
+
+
+@contextlib.contextmanager
+def _rng_restored(state, device):
+    """Run the block under `state` (`_rng_state`), leaving the
+    generators as they were outside it."""
+    cpu, cuda = state
+    with torch.random.fork_rng(
+            devices=[device] if cuda is not None else []):
+        torch.set_rng_state(cpu)
+        if cuda is not None:
+            torch.cuda.set_rng_state(cuda, device)
+        yield
+
+
 def _micro(t, n):
     if t.shape[0] % n:
         raise ValueError(f"batch size {t.shape[0]} not divisible by "
@@ -220,43 +246,126 @@ def pipeline_apply(stage_fn, stacked_params, x, num_microbatches, mesh=None,
     stage_fn(local_params, x_mb, *extra) -> y_mb, where local_params are
     this stage's rows of `stacked_params` (a list of tensors whose
     leading dim is the total block count, the same on every rank). x:
-    [B, ...] on every rank. -> y [B, ...] on every rank. The port's GPipe
-    executor is a forward (no autograd through it): the training
-    schedules are `pipeline_train_step_1f1b` and the interleaved one."""
+    [B, ...] on every rank. -> y [B, ...] on every rank, differentiable
+    in x, `stacked_params` and `extra_inputs` (`_GPipe`): the backward
+    runs the micro-batches in reverse, a cotangent hop a stage boundary,
+    and hands every rank the whole gradients, as the forward hands out
+    y. At pp 1: stage_fn over the whole batch."""
     prev = _with_mesh(mesh)
     try:
-        pp = _pp(None)
-        if pp == 1:
+        if _pp(None) == 1:
             return stage_fn(list(stacked_params), x, *extra_inputs)
-        stage = env.axis_index("pp")
-        rows = stacked_params[0].shape[0] // pp
-        local = [p[stage * rows:(stage + 1) * rows] for p in stacked_params]
-        xm = _micro(x, num_microbatches)
-        meta = _Meta(xm.shape[1:], x.dtype, x.device)
-        ops = [("F", 0, m) for m in range(num_microbatches)]
-        with torch.no_grad():
-            _, outs = _run(ops, pp, 1, stage, num_microbatches, meta,
-                           lambda m: xm[m],
-                           lambda l, h: stage_fn(local, h, *extra_inputs),
-                           lambda out, m: (out, None), train=False)
-            y = torch.cat([outs[m] for m in range(num_microbatches)]) \
-                if stage == pp - 1 else torch.zeros_like(x)
-            return _psum_pp(y.contiguous())
+        return _GPipe.apply(stage_fn, num_microbatches, env.current_mesh(),
+                            len(stacked_params), x, *stacked_params,
+                            *extra_inputs)
     finally:
         env.set_mesh(prev)
 
 
+class _GPipe(torch.autograd.Function):
+    """The GPipe executor as one autograd node. Forward: every
+    micro-batch through every stage (no graph kept), each stage keeping
+    its micro-batches' inputs; y summed over pp from the last stage.
+    Backward, micro-batches in reverse: a stage receives its output's
+    cotangent from the next stage (the last stage slices it from y's),
+    reruns its forward from the kept input with a graph, under the
+    random state that micro-batch's forward ran with (dropout draws the
+    same masks, so the gradients are those of the forward that gave y),
+    backpropagates, and sends its input's cotangent to the previous
+    stage; the stage's
+    parameter and extra-input gradients sum over its micro-batches. The
+    stack's gradients (a stage's rows), dx (stage 0) and the extra
+    inputs' gradients are then summed over pp, so every rank holds the
+    whole gradients."""
+
+    @staticmethod
+    def forward(ctx, stage_fn, n_micro, mesh, n_params, x, *rest):
+        params, extra = list(rest[:n_params]), list(rest[n_params:])
+        pp = _pp(None)
+        stage = env.axis_index("pp")
+        rows = params[0].shape[0] // pp
+        local = [p[stage * rows:(stage + 1) * rows] for p in params]
+        xm = _micro(x, n_micro)
+        meta = _Meta(xm.shape[1:], x.dtype, x.device)
+        kept = []       # this stage's inputs, in micro-batch order
+        rng = []        # the random state each micro-batch ran under
+
+        def chunk(l, h):
+            kept.append(h)
+            rng.append(_rng_state(x.device))
+            return stage_fn(local, h, *extra)
+
+        ops = [("F", 0, m) for m in range(n_micro)]
+        with torch.no_grad():
+            _, outs = _run(ops, pp, 1, stage, n_micro, meta,
+                           lambda m: xm[m], chunk,
+                           lambda out, m: (out, None), train=False)
+            y = torch.cat([outs[m] for m in range(n_micro)]) \
+                if stage == pp - 1 else torch.zeros_like(x)
+            y = _psum_pp(y.contiguous())
+        ctx.stage_fn, ctx.n_micro, ctx.mesh = stage_fn, n_micro, mesh
+        ctx.n_params, ctx.meta = n_params, meta
+        ctx.kept, ctx.rng = kept, rng
+        ctx.save_for_backward(*params, *extra)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        prev = _with_mesh(ctx.mesh)
+        try:
+            saved = ctx.saved_tensors
+            params = list(saved[:ctx.n_params])
+            extra = list(saved[ctx.n_params:])
+            n, meta = ctx.n_micro, ctx.meta
+            pp = _pp(None)
+            stage = env.axis_index("pp")
+            rows = params[0].shape[0] // pp
+            local = [_leaf(p[stage * rows:(stage + 1) * rows])
+                     for p in params]
+            ex = [_leaf(e) if e.is_floating_point() else e for e in extra]
+            gym = _micro(gy, n) if stage == pp - 1 else None
+            dxs, sends = {}, []
+            for m in reversed(range(n)):
+                h = _leaf(ctx.kept[m])
+                with _rng_restored(ctx.rng[m], meta.device), \
+                        torch.enable_grad():
+                    out = ctx.stage_fn(local, h, *ex)
+                # the tags of `_run`'s cotangents: (pp + receiver) n + m
+                g = gym[m] if stage == pp - 1 else exchange(
+                    None, "pp", None, stage + 1, like=meta.empty(),
+                    tag=(pp + stage) * n + m).wait()
+                torch.autograd.backward(out, g)
+                dh = h.grad if h.grad is not None else torch.zeros_like(h)
+                if stage > 0:
+                    sends.append(exchange(dh.detach(), "pp", stage - 1,
+                                          None,
+                                          tag=(pp + stage - 1) * n + m))
+                else:
+                    dxs[m] = dh
+            for snd in sends:
+                snd.wait()
+            grads = []
+            for p, leaf in zip(params, local):
+                g = torch.zeros_like(p)
+                if leaf.grad is not None:
+                    g[stage * rows:(stage + 1) * rows] = leaf.grad
+                grads.append(_psum_pp(g))
+            egrads = [_psum_pp(e.grad.clone() if e.grad is not None
+                               else torch.zeros_like(e))
+                      if e.is_floating_point() else None for e in ex]
+            dx = torch.cat([dxs[m] for m in range(n)]) if stage == 0 \
+                else torch.zeros((n * meta.shape[0],) + meta.shape[1:],
+                                 dtype=meta.dtype, device=meta.device)
+            return (None, None, None, None, _psum_pp(dx.contiguous()),
+                    *grads, *egrads)
+        finally:
+            env.set_mesh(prev)
+
+
 def pipeline_apply_tensors(stage_fn, stacked_param_tensors, x_tensor,
                            num_microbatches, mesh=None):
-    """`pipeline_apply` over tensors. The JAX wrapper records one autograd
-    node for the pipelined region; the port's GPipe forward has no
-    backward, so a call that needs a gradient raises."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [x_tensor, *stacked_param_tensors]):
-        raise NotImplementedError(
-            "pipeline_apply_tensors: the GPipe forward has no backward in "
-            "the port; train through pipeline_train_step_1f1b or "
-            "PipelineParallel.train_batch")
+    """`pipeline_apply` over tensors: one autograd node for the
+    pipelined region, as the JAX wrapper records."""
     return pipeline_apply(stage_fn, list(stacked_param_tensors), x_tensor,
                           num_microbatches, mesh=mesh)
 
@@ -599,9 +708,14 @@ class PipelineParallel(torch.nn.Module):
     attached to the PipelineLayer and the optimizer at the first
     train_batch and its `step_boundary` runs after each; under a
     pipelined plan each rank checkpoints and restores its stage's
-    parameters. Setting `lint`, `plan` or `health` makes train_batch
-    raise NotImplementedError naming its ROADMAP item, and `apply_plan`
-    raises."""
+    parameters. `health` (True, a dict, a HealthConfig or a
+    HealthMonitor) arms the hang watchdog around each train_batch and,
+    on the batches the monitor fetches, taps the loss's NaN/Inf and the
+    raw gradients' norm over every stage (JAX's values: no update
+    ratio; JAX's 1F1B path taps no gradient, the port taps them all,
+    the sequential path's numbers). Setting `lint` or `plan` makes
+    train_batch raise NotImplementedError naming its ROADMAP item, and
+    `apply_plan` raises."""
 
     def __init__(self, layers, hcg=None, strategy=None):
         super().__init__()
@@ -620,6 +734,9 @@ class PipelineParallel(torch.nn.Module):
             shard_model(layers)
         self.lint = False
         self.health = None
+        self._health_mon = None
+        self._health_key = None
+        self._last_health = None
         self.resilience = None
         self._resilience_mgr = None
         self._resilience_key = None
@@ -637,6 +754,18 @@ class PipelineParallel(torch.nn.Module):
             self._resilience_mgr = as_resilience(self.resilience)
             self._resilience_key = self.resilience
         return self._resilience_mgr
+
+    def _health_monitor(self):
+        """Normalize and cache the `health` attribute."""
+        if self.health is None or self.health is False:
+            self._health_mon = None
+            self._health_key = self.health
+            return None
+        if self._health_mon is None or self._health_key is not self.health:
+            from ..telemetry.health import as_monitor
+            self._health_mon = as_monitor(self.health)
+            self._health_key = self.health
+        return self._health_mon
 
     def stage_parameters(self):
         """[(name, parameter)] this rank holds: every parameter, or under
@@ -786,12 +915,18 @@ class PipelineParallel(torch.nn.Module):
             _unported("lint", "6.4 (the planner and cost model)")
         if self.plan is not None:
             _unported("plan", "6.4 (the planner and cost model)")
-        if self.health is not None:
-            _unported("health", "6 (the runtime around the sharded step)")
         monitor.incr("pipeline.train_batches")
+        hm = self._health_monitor()
         with auto_step() as win:
-            out = self._train_batch_impl(data, optimizer, lr_scheduler,
-                                         scaler)
+            if hm is not None:
+                with hm.guard(win) as g:
+                    out = self._train_batch_impl(data, optimizer,
+                                                 lr_scheduler, scaler,
+                                                 hm.will_fetch())
+                    g.stage(self._last_health)
+            else:
+                out = self._train_batch_impl(data, optimizer, lr_scheduler,
+                                             scaler, False)
             win.note(loss=out)
         res = self._resilience_manager()
         if res is not None:
@@ -804,7 +939,8 @@ class PipelineParallel(torch.nn.Module):
             res.step_boundary(loss=out)
         return out
 
-    def _train_batch_impl(self, data, optimizer, lr_scheduler, scaler):
+    def _train_batch_impl(self, data, optimizer, lr_scheduler, scaler,
+                          taps):
         self._layers.train()
         x, y = data
         loss_fn = self._layers._loss_fn
@@ -833,6 +969,15 @@ class PipelineParallel(torch.nn.Module):
         if env.axis_size("dp") > 1:
             _all_reduce_(total, ReduceOp.SUM, _axis("dp")[0], axis="dp")
             total /= env.axis_size("dp")
+        self._last_health = None
+        if taps:
+            # the raw gradients, before the scaler's unscale and the clip
+            # (JAX's taps: loss NaN/Inf and the gradient norm, no update
+            # ratio)
+            with torch.no_grad():
+                n, idx, grads, sum_cuts = self._counted(plan, params)
+                self._last_health = sharded_health_stats(
+                    total, health_rows(n, idx, grads=grads), sum_cuts)
         self._step(optimizer, scaler, params, plan)
         optimizer.clear_grad()
         if lr_scheduler is not None:
@@ -940,42 +1085,61 @@ class PipelineParallel(torch.nn.Module):
         if scaler is not None:
             scaler._update()
 
+    def _counted(self, plan, params):
+        """The gradients of `params` that count on this rank, placed in
+        one order of the model's parameters that every rank shares (a
+        weight tied between stage 0 and the last stage counts on stage
+        0 only) -> (the parameter count, their indices, the gradients,
+        a function that sums [count, ...] rows over the ranks holding
+        each parameter: over mp for an mp-cut one, over pp for every one
+        under a pipelined plan)."""
+        from .sharded_train import param_cuts, sum_over_cuts
+        named = list(self._layers.named_parameters())
+        cuts = param_cuts(self._layers)
+        extra = {"pp"} if plan is not None else set()
+        axes = [({a for _, a in cuts[n][0]} if n in cuts else set()) | extra
+                for n, _ in named]
+        skip = {id(p) for p in plan["tied"]} \
+            if plan is not None and plan["stage"] != 0 else set()
+        where = {id(p): k for k, (_, p) in enumerate(named)}
+        counted = [p for p in params
+                   if p.grad is not None and id(p) not in skip]
+        return (len(named), [where[id(p)] for p in counted],
+                [p.grad for p in counted],
+                lambda rows: sum_over_cuts(rows, axes))
+
     def _clip(self, clip, params, plan):
         """Clip this rank's gradients by the global norm over every
-        stage (a tied weight counted once, an mp-cut one summed over
-        mp), or by value."""
-        from .sharded_train import param_cuts
+        stage, or each by its own norm (`ClipGradByNorm`), the squares
+        of an mp-cut tensor summed over mp and a tied weight counted
+        once (`_rows`); or by value."""
         live = [p for p in params if p.grad is not None and need_clip(p)]
         if isinstance(clip, ClipGradByValue):
             for p in live:
                 p.grad.clamp_(clip.min, clip.max)
             return
-        if not isinstance(clip, ClipGradByGlobalNorm):
+        if not isinstance(clip, (ClipGradByGlobalNorm, ClipGradByNorm)):
             raise NotImplementedError(
                 f"PipelineParallel: grad_clip {type(clip).__name__} over a "
                 "pp or mp mesh")
-        cut = {id(p) for n, p in self._layers.named_parameters()
-               if n in param_cuts(self._layers)}
-        skip = set()
-        if plan is not None and plan["stage"] != 0:
-            skip = {id(p) for p in plan["tied"]}
         dev = params[0].device
-        sq = torch.zeros(2, dtype=torch.float32, device=dev)
+        n, idx, grads, sum_cuts = self._counted(plan, live)
+        sq = torch.zeros(n, dtype=torch.float32, device=dev)
+        if grads:
+            norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
+            sq.index_add_(0, torch.tensor(idx, device=dev),
+                          torch.stack(norms).square())
+        sq = sum_cuts(sq)
+        if isinstance(clip, ClipGradByGlobalNorm):
+            scale = clip.clip_norm / torch.clamp(sq.sum().sqrt(),
+                                                 min=clip.clip_norm)
+            for p in live:
+                p.grad.mul_(scale.to(p.grad.dtype))
+            return
+        where = {id(p): k for k, p in enumerate(self._layers.parameters())}
         for p in live:
-            if id(p) in skip:
-                continue
-            s = p.grad.float().square().sum()
-            sq[1 if id(p) in cut else 0] += s
-        if env.axis_size("mp") > 1:
-            part = sq[1:].clone()
-            _all_reduce_(part, ReduceOp.SUM, _axis("mp")[0], axis="mp")
-            sq[1:] = part
-        total = sq.sum().reshape(1)
-        _psum_pp(total)
-        scale = clip.clip_norm / torch.clamp(total.sqrt(),
-                                             min=clip.clip_norm)
-        for p in live:
-            p.grad.mul_(scale.to(p.grad.dtype))
+            p.grad.copy_(clip_by_norm(p.grad, sq[where[id(p)]].sqrt(),
+                                      clip.clip_norm))
 
     # ---- evaluation -------------------------------------------------------
     def eval_batch(self, data, compute_loss=False):

@@ -57,9 +57,13 @@ ZeRO (`zero_stage`, default the fleet strategy's `sharding_configs
   arrives, and once its last parameter's gradient has accumulated
   (`register_post_accumulate_grad_hook`) its gradients are
   reduce-scattered into this rank's sections and freed with the
-  parameters. The update on the pieces is stage 2's, so the two give
-  the same numbers. `gathered()` makes every parameter whole for
-  reading the model outside a step (`convert.gather_params` uses it).
+  parameters. Under remat (`config.remat`: each block run by
+  `recompute`) the block's rerun in the backward finds the unit
+  gathered by its output's gradient and keeps it so through the
+  block's backward, so a block is still gathered twice a step. The
+  update on the pieces is stage 2's, so the two give the same
+  numbers. `gathered()` makes every parameter whole for reading the
+  model outside a step (`convert.gather_params` uses it).
 The update runs on views of the parameters' own storage (stage 3: of
 the pieces), in the groups of (learning-rate scale, decay) the
 optimizer's `update` forms, so every rule and option of the optimizer
@@ -81,9 +85,12 @@ logical slots. A checkpoint (`resilience=`, distributed/checkpoint.py)
 writes each rank's pieces and restores them onto the live layout, so a
 ZeRO-3 resume comes back sharded. `resilience=` calls the manager's
 `step_boundary` after each step and stamps the step's layout (mesh and
-stage) into its checkpoints. `plan=`, `lint=` and `health=` raise
-NotImplementedError naming their ROADMAP item; `donate` is accepted and
-has no meaning in an eager step.
+stage) into its checkpoints. `health=` arms the monitor of
+`jit.TrainStep`: on a fetch step the taps read the raw gradient pieces
+before the clip and the parameter pieces before and after the update,
+and `sum_over_cuts` (the clip's rule) makes the stats global. `plan=`
+and `lint=` raise NotImplementedError naming their ROADMAP item;
+`donate` is accepted and has no meaning in an eager step.
 """
 import contextlib
 import weakref
@@ -91,14 +98,18 @@ import weakref
 import torch
 
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
-                       ClipGradByValue, need_clip)
+                       ClipGradByValue, clip_by_norm, need_clip)
+from ..telemetry.health import (as_monitor, health_rows,
+                                sharded_health_stats)
 from ..telemetry.recorder import auto_step, span
 from . import env
 from .collective import (ReduceOp, _all_gather, _all_reduce_, _axis,
                          _reduce_scatter)
+from .recompute import recomputing
 
 __all__ = ["shard_model", "shard_batch", "ShardedTrainStep", "param_cuts",
-           "cut_piece", "join_pieces", "cut_full", "gather_full"]
+           "cut_piece", "join_pieces", "cut_full", "gather_full",
+           "sum_over_cuts"]
 
 # the mesh axes a parameter may be cut over
 CUT_AXES = ("mp", "ep")
@@ -179,6 +190,30 @@ def gather_full(piece, cut):
         piece = join_pieces(_all_gather(piece.contiguous(), _axis(axis)[0],
                                         axis=axis), dim, groups)
     return piece
+
+
+def sum_over_cuts(rows, cut_axes, mesh=None, dp_pieces=False):
+    """Per-parameter sums of this rank's pieces -> whole-parameter sums,
+    by collectives over the installed mesh: `rows` [n params, ...] f32
+    (a row a parameter), `cut_axes[i]` the mesh axes parameter i's value
+    is split over (its `param_cuts` axes; a pipeline adds "pp" for a
+    parameter that one stage holds). A row is summed over dp when the
+    rows are of ZeRO's dp pieces (`dp_pieces`), then over each axis of
+    its set; a replicated parameter's row stays as it is, so it counts
+    once. The one rule of the sharded clips (`ShardedTrainStep`,
+    `PipelineParallel`) and of the sharded health taps."""
+    if dp_pieces and env.axis_size("dp", mesh) > 1:
+        _all_reduce_(rows, ReduceOp.SUM, _axis("dp")[0], axis="dp")
+    for axis in CUT_AXES + ("pp",):
+        flags = [axis in a for a in cut_axes]
+        if env.axis_size(axis, mesh) == 1 or not any(flags):
+            continue
+        cut = torch.tensor(flags, device=rows.device).reshape(
+            (-1,) + (1,) * (rows.dim() - 1))
+        part = torch.where(cut, rows, 0.0)
+        _all_reduce_(part, ReduceOp.SUM, _axis(axis)[0], axis=axis)
+        rows = torch.where(cut, part, rows)
+    return rows
 
 
 def shard_model(model, mesh=None, rules=None):
@@ -348,6 +383,22 @@ def _free(p):
     p.data.untyped_storage().resize_(0)
 
 
+def _grad_hook(step, k):
+    """The post-accumulate-grad hook of a parameter of `step`'s unit k.
+    The tensor keeps it on the C++ side, where the collector cannot see
+    it: a hook that held the step (or the unit, which holds the
+    parameter) would close a cycle the collector never frees, and every
+    ZeRO-3 step would keep its model, pieces and states for the life of
+    the process. So it holds the step weakly and the unit by index."""
+    ref = weakref.ref(step)
+
+    def hook(p):
+        s = ref()
+        if s is not None:
+            s._grad_ready(s._units[k])
+    return hook
+
+
 def _materialize(p):
     st = p.data.untyped_storage()
     need = p.numel() * p.element_size()
@@ -456,8 +507,6 @@ class ShardedTrainStep:
             _unported("plan=", "6.4: the planner and cost model")
         if lint:
             _unported("lint=", "6.4: the planner and cost model")
-        if health is not None:
-            _unported("health=", "the runtime around the sharded step")
         strat = getattr(optimizer, "user_defined_strategy", None)
         scfg = (strat.sharding_configs
                 if strat is not None and getattr(strat, "sharding", False)
@@ -481,11 +530,6 @@ class ShardedTrainStep:
         if self.ep > 1 and (self.sp > 1 or env.axis_size("pp", self.mesh) > 1):
             _unported("an ep axis with sp or pp above 1",
                       "6.6: ep x sp and ep x pp")
-        if zero_stage == 3 and getattr(getattr(model, "config", None),
-                                       "remat", False):
-            raise NotImplementedError(
-                "ShardedTrainStep(zero_stage=3) with remat: a recomputed "
-                "block would need its parameters gathered a third time")
         if seq_shard_batch is None:
             seq_shard_batch = self.sp > 1
         if self.sp > 1 and not seq_shard_batch:
@@ -542,6 +586,9 @@ class ShardedTrainStep:
         # come from this step (distributed/checkpoint.py)
         model._sharded_step = weakref.ref(self)
         optimizer._sharded_view = weakref.ref(self)
+        self.health = as_monitor(health)
+        self._last_health = None
+        self.tap_bytes = 0      # the last fetch step's pre-update copy
         from ..resilience.preempt import as_resilience
         self.resilience = as_resilience(resilience)
         if self.resilience is not None:
@@ -591,7 +638,7 @@ class ShardedTrainStep:
                 lambda m, args, out, u=u: self._after_forward(u, out))
             for p in ps:
                 p.register_post_accumulate_grad_hook(
-                    lambda p, u=u: self._grad_ready(u))
+                    _grad_hook(self, len(self._units)))
             self._units.append(u)
             shards += u.shards
         rest = [p for p in self.params if id(p) not in taken]
@@ -621,6 +668,11 @@ class ShardedTrainStep:
         u.gathered = False
 
     def _after_forward(self, u, out):
+        if recomputing():
+            # the backward's rerun of a remat block: the gather that the
+            # output's gradient made serves the rerun and the backward;
+            # the unit is freed once its gradients are reduced
+            return
         self._free_unit(u)
         if torch.is_grad_enabled() and isinstance(out, torch.Tensor) \
                 and out.requires_grad:
@@ -672,13 +724,18 @@ class ShardedTrainStep:
     # ---- the step ------------------------------------------------------
     def __call__(self, *batch):
         with auto_step() as win:
-            loss = self._run_step(batch)
+            if self.health is not None:
+                with self.health.guard(win) as g:
+                    loss = self._run_step(batch, self.health.will_fetch())
+                    g.stage(self._last_health)
+            else:
+                loss = self._run_step(batch, False)
             win.note(loss=loss)
         if self.resilience is not None:
             self.resilience.step_boundary(loss=loss)
         return loss
 
-    def _run_step(self, batch):
+    def _run_step(self, batch, taps):
         from ..generation import release
         release(self.model)
         for p in self.params:
@@ -702,11 +759,15 @@ class ShardedTrainStep:
                 for u in self._units:
                     if u.pending != 0:
                         self._reduce_unit(u)
-            if self.zero_stage == 0:
-                self._update_replicated()
-            else:
-                self._update_sharded()
-            return self._global_loss(loss.detach())
+            self._last_health = None
+            rows = self._update_replicated(taps) if self.zero_stage == 0 \
+                else self._update_sharded(taps)
+            loss = self._global_loss(loss.detach())
+            if taps:
+                self._last_health = sharded_health_stats(
+                    loss, rows, lambda r: sum_over_cuts(
+                        r, self._cut_axes, self.mesh, self.zero_stage > 0))
+            return loss
         finally:
             self._in_step = False
             if self.zero_stage == 3:
@@ -760,8 +821,10 @@ class ShardedTrainStep:
                       bytes=self._offload.nbytes):
                 self._offload.to_host()
 
-    def _update_replicated(self):
-        """Stage 0: the whole gradients, then the optimizer's update."""
+    def _update_replicated(self, taps):
+        """Stage 0: the whole gradients, then the optimizer's update; with
+        `taps`, -> the health taps' rows (`health_rows`) of the whole
+        parameters (else None)."""
         grads = {}
         for sh in self._shards:
             if self.sp == 1 and self.dp == 1:
@@ -776,16 +839,20 @@ class ShardedTrainStep:
             for p, n in zip(sh.params, sh.numels):
                 grads[id(p)] = g[o:o + n].view(p.shape)
                 o += n
-        gl = self._clip([(k, grads[id(p)])
-                         for k, p in enumerate(self.params)], sharded=False)
+        gl = [(k, grads[id(p)]) for k, p in enumerate(self.params)]
+        tap = self._tap(gl, [p.detach() for p in self.params]) \
+            if taps else None
+        gl = self._clip(gl, sharded=False)
         with self._states_on_device():
             self.optimizer.update(self.params, [g for _, g in gl])
+        return None if tap is None else tap()
 
-    def _update_sharded(self):
+    def _update_sharded(self, taps):
         """Stages 1-3: this rank's section of the reduced gradients
         (ZeRO-3's were reduce-scattered in the backward, a unit at a
         time), the rule on its pieces, then (stages 1-2) the sections
-        all-gathered over dp into the parameters."""
+        all-gathered over dp into the parameters; with `taps`, -> the
+        health taps' rows of this rank's pieces (else None)."""
         gpieces = {}
         for sh in self._shards:
             sec = self._gsec.pop(id(sh)) if self.zero_stage == 3 \
@@ -795,6 +862,8 @@ class ShardedTrainStep:
                 gpieces[(id(sh), e)] = g
         items = [(self._index[id(p)], gpieces[(id(sh), e)])
                  for sh, e, p, _ in self._owned]
+        tap = self._tap(items, [v for _, _, _, v in self._owned]) \
+            if taps else None
         items = self._clip(items, sharded=True)
         opt = self.optimizer
         groups = {}
@@ -814,6 +883,26 @@ class ShardedTrainStep:
                 for sh in self._shards:
                     parts = _all_gather(sh.my_section(), dpg, axis="dp")
                     sh.scatter_back(torch.stack(parts))
+        return None if tap is None else tap()
+
+    def _tap(self, items, values):
+        """The health taps of [(param index, raw grad piece)] before the
+        clip, and a copy of the parameters' `values` (the same pieces)
+        before the update: -> a function that, after the update, gives
+        the rows `sharded_health_stats` sums."""
+        with torch.no_grad():
+            idx = [k for k, _ in items]
+            rows = health_rows(len(self.params), idx,
+                               grads=[g for _, g in items])
+            old = [v.detach().clone() for v in values]
+        self.tap_bytes = sum(t.numel() * t.element_size() for t in old)
+
+        def after():
+            with torch.no_grad():
+                return rows + health_rows(len(self.params), idx,
+                                          new_vals=list(values),
+                                          param_vals=old)
+        return after
 
     # ---- clipping --------------------------------------------------------
     def _clip(self, items, sharded):
@@ -838,32 +927,21 @@ class ShardedTrainStep:
             return [(k, g * scale.to(g.dtype) if live[k] else g)
                     for k, g in items]
         norms = sq.sqrt()
-        cn = clip.clip_norm
-        return [(k, torch.where(norms[k] > cn,
-                                g * (cn / norms[k].clamp(min=1e-12)), g)
+        return [(k, clip_by_norm(g, norms[k], clip.clip_norm)
                  if live[k] else g) for k, g in items]
 
     def _square_sums(self, items, sharded):
         """f32 sums of squares of each parameter's whole gradient: the
-        pieces' squares, summed over dp when the pieces are dp chunks,
-        and over mp and ep for the parameters cut over them."""
+        pieces' squares, summed by `sum_over_cuts` (over dp when the
+        pieces are dp chunks, and over mp and ep for the parameters cut
+        over them)."""
         dev = items[0][1].device
         sq = torch.zeros(len(self.params), dtype=torch.float32, device=dev)
         norms = torch._foreach_norm([g for _, g in items], 2.0,
                                     dtype=torch.float32)
         idx = torch.tensor([k for k, _ in items], device=dev)
         sq.index_add_(0, idx, torch.stack(norms).square())
-        if sharded and self.dp > 1:
-            _all_reduce_(sq, ReduceOp.SUM, _axis("dp")[0], axis="dp")
-        for axis in CUT_AXES:
-            flags = [axis in a for a in self._cut_axes]
-            if env.axis_size(axis, self.mesh) == 1 or not any(flags):
-                continue
-            cut = torch.tensor(flags, device=dev)
-            part = torch.where(cut, sq, 0.0)
-            _all_reduce_(part, ReduceOp.SUM, _axis(axis)[0], axis=axis)
-            sq = torch.where(cut, part, sq)
-        return sq
+        return sum_over_cuts(sq, self._cut_axes, self.mesh, sharded)
 
     # ---- checkpoint places and the optimizer's view ---------------------
     def _places(self, optimizer, prime=False):

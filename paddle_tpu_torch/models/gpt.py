@@ -14,7 +14,8 @@ kernels on the card. With `remat` each block of the dense forward runs
 under `distributed.recompute` (its activations recomputed in the
 backward); with the `use_fused_ce` flag the loss is
 `ops.fused_ce.fused_linear_cross_entropy` over the tied table, which
-never forms the [tokens, vocab] logits.
+never forms the [tokens, vocab] logits (under mp, nor a rank's
+[tokens, vocab / mp]).
 
 Under a mesh (`distributed.env.build_mesh`, installed as the JAX
 package's global mesh is) the model runs its rank's piece, sharded
@@ -536,19 +537,18 @@ class GPTForPretraining(torch.nn.Module):
         positions `loss_mask` keeps when it is given. With the
         `use_fused_ce` flag: the fused projection + cross entropy over the
         tied table (h cast as the head casts it under amp, the table in
-        its own dtype); otherwise the logits and `cross_entropy`
+        its own dtype; over mp, each rank's rows of the vocab-parallel
+        table, `axis_name="mp"`); otherwise the logits and `cross_entropy`
         (`parallel_cross_entropy` over the vocab-parallel logits when
         mp > 1). Under a mesh with dp, mp or sp above 1: this rank's
         share of the global mean (`_mesh_mean`)."""
         mp = dist_env.axis_size("mp")
         if get_flag("use_fused_ce"):
-            if mp > 1:
-                raise NotImplementedError("use_fused_ce under an mp mesh "
-                                          "axis above 1")
             h = self.gpt(input_ids)
             losses = fused_linear_cross_entropy(
                 maybe_cast_to_compute(h, "matmul").reshape(-1, h.shape[-1]),
-                self.gpt.wte.weight, labels.reshape(-1))
+                self.gpt.wte.weight, labels.reshape(-1),
+                axis_name="mp" if mp > 1 else None)
         else:
             logits = self(input_ids)
             losses = parallel_cross_entropy(

@@ -17,7 +17,15 @@ import torch
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "GradientClipByValue",
            "GradientClipByNorm", "GradientClipByGlobalNorm", "need_clip",
-           "clip_grad_norm_"]
+           "clip_by_norm", "clip_grad_norm_"]
+
+
+def clip_by_norm(g, norm, clip_norm):
+    """`g` scaled by clip_norm / norm where its norm exceeds clip_norm:
+    ClipGradByNorm's rule for one gradient (or one piece of it) whose
+    whole norm is `norm` (a 0-dim tensor)."""
+    return torch.where(norm > clip_norm,
+                       g * (clip_norm / norm.clamp(min=1e-12)), g)
 
 
 def need_clip(p):
@@ -53,10 +61,7 @@ class ClipGradByNorm(ClipGradBase):
             if g is None:
                 out.append((p, g))
                 continue
-            norm = next(norms)
-            cn = self.clip_norm
-            out.append((p, torch.where(
-                norm > cn, g * (cn / norm.clamp(min=1e-12)), g)))
+            out.append((p, clip_by_norm(g, next(norms), self.clip_norm)))
         return out
 
 

@@ -18,10 +18,33 @@ results, which for bf16 operands on the card is `torch.mm(...,
 out_dtype=torch.float32)` and elsewhere the product of the operands
 widened to f32 (products of bf16 values are exact in f32: the same
 arithmetic).
+
+Over a vocab-parallel table (`axis_name` a mesh axis above 1, w this
+rank's V / n rows, h replicated over the axis): each rank runs the
+chunks of its own rows, the row max is all-reduced (MAX) and the sums
+of exponentials, rescaled to it, and the target logit (from the rank
+whose rows hold the label; 0 elsewhere) are all-reduced (SUM) in one
+call, so no rank ever holds [N, V / n] logits; the backward recomputes
+its chunks, gives this rank's rows of dw, and all-reduces dh over the
+axis (h's copies all feed the loss). Labels are global ids.
 """
 import torch
 
 __all__ = ["fused_linear_cross_entropy", "FusedLinearCrossEntropy"]
+
+
+def _axis_of(axis_name):
+    """(size, index) of mesh axis `axis_name` (1, 0 for None)."""
+    if axis_name is None:
+        return 1, 0
+    from ..distributed import env
+    return env.axis_size(axis_name), env.axis_index(axis_name)
+
+
+def _psum(t, axis_name, op=None):
+    from ..distributed.collective import ReduceOp, _psum_raw
+    return _psum_raw(t, axis_name, "fused_ce",
+                     op=ReduceOp.SUM if op is None else op)
 
 
 def _pick_chunks(vocab):
@@ -40,13 +63,17 @@ def _mm_f32(a, b):
 
 
 class FusedLinearCrossEntropy(torch.autograd.Function):
-    """loss [N] f32 = CE(h [N, D] @ w [V, D].T, labels [N])."""
+    """loss [N] f32 = CE(h [N, D] @ w [V, D].T, labels [N]); over a
+    vocab-parallel w [V / n, D] with `axis_name` (see the module
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, h, w, labels, n_chunks=None):
-        vocab = w.shape[0]
-        nc = n_chunks or _pick_chunks(vocab)
-        c = vocab // nc
+    def forward(ctx, h, w, labels, n_chunks=None, axis_name=None):
+        n_ax, idx = _axis_of(axis_name)
+        rows = w.shape[0]
+        lo, vocab = idx * rows, rows * n_ax
+        nc = n_chunks or _pick_chunks(rows)
+        c = rows // nc
         n = h.shape[0]
         labels = labels.long()
         f32 = dict(dtype=torch.float32, device=h.device)
@@ -58,23 +85,30 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
             new_m = torch.maximum(m, lf.amax(dim=1))
             s = s * torch.exp(m - new_m) \
                 + torch.exp(lf - new_m[:, None]).sum(dim=1)
-            rel = labels - j * c
+            rel = labels - lo - j * c
             in_chunk = (rel >= 0) & (rel < c)
             pick = lf.gather(1, rel.clamp(0, c - 1)[:, None])[:, 0]
             picked = torch.where(in_chunk, pick, picked)
             m = new_m
+        if n_ax > 1:
+            from ..distributed.collective import ReduceOp
+            top = _psum(m, axis_name, ReduceOp.MAX)
+            s, picked = _psum(torch.stack([s * torch.exp(m - top), picked]),
+                              axis_name)
+            m = top
         lse = m + torch.log(s)
         valid = (labels >= 0) & (labels < vocab)
         ctx.save_for_backward(h, w, labels, lse)
-        ctx.nc = nc
+        ctx.nc, ctx.axis = nc, (axis_name, n_ax, lo, vocab)
         return torch.where(valid, lse - picked, 0.0)
 
     @staticmethod
     def backward(ctx, dloss):
         h, w, labels, lse = ctx.saved_tensors
-        vocab, d = w.shape
+        axis_name, n_ax, lo, vocab = ctx.axis
+        rows, d = w.shape
         nc = ctx.nc
-        c = vocab // nc
+        c = rows // nc
         valid = (labels >= 0) & (labels < vocab)
         dloss = torch.where(valid, dloss.float(), 0.0)
         dh = torch.zeros((h.shape[0], d), dtype=torch.float32,
@@ -83,7 +117,7 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
         for j in range(nc):
             wc = w[j * c:(j + 1) * c].to(h.dtype)
             p = torch.exp(torch.mm(h, wc.t()).float() - lse[:, None])
-            rel = labels - j * c
+            rel = labels - lo - j * c
             in_chunk = (rel >= 0) & (rel < c)
             # p - onehot: -1 at the label's column, -0.0 (exact) elsewhere
             p.scatter_add_(1, rel.clamp(0, c - 1)[:, None],
@@ -91,12 +125,17 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
             dl = p.mul_(dloss[:, None]).to(h.dtype)
             dh += _mm_f32(dl, wc)
             dw[j * c:(j + 1) * c] = _mm_f32(dl.t(), h)
-        return dh.to(h.dtype), dw, None, None
+        if n_ax > 1:
+            dh = _psum(dh, axis_name)
+        return dh.to(h.dtype), dw, None, None, None
 
 
-def fused_linear_cross_entropy(h, w, labels, n_chunks=None):
+def fused_linear_cross_entropy(h, w, labels, n_chunks=None, axis_name=None):
     """Per-token CE loss [N] (f32) of the projection `h @ w.T` against
     `labels`. h: [N, D] (any float dtype; bf16 under amp); w: [V, D],
     full precision (its gradient comes back in w's dtype); labels: [N]
-    integers."""
-    return FusedLinearCrossEntropy.apply(h, w, labels, n_chunks)
+    integers. With `axis_name` (a mesh axis; None or a size of 1: the
+    one-rank op) w is this rank's rows of a table cut along the vocab
+    over that axis, h the same on every rank of it, and the loss is the
+    whole vocab's."""
+    return FusedLinearCrossEntropy.apply(h, w, labels, n_chunks, axis_name)

@@ -18,7 +18,12 @@ Three pieces:
   fetches adds no launch and no sync. The fetch (one tiny transfer) is
   the window's only sync, and it happens inside `guard()`, with the
   hang watchdog armed — an eager step returns before its device work
-  ends, so a hung card shows only at that sync.
+  ends, so a hung card shows only at that sync. The sharded steps
+  (`ShardedTrainStep`, `PipelineParallel`) tap their pieces with
+  `health_rows` and `sharded_health_stats`: each parameter's squares
+  and counts summed over the ranks that hold its other pieces by the
+  rule their clips use, so the fetched scalars are global, as GSPMD
+  makes the JAX step's.
 
 - **Anomaly detector** (`AnomalyDetector`) — pure host logic over
   records, the JAX rules unchanged: hard NaN/Inf (`nan`), `loss_spike`,
@@ -54,7 +59,7 @@ from .. import monitor
 
 __all__ = ["HealthConfig", "HealthError", "Anomaly", "AnomalyDetector",
            "HealthMonitor", "as_monitor", "device_health_stats",
-           "update_ratio",
+           "update_ratio", "health_rows", "sharded_health_stats",
            "HEALTH_STAT_FIELDS"]
 
 # layout of the stacked device stats array (one (5,) f32 per step)
@@ -1103,15 +1108,9 @@ def as_monitor(health):
 def update_ratio(new_vals, param_vals):
     """||new - old|| / max(||old||, 1e-12) over every parameter, in f32,
     as a 0-dim tensor on the parameters' device (no sync)."""
-    import torch
-
-    f32 = torch.float32
-    upd = torch.sqrt(torch.stack(
-        [torch.sum(torch.square(n.to(f32) - o.to(f32)))
-         for n, o in zip(new_vals, param_vals)]).sum())
-    par = torch.sqrt(torch.stack(
-        [torch.sum(torch.square(o.to(f32))) for o in param_vals]).sum())
-    return upd / torch.clamp(par, min=1e-12)
+    n = len(param_vals)
+    return _ratio(health_rows(n, range(n), new_vals=new_vals,
+                              param_vals=param_vals).sum(dim=0))
 
 
 def device_health_stats(loss_val, grads, new_vals, param_vals):
@@ -1122,27 +1121,69 @@ def device_health_stats(loss_val, grads, new_vals, param_vals):
     after it (either None/empty: a ratio of 0, as in the JAX taps).
     Device ops only — no `.item()`, no transfer — so nothing waits for
     the card until the monitor fetches the tensor. Norms and counts
-    accumulate in f32, as the JAX taps do."""
+    accumulate in f32, as the JAX taps do. `sharded_health_stats` of
+    the whole parameters' rows, with nothing to sum over."""
+    n = len(grads or param_vals or ())
+    rows = health_rows(n, range(n), grads=grads or None)
+    if new_vals and param_vals:
+        rows = rows + health_rows(n, range(n), new_vals=new_vals,
+                                  param_vals=param_vals).to(rows.device)
+    return sharded_health_stats(loss_val, rows, lambda r: r)
+
+
+def health_rows(n_params, index, grads=None, new_vals=None,
+                param_vals=None):
+    """[n_params, 5] f32 per-parameter partial sums of this rank's
+    pieces, for `sharded_health_stats`: piece i belongs to parameter
+    `index[i]`; columns 0-2 are the f32 sum of squares, NaN count and
+    Inf count of `grads` (the raw grads, before any clip), columns 3-4
+    the f32 sums of squares of new - old and of old (`new_vals` after
+    the update, `param_vals` before it). Columns not given stay 0, so
+    two calls' rows add. Device ops only."""
     import torch
 
     f32 = torch.float32
-    dev = loss_val.device
-    if grads:
-        sq = torch.stack([torch.sum(torch.square(g.to(f32)))
-                          for g in grads])
-        grad_norm = torch.sqrt(sq.sum())
-        nan_count = torch.stack([torch.isnan(g).sum() for g in grads]).sum()
-        inf_count = torch.stack([torch.isinf(g).sum() for g in grads]).sum()
-    else:
-        grad_norm = torch.zeros((), dtype=f32, device=dev)
-        nan_count = torch.zeros((), dtype=torch.int64, device=dev)
-        inf_count = torch.zeros((), dtype=torch.int64, device=dev)
-    nan_count = nan_count + torch.isnan(loss_val).sum()
-    inf_count = inf_count + torch.isinf(loss_val).sum()
-    if new_vals and param_vals:
-        ratio = update_ratio(new_vals, param_vals)
-    else:
-        ratio = torch.zeros((), dtype=f32, device=dev)
-    return torch.stack([grad_norm.to(f32), ratio.to(f32),
-                        nan_count.to(f32), inf_count.to(f32),
-                        loss_val.detach().to(f32).reshape(())])
+    pieces = grads if grads is not None else param_vals
+    dev = pieces[0].device if pieces else torch.device("cpu")
+    rows = torch.zeros((n_params, 5), dtype=f32, device=dev)
+    if not pieces:
+        return rows
+    idx = torch.tensor(list(index), device=dev)
+    if grads is not None:
+        vals = torch.stack([torch.stack([
+            torch.sum(torch.square(g.to(f32))), torch.isnan(g).sum().to(f32),
+            torch.isinf(g).sum().to(f32)]) for g in grads])
+        rows[:, :3].index_add_(0, idx, vals)
+    if new_vals is not None and param_vals is not None:
+        vals = torch.stack([torch.stack([
+            torch.sum(torch.square(n.to(f32) - o.to(f32))),
+            torch.sum(torch.square(o.to(f32)))])
+            for n, o in zip(new_vals, param_vals)])
+        rows[:, 3:].index_add_(0, idx, vals)
+    return rows
+
+
+def sharded_health_stats(loss_val, rows, sum_cuts):
+    """`device_health_stats` of a model whose parameters lie in pieces
+    over ranks: `rows` the `health_rows` of this rank's pieces,
+    `sum_cuts` the caller's collective that sums them over the ranks
+    holding each parameter's other pieces, a tied weight once (the
+    sharded clip's rule, `distributed.sharded_train.sum_over_cuts`),
+    `loss_val` the global loss. -> the same (5,) f32 stats on every
+    rank: [global grad-norm, update/param norm ratio (0 when no update
+    columns were given), NaN count, Inf count, loss]. No host sync."""
+    import torch
+
+    f32 = torch.float32
+    tot = sum_cuts(rows.to(loss_val.device)).sum(dim=0)
+    return torch.stack([
+        torch.sqrt(tot[0]), _ratio(tot),
+        tot[1] + torch.isnan(loss_val).sum().to(f32),
+        tot[2] + torch.isinf(loss_val).sum().to(f32),
+        loss_val.detach().to(f32).reshape(())])
+
+
+def _ratio(tot):
+    """The update/param norm ratio of `health_rows` column totals."""
+    import torch
+    return torch.sqrt(tot[3]) / torch.clamp(torch.sqrt(tot[4]), min=1e-12)

@@ -47,8 +47,11 @@ package. Jobs:
   no staging; point-to-point last, since gloo may hand a CUDA pointer
   to the socket and abort the process).
 - `card4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width (2 layers,
-  seq 2048, batch 2) on mp 2 x sp 2: 3 f32 AdamW steps with ring and
-  with Ulysses attention and 3 bf16-amp steps with ring, with each
+  seq 2048, batch 2) on mp 2 x sp 2: f32 AdamW steps with ring
+  (CARD_FCE_STEPS) and with Ulysses attention (CARD_STEPS), bf16-amp
+  steps with ring (CARD_STEPS), and CARD_FCE_STEPS f32 ring steps with
+  the loss under use_fused_ce (the fused CE over each rank's half of
+  the vocab-parallel table), with each
   step's launch counts, ms, comm and staged bytes and peak memory (the
   last step under the telemetry recorder: its comm ms and share); then
   the bench's ringattn_128k leg (S 131072, 16 heads of 128, bf16, x =
@@ -60,16 +63,21 @@ package. Jobs:
   optimizer-state bytes.
 - `ep4` (4 ranks sharing card 0, gloo): GPT-MoE at the bench's width
   (d 768, E 8, top-2, 2 layers, 8 x 1024) on ep 4, dp 2 x ep 2 and ep 2
-  x mp 2: 3 dropless f32 SGD steps against the one-process jit.TrainStep
+  x mp 2: 2 dropless f32 SGD steps against the one-process jit.TrainStep
   (rank 0 runs it first), `moe_ffn_values` at cf 1.25 against its
-  blocks run alone, 3 bf16 amp steps on ep 4, one step at cf 1.25.
+  blocks run alone, 2 bf16 amp steps on ep 4, one step at cf 1.25.
 - `pp4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width as a
   PipelineLayer (tied embedding, 8 blocks, final LN, tied head), 8
   micro-batches of 1 x 2048: 2 f32 SGD steps each of 1F1B at pp 4,
   interleaved at pp 4 x vpp 2 and pp 2 x mp 2 against the one-process
   sequential train_batch (rank 0 runs it first and leaves its
   parameters in a file), 2 bf16 amp 1F1B steps, one 1F1B step each at 4
-  and 16 micro-batches (stage 0's memory).
+  and 16 micro-batches (stage 0's memory), 2 SGD steps each of 1F1B at
+  pp 4 and pp 2 x mp 2 under ClipGradByNorm with the health taps
+  (against the sequential run with the same clip and taps); then
+  GPipe's forward and backward through the 8 blocks stacked, at pp 4,
+  against the one-process gradient. The three one-process references
+  (plain, clipped, GPipe) run first, side by side on ranks 0-2.
 - `cpu_zero3` (4 ranks, gloo on the CPU): the tiny GPT for 3 AdamW
   steps under ZeRO-2 and ZeRO-3 at dp 4 (rank 0 saves both's gathered
   parameters), ZeRO-1, the offload of stages 1-3 against the same stage
@@ -83,10 +91,16 @@ package. Jobs:
   rank 0 from the pieces the ranks hold against the saved one, then 2
   steps at dropout 0). Each run's ckpt records go to
   `<out>/<leg>_<rank>.jsonl`.
-- `zero3_4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width x 8
-  blocks, 4 x 2048 on dp 4: 3 f32 AdamW steps each of ZeRO-2, ZeRO-3,
-  ZeRO-3 offloaded, ZeRO-3 under bf16 amp, and ZeRO-3 at dp 2 x mp 2
-  (rank 0 compares the gathered parameters).
+- `zero3_4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width x
+  ZERO3_CARD_BLOCKS blocks, 4 x 2048 on dp 4: ZERO3_STEPS f32 AdamW
+  steps each of ZeRO-3, ZeRO-3 with remat and ZeRO-3 with the health
+  taps (against rank 0's `jit.TrainStep(health=)`), ZERO3_CARD_STEPS
+  each of ZeRO-2, ZeRO-3 offloaded, ZeRO-3 under bf16 amp and ZeRO-3
+  at dp 2 x mp 2 with the taps (every rank's pieces compared with
+  ZeRO-3's after as many steps, the sums all-reduced); each leg's
+  model is collected before the next one's is built. `zero3_8` (not
+  in the smoke): ZeRO-3 with and without remat at ZERO3_DEPTH_BLOCKS
+  blocks, ZERO3_CARD_STEPS steps each, every rank's memory a step.
 - `ckpt4` (4 ranks sharing card 0): the checkpoint legs at 1.3B width x
   4 blocks; the preempted run really exits 102 (every rank saves its
   record and meets the others first). `ckpt4_resume` (4 ranks) resumes
@@ -96,6 +110,8 @@ package. Jobs:
   the jobs' output directories.
 """
 import argparse
+import contextlib
+import gc
 import json
 import os
 import shutil
@@ -103,6 +119,7 @@ import sys
 import tempfile
 import time
 import traceback
+import weakref
 
 import numpy as np
 
@@ -117,13 +134,18 @@ TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
 TINY_BATCH, TINY_SEQ = 4, 32
 LR, WD = 1e-4, 0.01
 CLIP_NORM = 0.05
+# the health taps of the health legs: every step fetched, recorded only
+HEALTH = {"every_k": 1, "action": "record", "dump_on_exception": False}
+HEALTH_KEYS = ("grad_norm", "update_ratio", "nan_count", "inf_count",
+               "loss")
 # job -> (ranks, backend, ranks per device)
 JOBS = {"cpu": (8, "gloo", 8), "cpu_ep": (4, "gloo", 4),
         "cpu_pp": (4, "gloo", 4), "nccl1": (1, "nccl", 1),
         "gloo_probe": (2, "gloo", 2), "card4": (4, "gloo", 4),
         "card8": (8, "gloo", 8), "ep4": (4, "gloo", 4),
         "pp4": (4, "gloo", 4), "cpu_zero3": (4, "gloo", 4),
-        "zero3_4": (4, "gloo", 4), "ckpt4": (4, "gloo", 4),
+        "zero3_4": (4, "gloo", 4), "zero3_8": (4, "gloo", 4),
+        "ckpt4": (4, "gloo", 4),
         "ckpt4_resume": (4, "gloo", 4), "ckpt2_reshard": (2, "gloo", 2),
         "ckpt4_reshard": (4, "gloo", 4)}
 # the probe's collectives, point-to-point last: gloo may write a CUDA
@@ -133,7 +155,9 @@ GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_to_all",
 DEADLINE_S = 120.0          # the collective deadline inside every case
 TIMEOUT_PROBE_S = 1.5       # the never-completing collective's deadline
 CARD_SEQ = 2048
-CARD_STEPS = 3
+CARD_STEPS = 2
+# the fused CE leg over mp and the unfused ring leg it is held against
+CARD_FCE_STEPS = 3
 RING_128K = dict(S=131072, heads=16, head_dim=128, amp=0.3)
 ZERO_SEQ, ZERO_BATCH, ZERO_STEPS = 1024, 4, 2
 # the expert-parallel cases: a tiny GPT-MoE, dropless (cf = E / k) and
@@ -149,7 +173,7 @@ EP_MESHES = ({"dp": 2, "ep": 2}, {"ep": 2, "mp": 2})
 EP_CARD = dict(vocab_size=50304, hidden_size=768, num_layers=2,
                num_heads=12, max_seq_len=1024, dropout=0.0, num_experts=8,
                expert_top_k=2, aux_loss_weight=0.0)
-EP_CARD_BATCH, EP_CARD_SEQ, EP_CARD_STEPS = 8, 1024, 3
+EP_CARD_BATCH, EP_CARD_SEQ, EP_CARD_STEPS = 8, 1024, 2
 EP_CARD_MESHES = ({"ep": 4}, {"dp": 2, "ep": 2}, {"ep": 2, "mp": 2})
 EP_DROPLESS_CF, EP_BOUND_CF = 4.0, 1.25
 # the parameter checks step with SGD: Adam's update is blind to the
@@ -161,6 +185,10 @@ SGD_LR = 0.1
 # head) at the tiny width
 PP_V, PP_D = 64, 32
 PP_SGD_LR = 0.1
+# GPipe's dropout leg: the rate, and the seed every rank's generator
+# takes before the call (so a stage's k-th draw is the same on every
+# rank)
+PP_GPIPE_DROPOUT, PP_GPIPE_SEED = 0.3, 77
 PP_STEPS = 1
 PP_GPT_TINY = dict(TINY, use_flash_attention=False)
 # the card's pp legs: GPT-3 1.3B's width, 8 blocks, micro-batch 1
@@ -267,12 +295,15 @@ def _launch_counts():
 
 def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
            clip=None, amp_on=False, record_step=None, tag="", mask=None,
-           model_cls=None, sgd_lr=None, offload=False):
-    """Build model_cls(cfg) (default GPTForPretraining) on the rank's
-    device (weights from `weights`, else from `seed`), cut it to the
-    installed mesh and run `steps` ShardedTrainStep steps on the global
-    batch (AdamW, or SGD at `sgd_lr`); -> (step, model, per-step
-    dicts)."""
+           model_cls=None, sgd_lr=None, offload=False, remat=False,
+           health=False, fused_ce=False, after_step=None):
+    """Build model_cls(cfg) (default GPTForPretraining; `remat`: with
+    cfg.remat on) on the rank's device (weights from `weights`, else
+    from `seed`), cut it to the installed mesh and run `steps`
+    ShardedTrainStep steps on the global batch (AdamW, or SGD at
+    `sgd_lr`; `health`: the taps at every_k 1, each step's stats kept;
+    `fused_ce`: the loss under the use_fused_ce flag; `after_step(k,
+    step)` called after step k); -> (step, model, per-step dicts)."""
     torch = r.torch
     from .. import amp
     from ..convert import shard_jax_params
@@ -282,6 +313,8 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
     from ..nn.clip import ClipGradByGlobalNorm
     from ..ops.kernel_registry import reset_launches
     from ..optimizer import SGD, AdamW
+    if remat:
+        cfg = type(cfg)(**{**vars(cfg), "remat": True})
     model = (model_cls or GPTForPretraining)(cfg, device=r.dev, seed=seed)
     if weights is not None:
         shard_jax_params(model, weights)
@@ -291,12 +324,26 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
         AdamW(learning_rate=LR, weight_decay=WD,
               parameters=model.parameters(), grad_clip=clip)
 
+    fwd = []
+
     def loss_fn(i, l, *m):
-        with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
-            return model.loss(i, l, *m)
+        # the forward's own peak (the logits live there; a step's peak
+        # can lie in its update) and what it keeps for the backward; the
+        # peak before it is kept, so the step's peak stays the step's
+        if r.dev.type == "cuda":
+            before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with amp.auto_cast(enable=amp_on, dtype="bfloat16"), \
+                _fused_ce(fused_ce):
+            loss = model.loss(i, l, *m)
+        if r.dev.type == "cuda":
+            fwd.append((before, torch.cuda.max_memory_allocated(),
+                        torch.cuda.memory_allocated()))
+        return loss
 
     step = ShardedTrainStep(model, loss_fn, opt, zero_stage=zero_stage,
-                            offload=offload)
+                            offload=offload,
+                            health=dict(HEALTH) if health else None)
     batch = [torch.from_numpy(a).to(r.dev)
              for a in (ids, lbl) + (() if mask is None else (mask,))]
     per = []
@@ -304,6 +351,7 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
         r.sync()
         if r.dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
         reset_launches()
         reset_comm_stats()
         t0 = time.perf_counter()
@@ -328,12 +376,41 @@ def _train(r, cfg, ids, lbl, zero_stage, steps, weights=None, seed=0,
         ms = (time.perf_counter() - t0) * 1e3
         d = {"loss": loss, "ms": ms, "launches": _launch_counts(),
              "comm": comm_stats(), "memory": step.memory()}
+        if health:
+            d["health"] = _stats(step.health)
+        if health:
+            d["tap_bytes"] = step.tap_bytes
         if r.dev.type == "cuda":
-            d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            before, fwd_peak, kept = fwd[-1]
+            d["peak_mem_gb"] = max(
+                before, torch.cuda.max_memory_allocated()) / 2 ** 30
+            d["forward_peak_gb"] = fwd_peak / 2 ** 30
+            d["start_gb"] = start / 2 ** 30
+            d["after_forward_gb"] = kept / 2 ** 30
             if offload:
                 d["offload_ms"] = step.offload_ms()
         per.append(d)
+        if after_step is not None:
+            after_step(k, step)
     return step, model, per
+
+
+def _stats(monitor):
+    """The last fetched health stats of `monitor` (HEALTH_KEYS)."""
+    last = monitor.ring[-1]
+    return {k: float(last[k]) for k in HEALTH_KEYS}
+
+
+@contextlib.contextmanager
+def _fused_ce(on):
+    """The use_fused_ce flag set to `on` inside the block."""
+    from ..flags import get_flag, set_flags
+    prev = get_flag("use_fused_ce")
+    set_flags({"use_fused_ce": bool(on)})
+    try:
+        yield
+    finally:
+        set_flags({"use_fused_ce": prev})
 
 
 def _gpt_case(r, tag, cfg, ids, lbl, zero_stage, steps, save_params,
@@ -362,22 +439,56 @@ def _cpu_hybrid(r):
     from ..models.gpt import GPTConfig
     r.mesh(dp=2, mp=2, sp=2)
     ids, lbl = tiny_batch(r.seed)
-    for mode, zero, clip, mask in (
-            ("ring", 1, None, None), ("ulysses", 1, None, None),
-            ("ring", 0, None, None), ("ring", 2, None, None),
-            ("ring", 1, CLIP_NORM, None), ("ring", 1, None, "mask")):
+    for mode, zero, clip, mask, fce in (
+            ("ring", 1, None, None, False), ("ulysses", 1, None, None, False),
+            ("ring", 0, None, None, False), ("ring", 2, None, None, False),
+            ("ring", 1, CLIP_NORM, None, False),
+            ("ring", 1, None, "mask", False), ("ring", 1, None, None, True)):
         cfg = GPTConfig(**TINY, sequence_parallel=mode)
         weights = numpy_weights(cfg, r.seed)
         tag = f"{mode}_z{zero}" + ("_clip" if clip else "") \
-            + ("_mask" if mask else "")
-        plain = clip is None and mask is None
+            + ("_mask" if mask else "") + ("_fce" if fce else "")
+        plain = clip is None and mask is None and not fce
         _gpt_case(r, tag, cfg, ids, lbl, zero, 3, True, weights=weights,
                   clip=clip, record_step=1 if zero == 1 and plain else None,
-                  mask=tiny_mask(r.seed) if mask else None)
+                  mask=tiny_mask(r.seed) if mask else None, fused_ce=fce)
     # Ulysses under mp: each rank's heads (n / mp) must divide by sp
     cfg = GPTConfig(**{**TINY, "num_heads": 2}, sequence_parallel="ulysses")
     r.rec["errors"] = {"ulysses_mp": _error(lambda: _train(
         r, cfg, ids, lbl, 1, 1))}
+
+
+def fused_ce_inputs(seed, n=24, d=16, vocab=32):
+    """h [n, d], the table w [vocab, d], labels [n] (global ids, with
+    the -100 padding and one id past the vocab) and the losses'
+    cotangent, from RandomState(seed + 11)."""
+    rs = np.random.RandomState(seed + 11)
+    lbl = rs.randint(0, vocab, n).astype(np.int64)
+    lbl[3], lbl[7] = -100, vocab
+    return (rs.randn(n, d).astype(np.float32),
+            (rs.randn(vocab, d) * 0.5).astype(np.float32), lbl,
+            rs.randn(n).astype(np.float32))
+
+
+def _cpu_fused_ce(r):
+    """The fused linear cross entropy over a vocab-parallel table at mp 2
+    (dp 4 x mp 2): each rank's losses, dh and its rows of dw."""
+    torch = r.torch
+    from ..ops.fused_ce import fused_linear_cross_entropy
+    r.mesh(dp=4, mp=2)
+    h, w, lbl, ct = fused_ce_inputs(r.seed)
+    i, n = r.env.axis_index("mp"), r.env.axis_size("mp")
+    rows = w.shape[0] // n
+    ht = torch.from_numpy(h).requires_grad_()
+    wt = torch.from_numpy(w[i * rows:(i + 1) * rows].copy()).requires_grad_()
+    loss = fused_linear_cross_entropy(ht, wt, torch.from_numpy(lbl),
+                                      axis_name="mp")
+    (loss * torch.from_numpy(ct)).sum().backward()
+    r.arr["fce/loss"] = loss.detach().numpy()
+    r.arr["fce/dh"] = ht.grad.numpy()
+    r.arr["fce/dw"] = wt.grad.numpy()
+    r.rec["fce"] = {"coords": r.coords(), "rows": [i * rows,
+                                                   (i + 1) * rows]}
 
 
 def _error(fn):
@@ -911,6 +1022,13 @@ def pp_data(seed, batch, seq=8, vocab=PP_V):
             rs.randint(0, vocab, (batch, seq)).astype(np.int64))
 
 
+# the ClipGradByNorm cases, PP_CLIP_STEPS SGD steps with the health taps
+# on: (tag, mesh, descs kind, blocks, vpp, micro-batches, batch, clip
+# norm); each norm binds on about half of its model's tensors
+PP_CLIP_STEPS = 2
+PP_CLIP_CASES = (("pp4_clipn", {"pp": 4}, "tied", 8, 1, 4, 8, 2.0),
+                 ("pp2_mp2_clipn", {"pp": 2, "mp": 2}, "mp", 4, 1, 2, 4,
+                  0.1))
 # cases: (tag, mesh, descs kind, blocks, vpp, micro-batches, batch)
 PP_CASES = (("pp4", {"pp": 4}, "plain", 8, 1, 4, 8),
             ("pp4_tied", {"pp": 4}, "tied", 8, 1, 4, 8),
@@ -946,22 +1064,32 @@ def _pp_model(kind, blocks, vpp, seed):
 
 
 def _cpu_pp_train(r):
-    """train_batch on each PP_CASES mesh, PP_STEPS SGD steps: each rank
-    saves the losses and its stage's parameters (gathered over mp)."""
+    """train_batch on each PP_CASES mesh, PP_STEPS SGD steps, and on each
+    PP_CLIP_CASES mesh, PP_CLIP_STEPS SGD steps under ClipGradByNorm with
+    the health taps at every_k 1: each rank saves the losses (and each
+    step's taps) and its stage's parameters (gathered over mp)."""
     torch = r.torch
     from ..distributed import PipelineParallel
     from ..distributed.sharded_train import gather_full, param_cuts
+    from ..nn.clip import ClipGradByNorm
     from ..optimizer import SGD
-    for tag, sizes, kind, blocks, vpp, n_micro, batch in PP_CASES:
+    cases = [c + (None, PP_STEPS) for c in PP_CASES] + [
+        c + (PP_CLIP_STEPS,) for c in PP_CLIP_CASES]
+    for tag, sizes, kind, blocks, vpp, n_micro, batch, clip, steps in cases:
         r.mesh(**sizes)
         m = _pp_model(kind, blocks, vpp, r.seed)
         pipe = PipelineParallel(m, strategy=_strategy(n_micro))
-        opt = SGD(learning_rate=PP_SGD_LR, parameters=m.parameters())
-        losses = []
-        for k in range(PP_STEPS):
+        opt = SGD(learning_rate=PP_SGD_LR, parameters=m.parameters(),
+                  grad_clip=None if clip is None else ClipGradByNorm(clip))
+        if clip is not None:
+            pipe.health = dict(HEALTH)
+        losses, taps = [], []
+        for k in range(steps):
             x, y = pp_data(r.seed + k, batch)
             losses.append(float(pipe.train_batch(
                 (torch.from_numpy(x), torch.from_numpy(y)), opt)))
+            if clip is not None:
+                taps.append(_stats(pipe._health_mon))
         cuts = param_cuts(m)
         names = []
         for n, p in pipe.stage_parameters():
@@ -973,6 +1101,8 @@ def _cpu_pp_train(r):
                       "params": names, "blocks": len(plan["blocks"]),
                       "tied": len(plan["tied"]),
                       "chunks": [len(c) for c in plan["chunks"]]}
+        if clip is not None:
+            r.rec[tag]["health"] = taps
 
 
 def _cpu_pp_extras(r):
@@ -984,7 +1114,8 @@ def _cpu_pp_extras(r):
     torch = r.torch
     from ..amp import GradScaler
     from ..distributed import PipelineParallel, fleet
-    from ..distributed.pipeline import (PipelineLayer,
+    from ..distributed.pipeline import (PipelineLayer, pipeline_apply,
+                                        pipeline_apply_tensors,
                                         pipeline_train_step_1f1b,
                                         pipeline_train_step_interleaved)
     from ..distributed.strategy import DistributedStrategy
@@ -1056,6 +1187,34 @@ def _cpu_pp_extras(r):
         r.arr[f"pp_fn/{tag}/pg"] = pg[0].numpy()
         r.arr[f"pp_fn/{tag}/hg"] = hg[0].numpy()
         r.arr[f"pp_fn/{tag}/dx"] = dx.numpy()
+    # GPipe forward and backward at pp 4: y = pipeline_apply_tensors(ws,
+    # x) and pipeline_apply(ws, x, extra b); d sum(y * ct) on every rank
+    bias = torch.from_numpy((rs.randn(D) * 0.3).astype(np.float32))
+    ct = torch.from_numpy(rs.randn(8, D).astype(np.float32))
+    for tag, extra in (("gpipe", ()), ("gpipe_b", (bias,))):
+        w_l, x_l = ws.clone().requires_grad_(), xf.clone().requires_grad_()
+        ex = [e.clone().requires_grad_() for e in extra]
+        if extra:
+            yv = pipeline_apply(pp_stage_fn_bias, [w_l], x_l, 4,
+                                extra_inputs=tuple(ex))
+        else:
+            yv = pipeline_apply_tensors(pp_stage_fn, [w_l], x_l, 4)
+        (yv * ct).sum().backward()
+        r.arr[f"pp_fn/{tag}/y"] = yv.detach().numpy()
+        r.arr[f"pp_fn/{tag}/gw"] = w_l.grad.numpy()
+        r.arr[f"pp_fn/{tag}/gx"] = x_l.grad.numpy()
+        if extra:
+            r.arr[f"pp_fn/{tag}/gb"] = ex[0].grad.numpy()
+    # with dropout: the backward's rerun draws the forward's masks
+    w_l, x_l = ws.clone().requires_grad_(), xf.clone().requires_grad_()
+    torch.manual_seed(PP_GPIPE_SEED)
+    yv = pipeline_apply_tensors(pp_stage_fn_dropout, [w_l], x_l, 4)
+    (yv * ct).sum().backward()
+    r.arr["pp_fn/gpipe_drop/y"] = yv.detach().numpy()
+    r.arr["pp_fn/gpipe_drop/gw"] = w_l.grad.numpy()
+    r.arr["pp_fn/gpipe_drop/gx"] = x_l.grad.numpy()
+    r.arr["pp_fn/inputs/bias"] = bias.numpy()
+    r.arr["pp_fn/inputs/ct"] = ct.numpy()
     r.arr["pp_fn/inputs/ws"] = ws.numpy()
     r.arr["pp_fn/inputs/hw"] = hw.numpy()
     r.arr["pp_fn/inputs/x"] = xf.numpy()
@@ -1079,6 +1238,22 @@ def pp_stage_fn(params, h):
     import torch
     for w in params[0]:
         h = torch.tanh(h @ w)
+    return h
+
+
+def pp_stage_fn_dropout(params, h):
+    """`pp_stage_fn` with dropout (PP_GPIPE_DROPOUT) after each row."""
+    import torch
+    for w in params[0]:
+        h = torch.nn.functional.dropout(torch.tanh(h @ w), PP_GPIPE_DROPOUT)
+    return h
+
+
+def pp_stage_fn_bias(params, h, b):
+    """`pp_stage_fn` with an extra input: tanh(h W + b) over the rows."""
+    import torch
+    for w in params[0]:
+        h = torch.tanh(h @ w + b)
     return h
 
 
@@ -1225,14 +1400,17 @@ def _card4(r):
     from ..models.gpt import GPTConfig
     r.mesh(dp=1, mp=2, sp=2)
     ids, lbl = tiny_batch(r.seed, 2, CARD_SEQ, 50304)
-    for tag, mode, amp_on in (("ring_f32", "ring", False),
-                              ("ulysses_f32", "ulysses", False),
-                              ("ring_bf16", "ring", True)):
+    for tag, mode, amp_on, fce in (("ring_f32", "ring", False, False),
+                                   ("ulysses_f32", "ulysses", False, False),
+                                   ("ring_bf16", "ring", True, False),
+                                   ("ring_fce_f32", "ring", False, True)):
         cfg = GPTConfig.gpt3_1_3b(num_layers=2, max_seq_len=CARD_SEQ,
                                   dropout=0.0, sequence_parallel=mode)
-        _gpt_case(r, tag, cfg, ids, lbl, 1, CARD_STEPS, False, seed=r.seed,
-                  amp_on=amp_on, record_step=CARD_STEPS - 1)
-        r.torch.cuda.empty_cache()
+        steps = CARD_FCE_STEPS if tag in ("ring_f32", "ring_fce_f32") \
+            else CARD_STEPS
+        _gpt_case(r, tag, cfg, ids, lbl, 1, steps, False, seed=r.seed,
+                  amp_on=amp_on, record_step=steps - 1, fused_ce=fce)
+        _release(r)
     _ring_128k(r)
 
 
@@ -1283,7 +1461,7 @@ def _card8(r):
     for zero in (0, 1, 2):
         params[zero] = _gpt_case(r, f"zero{zero}", cfg, ids, lbl, zero,
                                  ZERO_STEPS, False, seed=r.seed)
-        r.torch.cuda.empty_cache()
+        _release(r)
     r.rec["zero_max_diff"] = {
         f"{a}_vs_{b}": max(float(np.abs(params[a][n] - params[b][n]).max())
                            for n in params[a])
@@ -1291,6 +1469,17 @@ def _card8(r):
 
 
 # ---- the card's expert-parallel and pipeline legs ---------------------------
+
+def _release(r):
+    """Free what the last leg left: its model, step and optimizer hold
+    each other through their hooks, a cycle that only the collector
+    frees, so `del` alone leaves them on the card; then the card's
+    cached blocks go back, and the next leg's memory readings start
+    from what it holds itself."""
+    gc.collect()
+    if r.dev.type == "cuda":
+        r.torch.cuda.empty_cache()
+
 
 def _peak_gb(r):
     torch = r.torch
@@ -1345,8 +1534,7 @@ def _ep4(r):
                                   "s": time.perf_counter() - t0}
         ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
         del model, step, tids, tlbl
-        if r.dev.type == "cuda":
-            torch.cuda.empty_cache()
+        _release(r)
     r.coll.barrier()
     for sizes in EP_CARD_MESHES:
         r.mesh(**sizes)
@@ -1358,8 +1546,7 @@ def _ep4(r):
             worst = max(rel, key=rel.get)
             r.rec[tag]["param_rel"] = {"max": rel[worst], "name": worst}
         del params
-        if r.dev.type == "cuda":
-            torch.cuda.empty_cache()
+        _release(r)
         _ep_bound(r, tag, cfg)
     del ref
     # (iii) bf16 amp on ep 4 against the f32 run there
@@ -1456,16 +1643,24 @@ def init_pipe_weights(model, seed, std=0.02):
                 p.normal_(0.0, std, generator=gen)
 
 
-# (tag, mesh, vpp, amp, accumulate steps, steps)
-PP_CARD_RUNS = (("1f1b", {"pp": 4}, 1, False, PP_CARD_ACC, PP_CARD_STEPS),
+# (tag, mesh, vpp, amp, accumulate steps, steps, ClipGradByNorm with the
+# health taps at every_k 1)
+PP_CARD_RUNS = (("1f1b", {"pp": 4}, 1, False, PP_CARD_ACC, PP_CARD_STEPS,
+                 False),
                 ("interleaved", {"pp": 4}, 2, False, PP_CARD_ACC,
-                 PP_CARD_STEPS),
+                 PP_CARD_STEPS, False),
                 ("pp2_mp2", {"pp": 2, "mp": 2}, 1, False, PP_CARD_ACC,
-                 PP_CARD_STEPS),
+                 PP_CARD_STEPS, False),
                 ("1f1b_bf16", {"pp": 4}, 1, True, PP_CARD_ACC,
-                 PP_CARD_STEPS),
-                ("1f1b_acc4", {"pp": 4}, 1, False, 4, 1),
-                ("1f1b_acc16", {"pp": 4}, 1, False, 16, 1))
+                 PP_CARD_STEPS, False),
+                ("1f1b_acc4", {"pp": 4}, 1, False, 4, 1, False),
+                ("1f1b_acc16", {"pp": 4}, 1, False, 16, 1, False),
+                ("1f1b_clipn", {"pp": 4}, 1, False, PP_CARD_ACC,
+                 PP_CARD_STEPS, True),
+                ("pp2_mp2_clipn", {"pp": 2, "mp": 2}, 1, False, PP_CARD_ACC,
+                 PP_CARD_STEPS, True))
+# the card's ClipGradByNorm norm (GPT-3 1.3B width, init 0.02)
+PP_CARD_CLIP = 0.05
 
 
 def pp_card_config():
@@ -1484,49 +1679,86 @@ def _pp_pipe(r, cfg, vpp):
     return m
 
 
+def _pp_reference(r, cfg, path, clip):
+    """Rank 0: the one-process sequential train_batch (no mesh) for
+    PP_CARD_STEPS SGD steps, with `clip` under ClipGradByNorm(clip) and
+    the health taps at every_k 1; its parameters go to `path`. -> its
+    record (losses, seconds, each step's taps)."""
+    torch = r.torch
+    from ..distributed import PipelineParallel
+    from ..nn.clip import ClipGradByNorm
+    from ..optimizer import SGD
+    r.env.set_mesh(None)
+    m = _pp_pipe(r, cfg, 1)
+    pipe = PipelineParallel(m, strategy=_strategy(PP_CARD_ACC))
+    opt = SGD(learning_rate=SGD_LR, parameters=m.parameters(),
+              grad_clip=None if clip is None else ClipGradByNorm(clip))
+    if clip is not None:
+        pipe.health = dict(HEALTH)
+    t0 = time.perf_counter()
+    losses, taps = [], []
+    for k in range(PP_CARD_STEPS):
+        ids, lbl = tiny_batch(r.seed + k, PP_CARD_ACC, CARD_SEQ,
+                              cfg.vocab_size)
+        losses.append(float(pipe.train_batch(
+            (torch.from_numpy(ids).to(r.dev),
+             torch.from_numpy(lbl).to(r.dev)), opt)))
+        if clip is not None:
+            taps.append(_stats(pipe._health_mon))
+    rec = {"losses": losses, "s": time.perf_counter() - t0}
+    if clip is not None:
+        rec["health"] = taps
+    torch.save({n: p.detach().cpu() for n, p in m.named_parameters()}, path)
+    del m, pipe, opt
+    _release(r)
+    return rec
+
+
 def _pp4(r):
     """GPT-3 1.3B's width as a PipelineLayer (tied embedding, 8 blocks,
-    final LN, tied head), micro-batch 1 x CARD_SEQ: rank 0 runs the
-    one-process sequential train_batch first and leaves its parameters
-    in a file; then 1F1B at pp 4, interleaved at pp 4 x vpp 2, pp 2 x
-    mp 2 (f32), 1F1B in bf16 amp, and 1F1B at 4 and 16 micro-batches
-    (memory); each rank checks its stage's parameters against the
-    file."""
+    final LN, tied head), micro-batch 1 x CARD_SEQ. First the one-process
+    references, side by side, a rank each: rank 0 the sequential
+    train_batch, rank 1 the same under ClipGradByNorm with the health
+    taps (each leaves its parameters in a file), rank 2 the GPipe leg's
+    gradient. Then 1F1B at pp 4, interleaved at pp 4 x vpp 2, pp 2 x mp
+    2 (f32), 1F1B in bf16 amp, 1F1B at 4 and 16 micro-batches (memory),
+    and 1F1B at pp 4 and pp 2 x mp 2 under the clip with the taps; each
+    rank checks its stage's parameters against the file of its run.
+    Then GPipe's forward and backward (`_pp4_gpipe`)."""
     torch = r.torch
     from .. import amp
     from ..distributed import PipelineParallel
     from ..distributed.collective import comm_stats
     from ..distributed.sharded_train import gather_full, param_cuts
+    from ..nn.clip import ClipGradByNorm
     from ..optimizer import SGD
     cfg = pp_card_config()
-    ref_path = os.path.join(r.out, "pp4_reference.pt")
+    paths = {False: os.path.join(r.out, "pp4_reference.pt"),
+             True: os.path.join(r.out, "pp4_reference_clip.pt")}
+    gpipe_ref = None
     if r.rank == 0:
-        r.env.set_mesh(None)
-        m = _pp_pipe(r, cfg, 1)
-        pipe = PipelineParallel(m, strategy=_strategy(PP_CARD_ACC))
-        opt = SGD(learning_rate=SGD_LR, parameters=m.parameters())
-        t0 = time.perf_counter()
-        losses = []
-        for k in range(PP_CARD_STEPS):
-            ids, lbl = tiny_batch(r.seed + k, PP_CARD_ACC, CARD_SEQ,
-                                  cfg.vocab_size)
-            losses.append(float(pipe.train_batch(
-                (torch.from_numpy(ids).to(r.dev),
-                 torch.from_numpy(lbl).to(r.dev)), opt)))
-        r.rec["pp4/reference"] = {"losses": losses,
-                                  "s": time.perf_counter() - t0}
-        torch.save({n: p.detach().cpu() for n, p in m.named_parameters()},
-                   ref_path)
-        del m, pipe, opt
-        if r.dev.type == "cuda":
-            torch.cuda.empty_cache()
+        r.rec["pp4/reference"] = _pp_reference(r, cfg, paths[False], None)
+    elif r.rank == 1:
+        r.rec["pp4/reference_clip"] = _pp_reference(r, cfg, paths[True],
+                                                    PP_CARD_CLIP)
+    elif r.rank == 2:
+        gpipe_ref = _gpipe_reference(r, cfg)
     r.coll.barrier()
-    ref = torch.load(ref_path, mmap=True)
-    for tag, sizes, vpp, amp_on, acc, steps in PP_CARD_RUNS:
+    if r.rank == 1:
+        # the clip bound on some tensor: the runs' parameters differ
+        a, b = (torch.load(paths[c], mmap=True) for c in (False, True))
+        r.rec["pp4/reference_clip"]["tensors_changed"] = sum(
+            not torch.equal(a[n], b[n]) for n in a)
+        del a, b
+    refs = {c: torch.load(paths[c], mmap=True) for c in (False, True)}
+    for tag, sizes, vpp, amp_on, acc, steps, clip in PP_CARD_RUNS:
         r.mesh(**sizes)
         m = _pp_pipe(r, cfg, vpp)
         pipe = PipelineParallel(m, strategy=_strategy(acc))
-        opt = SGD(learning_rate=SGD_LR, parameters=m.parameters())
+        opt = SGD(learning_rate=SGD_LR, parameters=m.parameters(),
+                  grad_clip=ClipGradByNorm(PP_CARD_CLIP) if clip else None)
+        if clip:
+            pipe.health = dict(HEALTH)
         per = []
         for k in range(steps):
             ids, lbl = tiny_batch(r.seed + k, acc, CARD_SEQ, cfg.vocab_size)
@@ -1542,11 +1774,14 @@ def _pp4(r):
                         "ms": (time.perf_counter() - t0) * 1e3,
                         "launches": _launch_counts(), "comm": comm_stats(),
                         "peak_mem_gb": _peak_gb(r)})
+            if clip:
+                per[-1]["health"] = _stats(pipe._health_mon)
         rec = {"losses": [d["loss"] for d in per], "steps": per,
                "coords": r.coords(), "acc": acc, "vpp": vpp,
                "local_blocks": sum(len(c) for c in
                                    pipe._pipe_plan["chunks"])}
         if not amp_on and steps == PP_CARD_STEPS:
+            ref = refs[clip]
             cuts = param_cuts(m)
             rel = {}
             for n, p in pipe.stage_parameters():
@@ -1559,26 +1794,117 @@ def _pp4(r):
                                 "count": len(rel)}
         r.rec[f"pp4/{tag}"] = rec
         del m, pipe, opt
-        if r.dev.type == "cuda":
-            torch.cuda.empty_cache()
-    del ref
+        _release(r)
+    del refs
     r.coll.barrier()
     if r.rank == 0:
-        os.remove(ref_path)
+        for path in paths.values():
+            os.remove(path)
+    _pp4_gpipe(r, cfg, gpipe_ref)
+
+
+def _gpipe_inputs(r, cfg):
+    """The GPipe leg's inputs, the same on every rank: PP_CARD_BLOCKS
+    GPT-3 1.3B-width blocks' parameters stacked (LayerNorms 1 and 0,
+    biases 0, the rest N(0, init) from a generator seeded with the
+    seed), x and the cotangent ct [PP_CARD_ACC, CARD_SEQ, d], and
+    stage_fn (a GPTBlock run by `functional_call` over each row)."""
+    torch = r.torch
+    from torch.func import functional_call
+    from .. import nn
+    from ..models.gpt import GPTBlock
+    tmpl = GPTBlock(cfg, device=r.dev)
+    names = [n for n, _ in tmpl.named_parameters()]
+    lns = {id(p) for mod in tmpl.modules() if isinstance(mod, nn.LayerNorm)
+           for p in mod.parameters()}
+    gen = torch.Generator(device=r.dev).manual_seed(r.seed + 21)
+    stack = []
+    for n, p in tmpl.named_parameters():
+        t = torch.empty((PP_CARD_BLOCKS,) + tuple(p.shape), device=r.dev)
+        if id(p) in lns:
+            t.fill_(1.0) if n.endswith("weight") else t.zero_()
+        elif n.endswith("bias"):
+            t.zero_()
+        else:
+            t.normal_(0.0, cfg.initializer_range, generator=gen)
+        stack.append(t)
+    shape = (PP_CARD_ACC, CARD_SEQ, cfg.hidden_size)
+    x = torch.randn(shape, generator=gen, device=r.dev)
+    ct = torch.randn(shape, generator=gen, device=r.dev)
+
+    def stage_fn(local, h):
+        for i in range(local[0].shape[0]):
+            h = functional_call(tmpl, {n: p[i] for n, p in
+                                       zip(names, local)}, (h,))
+        return h
+
+    return names, [t.requires_grad_() for t in stack + [x]], ct, stage_fn
+
+
+def _gpipe_reference(r, cfg):
+    """The one-process gradient of sum(y * ct) through the stacked blocks
+    (no mesh; the micro-batches in turn) -> [d stack..., dx]."""
+    r.env.set_mesh(None)
+    _, leaves, ct, stage_fn = _gpipe_inputs(r, cfg)
+    for m in range(PP_CARD_ACC):
+        y = stage_fn(leaves[:-1], leaves[-1][m:m + 1])
+        (y * ct[m:m + 1]).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def _pp4_gpipe(r, cfg, ref):
+    """GPipe (`pipeline_apply`) forward and backward at pp 4 through
+    `_gpipe_inputs`' blocks, x in PP_CARD_ACC micro-batches: d sum(y *
+    ct) with respect to the stack and x on every rank. The rank that
+    holds the one-process gradient `ref` (`_gpipe_reference`) holds the
+    pipelined one against it; every rank keeps a fingerprint of its
+    gradients (they must be the same)."""
+    torch = r.torch
+    from ..distributed.pipeline import pipeline_apply
+    r.mesh(pp=4)
+    names, leaves, ct, stage_fn = _gpipe_inputs(r, cfg)
+    out = {}
+    _reset_step(r)
+    t0 = time.perf_counter()
+    y = pipeline_apply(stage_fn, leaves[:-1], leaves[-1], PP_CARD_ACC)
+    (y * ct).sum().backward()
+    r.sync()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = _launch_counts()
+    out["peak_mem_gb"] = _peak_gb(r)
+    out["fingerprint"] = float(sum(t.grad.double().square().sum()
+                                   for t in leaves))
+    if ref is not None:
+        rel = [float((t.grad - g).norm() / g.norm())
+               for t, g in zip(leaves, ref)]
+        out["grad_rel"] = {"max": max(rel), "dx": rel[-1],
+                           "stack": dict(zip(names, rel[:-1]))}
+    r.rec["pp4/gpipe"] = out
+    del leaves, y, ct, ref
+    _release(r)
 
 
 # ---- ZeRO-3, offload and checkpoints ----------------------------------------
 
-# the ZeRO-3 legs, ZERO3_STEPS steps each: (tag, stage, offload, bf16
-# amp); the CPU job runs every stage's offload, the card (whose steps
-# cross the host over gloo, ~4-10 s each) ZeRO-3's alone and bf16
-ZERO3_STEPS = 3
-ZERO3_LEGS = (("z2", 2, False, False), ("z3", 3, False, False),
-              ("z3_off", 3, True, False), ("z1", 1, False, False),
-              ("z1_off", 1, True, False), ("z2_off", 2, True, False),
-              ("z3_bf16", 3, False, True))
-ZERO3_CPU_TAGS = ("z2", "z3", "z3_off", "z1", "z1_off", "z2_off")
-ZERO3_CARD_TAGS = ("z2", "z3", "z3_off", "z3_bf16")
+# the ZeRO-3 legs, ZERO3_STEPS steps each on the CPU; on the card
+# (whose steps cross the host over gloo, ~4-10 s each) remat and the
+# health taps run ZERO3_STEPS, ZeRO-3 too (its pieces after
+# ZERO3_CARD_STEPS are kept for the shorter legs), the others
+# ZERO3_CARD_STEPS: (tag, stage, options of `_train`, the leg whose
+# pieces it is held against, at the same step); the CPU job runs every
+# stage's offload, the card ZeRO-3's alone, bf16, remat and the taps
+ZERO3_STEPS, ZERO3_CARD_STEPS = 3, 2
+ZERO3_CARD_FULL = ("z3", "z3_remat", "z3_health")
+ZERO3_LEGS = (("z2", 2, {}, None), ("z3", 3, {}, "z2"),
+              ("z3_off", 3, {"offload": True}, "z3"),
+              ("z1", 1, {}, "z2"), ("z1_off", 1, {"offload": True}, "z1"),
+              ("z2_off", 2, {"offload": True}, "z2"),
+              ("z3_bf16", 3, {"amp_on": True}, "z3"),
+              ("z3_remat", 3, {"remat": True}, "z3"),
+              ("z3_health", 3, {"health": True}, "z3"))
+ZERO3_CPU_TAGS = ("z2", "z3", "z3_off", "z1", "z1_off", "z2_off",
+                  "z3_remat", "z3_health")
+ZERO3_CARD_TAGS = ("z2", "z3", "z3_off", "z3_bf16", "z3_remat", "z3_health")
 # the checkpoint legs: a save every `save_every` steps, 2 kept; the
 # preemption requested on rank 2 alone before step index `preempt_at`
 # (every rank stops at the boundary after it); the resumed run's step
@@ -1594,6 +1920,9 @@ CKPT_CARD = dict(steps=3, save_every=2, preempt_at=0, start=2, cont=2,
 # the card's legs: GPT-3 1.3B's width cut to 2 blocks (the distributed
 # phase's card4 depth), one row of 2048 a rank
 ZERO3_CARD_BLOCKS, CKPT_CARD_BLOCKS = 2, 2
+# the zero3_8 job (not in the smoke): ZeRO-3 with and without remat at
+# 8 blocks, where remat's saving shows
+ZERO3_DEPTH_BLOCKS = 8
 
 
 def ckpt_batch(i, batch, seq, vocab):
@@ -1629,24 +1958,37 @@ def _piece_diff(r, pieces, ref):
 
 def _zero3_cases(r, cfg, ids, lbl, weights=None, card=False):
     """ZeRO-2 and ZeRO-3 at dp 4, the offloaded stages against the same
-    stage without offload, bf16 amp against f32 (ZERO3_LEGS), then
-    ZeRO-3 at dp 2 x mp 2 against dp 4's losses. Every rank compares
-    its pieces and the sums are all-reduced; on the CPU rank 0 also
-    saves the gathered parameters of z2, z3 and z3_mp."""
+    stage without offload, bf16 amp, remat and the health taps against
+    ZeRO-3 (ZERO3_LEGS; the taps also against `_health_reference`),
+    then ZeRO-3 at dp 2 x mp 2, taps on, against dp 4's losses. Every
+    rank compares its pieces and the sums are all-reduced; on the CPU
+    rank 0 also saves the gathered parameters of z2, z3, z3_remat and
+    z3_mp."""
     from ..convert import gather_params
+
+    def steps_of(tag):
+        return ZERO3_STEPS if not card or tag in ZERO3_CARD_FULL \
+            else ZERO3_CARD_STEPS
+
+    _health_reference(r, cfg, ids, lbl, steps_of("z3_health"), weights)
     r.mesh(dp=4)
-    kept, cmp = {}, {}
+    kept, cmp = {}, {}     # kept[tag][n]: the pieces after n steps
 
     def leg(tag, zero, **kw):
-        step, model, per = _train(r, cfg, ids, lbl, zero, ZERO3_STEPS,
-                                  weights=weights, seed=r.seed, tag=tag, **kw)
+        def snap(k, step):
+            if k + 1 == ZERO3_CARD_STEPS:
+                kept.setdefault(tag, {})[k + 1] = _pieces(step)
+        step, model, per = _train(
+            r, cfg, ids, lbl, zero, steps_of(tag), weights=weights,
+            seed=r.seed, tag=tag,
+            after_step=snap if tag in ("z1", "z2", "z3") else None, **kw)
         r.rec[tag] = {"losses": [d["loss"] for d in per], "steps": per,
                       "state_bytes": step.state_bytes(),
                       "coords": r.coords(),
                       "state_dict": sorted(
                           k for k in step.optimizer.state_dict()
                           if k != "LR_Scheduler")}
-        if not card and tag in ("z2", "z3", "z3_mp"):
+        if not card and tag in ("z2", "z3", "z3_remat", "z3_mp"):
             params = gather_params(model)
             if r.rank == 0:
                 for n, a in params.items():
@@ -1659,28 +2001,69 @@ def _zero3_cases(r, cfg, ids, lbl, weights=None, card=False):
                                                     r.rec[base]["losses"])]
 
     tags = ZERO3_CARD_TAGS if card else ZERO3_CPU_TAGS
-    for tag, zero, off, amp_on in ZERO3_LEGS:
+    for tag, zero, kw, base in ZERO3_LEGS:
         if tag not in tags:
             continue
-        step = leg(tag, zero, offload=off, amp_on=amp_on)
+        if tag == "z3_remat":
+            # torch.utils.checkpoint's first call imports torch._dynamo:
+            # timed here, outside the leg's first step
+            t0 = time.perf_counter()
+            import torch._dynamo  # noqa: F401
+            r.rec["z3_remat/dynamo_import_s"] = time.perf_counter() - t0
+        step = leg(tag, zero, **kw)
         params = _pieces(step)
+        alive = weakref.ref(step)
         del step
-        base = tag.split("_")[0] if off else (
-            "z3" if tag == "z3_bf16" else "z2" if tag != "z2" else None)
-        if base is not None:
-            rel, mx, equal = _piece_diff(r, params, kept[base])
-            cmp[tag] = {"vs": base, "loss_rel": loss_rel(tag, base),
-                        "rel": rel, "max_abs": mx, "equal": equal}
+        n = len(r.rec[tag]["losses"])
         if tag in ("z1", "z2", "z3"):
-            kept[tag] = params
+            kept.setdefault(tag, {})[n] = params
+        if base is not None:
+            # at the shorter leg's last step (ZeRO-3 after 3 against
+            # ZeRO-2 after 2: its pieces after 2)
+            at = min(n, len(r.rec[base]["losses"]))
+            rel, mx, equal = _piece_diff(
+                r, params if at == n else kept[tag][at], kept[base][at])
+            cmp[tag] = {"vs": base, "loss_rel": loss_rel(tag, base),
+                        "rel": rel, "max_abs": mx, "equal": equal,
+                        "steps": at}
         del params
-        if card:
-            r.torch.cuda.empty_cache()
+        _release(r)
+        # nothing keeps a finished step (and its model and states)
+        r.rec.setdefault("zero3_freed", {})[tag] = alive() is None
     r.mesh(dp=2, mp=2)
-    leg("z3_mp", 3)
+    leg("z3_mp", 3, health=True)
     cmp["z3_mp"] = {"vs": "z2", "loss_rel": loss_rel("z3_mp", "z2")}
     if r.rank == 0:
         r.rec["zero3_cmp"] = cmp
+
+
+def _health_reference(r, cfg, ids, lbl, steps, weights=None):
+    """Rank 0 runs `jit.TrainStep(health=)` (one process, no mesh) for
+    `steps` AdamW steps on the global batch from the legs' weights
+    and keeps each step's health stats under "z3_health/reference"; the
+    other ranks wait at a barrier."""
+    torch = r.torch
+    if r.rank == 0:
+        from ..convert import shard_jax_params
+        from ..jit import TrainStep
+        from ..models.gpt import GPTForPretraining
+        from ..optimizer import AdamW
+        r.env.set_mesh(None)
+        model = GPTForPretraining(cfg, device=r.dev, seed=r.seed)
+        if weights is not None:
+            shard_jax_params(model, weights)
+        opt = AdamW(learning_rate=LR, weight_decay=WD,
+                    parameters=model.parameters())
+        step = TrainStep(model, model.loss, opt, health=dict(HEALTH))
+        batch = [torch.from_numpy(a).to(r.dev) for a in (ids, lbl)]
+        stats = []
+        for _ in range(steps):
+            step(*batch)
+            stats.append(_stats(step.health))
+        r.rec["z3_health/reference"] = stats
+        del model, opt, step
+        _release(r)
+    r.coll.barrier()
 
 
 def _cpu_zero3(r):
@@ -1696,6 +2079,27 @@ def _zero3_card(r):
                               max_seq_len=CARD_SEQ, dropout=0.0)
     ids, lbl = tiny_batch(r.seed, 4, CARD_SEQ, cfg.vocab_size)
     _zero3_cases(r, cfg, ids, lbl, card=True)
+
+
+def _zero3_depth(r):
+    """ZeRO-3 and ZeRO-3 with remat, ZERO3_CARD_STEPS f32 AdamW steps
+    each at dp 4, GPT-3 1.3B's width x ZERO3_DEPTH_BLOCKS blocks (the
+    smoke's zero3_4 runs 2, for its time): each rank's memory a step,
+    where remat pays at depth. torch._dynamo, which
+    torch.utils.checkpoint imports at its first call, is imported
+    first."""
+    from ..models.gpt import GPTConfig
+    import torch._dynamo  # noqa: F401
+    cfg = GPTConfig.gpt3_1_3b(num_layers=ZERO3_DEPTH_BLOCKS,
+                              max_seq_len=CARD_SEQ, dropout=0.0)
+    ids, lbl = tiny_batch(r.seed, 4, cfg.max_seq_len, cfg.vocab_size)
+    r.mesh(dp=4)
+    for tag, kw in (("z3", {}), ("z3_remat", {"remat": True})):
+        step, model, per = _train(r, cfg, ids, lbl, 3, ZERO3_CARD_STEPS,
+                                  seed=r.seed, tag=tag, **kw)
+        r.rec[tag] = {"losses": [d["loss"] for d in per], "steps": per}
+        del step, model
+        _release(r)
 
 
 def _param_digest(model):
@@ -1904,7 +2308,7 @@ def _ckpt4_resume(r):
     cfg = _ckpt_card_config()
     root = _ckpt_root(r)
     _ckpt_resume(r, cfg, _card_batch_fn(cfg), root, CKPT_CARD)
-    r.torch.cuda.empty_cache()
+    _release(r)
     cfg0 = _ckpt_card_config(0.0)
     _ckpt_reshard(r, cfg0, _card_batch_fn(cfg0), root, CKPT_CARD,
                   {"dp": 4}, 3, "ckpt_direct", check=False)
@@ -1917,15 +2321,17 @@ def _ckpt_card_reshard(r):
     _ckpt_reshard(r, cfg0, _card_batch_fn(cfg0), _ckpt_root(r), CKPT_CARD,
                   mesh, zero, "ckpt_reshard")
 
-CASES = {"cpu": (_cpu_hybrid, _cpu_ops, _cpu_mp_layers, _cpu_collectives,
-                 _cpu_topology, _cpu_data_parallel, _cpu_timeout),
+CASES = {"cpu": (_cpu_hybrid, _cpu_fused_ce, _cpu_ops, _cpu_mp_layers,
+                 _cpu_collectives, _cpu_topology, _cpu_data_parallel,
+                 _cpu_timeout),
          "cpu_ep": (_cpu_ep_values, _cpu_ep_train, _cpu_ep_exchange,
                     _cpu_ep_topology),
          "cpu_pp": (_cpu_pp_train, _cpu_pp_extras),
          "nccl1": (_nccl1,), "gloo_probe": (_gloo_probe,),
          "card4": (_card4,), "card8": (_card8,), "ep4": (_ep4,),
          "pp4": (_pp4,), "cpu_zero3": (_cpu_zero3, _cpu_ckpt),
-         "zero3_4": (_zero3_card,), "ckpt4": (_ckpt4,),
+         "zero3_4": (_zero3_card,), "zero3_8": (_zero3_depth,),
+         "ckpt4": (_ckpt4,),
          "ckpt4_resume": (_ckpt4_resume,),
          "ckpt2_reshard": (_ckpt_card_reshard,),
          "ckpt4_reshard": (_ckpt_card_reshard,)}

@@ -7,24 +7,31 @@ The port of tools/serve_13b_w8a16.py: GPT-3 13B at its true widths
 parameters) decodes greedily with int8 linears and bf16 activations
 (`quant.wo8`). The recipe's steps:
 
- 1. build the f32 model on the host, never on the card;
- 2. quantize every linear on the host (`quantize_weights_int8`: int8
-    codes, per-output-channel f32 scales; the embeddings stay float);
- 3. cast the floating parameters to bf16, leave the buffers (the f32
-    `w_scale`s) as they are, and move only this serving set to the card:
-    ~12.2 GiB (12.58e9 int8 codes, the 0.48 GiB bf16 token table);
+ 1. build the f32 model a piece at a time on the target device (the
+    card; `device="cpu"` builds on the host);
+ 2. quantize every linear there (`quantize_weights_int8`: int8 codes,
+    per-output-channel f32 scales; the embeddings stay float);
+ 3. cast the floating parameters to bf16 and leave the buffers (the f32
+    `w_scale`s) as they are: the serving set, ~12.2 GiB on the card
+    (12.58e9 int8 codes, the 0.48 GiB bf16 token table);
  4. `generate` greedily at batch 1: a 64-token prompt from
     RandomState(0), 64 new tokens, one warm call and one timed call.
 
 The f32 model is 51 GB, so `build_w8a16` makes it a piece at a time (the
 token and position tables, each block, the final LayerNorm): a
 skeleton on the meta device, then for each piece its f32 values on the
-host, drawn with `GPTForPretraining.init_parameter` from one generator
-in the order of `named_parameters()`, then steps 2-3 for that piece
-alone. The host holds one piece's f32 values at a time, and the values
-are a whole f32 build's bit for bit (tests/test_torch_serve_13b.py
-holds the two against each other). `prepare_w8a16` is steps 2-3 for a
-model already built in f32 on the host.
+target device, drawn with `GPTForPretraining.init_parameter` from one
+generator of that device seeded with `seed`, in the order of
+`named_parameters()`, then steps 2-3 for that piece alone. The device
+holds one piece's f32 values at a time (~1.3 GB for a 13B block, ~1 GB
+for the token table) beside the int8 set already built. On the host
+(`device="cpu"`) the values are a whole f32 build's bit for bit
+(tests/test_torch_serve_13b.py holds the two against each other). A
+CUDA generator draws other values than the CPU one from the same seed,
+so the card's weights are not the host build's: nothing compares them,
+since the recipe's checks (the teacher forcing, the depth witness) hold
+the model against itself. `prepare_w8a16` is steps 2-3 for a model
+already built in f32.
 """
 import time
 
@@ -53,14 +60,16 @@ def _sync(device):
 
 @torch.no_grad()
 def prepare_w8a16(module, device=None, dtype="bfloat16", seconds=None):
-    """Steps 2-3 for `module` (a model or a piece of one) in f32 on the
-    host: quantize its linears, cast its floating parameters to `dtype`
-    (None: kept), move it to `device` (None: the card). `seconds`, a
-    dict, gains the quantize and move times. Returns the bytes moved."""
+    """Steps 2-3 for `module` (a model or a piece of one) in f32:
+    quantize its linears where they lie, cast its floating parameters
+    to `dtype` (None: kept), move it to `device` (None: the card).
+    `seconds`, a dict, gains the quantize and move times. Returns the
+    bytes moved."""
     dev = resolve_device(device)
     seconds = {} if seconds is None else seconds
     t0 = time.perf_counter()
     quantize_weights_int8(module)
+    _sync(dev)
     t1 = time.perf_counter()
     cdt = None if dtype is None else resolve_dtype(dtype)
     for p in module.parameters():
@@ -95,21 +104,24 @@ def _pieces(model):
 
 @torch.no_grad()
 def build_w8a16(config, seed=0, device=None, dtype="bfloat16"):
-    """Steps 1-3 a piece at a time -> (GPTForPretraining on `device`,
-    seconds {"build", "quantize", "move"}). The model's config is
-    `config` (its dtype is the KV cache's); its weights are those of
-    `prepare_w8a16(GPTForPretraining(config in f32, device="cpu",
-    seed=seed))`."""
+    """Steps 1-3 a piece at a time on `device` (None: the card) ->
+    (GPTForPretraining there, seconds {"build", "quantize", "move"}).
+    The model's config is `config` (its dtype is the KV cache's). Each
+    piece is drawn on `device` from one `torch.Generator` of that device
+    seeded with `seed`, and quantized there; on the host the weights are
+    those of `prepare_w8a16(GPTForPretraining(config in f32,
+    device="cpu", seed=seed))`."""
     dev = resolve_device(device)
     model = GPTForPretraining(config, device="meta", seed=seed)
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
     seconds = {"build": 0.0, "quantize": 0.0, "move": 0.0}
     for prefix, piece in _pieces(model):
         t0 = time.perf_counter()
-        piece.to_empty(device="cpu")
+        piece.to_empty(device=dev)
         piece.float()
         for name, p in piece.named_parameters():
             model.init_parameter(f"{prefix}.{name}", p, gen)
+        _sync(dev)
         seconds["build"] += time.perf_counter() - t0
         prepare_w8a16(piece, dev, dtype, seconds)
     return model, seconds
@@ -142,7 +154,7 @@ def main():
     model, seconds = build_w8a16(cfg, seed=0)
     n = sum(p.numel() for p in model.parameters()) + sum(
         b.numel() for b in model.buffers() if b.dtype == torch.int8)
-    print(f"params: {n / 1e9:.3f}B; built on the host in "
+    print(f"params: {n / 1e9:.3f}B; built on the card in "
           f"{seconds['build']:.1f} s, quantized in {seconds['quantize']:.1f}"
           f" s, moved {serving_bytes(model) / 2 ** 30:.2f} GiB in "
           f"{seconds['move']:.1f} s ({time.perf_counter() - t0:.1f} s)",

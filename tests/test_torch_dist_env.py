@@ -195,9 +195,9 @@ def test_shard_model_without_a_mesh_cuts_nothing():
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, what):
     m = torch.nn.Linear(2, 2)
-    if what in ("ZeRO-3", "offload", "elastic"):
-        # ported since: ZeRO-3, offload= and resilience= raise nothing of
-        # their own; without a mesh the step refuses
+    if what in ("ZeRO-3", "offload", "elastic", "runtime"):
+        # ported since: ZeRO-3, offload=, resilience= and health= raise
+        # nothing of their own; without a mesh the step refuses
         with pytest.raises(ValueError, match="needs a mesh"):
             ShardedTrainStep(m, lambda x: x,
                              AdamW(parameters=m.parameters()), **kw)

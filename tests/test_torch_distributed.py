@@ -12,7 +12,13 @@ computes the JAX references; every test below reads its files:
   ring and Ulysses under ZeRO-1, losses to 1e-5 relative and the
   gathered parameters to 1e-4 (the bars of test_torch_train.py); ZeRO
   0, 1 and 2 equal to 1e-6, each rank's optimizer states 1/dp of
-  ZeRO-0's; a global-norm clip against JAX's clipped step;
+  ZeRO-0's; a global-norm clip against JAX's clipped step; the loss
+  under `use_fused_ce` (the fused CE over the vocab-parallel table)
+  against JAX's fused step;
+- the fused linear cross entropy alone at mp 2 (dp 4 x mp 2: each rank
+  a half of the table, the -100 padding and an id past the vocab among
+  the labels) against JAX's `fused_linear_cross_entropy` on the whole
+  table: losses to 1e-5, dh and dw to 1e-4;
 - ring and Ulysses attention alone at sp 4 (dp 2 x sp 4), causal and
   not, forward and dq/dk/dv against the JAX `ring_attention_values` /
   `ulysses_attention_values` on a dp 2 x sp 4 virtual-device mesh, to
@@ -44,7 +50,9 @@ from paddle_tpu.distributed.topology import \
     CommunicateTopology as JaxTopology
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.models.gpt import GPTForPretraining as JaxGPT
+from paddle_tpu.flags import set_flags as jax_set_flags
 from paddle_tpu.nn import ClipGradByGlobalNorm as JaxClip
+from paddle_tpu.ops.fused_ce import fused_linear_cross_entropy as jax_fce
 from paddle_tpu.ops.ring_attention import (ring_attention_values,
                                            ulysses_attention_values)
 
@@ -57,8 +65,17 @@ _HYBRID = ("ring_z1", "ulysses_z1")
 _ZERO = ("ring_z0", "ring_z1", "ring_z2")
 
 
-def _jax_train(weights, clip=None, mask=False):
-    """3 AdamW steps of the JAX TrainStep on one device, no mesh."""
+def _jax_train(weights, clip=None, mask=False, fused_ce=False):
+    """3 AdamW steps of the JAX TrainStep on one device, no mesh (the
+    loss under the use_fused_ce flag with `fused_ce`)."""
+    jax_set_flags({"use_fused_ce": fused_ce})
+    try:
+        return _jax_steps(weights, clip, mask)
+    finally:
+        jax_set_flags({"use_fused_ce": False})
+
+
+def _jax_steps(weights, clip, mask):
     jm = JaxGPT(JaxGPTConfig(**dd.TINY))
     for n, p in jm.named_parameters():
         p._value = jnp.asarray(weights[n])
@@ -117,6 +134,7 @@ def run(tmp_path_factory):
         ref = {"train": _jax_train(weights),
                "clip": _jax_train(weights, dd.CLIP_NORM),
                "mask": _jax_train(weights, mask=True),
+               "fce": _jax_train(weights, fused_ce=True),
                "ops": _jax_ops(), "weights": weights}
     finally:
         res = job.wait()
@@ -153,8 +171,8 @@ def test_hybrid_step_losses_track_the_jax_train_step(run, tag):
     assert tl[-1] < tl[0]
 
 
-@pytest.mark.parametrize("tag", _HYBRID + _ZERO[::2] + ("ring_z1_clip",
-                                                       "ring_z1_mask"))
+@pytest.mark.parametrize("tag", _HYBRID + _ZERO[::2] + (
+    "ring_z1_clip", "ring_z1_mask", "ring_z1_fce"))
 def test_every_rank_reports_the_global_loss(run, tag):
     losses = [rec[tag]["losses"] for rec, _ in run[0].values()]
     assert all(l == losses[0] for l in losses)
@@ -172,6 +190,47 @@ def test_hybrid_step_parameters_track_the_jax_parameters(run, tag):
                                    atol=1e-4, err_msg=n)
     # the steps moved the parameters by more than the bar somewhere
     assert max(np.abs(jp[n] - init[n]).max() for n in jp) > 2e-4
+
+
+def test_fused_ce_step_tracks_the_jax_fused_step(run):
+    """dp 2 x mp 2 x sp 2 with the loss under use_fused_ce: each rank's
+    chunks over its half of the tied table, against JAX's step under the
+    same flag (losses 1e-5 relative, parameters 1e-4)."""
+    jl, jp = run[1]["fce"]
+    np.testing.assert_allclose(_rec(run)["ring_z1_fce"]["losses"], jl,
+                               rtol=1e-5, atol=0)
+    arr = _arr(run)
+    for n, ref in jp.items():
+        np.testing.assert_allclose(arr[f"ring_z1_fce/{n}"], ref, rtol=0,
+                                   atol=1e-4, err_msg=n)
+
+
+@pytest.fixture(scope="module")
+def fce_ref():
+    """JAX's fused CE on the whole table: losses, dh and dw of sum(loss
+    * ct)."""
+    h, w, lbl, ct = dd.fused_ce_inputs(0)
+    loss, vjp = jax.vjp(lambda a, b: jax_fce(a, b, jnp.asarray(lbl)),
+                        jnp.asarray(h), jnp.asarray(w))
+    dh, dw = vjp(jnp.asarray(ct))
+    return {"loss": np.asarray(loss), "dh": np.asarray(dh),
+            "dw": np.asarray(dw)}
+
+
+@pytest.mark.parametrize("part", ["loss", "dh", "dw"])
+def test_fused_ce_over_mp_matches_jax(run, fce_ref, part):
+    """Every rank's losses and dh (the whole of them) and its rows of dw
+    against JAX's op on the whole table."""
+    want = fce_ref[part]
+    tol = dict(rtol=1e-5, atol=1e-6) if part == "loss" else \
+        dict(rtol=1e-4, atol=1e-5)
+    for rank in range(_RANKS):
+        got = _arr(run, rank)[f"fce/{part}"]
+        if part == "dw":
+            lo, hi = _rec(run, rank)["fce"]["rows"]
+            want = fce_ref["dw"][lo:hi]
+        np.testing.assert_allclose(got, want, **tol)
+    assert fce_ref["loss"][3] == 0.0 and fce_ref["loss"][7] == 0.0
 
 
 def test_ring_and_ulysses_steps_agree(run):

@@ -9,6 +9,11 @@ healthwatch / memwatch tools) against the JAX package's, on the CPU.
 - `TrainStep(health=)` on a tiny GPT, 5 f32 AdamW steps at every_k 1,
   against the JAX `TrainStep(health=)` on the same weights and batch:
   grad norm and update ratio within 1e-5 relative, NaN/Inf counts exact.
+- The sharded taps' arithmetic (`health_rows`, `sharded_health_stats`)
+  on tensors cut into pieces, summed with no collective, against the
+  JAX `device_health_stats` on the whole tensors: finite and with NaN
+  and Inf entries (the sharded steps' taps themselves are held against
+  JAX in tests/test_torch_zero3.py and test_torch_pipeline.py).
 - A NaN step raises `HealthError` in both (and, in the port, leaves the
   black-box dump an escaping exception leaves); a stalled step leaves
   one dump and a second stall in the same window none; an exception out
@@ -262,6 +267,41 @@ def test_synthetic_sequences_cover_every_rule():
 
 _MODEL = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
               max_seq_len=64, dropout=0.0, initializer_range=0.02)
+
+
+@pytest.mark.parametrize("poison", [False, True])
+def test_sharded_taps_of_pieces_are_the_jax_taps(poison):
+    """Three gradients and parameters, each cut into two flat pieces (a
+    rank's dp pieces): the rows summed (what `sum_over_cuts` does over
+    the ranks) give JAX's stats of the whole tensors; with NaN and Inf
+    entries the counts are exact."""
+    import jax.numpy as jnp
+    rs = np.random.RandomState(7)
+    shapes = [(5, 4), (7,), (3, 3)]
+    grads = [rs.randn(*s).astype(np.float32) for s in shapes]
+    old = [rs.randn(*s).astype(np.float32) for s in shapes]
+    new = [o - 0.01 * g for o, g in zip(old, grads)]
+    if poison:
+        grads[0][1, 2] = np.nan
+        grads[2][0, 0] = grads[2][2, 1] = np.inf
+    loss = np.float32(3.25)
+    want = np.asarray(jax_health.device_health_stats(
+        jnp.asarray(loss), [jnp.asarray(g) for g in grads],
+        [jnp.asarray(n) for n in new], [jnp.asarray(o) for o in old]))
+    idx, gp, npc, opc = [], [], [], []
+    for k, (g, n, o) in enumerate(zip(grads, new, old)):
+        for part in (slice(0, 3), slice(3, None)):
+            idx.append(k)
+            gp.append(torch.from_numpy(g.reshape(-1)[part].copy()))
+            npc.append(torch.from_numpy(n.reshape(-1)[part].copy()))
+            opc.append(torch.from_numpy(o.reshape(-1)[part].copy()))
+    rows = health.health_rows(3, idx, grads=gp) + health.health_rows(
+        3, idx, new_vals=npc, param_vals=opc)
+    got = health.sharded_health_stats(torch.tensor(loss), rows,
+                                      lambda r: r).numpy()
+    assert got.shape == (5,)
+    np.testing.assert_allclose(got, want, rtol=1e-6, equal_nan=True)
+    assert (got[2], got[3]) == ((1.0, 2.0) if poison else (0.0, 0.0))
 
 
 def test_train_step_taps_track_the_jax_taps():

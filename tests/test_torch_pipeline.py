@@ -17,8 +17,17 @@ process computes the JAX references; the tests read its files:
 - `eval_batch` (loss and outputs; the generators untouched), the scaler
   path, the warning when no run of layers can be pipelined,
   `fleet.distributed_model`'s wrapping, and the options that raise;
+- `train_batch` under ClipGradByNorm (each tensor by its own norm, an
+  mp-cut tensor's squares summed over mp, the tied weight once) at pp
+  4 (tied descs) and pp 2 x mp 2 (MpBlocks), 2 SGD steps with the
+  health taps at every_k 1, against JAX's sequential `train_batch` with
+  the same clip and taps: losses and parameters at the bars above, the
+  taps' gradient norm and loss to 1e-5 relative, the counts exactly;
 - the functional executors (1F1B, interleaved) at pp 4 against the JAX
-  functions at pp 1, and at pp 1 in this process;
+  functions at pp 1, and at pp 1 in this process; GPipe's backward at
+  pp 4 (`pipeline_apply_tensors`, and `pipeline_apply` with an extra
+  input) against `jax.vjp` of the sequential stage function: y and
+  every gradient to 1e-5;
 - the schedules alone: every rank's order runs to its end against its
   neighbours' (no deadlock), stage 0 of 1F1B holds at most pp
   micro-batches, `pipeline_schedule_model` is JAX's arithmetic, and the
@@ -151,19 +160,28 @@ def _tensors(x, y):
     return paddle.to_tensor(x, "int64"), paddle.to_tensor(y, "int64")
 
 
-def _jax_train(kind, blocks, n_micro, batch, scaler=False, steps=None):
-    """JAX's sequential train_batch (no mesh), SGD: (losses, params)."""
+def _jax_train(kind, blocks, n_micro, batch, scaler=False, steps=None,
+               clip=None):
+    """JAX's sequential train_batch (no mesh), SGD: (losses, params);
+    with `clip`, under ClipGradByNorm(clip) with the health taps at
+    every_k 1: (losses, params, each step's taps)."""
     m = _jax_model(kind, blocks)
     pp = jdist.PipelineParallel(m, strategy=_strategy(n_micro))
-    opt = paddle.optimizer.SGD(learning_rate=dd.PP_SGD_LR,
-                               parameters=m.parameters())
+    opt = paddle.optimizer.SGD(
+        learning_rate=dd.PP_SGD_LR, parameters=m.parameters(),
+        grad_clip=None if clip is None else jnn.ClipGradByNorm(clip))
+    if clip is not None:
+        pp.health = dict(dd.HEALTH)
     losses = []
     for k in range(dd.PP_STEPS if steps is None else steps):
         kw = {"scaler": paddle.amp.GradScaler(init_loss_scaling=1024.0)} \
             if scaler else {}
         losses.append(float(pp.train_batch(
             _tensors(*dd.pp_data(k, batch)), opt, **kw).item()))
-    return losses, {n: np.asarray(p._value) for n, p in m.named_parameters()}
+    params = {n: np.asarray(p._value) for n, p in m.named_parameters()}
+    if clip is None:
+        return losses, params
+    return losses, params, list(pp._health_mon.ring)
 
 
 def _jax_eval():
@@ -236,6 +254,12 @@ def run(tmp_path_factory):
             if key not in seen:
                 seen[key] = _jax_train(kind, blocks, n_micro, batch)
             ref[tag] = seen[key]
+        for tag, _, kind, blocks, _, n_micro, batch, clip in \
+                dd.PP_CLIP_CASES:
+            ref[tag] = _jax_train(kind, blocks, n_micro, batch,
+                                  steps=dd.PP_CLIP_STEPS, clip=clip)
+            ref[f"{tag}/unclipped"] = _jax_train(
+                kind, blocks, n_micro, batch, steps=dd.PP_CLIP_STEPS)
         ref["eval"] = _jax_eval()
         ref["scaler"] = _jax_scaler()
     finally:
@@ -325,6 +349,58 @@ def test_tied_weight_lives_on_both_end_stages(run):
         name = "run_function.0.weight" if tag == "pp4_tied" \
             else "run_function.0.wte.weight"
         assert name in stages[0]["params"] and name in stages[last]["params"]
+
+
+# ---- ClipGradByNorm and the health taps over the stages ----------------------
+
+_CLIP_TAGS = [c[0] for c in dd.PP_CLIP_CASES]
+
+
+@pytest.mark.parametrize("tag", _CLIP_TAGS)
+def test_clip_by_norm_matches_jax(run, tag):
+    """Losses and every stage's parameters after 2 clipped SGD steps
+    against JAX's sequential train_batch with the same clip (the bars of
+    the unclipped cases); the clip binds on the first step (some
+    gradient's norm is above the clip and some below, so a wrong norm
+    moves the parameters)."""
+    _, ref = run
+    want = ref[tag][1]
+    # the first step's loss is the unclipped run's; the second differs
+    # because the clip scaled some gradient of the first
+    free = ref[f"{tag}/unclipped"]
+    assert ref[tag][0][0] == free[0][0]
+    assert abs(ref[tag][0][1] - free[0][1]) > 1e-4 * abs(free[0][1])
+    seen = set()
+    atol = 3e-5 if "mp2" in tag else 2e-5
+    for rank in range(_RANKS):
+        np.testing.assert_allclose(_rec(run, rank)[tag]["losses"],
+                                   ref[tag][0], rtol=1e-5)
+        arr = _arr(run, rank)
+        for n in _rec(run, rank)[tag]["params"]:
+            np.testing.assert_allclose(arr[f"{tag}/p/{n}"], want[n],
+                                       rtol=1e-4, atol=atol,
+                                       err_msg=f"rank {rank} {n}")
+            seen.add(n)
+    assert seen == set(want)
+
+
+@pytest.mark.parametrize("tag", _CLIP_TAGS)
+def test_pipeline_health_taps_match_jax(run, tag):
+    """Each step's taps on every rank (the gradients of every stage,
+    mp-cut ones summed over mp, the tied weight once) against the JAX
+    sequential path's: no update ratio in either."""
+    _, ref = run
+    want = ref[tag][2]
+    assert len(want) == dd.PP_CLIP_STEPS
+    for rank in range(_RANKS):
+        got = _rec(run, rank)[tag]["health"]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for key in ("grad_norm", "loss"):
+                assert g[key] == pytest.approx(w[key], rel=1e-5, abs=0), key
+            assert g["update_ratio"] == w["update_ratio"] == 0.0
+            assert (g["nan_count"], g["inf_count"]) == (
+                w["nan_count"], w["inf_count"]) == (0, 0)
 
 
 # ---- eval, scaler, warning, fleet, the options that raise --------------------------------
@@ -441,10 +517,102 @@ def test_pipeline_apply_pp1_matches_jax():
 
 
 def test_pipeline_apply_tensors_refuses_a_gradient():
-    w = torch.zeros(2, 4, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        pipe.pipeline_apply_tensors(dd.pp_stage_fn, [w], torch.zeros(4, 4),
-                                    2)
+    """It refuses no longer: at pp 1 (no mesh) the tensor wrapper is one
+    differentiable call, its gradients those of `jax.vjp` of the JAX
+    executor at pp 1."""
+    rs = np.random.RandomState(6)
+    ws = (rs.randn(4, 16, 16) * 0.3).astype(np.float32)
+    x = rs.randn(8, 16).astype(np.float32)
+    ct = rs.randn(8, 16).astype(np.float32)
+    y, vjp = jax.vjp(lambda w, xv: jpipe.pipeline_apply(
+        _jax_stage_fn, w, xv, 4, mesh=_pp1_mesh()), jnp.asarray(ws),
+        jnp.asarray(x))
+    gw, gx = vjp(jnp.asarray(ct))
+    w = torch.from_numpy(ws).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    got = pipe.pipeline_apply_tensors(dd.pp_stage_fn, [w], xt, 4)
+    (got * torch.from_numpy(ct)).sum().backward()
+    for have, want in ((got.detach(), y), (w.grad, gw), (xt.grad, gx)):
+        np.testing.assert_allclose(have.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _jax_gpipe_vjp(inputs, bias):
+    """y and the gradients of sum(y * ct) through the sequential stage
+    function (tanh(h W [+ b]) over all 8 rows), by `jax.vjp`."""
+    ws, x, ct = (jnp.asarray(inputs[k]) for k in ("ws", "x", "ct"))
+
+    def f(w, xv, b):
+        def body(c, wi):
+            return jnp.tanh(c @ wi + b), None
+        return jax.lax.scan(body, xv, w)[0]
+
+    b = jnp.asarray(inputs["bias"]) if bias else jnp.zeros(ws.shape[-1])
+    y, vjp = jax.vjp(f, ws, x, b)
+    gw, gx, gb = vjp(ct)
+    out = {"y": y, "gw": gw, "gx": gx}
+    if bias:
+        out["gb"] = gb
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("tag,part", [
+    ("gpipe", "y"), ("gpipe", "gw"), ("gpipe", "gx"), ("gpipe_b", "y"),
+    ("gpipe_b", "gw"), ("gpipe_b", "gx"), ("gpipe_b", "gb")])
+def test_gpipe_backward_pp4_matches_jax_vjp(run, tag, part):
+    """GPipe at pp 4 (8 rows, 4 micro-batches), forward and backward,
+    on every rank: y, the stack's, x's and the extra input's gradients
+    against jax.vjp of the sequential stage function (pp 1), to 1e-5
+    relative in the 2-norm (the micro-batches' gradients sum in another
+    order than the whole batch's)."""
+    a0 = _arr(run, 0)
+    inputs = {k: a0[f"pp_fn/inputs/{k}"] for k in ("ws", "x", "ct", "bias")}
+    want = _jax_gpipe_vjp(inputs, tag == "gpipe_b")[part]
+    for rank in range(_RANKS):
+        got = _arr(run, rank)[f"pp_fn/{tag}/{part}"]
+        assert got.shape == want.shape
+        assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
+def _gpipe_dropout_masks(n_micro, rows, width):
+    """The masks (scale included) that every stage drew in GPipe's
+    dropout leg: all ranks seed PP_GPIPE_SEED, so micro-batch m's j-th
+    row of a stage draws the generator's (m * rows + j)-th mask of
+    [batch / n_micro, width]."""
+    torch.manual_seed(dd.PP_GPIPE_SEED)
+    return [[torch.nn.functional.dropout(
+        torch.ones(8 // n_micro, width), dd.PP_GPIPE_DROPOUT).numpy()
+        for _ in range(rows)] for _ in range(n_micro)]
+
+
+@pytest.mark.parametrize("part", ["y", "gw", "gx"])
+def test_gpipe_backward_pp4_reruns_the_forwards_dropout(run, part):
+    """GPipe at pp 4 with dropout after every row: y and the gradients
+    of sum(y * ct), on every rank, against jax.vjp of the sequential
+    stage function (pp 1) with the masks that the forward drew, to
+    1e-5 relative in the 2-norm. A rerun that drew new masks would give
+    the gradients of another forward than y's."""
+    a0 = _arr(run, 0)
+    ws, x, ct = (a0[f"pp_fn/inputs/{k}"] for k in ("ws", "x", "ct"))
+    n_micro, rows = 4, ws.shape[0] // _RANKS
+    masks = _gpipe_dropout_masks(n_micro, rows, ws.shape[-1])
+
+    def f(w, xv):
+        outs = []
+        for m, xm in enumerate(jnp.split(xv, n_micro)):
+            h = xm
+            for k in range(w.shape[0]):
+                h = jnp.tanh(h @ w[k]) * masks[m][k % rows]
+            outs.append(h)
+        return jnp.concatenate(outs)
+
+    y, vjp = jax.vjp(f, jnp.asarray(ws), jnp.asarray(x))
+    gw, gx = vjp(jnp.asarray(ct))
+    want = np.asarray({"y": y, "gw": gw, "gx": gx}[part])
+    for rank in range(_RANKS):
+        got = _arr(run, rank)[f"pp_fn/gpipe_drop/{part}"]
+        assert got.shape == want.shape
+        assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
 
 
 # ---- the schedules alone -------------------------------------------------------------

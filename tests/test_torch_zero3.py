@@ -10,8 +10,13 @@ reference:
   dp 2 x mp 2, against the JAX `TrainStep` on one device with no mesh:
   losses to 1e-5 relative, gathered parameters to 1e-4 (PR 18's bars);
   ZeRO-3 against ZeRO-2 at dp 4 to 1e-6 (losses relative, parameters
-  absolute); `offload=True` at stages 1, 2 and 3 equal to the same stage
-  without it, exactly; between steps a rank's parameter storage is
+  absolute); ZeRO-3 with remat against ZeRO-3 to 1e-6 and against JAX,
+  with the all_gather bytes of every step equal (a recomputed block is
+  not gathered a third time); the sharded health taps at every_k 1
+  (ZeRO-3 at dp 4, and at dp 2 x mp 2) against the JAX
+  `TrainStep(health=)`'s: the gradient norm, update ratio and loss to
+  1e-5 relative, the NaN and Inf counts exactly; `offload=True` at
+  stages 1, 2 and 3 equal to the same stage without it, exactly; between steps a rank's parameter storage is
   exactly its ZeRO-3 pieces; `optimizer.state_dict()` names every
   logical slot;
 - checkpoints at dp 4 ZeRO-3 (dropout 0.1, a save every 2 steps): a run
@@ -33,6 +38,7 @@ import pytest
 
 import paddle_tpu as paddle
 from paddle_tpu import optimizer as jax_opt
+from paddle_tpu.telemetry import health as jax_health
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.models.gpt import GPTForPretraining as JaxGPT
 
@@ -58,19 +64,22 @@ def _no_jax_mesh():
 
 
 def _jax_train(weights):
-    """3 AdamW steps of the JAX TrainStep on one device, no mesh."""
+    """3 AdamW steps of the JAX TrainStep on one device, no mesh, its
+    health taps at every_k 1: (losses, parameters, each step's taps)."""
     import jax.numpy as jnp
     jm = JaxGPT(JaxGPTConfig(**dd.TINY))
     for n, p in jm.named_parameters():
         p._value = jnp.asarray(weights[n])
     jo = jax_opt.AdamW(learning_rate=dd.LR, weight_decay=dd.WD,
                        parameters=jm.parameters())
-    step = paddle.jit.TrainStep(jm, jm.loss, jo)
+    step = paddle.jit.TrainStep(jm, jm.loss, jo,
+                                health=jax_health.HealthConfig(**dd.HEALTH))
     ids, lbl = dd.tiny_batch(0)
     batch = [paddle.to_tensor(ids, "int32"), paddle.to_tensor(lbl, "int32")]
     losses = [float(np.asarray(step(*batch).numpy()))
               for _ in range(dd.ZERO3_STEPS)]
-    return losses, {n: np.asarray(p._value) for n, p in jm.named_parameters()}
+    return losses, {n: np.asarray(p._value) for n, p in
+                    jm.named_parameters()}, list(step.health.ring)
 
 
 @pytest.fixture(scope="module")
@@ -102,11 +111,20 @@ def test_every_rank_finished_every_case(run):
                                       for c in dd.CASES["cpu_zero3"]}
 
 
+@pytest.mark.parametrize("rank", range(_RANKS))
+def test_a_finished_step_and_its_model_are_freed(run, rank):
+    """Once the leg lets go of its step, the collector frees it, its
+    model and its states: ZeRO-3's gradient hooks, which the tensors
+    keep where the collector cannot see them, hold the step weakly."""
+    freed = _rec(run, rank)["zero3_freed"]
+    assert set(freed) == set(dd.ZERO3_CPU_TAGS) and all(freed.values())
+
+
 # ---- ZeRO-3 against JAX and ZeRO-2 ------------------------------------------
 
-@pytest.mark.parametrize("tag", ("z3", "z3_mp"))
+@pytest.mark.parametrize("tag", ("z3", "z3_mp", "z3_remat"))
 def test_zero3_tracks_the_jax_train_step(run, tag):
-    jl, jp = run[1]["train"]
+    jl, jp, _ = run[1]["train"]
     np.testing.assert_allclose(_rec(run)[tag]["losses"], jl, rtol=1e-5,
                                atol=0)
     arr = _arr(run)
@@ -123,9 +141,48 @@ def test_every_rank_reports_the_global_loss(run, tag):
     assert all(x == losses[0] for x in losses)
 
 
+def test_zero3_with_remat_equals_zero3(run):
+    """Remat recomputes each block in the backward: the same numbers as
+    ZeRO-3 without it (1e-6), every step's all_gather bytes the same (the
+    rerun uses the gather its output's gradient made), and each block's
+    flash forward and add + LayerNorm run twice a step, on the CPU as
+    their plain versions (no kernel counts here)."""
+    a = _arr(run)
+    for n in run[1]["weights"]:
+        np.testing.assert_allclose(a[f"z3_remat/{n}"], a[f"z3/{n}"], rtol=0,
+                                   atol=1e-6, err_msg=n)
+    cmp = _rec(run)["zero3_cmp"]["z3_remat"]
+    assert cmp["vs"] == "z3" and cmp["rel"] < 1e-6
+    assert max(cmp["loss_rel"]) < 1e-6
+    for rec, _ in run[0].values():
+        got = [st["comm"]["bytes"]["all_gather"]
+               for st in rec["z3_remat"]["steps"]]
+        assert got == [st["comm"]["bytes"]["all_gather"]
+                       for st in rec["z3"]["steps"]]
+
+
+@pytest.mark.parametrize("tag", ("z3_health", "z3_mp"))
+def test_sharded_health_taps_track_the_jax_taps(run, tag):
+    """Every rank's fetched stats of each step (ZeRO-3 pieces at dp 4;
+    pieces of mp-cut parameters at dp 2 x mp 2) against the JAX
+    TrainStep's taps on one device; the same on every rank."""
+    want = run[1]["train"][2]
+    assert len(want) == dd.ZERO3_STEPS
+    for rec, _ in run[0].values():
+        got = [st["health"] for st in rec[tag]["steps"]]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for key in ("grad_norm", "update_ratio", "loss"):
+                assert g[key] == pytest.approx(w[key], rel=1e-5, abs=0), key
+            assert (g["nan_count"], g["inf_count"]) == (
+                w["nan_count"], w["inf_count"]) == (0, 0)
+            assert g["grad_norm"] > 0 and g["update_ratio"] > 0
+        assert got == [st["health"] for st in _rec(run)[tag]["steps"]]
+
+
 def test_zero3_equals_zero2(run):
     a = _arr(run)
-    for n in run[1]["train"][1]:
+    for n in run[1]["weights"]:
         np.testing.assert_allclose(a[f"z3/{n}"], a[f"z2/{n}"], rtol=0,
                                    atol=1e-6, err_msg=n)
     np.testing.assert_allclose(_rec(run)["z3"]["losses"],
