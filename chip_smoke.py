@@ -349,23 +349,24 @@ ok line):
              FLOPs a token over 989 TFLOP/s), step ms, peak memory; one
              launch of each training kernel a step;
 10. train 1.3B full — the JAX bench's gpt1_3b_full at its width:
-             GPT-3 1.3B (12 of its 24 layers, seq 2048, remat,
+             GPT-3 1.3B (8 of its 24 layers, seq 2048, remat,
              use_fused_ce, bf16 amp), OffloadTrainStep with bf16
              parameters and AdamW(1e-4, wd 0.01) whose f32 masters and
              moments sit in pinned host memory, micro-batch 16 x 2048
-             and the bench's K 16; cut: 12 layers and 1 warm + 1 timed
+             and the bench's K 16; cut: 8 layers and 1 warm + 1 timed
              round (the bench's 24 and 2 + 2). First /proc/meminfo's
              MemTotal and MemAvailable (under 16 GB available fails).
              Reports tokens/s and MFU, micro-step and update-round ms
              (and the update's share of a round), the update's copy
              bytes and rate, peak device memory, pinned
              bytes and every round's losses (finite); each micro-step
-             launches exactly 24 flash_fwd (12 + 12 recomputed), 12
-             flash_bwd and 24 layernorm_fwd_saved (each writing the
+             launches exactly 16 flash_fwd (8 + 8 recomputed), 8
+             flash_bwd and 16 layernorm_fwd_saved (each writing the
              bf16 carry: one device launch a residual site). Then the
-             bench's seq-4096 point the same way: max_seq_len 4096,
-             micro-batch 8 x 4096 and the bench's K 8, 1 warm + 1 timed
-             round, the same report and launches.
+             bench's seq-4096 point the same way at 6 layers:
+             max_seq_len 4096, micro-batch 8 x 4096 and the bench's K
+             8, 1 warm + 1 timed round, the same report, launches of 6
+             layers.
 
 11. serving bench — `paddle_tpu_torch.tools.bench_serving` (the JAX
              bench_serving.py's legs) at its card configuration: GPT-3
@@ -512,14 +513,32 @@ ok line):
              injected I/O faults; the baseline and the crashed run side
              by side): SIGKILL after step 5's save starts, the resume
              from step_4 bit for bit (losses, weights, RNG), a corrupt
-             piece named and walked past. Prints step ms, gather,
+             piece named and walked past. The elastic drill
+             (`tools/elastic_drill.py`, started beside ckpt4; GPT-3
+             125M's width x 2 layers, 4 x 1024, bf16, AdamW, dropout
+             0.1): a dp 2 pod of two host processes on the card, host 1
+             SIGKILL'd once host 0 has passed step 2 and seen it; host
+             0 logs heartbeat_miss, declared_dead (detect_s within the
+             heartbeat timeout + 3 polls + 5 s), replan to dp 1 and
+             relaunch, drains and exits 101; a relaunch at dp 1 resumes
+             via reshard from the drained step with the parameters,
+             AdamW slots and RNG equal (digests), 2 finite losses; the
+             combined ledger valid with all five elastic events; K1/K3/
+             K6 once a layer in every child's every step, no child
+             running nvcc. Meanwhile this process builds kvstore.cc
+             (g++) and holds `ElasticManager(store=KVClient)` over the
+             port's KVServer: HOLD, RESTART at level 1 once a host stops
+             heartbeating, EXIT at level 0. Prints step ms, gather,
              reduce-scatter and offload bytes, the offload's GB/s,
-             snapshot, commit and restore ms and bytes.
+             snapshot, commit and restore ms and bytes, and the elastic
+             drill's seconds, detect_s, kill-to-exit seconds, drained
+             step, resume route, losses and launches.
 
 `--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
 serve_13b,moe_serve,options,layer,full,full_4k,memory,serving_bench,
-health,kernel_obs,distributed,resilience` (any of them) runs the build
-and the named phases alone and prints no result line.
+health,kernel_obs,distributed,resilience,elastic` (any of them) runs the
+build and the named phases alone and prints no result line; `elastic`
+is the store check and the elastic drill alone.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
@@ -3330,16 +3349,19 @@ LAYER_BATCH, LAYER_SEQ, LAYER_WARMUP, LAYER_STEPS = 8, 2048, 3, 15
 # the bench's gpt1_3b_full (bench.py:538-630) by sequence length:
 # (micro-batch, K), the bench's own (16 at 2048, 8 at 4096); both cut the
 # bench's 2 warm + 2 timed rounds to 1 + 1, and its 24 layers to
-# FULL_LAYERS (the smoke's time limit)
+# FULL_LAYERS of each sequence length (the smoke's time limit)
 FULL_RUNS = {2048: (16, 16), 4096: (8, 8)}
 FULL_WARM_ROUNDS = 1
-FULL_LAYERS = 12
-FULL_MIN_HOST_GB = 16       # the pinned f32 master + moments: ~8.5 GB
-# micro-step launches of the remat step: the forward and its
-# recomputation each run flash_fwd and the add + LayerNorm site a layer
-FULL_MICRO_LAUNCHES = {"flash_fwd": 2 * FULL_LAYERS,
-                       "flash_bwd": FULL_LAYERS,
-                       "layernorm_fwd_saved": 2 * FULL_LAYERS}
+FULL_LAYERS = {2048: 8, 4096: 6}
+FULL_MIN_HOST_GB = 16       # the pinned f32 master + moments: <= ~8.5 GB
+
+
+def full_micro_launches(layers):
+    """A micro-step's launches of the remat step: the forward and its
+    recomputation each run flash_fwd and the add + LayerNorm site a
+    layer."""
+    return {"flash_fwd": 2 * layers, "flash_bwd": layers,
+            "layernorm_fwd_saved": 2 * layers}
 
 
 def kernel_line(row):
@@ -3918,8 +3940,8 @@ def host_memory_gb():
 
 
 def train_1_3b_full_phase(torch, seed, seq=2048):
-    """The bench's gpt1_3b_full at its width, FULL_LAYERS of its 24
-    layers: gpt3_1_3b(max_seq_len=seq, num_layers=FULL_LAYERS,
+    """The bench's gpt1_3b_full at its width, FULL_LAYERS[seq] of its 24
+    layers: gpt3_1_3b(max_seq_len=seq, num_layers=FULL_LAYERS[seq],
     remat=True), use_fused_ce, bf16 amp,
     OffloadTrainStep(param_dtype="bfloat16") with AdamW(1e-4, wd 0.01,
     f32 masters and moments in pinned host memory), micro-batch and K
@@ -3929,7 +3951,7 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
     update-round ms and the update's share of a round, the update's copy
     bytes and rate, peak device memory, pinned host bytes and every
     round's losses; the micro-steps' launches must be exactly
-    FULL_MICRO_LAUNCHES each."""
+    full_micro_launches(FULL_LAYERS[seq]) each."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.distributed import OffloadTrainStep
     from paddle_tpu_torch.flags import set_flags
@@ -3948,7 +3970,8 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
                              f"memory available, the pinned states need "
                              f"~8.5 GB (at least {FULL_MIN_HOST_GB} GB "
                              "asked)")
-    cfg = GPTConfig.gpt3_1_3b(max_seq_len=seq, num_layers=FULL_LAYERS,
+    layers = FULL_LAYERS[seq]
+    cfg = GPTConfig.gpt3_1_3b(max_seq_len=seq, num_layers=layers,
                               dropout=0.0, attn_dropout=0.0, remat=True)
     model = GPTForPretraining(cfg, device=DEVICE, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4010,11 +4033,12 @@ def train_1_3b_full_phase(torch, seed, seq=2048):
         warm_round_s=warm_s, losses_warm=warm, losses=losses,
         host_mem_total_gb=total, host_mem_available_gb=avail,
         launches=launches)
-    print(f"{what}[{FULL_LAYERS} of 24 layers, remat, fused CE, bf16 "
+    print(f"{what}[{layers} of 24 layers, remat, fused CE, bf16 "
           f"params, offloaded AdamW, K={K} x {batch}x{seq}] on "
           f"{card_line()}: "
           + json.dumps(stats))
-    want = {k: K * FULL_MICRO_LAUNCHES.get(k, 0) for k in launches}
+    micro = full_micro_launches(layers)
+    want = {k: K * micro.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"{what}: launches {launches} != "
                              f"{want} (K x a micro-step's)")
@@ -5734,6 +5758,7 @@ RES_HEALTH_RTOL = 1e-5      # the sharded taps against jit.TrainStep's
 RES_MEM_TOL_GB = 1 / 64     # 16 MiB: the allocator's rounding
 RES_TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd_saved")
 CHAOS_TIMEOUT_S = 420
+ELASTIC_TIMEOUT_S = 300     # each leg of the elastic drill
 
 
 def zero3_pieces(cfg, dp, rank):
@@ -5777,6 +5802,146 @@ def check_step_launches(what, launches, blocks, remat=False):
                              f"{want}")
 
 
+def start_elastic_drill(out_dir, seed):
+    """Start the elastic drill (GPT-3 125M's width on the card) in a
+    session of its own, its output to files under `out_dir`; -> (the
+    process, its report's path, its stdout and stderr paths)."""
+    import subprocess
+    os.makedirs(out_dir, exist_ok=True)
+    report = os.path.join(out_dir, "elastic_report.json")
+    logs = [os.path.join(out_dir, f"elastic_{k}.log")
+            for k in ("stdout", "stderr")]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.elastic_drill",
+             "--dir", os.path.join(out_dir, "elastic"), "--report", report,
+             "--seed", str(seed), "--leg-timeout", str(ELASTIC_TIMEOUT_S)],
+            cwd=ROOT, env=env, stdout=out, stderr=err,
+            start_new_session=True)
+    return proc, report, logs
+
+
+def stop_elastic_drill(proc):
+    """End a drill still running (the phase failed first): SIGTERM lets
+    it kill its hosts, each in a session of its own; then SIGKILL."""
+    import signal
+    import subprocess
+    if proc is None or proc.poll() is not None:
+        return
+    os.killpg(proc.pid, signal.SIGTERM)
+    try:
+        proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def elastic_store_check():
+    """`ElasticManager(store=KVClient)` over the port's `KVServer` in
+    this process: kvstore.cc builds (g++), two hosts heartbeating hold
+    (HOLD); once host 1 stops, level 1 restarts (RESTART) and level 0
+    exits (EXIT). -> its readings."""
+    from paddle_tpu_torch.distributed.elastic import (ElasticManager,
+                                                      ElasticStatus)
+    from paddle_tpu_torch.distributed.kvstore import KVClient, KVServer
+    t0 = time.perf_counter()
+    srv = KVServer()
+    build_s = time.perf_counter() - t0
+    timeout = 0.5
+    try:
+        with KVClient(port=srv.port) as c0, KVClient(port=srv.port) as c1:
+            m0, _ = (ElasticManager(store=c, np=2, host_id=str(h),
+                                     timeout=timeout,
+                                     fault_tolerance_level=1).register()
+                      for h, c in ((0, c0), (1, c1)))
+            seen = [m0.check()]
+            time.sleep(timeout + 0.2)       # host 1 heartbeats no more
+            m0.heartbeat()
+            seen.append(m0.check())
+            alive = m0.alive_hosts()
+            m0.level = 0
+            seen.append(m0.check())
+    finally:
+        srv.stop()
+    out = {"build_s": round(build_s, 3), "statuses": seen, "alive": alive}
+    want = [ElasticStatus.HOLD, ElasticStatus.RESTART, ElasticStatus.EXIT]
+    print("elastic: ElasticManager(store=KVClient) over the port's KVServer "
+          "(kvstore.cc built with g++): " + json.dumps(out))
+    if seen != want or alive != ["0"]:
+        raise AssertionError(f"elastic store check: statuses {seen} (want "
+                             f"{want}), alive {alive}")
+    return out
+
+
+def elastic_drill_verdict(proc, report, logs, card, add):
+    """Wait for the elastic drill, hold its report, add its children's
+    launches (`add`) and print its numbers; -> its readings."""
+    from paddle_tpu_torch.tools import elastic_drill as ed
+    t0 = time.perf_counter()
+    proc.wait(timeout=3 * ELASTIC_TIMEOUT_S)
+    waited = time.perf_counter() - t0
+    with open(logs[0]) as f:
+        print(f.read().strip())
+    with open(logs[1]) as f:
+        stderr = f.read()
+    rep = {}
+    if os.path.exists(report):
+        with open(report) as f:
+            rep = json.load(f)
+    if proc.returncode != 0:
+        raise AssertionError(f"elastic drill exited {proc.returncode}: "
+                             f"{rep.get('failures')} {stderr[-2000:]}")
+    steps = {"host0": len(rep["host0_losses"]),
+             "host1": len(rep["host1_ms"]),
+             "relaunch": len(rep["relaunch_losses"])}
+    for who, n in steps.items():
+        got = rep["launches"][who]
+        want = {k: (ed.CARD_LAYERS * n if k in RES_TRAIN_KERNELS else 0)
+                for k in got}
+        if got != want:
+            raise AssertionError(f"elastic drill {who}: launches {got} != "
+                                 f"{want} ({n} steps)")
+        add(got)
+    out = {k: rep[k] for k in (
+        "drill_s", "pod_s", "relaunch_s", "detect_s", "kill_to_exit_s",
+        "kill_step", "drained_step", "events", "resumed_via",
+        "resumed_from", "host0_losses", "relaunch_losses", "host0_ms",
+        "host0_commit_wait_s", "host1_ms", "host1_gaps_s", "relaunch_ms", "restore_ms",
+        "heartbeat_timeout_s", "ledger")}
+    out["steps"] = steps
+    out["launches"] = {who: {k: v for k, v in l.items()
+                             if k in RES_TRAIN_KERNELS}
+                       for who, l in rep["launches"].items()}
+    out["waited_s"] = round(waited, 1)
+    print(f"elastic: host-loss drill, GPT-3 125M's width x {ed.CARD_LAYERS} "
+          f"layers, {ed.CARD_BATCH[0]} x {ed.CARD_BATCH[1]}, bf16 amp, AdamW, "
+          f"dropout 0.1, two host processes on {card}: " + json.dumps(out))
+    return out
+
+
+def elastic_phase(torch, seed):
+    """`--phases elastic`: the store check and the elastic drill alone."""
+    import shutil
+    from paddle_tpu_torch.ops.kernel_registry import kernels
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "elastic")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    total = {k.name: 0 for k in kernels()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    proc, report, logs = start_elastic_drill(out_dir, seed)
+    try:
+        store = elastic_store_check()
+        drill = elastic_drill_verdict(proc, report, logs, card_line(), add)
+    finally:
+        stop_elastic_drill(proc)
+    return dict(readings={"store": store, "drill": drill}, launches=total)
+
+
 def resilience_phase(torch, seed):
     """Phase 15 (see the docstring): -> its readings and the launches
     of every rank's steps, summed."""
@@ -5800,15 +5965,17 @@ def resilience_phase(torch, seed):
         for k, v in launches.items():
             total[k] += v
 
-    def run(job, allow_fail=False):
+    def run(job, allow_fail=False, meanwhile=None):
         t0 = time.perf_counter()
         j = dd.start_job(job, os.path.join(out_dir, job), seed,
                          RES_TIMEOUT_S[job])
+        if meanwhile is not None:
+            meanwhile()
         res = j.wait(allow_fail=allow_fail)
         job_s[job] = time.perf_counter() - t0
         return res, j.rc
 
-    drill_proc = None
+    drill_proc = el_proc = None
     drill_log = {k: os.path.join(out_dir, f"chaos_{k}.log")
                  for k in ("stdout", "stderr")}
     try:
@@ -5958,7 +6125,14 @@ def resilience_phase(torch, seed):
         stop = plan["preempt_at"] + 1
         kept = sorted({*range(plan["save_every"], stop, plan["save_every"]),
                        stop})[-dd.CKPT_KEEP:]
-        res, rc = run("ckpt4", allow_fail=True)
+        # 5 (beside 2-4). the elastic drill starts beside ckpt4, read
+        # last; this process checks the store-backed membership meanwhile
+        t_el = time.perf_counter()
+        el_proc, el_report, el_logs = start_elastic_drill(out_dir, seed)
+
+        def store_check():
+            readings["elastic_store"] = elastic_store_check()
+        res, rc = run("ckpt4", allow_fail=True, meanwhile=store_check)
         if rc != 102 or sorted(res) != [0, 1, 2, 3]:
             raise AssertionError(f"resilience ckpt4: the job exited {rc} with "
                                  f"the records of ranks {sorted(res)}")
@@ -6095,11 +6269,18 @@ def resilience_phase(torch, seed):
               f"dropout 0.1, 5% injected I/O faults, SIGKILL after step 5's "
               f"save starts, on {card}: " + json.dumps(drill))
         shutil.rmtree(os.path.join(out_dir, "chaos"), ignore_errors=True)
+
+        # 5. the elastic drill's verdict
+        readings["elastic_drill"] = elastic_drill_verdict(
+            el_proc, el_report, el_logs, card, add)
+        job_s["elastic_drill"] = time.perf_counter() - t_el
+        shutil.rmtree(os.path.join(out_dir, "elastic"), ignore_errors=True)
     finally:
         if drill_proc is not None and drill_proc.poll() is None:
             # the phase failed first
             os.killpg(drill_proc.pid, signal.SIGKILL)
             drill_proc.wait()
+        stop_elastic_drill(el_proc)
     readings["phase_s"] = time.perf_counter() - t_phase
     print("resilience: job seconds " + json.dumps(
         {k: round(v, 1) for k, v in job_s.items()}))
@@ -6110,7 +6291,7 @@ PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
                   "kernels_13b", "long_context", "serve_13b", "moe_serve",
                   "options", "layer", "full", "full_4k", "memory",
                   "serving_bench", "health", "kernel_obs", "distributed",
-                  "resilience")
+                  "resilience", "elastic")
 
 
 def partial_run(torch, args, lap, phase_s):
@@ -6130,7 +6311,7 @@ def partial_run(torch, args, lap, phase_s):
            "serving_bench": serving_bench_phase, "health": health_phase,
            "kernel_obs": kernel_obs_phase,
            "distributed": distributed_phase,
-           "resilience": resilience_phase}
+           "resilience": resilience_phase, "elastic": elastic_phase}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
         torch.cuda.empty_cache()

@@ -15,9 +15,11 @@ interleaved, PipelineParallel), the expert exchange
 `python -m paddle_tpu_torch.distributed.launch`), the distributed
 checkpoints (`checkpoint`: a piece a rank, restored onto any layout;
 `TrainEpochRange`), and on one card activation recompute and the
-host-offloaded `OffloadTrainStep`. Not ported yet (ROADMAP Queue 1
-item 6): the planner, ep with sp or pp, elastic restarts, the launch
-helpers of `dist_utils` and the parameter-server mode. The filesystem
+host-offloaded `OffloadTrainStep`. Elastic restarts: the TCP KV store
+(`kvstore`: KVServer, KVClient), the membership manager and the
+declared-dead coordinator (`elastic`), the launcher's 101/102 relaunch
+and `dist_utils`' launch helpers. Not ported yet (ROADMAP Queue 1): the
+planner, ep with sp or pp and the parameter-server mode. The filesystem
 layer (`fs`: LocalFS, HDFSClient over the hadoop CLI) is JAX's.
 """
 from . import env  # noqa: F401
@@ -55,6 +57,8 @@ from .pipeline import (  # noqa: F401
     pipeline_train_step_interleaved,
 )
 from .moe import MoELayer  # noqa: F401
+from . import kvstore  # noqa: F401
+from .kvstore import KVClient, KVServer  # noqa: F401
 from . import fs  # noqa: F401
 from .fs import HDFSClient, LocalFS  # noqa: F401
 from . import dist_utils as utils  # noqa: F401
@@ -64,6 +68,7 @@ import sys as _sys
 _sys.modules[__name__ + ".utils"] = utils
 from .recompute import RecomputeSequential, recompute  # noqa: F401
 from . import launch as _launch_module  # noqa: E402
+from . import elastic  # noqa: F401,E402
 
 # reference parity: paddle.distributed.launch is the callable; the
 # module stays importable for `python -m ...distributed.launch`

@@ -30,7 +30,12 @@ Every collective runs under the deadline machinery: with a deadline
 armed (`set_collective_deadline` / `collective_deadline`) the backend's
 wait is bounded by it and raises `CollectiveTimeoutError`; with none,
 the wait is the backend's own (gloo's ends at the process group's
-timeout). Every one
+timeout). A killed peer closes its sockets, so gloo fails such a wait
+at once ("Connection closed by peer") where an XLA collective on a pod
+hangs until the deadline: under an armed deadline that lost-peer error
+is the same event and raises the same CollectiveTimeoutError (with
+`peer_lost_after_s`, the seconds it waited). `elastic.collective_timeouts`
+counts both: waits past the deadline and peers lost before it. Every one
 opens a telemetry span `collective.<name>` of cat "collective" that
 carries the payload's `bytes` (the tensor handed to the collective),
 `shape` and `axis`/`axis_size`, which the step recorder sums into a
@@ -80,16 +85,23 @@ class CollectiveTimeoutError(RuntimeError):
 
     transient = True
 
-    def __init__(self, op, deadline_s, axis=None, shape=None):
+    def __init__(self, op, deadline_s, axis=None, shape=None,
+                 peer_lost_after_s=None):
         self.op = op
         self.deadline_s = float(deadline_s)
         self.axis = axis
+        self.peer_lost_after_s = peer_lost_after_s
         tag = f" over axis {axis!r}" if axis else ""
         tag += f" payload {shape}" if shape is not None else ""
-        super().__init__(
-            f"collective {op!r}{tag} did not complete within "
-            f"{deadline_s:.1f}s — a peer is dead or wedged; escalating "
-            "to the elastic relaunch path")
+        if peer_lost_after_s is None:
+            what = (f"did not complete within {deadline_s:.1f}s — a peer "
+                    "is dead or wedged")
+        else:
+            what = (f"lost its peer after {peer_lost_after_s:.1f}s of its "
+                    f"{deadline_s:.1f}s deadline — the backend saw the "
+                    "connection close")
+        super().__init__(f"collective {op!r}{tag} {what}; escalating to "
+                         "the elastic relaunch path")
 
 
 _DEADLINE_S = [None]
@@ -114,12 +126,26 @@ def collective_deadline(seconds):
         set_collective_deadline(prev)
 
 
+# the words of a backend whose peer closed the connection mid-collective
+# (gloo's tcp pair fails at once where XLA's collective hangs)
+_PEER_LOST = ("closed by peer", "reset by peer")
+
+
+def _peer_lost(exc):
+    text = str(exc).lower()
+    return any(w in text for w in _PEER_LOST)
+
+
 def guarded_wait(name, work, axis_name=None, deadline_s=None, shape=None):
     """Wait for an issued collective (`work`, a torch.distributed Work).
     No deadline armed: the backend's wait. Armed: the backend's wait
     bounded by `deadline_s` (default the armed deadline); past it,
     CollectiveTimeoutError (the abandoned work cannot be cancelled, so
-    the process is expected to exit)."""
+    the process is expected to exit). A backend error that says the peer
+    closed the connection before the deadline is the same dead peer seen
+    sooner: CollectiveTimeoutError too, with `peer_lost_after_s` set.
+    Both count in `elastic.collective_timeouts`. Any other error before
+    the deadline is the backend's own."""
     if work is None:
         return
     deadline = deadline_s if deadline_s is not None else _DEADLINE_S[0]
@@ -130,11 +156,14 @@ def guarded_wait(name, work, axis_name=None, deadline_s=None, shape=None):
     try:
         work.wait(timeout=datetime.timedelta(seconds=deadline))
     except Exception as e:      # noqa: BLE001 — classified below
-        if time.monotonic() - t0 < deadline:
+        waited = time.monotonic() - t0
+        early = waited < deadline
+        if early and not _peer_lost(e):
             raise
         monitor.incr("elastic.collective_timeouts")
-        raise CollectiveTimeoutError(name, deadline, axis=axis_name,
-                                     shape=shape) from e
+        raise CollectiveTimeoutError(
+            name, deadline, axis=axis_name, shape=shape,
+            peer_lost_after_s=waited if early else None) from e
 
 
 # ---------------------------------------------------------------------------

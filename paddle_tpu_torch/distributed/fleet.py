@@ -14,9 +14,9 @@ group); `distributed_optimizer` wraps the optimizer with the strategy,
 which `ShardedTrainStep` reads for its ZeRO stage. `utils` is JAX's
 `fleet.utils` namespace: `fs` (the module `distributed/fs.py`),
 `LocalFS`, `HDFSClient` and `recompute`; `LocalFS` and `HDFSClient`
-are also names of this module. The parameter-server
-mode (`ps.py`, `heter.py`, `kvstore.py`) is not ported (ROADMAP Queue 1
-item 6.5).
+are also names of this module. The parameter-server mode (`ps.py`,
+`heter.py`) is not ported (ROADMAP Queue 1 item 6.5b); its TCP KV store
+is, as `distributed.kvstore` (the elastic manager's `store=` backend).
 """
 import os
 import types

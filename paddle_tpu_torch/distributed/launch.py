@@ -19,8 +19,21 @@ every rank's group (SIGTERM, then SIGKILL) and returns the failing
 code (TIMEOUT_EXIT_CODE on a timeout). A one-process job
 (`--nproc_per_node 1`, the default) still runs as a child.
 
-The JAX launcher's elastic relaunch (exit codes 101/102) is not ported:
-ROADMAP Queue 1 item 6 (elastic, launch restarts).
+The relaunch policy is JAX's (`--elastic_level`, `--max_restarts`,
+`--max_resumes`, `--restart_backoff`), for the one-process child and
+the pod alike:
+  101 ELASTIC_EXIT_CODE   relaunch onto a NEW world (the membership
+                          changed; `resume()` reshards), under
+                          `--elastic_level` >= 1, at most
+                          `--max_restarts` times;
+  102 RESUMABLE_EXIT_CODE a graceful preemption exit with the state
+                          committed: relaunch and auto-resume onto the
+                          same world, at most `--max_resumes` times.
+Each relaunch first sleeps an exponential backoff (`--restart_backoff`
+doubled per relaunch of its kind, capped at 60 s; 0 disables it). A pod
+that exits 101 or 102 has already been killed whole (every rank's
+group); it starts again under a fresh rendezvous (a new file store, or
+the `--master` address), so no two attempts share a store.
 """
 import argparse
 import os
@@ -32,10 +45,28 @@ import tempfile
 import time
 
 __all__ = ["start_local_trainers", "watch_local_trainers", "launch",
-           "TIMEOUT_EXIT_CODE"]
+           "TIMEOUT_EXIT_CODE", "ELASTIC_EXIT_CODE"]
 
 # the launcher's own exit code when a job outlives its --timeout
 TIMEOUT_EXIT_CODE = 75
+# relaunch onto a new world (the reference's, `fleet/elastic/manager.py:26`)
+ELASTIC_EXIT_CODE = 101
+
+_sleep = time.sleep       # module-level so tests can pin the schedule
+
+
+def _restart_delay(restarts, base_s, cap_s=60.0):
+    """Exponential backoff before relaunch #`restarts` (1-based)."""
+    if base_s <= 0:
+        return 0.0
+    return min(float(cap_s), float(base_s) * (2.0 ** (restarts - 1)))
+
+
+def _backoff(restarts, base_s):
+    delay = _restart_delay(restarts, base_s)
+    if delay > 0:
+        _sleep(delay)
+    return delay
 
 
 def _parse_args(argv=None):
@@ -58,6 +89,18 @@ def _parse_args(argv=None):
                    help="seconds before the whole job is killed")
     p.add_argument("--log_dir", type=str, default=None,
                    help="write each rank's output to <log_dir>/workerlog.N")
+    p.add_argument("--elastic_level", type=int, default=int(
+        os.environ.get("PADDLE_ELASTIC_FAULT_TOLERANC_LEVEL", "0")))
+    p.add_argument("--max_restarts", type=int, default=3,
+                   help="cap on ELASTIC_EXIT_CODE (101) relaunches")
+    p.add_argument("--max_resumes", type=int, default=32,
+                   help="cap on RESUMABLE_EXIT_CODE (102) resume "
+                        "relaunches (each one made checkpointed "
+                        "progress, so the cap is generous)")
+    p.add_argument("--restart_backoff", type=float, default=0.5,
+                   help="base seconds of the exponential relaunch "
+                        "backoff (doubles per relaunch, capped at 60 s; "
+                        "0 disables)")
     p.add_argument("-m", "--module", action="store_true",
                    help="run the target as `python -m <module>`")
     p.add_argument("training_script", type=str)
@@ -73,7 +116,8 @@ def start_local_trainers(nproc, script, script_args, master=None,
     each in its own process group. Without `master` the ranks meet at a
     file store in `store_dir` (made by the caller, removed by it). With
     `log_dir` each rank's stdout and stderr go to
-    `<log_dir>/workerlog.<rank>`, as the reference names them."""
+    `<log_dir>/workerlog.<rank>`, as the reference names them (appended
+    to, so a relaunch keeps the earlier attempts' output)."""
     world = nproc * nnodes
     if master:
         init = f"tcp://{master}"
@@ -100,7 +144,7 @@ def start_local_trainers(nproc, script, script_args, master=None,
             + list(script_args)
         out = None
         if log_dir is not None:
-            out = open(os.path.join(log_dir, f"workerlog.{rank}"), "wb")
+            out = open(os.path.join(log_dir, f"workerlog.{rank}"), "ab")
         try:
             procs.append(subprocess.Popen(
                 cmd, env=env, start_new_session=True, stdout=out,
@@ -156,8 +200,28 @@ def watch_local_trainers(procs, poll_interval=0.1, timeout=None):
         raise
 
 
-def launch(argv=None):
-    args = _parse_args(argv)
+def _relaunch_decision(rc, args, restarts, resumes):
+    """The relaunch policy (JAX's): -> (relaunch?, restarts, resumes); a
+    granted relaunch has already slept its backoff."""
+    from ..resilience.preempt import RESUMABLE_EXIT_CODE
+    if rc == ELASTIC_EXIT_CODE and args.elastic_level > 0 and \
+            restarts < args.max_restarts:
+        restarts += 1
+        _backoff(restarts, args.restart_backoff)
+        return True, restarts, resumes
+    if rc == RESUMABLE_EXIT_CODE and resumes < args.max_resumes:
+        # a graceful preemption exit: the state is committed and the
+        # relaunch auto-resumes; a cap of its own, because every resume
+        # made progress, unlike a crash loop
+        resumes += 1
+        _backoff(resumes, args.restart_backoff)
+        return True, restarts, resumes
+    return False, restarts, resumes
+
+
+def _run_once(args):
+    """One attempt: start every local rank under a fresh rendezvous and
+    watch them; -> the attempt's exit code."""
     store = None if args.master else tempfile.mkdtemp(prefix="paddle_launch_")
     try:
         procs = start_local_trainers(
@@ -170,6 +234,17 @@ def launch(argv=None):
     finally:
         if store is not None:
             shutil.rmtree(store, ignore_errors=True)
+
+
+def launch(argv=None):
+    args = _parse_args(argv)
+    restarts = resumes = 0
+    while True:
+        rc = _run_once(args)
+        again, restarts, resumes = _relaunch_decision(rc, args, restarts,
+                                                      resumes)
+        if not again:
+            return rc
 
 
 if __name__ == "__main__":

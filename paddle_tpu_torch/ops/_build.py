@@ -19,7 +19,7 @@ one nvcc per source, all at once; `ptxas_info(name)` reads back each
 kernel's registers, spills and static shared memory from the build's
 `-Xptxas -v` report, which is kept beside the library
 (`<name>-<hash>.log`), so a library built by an earlier process still
-has it.
+has it. `nvcc_runs` counts the nvcc processes this process started.
 
 The seconds a build spends in nvcc are reported into the open
 telemetry step windows (`telemetry.recorder.note_compile`), so a step
@@ -31,6 +31,11 @@ released by the kernel when its holder exits, so a killed build leaves
 no stale lock): a process that finds another building waits, then loads
 what that one built. The in-process `threading.Lock` alone guards only
 this process's threads.
+
+Host sources (`csrc/<name>.cc`, host code such as the TCP key-value
+store) take `load_host(name)`: the host C++ compiler (`g++`, else `c++`)
+builds them the same way, at first use, under the same lock, into
+`build/paddle_tpu_torch/lib<name>-<hash>.so`, with no nvcc and no card.
 """
 import contextlib
 import ctypes
@@ -45,16 +50,20 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "launcher", "check_launch", "build_dir",
-           "nvcc_path", "ptxas_info"]
+__all__ = ["build", "load", "load_host", "launcher", "check_launch",
+           "build_dir", "nvcc_path", "ptxas_info"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _loaded = {}
+# nvcc processes this process started (a process that finds the libraries
+# already built starts none)
+nvcc_runs = 0
 
 
 def build_dir():
@@ -113,6 +122,8 @@ def _start(name):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    global nvcc_runs
+    nvcc_runs += 1
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so
@@ -208,6 +219,43 @@ def check_launch(kernel, rc, err):
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: {err(rc).decode()} "
                            f"(cudaError {rc})")
+
+
+def _host_target(name):
+    src = _CSRC / f"{name}.cc"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return src, build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_host(name):
+    """The ctypes library of host source `csrc/<name>.cc`, compiled
+    first with the host C++ compiler if it is not built yet."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            src, so = _host_target(name)
+            with _file_lock():
+                if not so.exists():
+                    cxx = shutil.which("g++") or shutil.which("c++")
+                    if cxx is None:
+                        raise RuntimeError(
+                            f"no host C++ compiler (g++ or c++) on PATH to "
+                            f"build {src.name}")
+                    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+                    os.close(fd)
+                    r = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o",
+                                        tmp], capture_output=True, text=True)
+                    if r.returncode != 0:
+                        os.unlink(tmp)
+                        raise RuntimeError(
+                            f"{cxx} failed for {src.name} (exit "
+                            f"{r.returncode}):\n{r.stdout}{r.stderr}")
+                    os.replace(tmp, so)
+            lib = ctypes.CDLL(str(so))
+            _loaded[key] = lib
+        return lib
 
 
 def ptxas_info(name):

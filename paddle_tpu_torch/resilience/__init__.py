@@ -13,12 +13,16 @@
 - `preempt` — PreemptionHandler (SIGTERM -> checkpoint at the next step
               boundary) and ResilienceManager, the `resilience=` hook of
               TrainStep, ShardedTrainStep and PipelineParallel: exit 102
-              and auto-resume.
+              and auto-resume; `elastic=` polls a
+              `distributed.elastic.ElasticCoordinator` at every step
+              boundary (a declared-dead peer: replan, drain, exit 101).
 - `chaos`   — seeded fault injection (transient I/O errors, slow
               writes, corrupt-a-shard-after-write); the in-process half
               of `tools/chaos_drill.py`.
 - `reshard` — cross-layout restore: a checkpoint saved under one mesh
-              and ZeRO stage restored under another, leaf by leaf.
+              and ZeRO stage restored under another, leaf by leaf; the
+              elastic relaunch's `resume()` takes it (drilled by
+              `tools/elastic_drill.py`).
 
 `ckpt.*` counters and gauges land on the training `MetricsServer`'s
 `/metrics`; every checkpoint event is a `kind=ckpt` record (and a

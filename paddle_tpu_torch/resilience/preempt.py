@@ -15,7 +15,15 @@ the port of paddle_tpu/resilience/preempt.py.
 - With ranks (a process group of several), the flag is all-reduced (a
   MAX over the world) at every boundary, so every rank saves and exits
   at the same step when one rank alone received SIGTERM. The JAX
-  package's single controller needs no such exchange.
+  package's single controller needs no such exchange. The all-reduce
+  waits through `collective.guarded_wait`: under an armed
+  `collective_deadline` a dead peer raises CollectiveTimeoutError, which
+  `distributed.elastic.elastic_run` turns into exit 101.
+- `elastic=` (a `distributed.elastic.ElasticCoordinator`) is wired both
+  ways: `step_boundary` polls the coordinator after advancing the step
+  and before the preemption check, and on a membership change the
+  coordinator drains a final checkpoint through `graceful_shutdown`
+  with ELASTIC_EXIT_CODE (101).
 - `resume()` restores the newest valid checkpoint, through the reshard
   path when the stored layout differs from the live one
   (`resumed_via` "reshard" or "direct").
@@ -33,9 +41,9 @@ from .ckpt import CheckpointManager, RunState
 __all__ = ["RESUMABLE_EXIT_CODE", "PreemptionHandler", "ResilienceManager",
            "as_resilience"]
 
-# exit-code protocol: 101 = relaunch with a new world (elastic, not
-# ported); 102 = graceful preemption exit, state committed, relaunch and
-# auto-resume from the checkpoint
+# exit-code protocol: 101 (distributed.launch.ELASTIC_EXIT_CODE) =
+# relaunch with a new world; 102 = graceful preemption exit, state
+# committed, relaunch and auto-resume from the checkpoint
 RESUMABLE_EXIT_CODE = 102
 
 
@@ -108,13 +116,16 @@ def _world():
 
 
 def _any_rank(flag):
-    """MAX of `flag` over the job's ranks (the default process group)."""
+    """MAX of `flag` over the job's ranks (the default process group),
+    waited for under the armed collective deadline, if any."""
     import torch.distributed as dist
     from ..distributed import env
+    from ..distributed.collective import guarded_wait
     dev = env.current_device() if env.backend() == "nccl" \
         else torch.device("cpu")
     t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    work = dist.all_reduce(t, op=dist.ReduceOp.MAX, async_op=True)
+    guarded_wait("all_reduce", work, shape=(1,))
     return bool(t.item())
 
 
@@ -132,8 +143,9 @@ class ResilienceManager:
     happen). `manager=` shares a CheckpointManager; otherwise one is
     built over `checkpoint_dir`. `layout` is stamped into every
     checkpoint (a ShardedTrainStep sets its own when none is given).
-    `elastic=` (the elastic coordinator) is ROADMAP Queue 1 item 6.5
-    and raises NotImplementedError.
+    `elastic=` takes a `distributed.elastic.ElasticCoordinator`, wired
+    both ways through its `attach` (it drains through this manager and
+    shares its telemetry sink; `step_boundary` polls it).
     """
 
     def __init__(self, checkpoint_dir=None, manager=None, model=None,
@@ -142,10 +154,6 @@ class ResilienceManager:
                  preempt=True, exit_on_preempt=True,
                  exit_code=RESUMABLE_EXIT_CODE, dump_dir=None, health=None,
                  sink=None, rank=None, layout=None, elastic=None):
-        if elastic is not None:
-            raise NotImplementedError(
-                "ResilienceManager(elastic=) is not ported: ROADMAP Queue 1 "
-                "item 6.5 (the elastic coordinator and launch restarts)")
         if (checkpoint_dir is None) == (manager is None):
             raise ValueError("ResilienceManager: pass exactly one of "
                              "checkpoint_dir or manager")
@@ -161,6 +169,11 @@ class ResilienceManager:
         from .reshard import normalize_layout
         self.layout = normalize_layout(layout)
         self.elastic = None
+        if elastic is not None:
+            if hasattr(elastic, "attach"):
+                elastic.attach(self)     # sets self.elastic = elastic
+            else:
+                self.elastic = elastic
         self.state = RunState(layout=self.layout)
         self.resumed_from = None
         self.resumed_via = None
@@ -200,12 +213,16 @@ class ResilienceManager:
 
     def step_boundary(self, loss=None):
         """Called by the wired train step after each COMPLETED step:
-        advances the step count; on an armed preemption request (on any
-        rank) commits a final checkpoint and exits resumable; otherwise
-        saves on the periodic schedule. `last_loss` keeps `loss` (the
-        step's, which a caller loses when the boundary exits)."""
+        advances the step count; polls the elastic coordinator (which
+        may itself drain and exit with ELASTIC_EXIT_CODE on a membership
+        change); on an armed preemption request (on any rank) commits a
+        final checkpoint and exits resumable; otherwise saves on the
+        periodic schedule. `last_loss` keeps `loss` (the step's, which a
+        caller loses when the boundary exits)."""
         self.last_loss = loss
         self.state.step += 1
+        if self.elastic is not None:
+            self.elastic.step_boundary(self.state.step)
         asked = self.handler is not None and self.handler.requested
         if _world() > 1:
             asked = _any_rank(asked)
@@ -219,7 +236,10 @@ class ResilienceManager:
     def graceful_shutdown(self, reason=None, exit_code=None):
         """Drain + final synchronous checkpoint + black-box dump + (by
         default) SystemExit. Idempotent — a second call exits without
-        re-saving."""
+        re-saving. `exit_code` overrides the configured code for this
+        exit: the elastic coordinator drains through here with
+        ELASTIC_EXIT_CODE (relaunch onto a new world) where a
+        preemption exits RESUMABLE_EXIT_CODE (resume onto the same)."""
         code = int(exit_code) if exit_code is not None else self.exit_code
         if self._shutdown_done:
             if self.exit_on_preempt:

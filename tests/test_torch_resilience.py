@@ -628,8 +628,12 @@ def test_as_resilience_normalizes_like_jax(tmp_path):
         assert kw.save_every == 7
         with pytest.raises(TypeError, match="resilience="):
             mod.as_resilience(42)
-    with pytest.raises(NotImplementedError, match="6.5"):
-        ResilienceManager(str(tmp_path / "e"), elastic=object())
+    # elastic=: a coordinator attaches itself; anything else is kept
+    for mod in (jax_preempt, sys.modules["paddle_tpu_torch.resilience.preempt"]):
+        probe = object()
+        res = mod.ResilienceManager(str(tmp_path / mod.__name__ / "e"),
+                                    preempt=False, elastic=probe)
+        assert res.elastic is probe
 
 
 def test_pipeline_resilience_attribute(tmp_path):
