@@ -534,11 +534,34 @@ ok line):
              drill's seconds, detect_s, kill-to-exit seconds, drained
              step, resume route, losses and launches.
 
+16. planner — the planner and cost model on GPT-3 1.3B (24 layers,
+             seq 2048): `planner.plan` for 4 cards with pp fixed at 1
+             (verify="full": the sharding lint, the program lint over the
+             proxy step, the collective capture) and with pp 4, under a
+             budget of 0.8 x the card's memory / 4 (the 4 ranks share
+             it); the summary tables, chosen layouts and host seconds.
+             Then the chosen layout on 4 gloo ranks sharing the card
+             (`dist_drill` job plan4): `plan.build_mesh()`,
+             `ShardedTrainStep(plan=, lint=True)` at 1.3B width x
+             PLAN_CARD_LAYERS layers with the plan's remat, bf16 amp,
+             AdamW, 3 steps — every loss finite, the first within the
+             bf16 tolerance of the one-process step of the same seeded
+             model, no error finding from the lints (counted by rule),
+             K1/K3/K6 on every rank, each rank's peak beside the plan's
+             projection at that depth, and a kind=plan record at that
+             depth (calibrated by the measured peak) that ledger_check
+             accepts. Then `tools/commlab`'s sweep: every op on 4 gloo
+             ranks (dp 4) and on one NCCL rank, 256 KiB to 16 MiB, the
+             kind=commbench records checked by ledger_check,
+             `calibration_from_comm_records` of them, and the plan
+             again with them and with gloo's times priced against
+             NVLink's floor.
+
 `--phases kernels_moe,moe_train,kernels_1_3b,kernels_13b,long_context,
 serve_13b,moe_serve,options,layer,full,full_4k,memory,serving_bench,
-health,kernel_obs,distributed,resilience,elastic` (any of them) runs the
-build and the named phases alone and prints no result line; `elastic`
-is the store check and the elastic drill alone.
+health,kernel_obs,distributed,resilience,elastic,planner` (any of them)
+runs the build and the named phases alone and prints no result line;
+`elastic` is the store check and the elastic drill alone.
 
 Prints the card's name and power limit (nvidia-smi), the seconds each
 phase took, one JSON line of the compiled step against the eager bodies
@@ -6287,11 +6310,169 @@ def resilience_phase(torch, seed):
     return dict(readings=readings, launches=total)
 
 
+# the planner phase: its job's timeout, the comm sweep's payload
+# ladder (JAX sweeps to 256 MiB; cut to 16 MiB for the smoke's time)
+PLANNER_TIMEOUT_S = 240
+COMM_MIN_BYTES, COMM_MAX_BYTES = 256 * 1024, 16 * 1024 * 1024
+
+
+def planner_phase(torch, seed):
+    """Phase 16 (see the docstring): -> its readings and the planned
+    step's launches on every rank, summed."""
+    from paddle_tpu_torch.cost_model import LINK_BW_BY_CHIP
+    from paddle_tpu_torch.ops.kernel_registry import kernels
+    from paddle_tpu_torch.planner import calibration_from_comm_records
+    from paddle_tpu_torch.telemetry.comm_obs import payload_sweep
+    from paddle_tpu_torch.telemetry.ledger_check import check_records
+    from paddle_tpu_torch.tools import commlab
+    from paddle_tpu_torch.tools import dist_drill as dd
+    t_phase = time.perf_counter()
+    card = card_line()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "planner")
+    total = {k.name: 0 for k in kernels()}
+    mem = torch.cuda.get_device_properties(0).total_memory
+    budget = dd.plan_budget(mem)
+    readings = {"total_memory": mem, "budget": budget}
+    print(f"planner: {card}: total_memory {mem} bytes, a rank's budget "
+          f"{budget} bytes")
+    # the planned step's ranks start first; their startup overlaps the
+    # plans below
+    job = dd.start_job("plan4", os.path.join(out_dir, "plan4"), seed,
+                       PLANNER_TIMEOUT_S)
+    cfg = dd.plan_card_config()
+    plans = {}
+    for pp in (1, 4):
+        t0 = time.perf_counter()
+        p = dd.card_plan(cfg, budget, pp=pp, verify="full")
+        host_s = time.perf_counter() - t0
+        plans[pp] = p
+        print(f"planner: GPT-3 1.3B (24 layers, seq 2048) on 4 x h100, "
+              f"pp {pp}, {host_s:.3f} s of host time:\n"
+              + p.summary_table())
+        readings[f"plan_pp{pp}"] = {
+            "chosen": p.layout.describe(), "host_s": host_s,
+            "projected_hbm_bytes": p.projected_hbm_bytes,
+            "cost_step_ms": p.cost["step_time_s"] * 1e3,
+            "verify": p.verify}
+        print(f"planner: pp {pp} chosen " + json.dumps(
+            readings[f"plan_pp{pp}"]))
+        if p.chosen.findings or p.verify["families_checked"] != [
+                "sharding", "program", "collective_order"]:
+            raise AssertionError(f"planner: pp {pp} plan not verified "
+                                 f"clean: {p.verify}")
+
+    # 2. the planned step on 4 ranks
+    res = job.wait()
+    readings["plan4_job_s"] = job.seconds
+    ref = res[0][0]["plan4/reference"][0]
+    by_rule, ranks = {}, []
+    for k, (rk, _) in res.items():
+        rec = rk["plan4"]
+        if rec["layout"] != plans[1].layout.to_dict():
+            raise AssertionError(f"planner: rank {k} ran {rec['layout']}, "
+                                 f"the plan chose {plans[1].layout}")
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            raise AssertionError(f"planner: rank {k} losses "
+                                 f"{rec['losses']}")
+        errors = [f for f in rec["lint"] if f["severity"] == "error"]
+        if errors:
+            raise AssertionError(f"planner: rank {k}'s lint found errors: "
+                                 f"{errors}")
+        for f in rec["lint"]:
+            by_rule[f["rule_id"]] = by_rule.get(f["rule_id"], 0) + 1
+        for i, st in enumerate(rec["steps"]):
+            missing = [n for n in ("flash_fwd", "flash_bwd",
+                                   "layernorm_fwd_saved")
+                       if not st["launches"].get(n)]
+            if missing:
+                raise AssertionError(f"planner: rank {k} step {i} launched "
+                                     f"no {missing}: {st['launches']}")
+            for n, v in st["launches"].items():
+                total[n] += v
+        problems = check_records([rec["record"]])
+        if problems:
+            raise AssertionError(f"planner: rank {k}'s plan record: "
+                                 f"{problems}")
+        ranks.append({
+            "rank": k, "losses": rec["losses"],
+            "step_ms": [round(st["ms"], 1) for st in rec["steps"]],
+            "launches_last_step": {n: v for n, v in
+                                   rec["steps"][-1]["launches"].items()
+                                   if v},
+            "peak_bytes": rec["peak_bytes"],
+            "projected_bytes": rec["projected_bytes"],
+            "peak_over_projection": rec["peak_bytes"]
+            / rec["projected_bytes"],
+            "calibration": rec["calibration"],
+            "calibrated_projection": rec["calibrated_projection"]})
+    first = res[0][0]["plan4"]["losses"][0]
+    if not abs(first - ref) <= DIST_BF16_ATOL:
+        raise AssertionError(f"planner: the planned step's first loss "
+                             f"{first} vs one process {ref}")
+    readings["plan4"] = {"layers": dd.PLAN_CARD_LAYERS,
+                         "one_process_first_loss": ref, "ranks": ranks,
+                         "lint_by_rule": by_rule}
+    print(f"planner: the plan's {plans[1].layout.describe()} at GPT-3 1.3B "
+          f"width x {dd.PLAN_CARD_LAYERS} layers, bf16 amp, 4 gloo ranks "
+          f"sharing one card, on {card}: " + json.dumps(readings["plan4"]))
+
+    # 3. the comm sweep: 4 gloo ranks, then one NCCL rank
+    payloads = payload_sweep(COMM_MIN_BYTES, COMM_MAX_BYTES)
+    gloo, gloo_s = commlab.run_sweep(
+        os.path.join(out_dir, "gloo4"), ranks=4, backend="gloo",
+        device="cuda", mesh="dp=4", payloads=payloads, timeout=300.0,
+        no_db=True)
+    nccl, nccl_s = commlab.run_sweep(
+        os.path.join(out_dir, "nccl1"), ranks=1, backend="nccl",
+        device="cuda", mesh="dp=1", axes=["dp"], payloads=payloads,
+        timeout=300.0, no_db=True)
+    problems, drifts = commlab.check(gloo + nccl)
+    if problems or drifts:
+        raise AssertionError(f"planner: commbench records: {problems} "
+                             f"{[a.message for a in drifts]}")
+    if any(r.get("bw_frac") is not None or r.get("predicted_ms") is not None
+           for r in gloo):
+        raise AssertionError("planner: a gloo record carries a roofline")
+    table = {}
+    for r in gloo + nccl:
+        if r["rank"] == 0:
+            table.setdefault(f"{r['op']}@{r['backend']}{r['axis_size']}",
+                             {})[r["payload_bytes"]] = [
+                round(r["time_ms"], 4),
+                round((r.get("achieved_bw") or 0) / 1e9, 3)]
+    print(f"planner: comm sweep (rank 0; ms, wire GB/s) on {card}, gloo "
+          f"{gloo_s:.1f} s, nccl {nccl_s:.1f} s: " + json.dumps(table))
+    cal = calibration_from_comm_records(gloo + nccl)
+    # gloo's times over the NVLink floor the planner prices with
+    link = LINK_BW_BY_CHIP["h100"]
+    gloo_priced = calibration_from_comm_records(
+        [dict(r, predicted_ms=r["wire_bytes"] / link * 1e3)
+         for r in gloo if r["rank"] == 0])
+    replans = {}
+    for tag, c in (("records", gloo + nccl), ("gloo_priced", gloo_priced)):
+        p = dd.card_plan(cfg, budget, comm_calibration=c)
+        replans[tag] = {"chosen": p.layout.describe(),
+                        "cost_step_ms": p.cost["step_time_s"] * 1e3,
+                        "comm_calibration": p.comm_calibration}
+        print(f"planner: re-plan with comm_calibration={tag}:\n"
+              + p.summary_table())
+    readings["comm"] = {"table": table, "calibration": cal,
+                        "gloo_priced": gloo_priced, "replans": replans,
+                        "n_records": len(gloo) + len(nccl),
+                        "gloo_s": gloo_s, "nccl_s": nccl_s}
+    print("planner: calibrations and re-plans " + json.dumps(
+        {k: readings["comm"][k] for k in ("calibration", "gloo_priced",
+                                          "replans")}))
+    readings["phase_s"] = time.perf_counter() - t_phase
+    print(f"planner: phase {readings['phase_s']:.1f} s")
+    return dict(readings=readings, launches=total)
+
+
 PARTIAL_PHASES = ("kernels_moe", "moe_train", "kernels_1_3b",
                   "kernels_13b", "long_context", "serve_13b", "moe_serve",
                   "options", "layer", "full", "full_4k", "memory",
                   "serving_bench", "health", "kernel_obs", "distributed",
-                  "resilience", "elastic")
+                  "resilience", "elastic", "planner")
 
 
 def partial_run(torch, args, lap, phase_s):
@@ -6311,7 +6492,8 @@ def partial_run(torch, args, lap, phase_s):
            "serving_bench": serving_bench_phase, "health": health_phase,
            "kernel_obs": kernel_obs_phase,
            "distributed": distributed_phase,
-           "resilience": resilience_phase, "elastic": elastic_phase}
+           "resilience": resilience_phase, "elastic": elastic_phase,
+           "planner": planner_phase}
     for name in args.phases.split(","):
         fns[name](torch, args.seed)
         torch.cuda.empty_cache()
@@ -6458,6 +6640,9 @@ def main(argv=None):
     dist = distributed_phase(torch, args.seed)
     torch.cuda.empty_cache()
     lap("distributed")
+    plan = planner_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("planner")
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
     print_compiled_summary(stats, wo8, loop, memory, decode)
@@ -6485,7 +6670,7 @@ def main(argv=None):
                        for run in (stats, wo8, loop, memory, fleet, sbench,
                                    decode, serve_13b, *moe_serve.values(),
                                    train, moe, options, layer, full,
-                                   full_4k, long_ctx, dist, resil))
+                                   full_4k, long_ctx, dist, resil, plan))
         # the largest error of the kernel's checks, the 1.3B, 13B and MoE
         # serving shapes' too
         err = max([r["max_abs_err"]] + [

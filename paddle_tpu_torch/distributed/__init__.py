@@ -18,8 +18,10 @@ checkpoints (`checkpoint`: a piece a rank, restored onto any layout;
 host-offloaded `OffloadTrainStep`. Elastic restarts: the TCP KV store
 (`kvstore`: KVServer, KVClient), the membership manager and the
 declared-dead coordinator (`elastic`), the launcher's 101/102 relaunch
-and `dist_utils`' launch helpers. Not ported yet (ROADMAP Queue 1): the
-planner, ep with sp or pp and the parameter-server mode. The filesystem
+and `dist_utils`' launch helpers. The planner's memory arithmetic under
+its older path (`planner`, a shim over `paddle_tpu_torch.planner`). Not
+ported yet (ROADMAP Queue 1): ep with sp or pp and the parameter-server
+mode. The filesystem
 layer (`fs`: LocalFS, HDFSClient over the hadoop CLI) is JAX's.
 """
 from . import env  # noqa: F401
@@ -42,6 +44,8 @@ from .parallel import (  # noqa: F401
     spawn,
 )
 from .sharded_train import ShardedTrainStep, shard_batch, shard_model  # noqa: F401
+from .planner import (gpt_memory_plan, MemoryPlan, HBM_BYTES,  # noqa: F401
+                      search_plan)
 from .mp_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding,

@@ -59,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from .. import monitor
+from ..analysis import collective_order as _co
 from ..telemetry.recorder import span as _span
 from . import env
 
@@ -197,10 +198,34 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
-def _comm_span(name, tensor=None, axis_name=None, nbytes=None, staged=False):
+# the observers of every collective (analysis/program_lint's recorder):
+# each is called as obs(event, name, axis, group size, tensor), event
+# "span" when a collective opens its span and "result" with the output
+# of a reduce-scatter
+_OBSERVERS = []
+
+
+def _observe(event, name, axis, group, tensor):
+    if event == "span" and _co._ACTIVE is not None:
+        _co.note(name, axis, None if tensor is None else tuple(tensor.shape),
+                 None if tensor is None else tensor.dtype)
+    if _OBSERVERS:
+        size = dist.get_world_size(_pg(group)) if dist.is_initialized() \
+            else 1
+        for obs in list(_OBSERVERS):
+            obs(event, name, axis, size, tensor)
+
+
+def _comm_span(name, tensor=None, axis_name=None, nbytes=None, staged=False,
+               group=None, like=None):
     """The span every collective opens (see the module docstring), and
-    the `comm.<name>` monitor counter."""
+    the `comm.<name>` monitor counter; it notes the collective to an open
+    `analysis.collective_order` capture and to the observers (`like`
+    stands for the payload where `tensor` is not given)."""
     monitor.incr(f"comm.{name}")
+    if _co._ACTIVE is not None or _OBSERVERS:
+        _observe("span", name, axis_name, group,
+                 tensor if tensor is not None else like)
     attrs = {}
     if axis_name is not None:
         attrs["axis"] = str(axis_name)
@@ -295,7 +320,7 @@ def _all_reduce_(t, op, group, name="all_reduce", axis=None):
     avg = op == ReduceOp.AVG
     top = _TORCH_OPS["sum" if avg else op]
     stage = _staged("all_reduce", [t], group)
-    with _comm_span(name, t, axis, staged=stage):
+    with _comm_span(name, t, axis, staged=stage, group=group):
         buf = _to_host(name, [t])[0] if stage else t
         work = dist.all_reduce(buf, op=top, group=_pg(group), async_op=True)
         guarded_wait(name, work, axis, shape=_shape(t))
@@ -308,7 +333,7 @@ def _all_reduce_(t, op, group, name="all_reduce", axis=None):
 
 def _broadcast_(t, src, group, name="broadcast", axis=None):
     stage = _staged("broadcast", [t], group)
-    with _comm_span(name, t, axis, staged=stage):
+    with _comm_span(name, t, axis, staged=stage, group=group):
         buf = _to_host(name, [t])[0] if stage else t
         work = dist.broadcast(buf, src, group=_pg(group), async_op=True)
         guarded_wait(name, work, axis, shape=_shape(t))
@@ -319,7 +344,7 @@ def _broadcast_(t, src, group, name="broadcast", axis=None):
 
 def _reduce_(t, dst, op, group, name="reduce", axis=None):
     stage = _staged("reduce", [t], group)
-    with _comm_span(name, t, axis, staged=stage):
+    with _comm_span(name, t, axis, staged=stage, group=group):
         buf = _to_host(name, [t])[0] if stage else t
         work = dist.reduce(buf, dst, op=_TORCH_OPS[op], group=_pg(group),
                            async_op=True)
@@ -334,7 +359,7 @@ def _all_gather(t, group, name="all_gather", axis=None):
     t = t.contiguous()
     n = dist.get_world_size(_pg(group))
     stage = _staged("all_gather", [t], group)
-    with _comm_span(name, t, axis, staged=stage):
+    with _comm_span(name, t, axis, staged=stage, group=group):
         src = _to_host(name, [t])[0] if stage else t
         outs = [_host_empty(t) if stage else torch.empty_like(t)
                 for _ in range(n)]
@@ -352,13 +377,16 @@ def _reduce_scatter(chunks, group, name="reduce_scatter", axis=None):
     like = chunks[0]
     stage = _staged("reduce_scatter", chunks, group)
     total = sum(_nbytes(c) for c in chunks)
-    with _comm_span(name, nbytes=total, axis_name=axis, staged=stage):
+    with _comm_span(name, nbytes=total, axis_name=axis, staged=stage,
+                    group=group, like=like):
         ins = _to_host(name, chunks) if stage else chunks
         out = _host_empty(like) if stage else torch.empty_like(like)
         work = dist.reduce_scatter(out, ins, group=_pg(group), async_op=True)
         guarded_wait(name, work, axis, shape=_shape(like))
         if stage:
             out = _to_dev(name, out, torch.empty_like(like))
+    if _OBSERVERS:
+        _observe("result", name, axis, group, out)
     return out
 
 
@@ -370,7 +398,7 @@ def _all_to_all(chunks, group, name="all_to_all", axis=None):
     flat = torch.cat([c.reshape(-1) for c in chunks])
     stage = _staged("all_to_all", [flat], group)
     with _comm_span(name, nbytes=_nbytes(flat), axis_name=axis,
-                    staged=stage):
+                    staged=stage, group=group, like=like):
         src = _to_host(name, [flat])[0] if stage else flat
         out = _host_empty(flat) if stage else torch.empty_like(flat)
         work = dist.all_to_all_single(out, src, group=_pg(group),
@@ -394,7 +422,7 @@ def _all_to_all_uneven(x, in_splits, out_splits, group,
                          f"sum to the {x.shape[0]} rows given")
     shape = (sum(out_splits),) + tuple(x.shape[1:])
     stage = _staged("all_to_all_uneven", [x], group)
-    with _comm_span(name, x, axis, staged=stage):
+    with _comm_span(name, x, axis, staged=stage, group=group):
         src = _to_host(name, [x])[0] if stage else x
         out = torch.empty(shape, dtype=x.dtype,
                           pin_memory=True) if stage else \
@@ -422,7 +450,8 @@ class Exchange:
         like = send if like is None else like
         self.stage = _staged("p2p", [like], group)
         self._span = _comm_span(name, send, axis, staged=self.stage,
-                                nbytes=0 if send is None else None)
+                                nbytes=0 if send is None else None,
+                                group=group, like=like)
         self._span.__enter__()
         try:
             ops = []
@@ -535,7 +564,7 @@ def get_rank(group=None):
 
 def barrier(group=None):
     name = "barrier"
-    with _comm_span(name):
+    with _comm_span(name, group=group):
         work = dist.barrier(group=_pg(group), async_op=True)
         guarded_wait(name, work)
 

@@ -281,22 +281,21 @@ class ElasticCoordinator:
     themselves. `clock` is injectable so detector timing is pinned by
     a fake clock in tests. A host missing from the FIRST poll is never
     insta-declared: misses only count once the host has been seen
-    alive (or listed in `expected_hosts`). `model_cfg=` (the JAX
-    planner's replan) raises NotImplementedError until the planner is
-    ported (ROADMAP Queue 1 item 3); `chip` is its argument, accepted
-    for the JAX signature.
+    alive (or listed in `expected_hosts`). With `model_cfg=` and no
+    `plan_fn`, the replan is a real `planner.plan()` search for the
+    surviving chip count on `chip` (verify="sharding"), as in JAX.
     """
 
     def __init__(self, manager, resilience=None, plan_fn=None,
-                 model_cfg=None, chip=None, chips_per_host=1,
+                 model_cfg=None, chip="h100", chips_per_host=1,
                  miss_threshold=3, expected_hosts=None, sink=None,
                  rank=0, clock=None, exit_on_change=True,
                  poll_interval=None):
         if plan_fn is None and model_cfg is not None:
-            raise NotImplementedError(
-                "ElasticCoordinator(model_cfg=) replans through the "
-                "planner, which is not ported: ROADMAP Queue 1 item 3 "
-                "(6.4, the planner and cost model); pass plan_fn")
+            def plan_fn(n_chips, _cfg=model_cfg, _chip=chip):
+                from ..planner import plan as _plan
+                return _plan(_cfg, n_chips=n_chips, chip=_chip,
+                             verify="sharding")
         self.manager = manager
         self.resilience = resilience
         self.plan_fn = plan_fn

@@ -691,11 +691,6 @@ def _unique(params):
 _TIED_TAG = 1 << 30
 
 
-def _unported(what, item):
-    raise NotImplementedError(f"PipelineParallel.{what} is not ported: "
-                              f"ROADMAP Queue 1 item {item}")
-
-
 class PipelineParallel(torch.nn.Module):
     """The wrapper of `meta_parallel/pipeline_parallel.py:30` (see the
     module docstring). With an installed mesh whose pp axis is above 1
@@ -713,9 +708,12 @@ class PipelineParallel(torch.nn.Module):
     on the batches the monitor fetches, taps the loss's NaN/Inf and the
     raw gradients' norm over every stage (JAX's values: no update
     ratio; JAX's 1F1B path taps no gradient, the port taps them all,
-    the sequential path's numbers). Setting `lint` or `plan` makes
-    train_batch raise NotImplementedError naming its ROADMAP item, and
-    `apply_plan` raises."""
+    the sequential path's numbers). `apply_plan(plan)` checks the mesh's
+    pp against the plan's and raises the micro-batch count to the
+    plan's 1F1B in-flight bound, 2 * pp. `lint` (True, or "strict")
+    runs the first train_batch of each mesh and plan under the program
+    lint (the batch is executed; JAX traces it) and keeps the findings
+    in `lint_findings`."""
 
     def __init__(self, layers, hcg=None, strategy=None):
         super().__init__()
@@ -741,6 +739,8 @@ class PipelineParallel(torch.nn.Module):
         self._resilience_mgr = None
         self._resilience_key = None
         self.plan = None
+        self.lint_findings = None
+        self._lint_key = None
 
     def _resilience_manager(self):
         """Normalize and cache the `resilience` attribute."""
@@ -777,7 +777,25 @@ class PipelineParallel(torch.nn.Module):
         return [(n, p) for n, p in named if id(p) in plan["local_ids"]]
 
     def apply_plan(self, plan):
-        _unported("apply_plan", "6.4 (the planner and cost model)")
+        """Configure the pipeline from a `planner.Plan`: checks that the
+        installed mesh's pp axis is the plan's pipeline degree (a
+        schedule built for pp 4 falling back to sequential accumulation
+        on a pp 1 mesh is the drift the planner exists to catch) and
+        raises the micro-batch count to the plan's 1F1B in-flight bound,
+        so the bubble the cost model priced is the bubble the schedule
+        runs. Returns self."""
+        mesh = env.current_mesh()
+        pp = int(plan.layout.pp)
+        if mesh is not None:
+            have = env.axis_size("pp", mesh)
+            if have != pp:
+                raise ValueError(
+                    f"plan {plan.layout.describe()} wants pp={pp} but "
+                    f"the process mesh has pp={have} — build the mesh "
+                    "with plan.build_mesh() first")
+        self._num_micro = max(self._num_micro, 2 * pp if pp > 1 else 1)
+        self.plan = plan
+        return self
 
     def forward(self, x):
         return self._layers(x)
@@ -911,10 +929,10 @@ class PipelineParallel(torch.nn.Module):
         interleaved) on a pp mesh with a plan, else the sequential
         accumulation; one optimizer step at the end. Returns the batch's
         mean loss (a detached f32 scalar), the same on every rank."""
-        if self.lint:
-            _unported("lint", "6.4 (the planner and cost model)")
-        if self.plan is not None:
-            _unported("plan", "6.4 (the planner and cost model)")
+        key = (id(env.current_mesh()), id(self.plan))
+        if self.lint and self._lint_key != key:
+            return self._linted_batch(key, data, optimizer, lr_scheduler,
+                                      scaler)
         monitor.incr("pipeline.train_batches")
         hm = self._health_monitor()
         with auto_step() as win:
@@ -937,6 +955,33 @@ class PipelineParallel(torch.nn.Module):
             if res.ckpt.model is None:
                 res.attach(self._layers, optimizer)
             res.step_boundary(loss=out)
+        return out
+
+    def _linted_batch(self, key, data, optimizer, lr_scheduler, scaler):
+        """One train_batch under the program lint (`lint`), once a mesh
+        and plan; the state it watches is this rank's stage parameters
+        and their optimizer slots."""
+        from ..analysis import emit
+        from ..analysis.program_lint import lint_record, record_step
+        from ..analysis.sharding_lint import mesh_axis_sizes
+
+        def state():
+            out = list(self.stage_parameters())
+            for n, p in self.stage_parameters():
+                for slot, v in sorted(optimizer._states.get(id(p),
+                                                            {}).items()):
+                    if isinstance(v, torch.Tensor):
+                        out.append((f"opt:{n}.{slot}", v))
+            return out
+        self._lint_key = key
+        out, rec = record_step(self.train_batch, data, optimizer,
+                               lr_scheduler, scaler, state=state,
+                               fn_name="PipelineParallel.train_batch")
+        mesh = env.current_mesh()
+        self.lint_findings = emit(
+            lint_record(rec, mesh_axis_sizes(mesh) if mesh is not None
+                        else None),
+            mode=self.lint, title="graph doctor [PipelineParallel]")
         return out
 
     def _train_batch_impl(self, data, optimizer, lr_scheduler, scaler,

@@ -88,9 +88,18 @@ ZeRO-3 resume comes back sharded. `resilience=` calls the manager's
 stage) into its checkpoints. `health=` arms the monitor of
 `jit.TrainStep`: on a fetch step the taps read the raw gradient pieces
 before the clip and the parameter pieces before and after the update,
-and `sum_over_cuts` (the clip's rule) makes the stats global. `plan=`
-and `lint=` raise NotImplementedError naming their ROADMAP item;
-`donate` is accepted and has no meaning in an eager step.
+and `sum_over_cuts` (the clip's rule) makes the stats global.
+
+`plan=` (a `planner.Plan`, or anything with `.layout` and `.rules`)
+checks the mesh against the plan's layout before it touches the model
+(a mismatch raises and leaves no tag behind), takes `zero_stage` and
+`seq_shard_batch` from the layout unless they are given, and tags the
+model from the plan's partition rules (existing tags win; JAX's order).
+`lint=` (True, or "strict" to raise on an error finding) runs the first
+step under the program lint (`analysis.program_lint`: the step is
+executed, not traced as in JAX) and the sharding lint over the mesh and
+the modules' tags, and keeps the findings in `lint_findings`. `donate`
+is accepted and has no meaning in an eager step.
 """
 import contextlib
 import weakref
@@ -219,11 +228,12 @@ def sum_over_cuts(rows, cut_axes, mesh=None, dp_pieces=False):
 def shard_model(model, mesh=None, rules=None):
     """Cut every tagged parameter of `model` to this rank's piece (see
     the module docstring); parameters cut before are left as they are.
-    Returns the model."""
+    `rules` (the planner's regex partition rules) tag the model first
+    (`planner.rules.apply_partition_rules`: existing tags win). Returns
+    the model."""
     if rules is not None:
-        raise NotImplementedError(
-            "shard_model(rules=): the planner's partition rules wait "
-            "(ROADMAP Queue 1 item 6: the planner and cost model)")
+        from ..planner.rules import apply_partition_rules
+        apply_partition_rules(model, rules)
     mesh = mesh if mesh is not None else env.current_mesh()
     if mesh is None:
         return model
@@ -503,10 +513,29 @@ class ShardedTrainStep:
     def __init__(self, model, loss_fn, optimizer, mesh=None, zero_stage=None,
                  seq_shard_batch=None, donate=True, offload=None,
                  lint=False, health=None, resilience=None, plan=None):
+        self.plan = plan
         if plan is not None:
-            _unported("plan=", "6.4: the planner and cost model")
-        if lint:
-            _unported("lint=", "6.4: the planner and cost model")
+            # validate the mesh BEFORE touching the model: a rejected
+            # plan must not leave its tags behind
+            m = mesh if mesh is not None else env.current_mesh()
+            if m is not None:
+                have = {a: env.axis_size(a, m) for a in env.MESH_AXES}
+                bad = {a: (s, have[a]) for a, s in
+                       plan.layout.mesh_shape().items() if have[a] != s}
+                if bad:
+                    raise ValueError(
+                        f"mesh does not match the plan's layout "
+                        f"{plan.layout.describe()}: axis sizes differ on "
+                        f"{bad} — build the mesh with plan.build_mesh() "
+                        "or pass the matching mesh")
+            if zero_stage is None:
+                zero_stage = int(plan.layout.zero_stage)
+            if seq_shard_batch is None:
+                seq_shard_batch = plan.layout.sp > 1
+            from ..planner.rules import apply_partition_rules
+            apply_partition_rules(model, plan.rules)
+        self._lint = lint
+        self.lint_findings = None
         strat = getattr(optimizer, "user_defined_strategy", None)
         scfg = (strat.sharding_configs
                 if strat is not None and getattr(strat, "sharding", False)
@@ -723,6 +752,29 @@ class ShardedTrainStep:
 
     # ---- the step ------------------------------------------------------
     def __call__(self, *batch):
+        if self._lint and self.lint_findings is None:
+            return self._linted_call(batch)
+        return self._call(batch)
+
+    def _linted_call(self, batch):
+        """The first step under the program lint, then the sharding lint
+        over the mesh and the tags (`lint=`); -> the step's loss."""
+        from ..analysis import emit
+        from ..analysis.program_lint import (lint_record, record_step,
+                                             train_step_state)
+        from ..analysis.sharding_lint import (lint_model_sharding,
+                                              mesh_axis_sizes)
+        loss, rec = record_step(self._call, batch,
+                                state=lambda: train_step_state(self),
+                                fn_name="ShardedTrainStep")
+        findings = lint_record(rec, mesh_axis_sizes(self.mesh))
+        findings += lint_model_sharding(self.model, self.mesh,
+                                        zero_stage=self.zero_stage)
+        self.lint_findings = emit(findings, mode=self._lint,
+                                  title="graph doctor [ShardedTrainStep]")
+        return loss
+
+    def _call(self, batch):
         with auto_step() as win:
             if self.health is not None:
                 with self.health.guard(win) as g:

@@ -1,13 +1,14 @@
 """The ledger rules the fleet drill gates on: the port's own copy.
 
-The port of the kind=memsnap, fleet, ckpt and elastic rules of the JAX
-package's tools/trace_check.py (`check_memsnap_records`,
-`check_fleet_records`, `check_ckpt_records`, `check_elastic_records`)
-and of the per-record schema checks of paddle_tpu/telemetry/sink.py's
-`validate_step_record` for the kinds the port writes — memsnap, fleet,
-ckpt, elastic, and the training and bench kinds: step (the recorder's
-step record, health and MoE fields included), bench, phase and
-kernelbench —
+The port of the kind=memsnap, fleet, ckpt, elastic, plan and commbench
+rules of the JAX package's tools/trace_check.py (`check_memsnap_records`,
+`check_fleet_records`, `check_ckpt_records`, `check_elastic_records`,
+`check_plan_records` with its 15 % projection-drift rule,
+`check_commbench_records`) and of the per-record schema checks of
+paddle_tpu/telemetry/sink.py's `validate_step_record` for the kinds the
+port writes — memsnap, fleet, ckpt, elastic, plan, commbench, and the
+training and bench kinds: step (the recorder's step record, health and
+MoE fields included), bench, phase and kernelbench —
 unchanged, so a ledger passes here exactly when it passes there (the
 CPU tests hold the two against each other, on the same records and on
 the JAX package's specimens). `check_records(records)` runs all of them
@@ -16,7 +17,9 @@ over one combined ledger; `check_jsonl(path)` reads one first.
 import json
 
 from .sink import (BENCH_RECORD_KEYS, CKPT_EVENTS, CKPT_RECORD_KEYS,
-                   COMM_KEYS, ELASTIC_EVENTS, ELASTIC_RECORD_KEYS,
+                   COMM_KEYS, COMMBENCH_EVENTS, COMMBENCH_OPS,
+                   COMMBENCH_RECORD_KEYS, ELASTIC_EVENTS,
+                   ELASTIC_RECORD_KEYS, PLAN_RECORD_KEYS,
                    FLEET_EVENTS,
                    FLEET_RECORD_KEYS, HEALTH_KEYS, INPUT_KEYS,
                    KERNELBENCH_EVENTS, KERNELBENCH_RECORD_KEYS,
@@ -25,12 +28,14 @@ from .sink import (BENCH_RECORD_KEYS, CKPT_EVENTS, CKPT_RECORD_KEYS,
 
 __all__ = ["validate_record", "check_memsnap_records",
            "check_fleet_records", "check_ckpt_records",
-           "check_elastic_records", "check_records", "check_jsonl"]
+           "check_elastic_records", "check_plan_records",
+           "check_commbench_records", "PLAN_DRIFT_FRAC",
+           "COMMBENCH_DERIVED_TOL", "check_records", "check_jsonl"]
 
 
 def validate_record(rec):
-    """Schema problems of one kind=memsnap, fleet, ckpt, elastic, step,
-    bench, phase or kernelbench record ([] == valid; records of other
+    """Schema problems of one kind=memsnap, fleet, ckpt, elastic, plan,
+    commbench, step, bench, phase or kernelbench record ([] == valid; records of other
     kinds are not judged here)."""
     problems = []
     if not isinstance(rec, dict):
@@ -53,6 +58,90 @@ def validate_record(rec):
         return problems
     if kind == "elastic":
         return _validate_elastic(rec)
+    if kind == "commbench":
+        for key in COMMBENCH_RECORD_KEYS:
+            if key not in rec:
+                problems.append(f"commbench record missing '{key}'")
+        op = rec.get("op")
+        if op is not None and op not in COMMBENCH_OPS:
+            problems.append(f"unknown commbench op {op!r} (expected one "
+                            f"of {list(COMMBENCH_OPS)})")
+        for key in ("time_ms", "compile_ms", "predicted_ms", "db_ms",
+                    "wire_bytes", "achieved_bw", "peak_bw"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, (int, float))
+                                  or v != v or v < 0):
+                problems.append(
+                    f"'{key}' not a non-negative number: {v!r}")
+        if rec.get("time_ms") is None and "error" not in rec:
+            problems.append("commbench record with null time_ms "
+                            "carries no 'error' note")
+        v = rec.get("bw_frac")
+        if v is not None and (not isinstance(v, (int, float))
+                              or v != v or not 0.0 <= v <= 1.0):
+            problems.append(
+                f"'bw_frac' not a bandwidth fraction in [0, 1]: {v!r}")
+        for key in ("axis_size", "payload_bytes"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, int) or v < 1):
+                problems.append(f"'{key}' not a positive int: {v!r}")
+        for key in ("n_samples", "warmup"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, int) or v < 0):
+                problems.append(
+                    f"'{key}' not a non-negative int: {v!r}")
+        m = rec.get("medium")
+        if m is not None and m not in ("ici", "dcn"):
+            problems.append(f"'medium' not 'ici'/'dcn': {m!r}")
+        ev = rec.get("event")
+        if ev is not None and ev not in COMMBENCH_EVENTS:
+            problems.append(f"unknown commbench event {ev!r} "
+                            f"(expected one of "
+                            f"{list(COMMBENCH_EVENTS)})")
+        return problems
+    if kind == "plan":
+        for key in PLAN_RECORD_KEYS:
+            if key not in rec:
+                problems.append(f"plan record missing '{key}'")
+        chosen = rec.get("chosen")
+        if chosen is not None:
+            if not isinstance(chosen, dict):
+                problems.append(f"'chosen' not a layout dict: {chosen!r}")
+            else:
+                for axis in ("dp", "pp", "mp"):
+                    v = chosen.get(axis)
+                    if not isinstance(v, int) or v < 1:
+                        problems.append(
+                            f"chosen layout '{axis}' not a positive "
+                            f"int: {v!r}")
+        n = rec.get("candidates_considered")
+        rejected = rec.get("candidates_rejected")
+        if n is not None and (not isinstance(n, int) or n < 1):
+            problems.append(
+                f"'candidates_considered' not a positive int: {n!r}")
+        if rejected is not None:
+            if not isinstance(rejected, list):
+                problems.append("'candidates_rejected' not a list")
+            else:
+                if isinstance(n, int) and len(rejected) >= n:
+                    problems.append(
+                        f"{len(rejected)} rejected candidates but only "
+                        f"{n} considered — the chosen layout cannot be "
+                        "among them")
+                for j, r in enumerate(rejected):
+                    if not isinstance(r, dict) or \
+                            not str(r.get("reason", "")).strip():
+                        problems.append(
+                            f"rejected candidate {j} carries no reason "
+                            "— a rejection the ledger cannot explain")
+        for key in ("projected_hbm_bytes", "measured_hbm_bytes",
+                    "hbm_budget_bytes"):
+            v = rec.get(key)
+            if v is not None and (not isinstance(v, (int, float))
+                                  or v < 0):
+                problems.append(
+                    f"'{key}' not a non-negative number: {v!r}")
+        return problems
     if kind == "phase":
         for key in ("schema", "phase", "metrics"):
             if key not in rec:
@@ -683,10 +772,165 @@ def check_elastic_records(records, path="ledger"):
     return problems
 
 
+# plan-record projection drift threshold (the JAX tool's 15%): past it
+# the planner's feasibility decisions were made on fiction
+PLAN_DRIFT_FRAC = 0.15
+
+
+def check_plan_records(records, path="ledger"):
+    """Cross-record rules for auto-sharding plan records (kind=plan,
+    planner.Plan.to_record; per-record schema in `validate_record`):
+
+    - the chosen layout's axis product must equal n_chips when both
+      are present — a plan whose mesh does not multiply out to its
+      chip count never factorized anything;
+    - when both projected_hbm_bytes and measured_hbm_bytes are present
+      (the compile observatory measured the chosen layout), they must
+      agree within PLAN_DRIFT_FRAC — a plan whose projection drifted
+      >15% from the measured peak chose its layout on numbers that
+      were wrong, and the search must be re-run with the measured
+      calibration.
+    """
+    problems = []
+    for i, rec in enumerate(records):
+        if not isinstance(rec, dict) or rec.get("kind") != "plan":
+            continue
+        chosen = rec.get("chosen")
+        n_chips = rec.get("n_chips")
+        if isinstance(chosen, dict) and isinstance(n_chips, int):
+            prod = 1
+            for axis in ("dp", "pp", "mp", "sp", "ep"):
+                v = chosen.get(axis, 1)
+                prod *= v if isinstance(v, int) and v > 0 else 1
+            if prod != n_chips:
+                problems.append(
+                    f"{path}:{i + 1}: chosen layout multiplies to "
+                    f"{prod} chips but the plan claims n_chips="
+                    f"{n_chips}")
+        projected = rec.get("projected_hbm_bytes")
+        measured = rec.get("measured_hbm_bytes")
+        if isinstance(projected, (int, float)) and \
+                isinstance(measured, (int, float)) and measured > 0:
+            drift = abs(measured - projected) / float(measured)
+            if drift > PLAN_DRIFT_FRAC:
+                problems.append(
+                    f"{path}:{i + 1}: plan projection drift "
+                    f"{drift * 100:.1f}% (projected "
+                    f"{projected / 2**30:.2f} GiB vs measured "
+                    f"{measured / 2**30:.2f} GiB) exceeds "
+                    f"{PLAN_DRIFT_FRAC * 100:.0f}% — re-plan with "
+                    "calibration from the measured peak")
+    return problems
+
+
+# how far achieved_bw / bw_frac / predicted_ms may drift from the
+# values recomputable from their own inputs on the same record
+COMMBENCH_DERIVED_TOL = 0.05
+
+
+def check_commbench_records(records, path="ledger"):
+    """Cross-rules over mesh-observatory measurement records
+    (kind='commbench', telemetry/comm_obs via tools/commlab.py). The
+    schema basics (non-negative ms, bw_frac in [0, 1], positive
+    axis_size/payload) live in `validate_record`; here the claims that
+    must be recomputable from the record's own fields:
+
+    - achieved_bw must equal wire_bytes / (time_ms / 1e3) within 5% —
+      a bandwidth the ledger cannot reproduce is a doctored row;
+    - bw_frac must equal min(1, achieved_bw / peak_bw) within 5%, and
+      requires BOTH inputs on the record;
+    - predicted_ms must equal wire_bytes / peak_bw * 1e3 within 5% —
+      the analytic floor the calibration ratio divides by must match
+      the peak the record claims to have been priced against;
+    - wire_bytes must lie in (0, 2 x payload_bytes] — no wire-fraction
+      convention (comm_audit: (n-1)/n, full, or ring 2(n-1)/n) moves
+      more than twice the operand;
+    - a db_update event must reference, by db_key, a measured row in
+      the SAME file — the DB may only roll forward from measurements
+      the ledger shows (the kernelbench rule).
+    """
+    problems = []
+    measured_keys = set()
+    for r in records:
+        if isinstance(r, dict) and r.get("kind") == "commbench" \
+                and r.get("event") in (None, "measure") \
+                and r.get("db_key"):
+            measured_keys.add(r["db_key"])
+
+    def _num(v):
+        return isinstance(v, (int, float)) and v == v
+
+    for i, rec in enumerate(records):
+        if not isinstance(rec, dict) or rec.get("kind") != "commbench":
+            continue
+        label = f"{rec.get('op')} over {rec.get('axis')!r}"
+        tm, wb = rec.get("time_ms"), rec.get("wire_bytes")
+        abw, pbw = rec.get("achieved_bw"), rec.get("peak_bw")
+        frac, pm = rec.get("bw_frac"), rec.get("predicted_ms")
+        payload = rec.get("payload_bytes")
+        if _num(wb) and isinstance(payload, int) and payload > 0 \
+                and not 0.0 < wb <= 2.0 * payload:
+            problems.append(
+                f"{path}:{i + 1}: commbench {label} claims wire_bytes "
+                f"{wb} outside (0, 2 x payload_bytes {payload}] — no "
+                "wire-fraction convention moves that")
+        if _num(abw):
+            if not _num(tm) or tm <= 0 or not _num(wb) or wb <= 0:
+                problems.append(
+                    f"{path}:{i + 1}: commbench {label} claims "
+                    f"achieved_bw {abw} without positive time_ms and "
+                    "wire_bytes — a bandwidth with no inputs on the "
+                    "ledger")
+            else:
+                want = wb / (tm / 1e3)
+                if abs(abw - want) > COMMBENCH_DERIVED_TOL * want:
+                    problems.append(
+                        f"{path}:{i + 1}: commbench {label} achieved_bw "
+                        f"{abw:.4g} does not match wire_bytes/"
+                        f"(time_ms/1e3) = {want:.4g} — the claim and "
+                        "its inputs disagree")
+        if _num(frac):
+            if not _num(abw) or not _num(pbw) or pbw <= 0:
+                problems.append(
+                    f"{path}:{i + 1}: commbench {label} claims bw_frac "
+                    f"{frac} without achieved_bw and peak_bw — a "
+                    "fraction with no numerator or denominator")
+            else:
+                want = min(1.0, abw / pbw)
+                if abs(frac - want) > COMMBENCH_DERIVED_TOL \
+                        * max(want, 1e-9):
+                    problems.append(
+                        f"{path}:{i + 1}: commbench {label} bw_frac "
+                        f"{frac:.4g} does not match min(1, achieved/"
+                        f"peak) = {want:.4g}")
+        if _num(pm) and _num(wb) and _num(pbw) and pbw > 0:
+            want = wb / pbw * 1e3
+            if want > 0 and abs(pm - want) > COMMBENCH_DERIVED_TOL * want:
+                problems.append(
+                    f"{path}:{i + 1}: commbench {label} predicted_ms "
+                    f"{pm:.4g} does not match wire_bytes/peak_bw = "
+                    f"{want:.4g} — the analytic floor and the peak it "
+                    "claims disagree")
+        if rec.get("event") == "db_update":
+            key = rec.get("db_key")
+            if not key:
+                problems.append(
+                    f"{path}:{i + 1}: commbench db_update for {label} "
+                    "carries no db_key — an update that references "
+                    "nothing")
+            elif key not in measured_keys:
+                problems.append(
+                    f"{path}:{i + 1}: commbench db_update references "
+                    f"db_key {key!r} but no measured record in this "
+                    "file carries it — the DB may only roll forward "
+                    "from measurements the ledger shows")
+    return problems
+
+
 def check_records(records, path="ledger"):
     """Every rule of this module over one ledger (a list of records,
     e.g. the concatenation of every process's JSONL): per-record schema
-    problems, then the memsnap and fleet cross-record rules. Returns the
+    problems, then the cross-record rules. Returns the
     problems ([] == clean)."""
     problems = []
     for i, rec in enumerate(records):
@@ -696,6 +940,8 @@ def check_records(records, path="ledger"):
     problems += check_fleet_records(records, path)
     problems += check_ckpt_records(records, path)
     problems += check_elastic_records(records, path)
+    problems += check_plan_records(records, path)
+    problems += check_commbench_records(records, path)
     return problems
 
 

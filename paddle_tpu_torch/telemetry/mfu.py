@@ -11,7 +11,8 @@ JAX package's bench uses.
 """
 __all__ = ["PEAK_FLOPS_BY_KIND", "PEAK_F32_FLOPS_BY_KIND",
            "PEAK_HBM_BW_BY_KIND", "device_peak_flops", "device_peak_hbm_bw",
-           "flops_drift", "gpt_train_flops_per_token", "mfu"]
+           "flops_drift", "gpt_train_flops_per_token", "mfu",
+           "model_flops_per_token"]
 
 # dense bf16 FLOP/s (NVIDIA data sheets, without sparsity)
 PEAK_FLOPS_BY_KIND = {
@@ -81,6 +82,14 @@ def gpt_train_flops_per_token(cfg, seq, n_params):
     value products."""
     return 6 * int(n_params) + 12 * int(cfg.num_layers) \
         * int(cfg.hidden_size) * int(seq)
+
+
+def model_flops_per_token(n_params, num_layers=0, hidden_size=0, seq_len=0):
+    """PaLM-style train FLOPs per token: 6N for the parameter matmuls
+    (fwd 2N + bwd 4N) plus 12*L*H*S for self-attention score/value work
+    (the JAX package's function, which the cost model prices with)."""
+    return 6 * int(n_params) + 12 * int(num_layers) * int(hidden_size) \
+        * int(seq_len)
 
 
 def mfu(tokens_per_s, flops_per_token, peak_flops):

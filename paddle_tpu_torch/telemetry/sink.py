@@ -19,7 +19,9 @@ directions in `SERVING_BENCH_METRICS`), the kind=phase metric dict
 measurement (`make_kernelbench_record`), the checkpoint lifecycle's
 kind=ckpt record (`make_ckpt_record`, `CKPT_EVENTS`) and the
 kind=elastic record a cross-layout restore writes
-(`make_elastic_record`, `ELASTIC_EVENTS`) with `emit_record`, their
+(`make_elastic_record`, `ELASTIC_EVENTS`), the mesh observatory's
+kind=commbench measurement (`make_commbench_record`) and the planner's
+kind=plan decision (`make_plan_record`) with `emit_record`, their
 sink fallback chain, `read_jsonl`, and the Chrome
 trace export of host spans (`spans_to_trace_events`,
 `export_chrome_tracing`). Same schema version and keys, so
@@ -47,7 +49,9 @@ __all__ = ["SCHEMA_VERSION", "STEP_RECORD_KEYS", "STEP_OPTIONAL_KEYS",
            "make_fleet_record", "make_memsnap_record",
            "make_compile_record", "JsonlSink", "CKPT_RECORD_KEYS",
            "CKPT_EVENTS", "ELASTIC_RECORD_KEYS", "ELASTIC_EVENTS",
-           "make_ckpt_record", "make_elastic_record", "emit_record"]
+           "make_ckpt_record", "make_elastic_record", "emit_record",
+           "COMMBENCH_RECORD_KEYS", "COMMBENCH_OPS", "COMMBENCH_EVENTS",
+           "make_commbench_record", "PLAN_RECORD_KEYS", "make_plan_record"]
 
 # one process-wide atexit hook over weak refs: sinks stay collectable
 # (a per-instance atexit.register would pin every sink + its fd for the
@@ -817,6 +821,143 @@ def make_kernelbench_record(kernel, sig, backend, kernel_ms, rank=0,
         rec["event"] = str(event)
     if seed is not None:
         rec["seed"] = int(seed)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+# required keys of a mesh-observatory measurement record
+# (telemetry/comm_obs via tools/commlab.py); optional: compile_ms,
+# wire_bytes, achieved_bw, peak_bw, bw_frac, predicted_ms, db_ms,
+# db_key, medium, n_samples, warmup, event, seed
+COMMBENCH_RECORD_KEYS = ("schema", "kind", "rank", "op", "axis",
+                         "axis_size", "payload_bytes", "backend",
+                         "time_ms")
+
+# the sweep's op vocabulary (telemetry/comm_obs.SWEEP_OPS)
+COMMBENCH_OPS = ("psum", "all_gather", "reduce_scatter", "all_to_all",
+                 "ppermute")
+
+# what one commbench record may claim to be (cross-checked by
+# telemetry/ledger_check.py: a db_update must reference a measured row)
+COMMBENCH_EVENTS = ("measure", "db_update")
+
+
+def make_commbench_record(op, axis, axis_size, payload_bytes, backend,
+                          time_ms, rank=0, compile_ms=None,
+                          wire_bytes=None, achieved_bw=None, peak_bw=None,
+                          bw_frac=None, predicted_ms=None, db_ms=None,
+                          db_key=None, medium=None, n_samples=None,
+                          warmup=None, event=None, seed=None, **extra):
+    """One measured collective data point as a first-class typed record
+    (kind='commbench') — the communication sibling of kind='kernelbench':
+    the kernel observatory measures what one chip computes, the mesh
+    observatory measures what the mesh moves. `op` + `axis_size` +
+    `payload_bytes` + `backend` reproduce the DB key
+    (telemetry/comm_obs.db_key); `time_ms` is the execute median
+    (compile_ms, the first call, rides separately); `achieved_bw` /
+    `bw_frac` place it against the planner's link peaks
+    (cost_model.LINK_BW_BY_CHIP / DCN_BW_BYTES; none for gloo);
+    `predicted_ms` is the analytic floor `calibration_from_comm_records`
+    ratios against; `db_ms` is the best-known DB latency the
+    comm_bw_degraded rule judges against (absent when the
+    PADDLE_TPU_TORCH_COMM_DB flag is off — no reference, no
+    jurisdiction). Non-finite timings become None + an error note, like
+    make_kernelbench_record — a NaN never rides the ledger silently."""
+    def _clean(v):
+        if v is None:
+            return None, False
+        bad = isinstance(v, float) and (v != v or v in (float("inf"),
+                                                        float("-inf")))
+        return (None if bad else float(v)), bad
+
+    time_ms, bad = _clean(time_ms)
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "commbench",
+        "rank": int(rank),
+        "op": str(op),
+        "axis": str(axis),
+        "axis_size": int(axis_size),
+        "payload_bytes": int(payload_bytes),
+        "backend": str(backend),
+        "time_ms": time_ms,
+    }
+    if bad:
+        rec["error"] = "non-finite time_ms"
+    for key, v in (("compile_ms", compile_ms), ("wire_bytes", wire_bytes),
+                   ("achieved_bw", achieved_bw), ("peak_bw", peak_bw),
+                   ("bw_frac", bw_frac), ("predicted_ms", predicted_ms),
+                   ("db_ms", db_ms)):
+        v, bad = _clean(v)
+        if v is not None:
+            rec[key] = v
+        elif bad:
+            rec["error"] = f"non-finite {key}"
+    if db_key is not None:
+        rec["db_key"] = str(db_key)
+    if medium is not None:
+        rec["medium"] = str(medium)
+    if n_samples is not None:
+        rec["n_samples"] = int(n_samples)
+    if warmup is not None:
+        rec["warmup"] = int(warmup)
+    if event is not None:
+        rec["event"] = str(event)
+    if seed is not None:
+        rec["seed"] = int(seed)
+    for k, v in extra.items():
+        if v is not None:
+            rec[k] = v
+    return rec
+
+
+# required keys of an auto-sharding plan record (paddle_tpu_torch.planner);
+# optional: chip, n_chips, projected_hbm_bytes, measured_hbm_bytes,
+# hbm_budget_bytes, cost_step_s, calibration, verify
+PLAN_RECORD_KEYS = ("schema", "kind", "rank", "model", "chosen",
+                    "candidates_considered", "candidates_rejected")
+
+
+def make_plan_record(model, chosen, candidates_considered,
+                     candidates_rejected, rank=0, chip=None, n_chips=None,
+                     projected_hbm_bytes=None, measured_hbm_bytes=None,
+                     hbm_budget_bytes=None, cost_step_s=None,
+                     calibration=None, verify=None, **extra):
+    """One auto-sharding decision as a first-class record (kind='plan',
+    planner.Plan.to_record). `chosen` is the layout dict
+    (dp/pp/mp/sp/ep/zero_stage/...); `candidates_rejected` is the
+    rejection ledger ([{layout, reason}] — every reason non-empty, the
+    validator enforces it). `measured_hbm_bytes` is attached once the
+    chosen layout's step has run and its peak is measured;
+    telemetry/ledger_check.py fails the plan when measured drifts >15%
+    from `projected_hbm_bytes`."""
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "kind": "plan",
+        "rank": int(rank),
+        "model": str(model),
+        "chosen": dict(chosen),
+        "candidates_considered": int(candidates_considered),
+        "candidates_rejected": [dict(r) for r in candidates_rejected],
+    }
+    if chip is not None:
+        rec["chip"] = str(chip)
+    if n_chips is not None:
+        rec["n_chips"] = int(n_chips)
+    if projected_hbm_bytes is not None:
+        rec["projected_hbm_bytes"] = int(projected_hbm_bytes)
+    if measured_hbm_bytes is not None:
+        rec["measured_hbm_bytes"] = int(measured_hbm_bytes)
+    if hbm_budget_bytes is not None:
+        rec["hbm_budget_bytes"] = int(hbm_budget_bytes)
+    if cost_step_s is not None:
+        rec["cost_step_s"] = float(cost_step_s)
+    if calibration is not None:
+        rec["calibration"] = float(calibration)
+    if verify is not None:
+        rec["verify"] = verify
     for k, v in extra.items():
         if v is not None:
             rec[k] = v

@@ -66,9 +66,22 @@ package. Jobs:
   x mp 2: 2 dropless f32 SGD steps against the one-process jit.TrainStep
   (rank 0 runs it first), `moe_ffn_values` at cf 1.25 against its
   blocks run alone, 2 bf16 amp steps on ep 4, one step at cf 1.25.
+- `cpu_plan` (2 ranks, gloo on the CPU): the tiny GPT on the planner's
+  plan for mp 2, re-tagged from the plan's rules, through
+  `ShardedTrainStep(plan=, lint=True)` for 3 f32 AdamW steps beside the
+  one-process jit.TrainStep (rank 0): the losses, the lint's findings,
+  the qkv's tag.
+- `plan4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width on the
+  planner's choice for 4 H100s (24 layers planned, PLAN_CARD_LAYERS
+  run, the plan's remat), bf16 amp, AdamW, `ShardedTrainStep(plan=,
+  lint=True)`, 3 steps: the losses, launches, each rank's peak beside
+  the plan's projection at that depth, and the plan record at that
+  depth calibrated by the peak; rank 0 first runs the one-process step.
 - `pp4` (4 ranks sharing card 0, gloo): GPT-3 1.3B's width as a
   PipelineLayer (tied embedding, 8 blocks, final LN, tied head), 8
-  micro-batches of 1 x 2048: 2 f32 SGD steps each of 1F1B at pp 4,
+  micro-batches of 1 x 2048 (1F1B's schedule from
+  `PipelineParallel.apply_plan` of the planner's pp 4 plan: 2 pp = 8):
+  2 f32 SGD steps each of 1F1B at pp 4,
   interleaved at pp 4 x vpp 2 and pp 2 x mp 2 against the one-process
   sequential train_batch (rank 0 runs it first and leaves its
   parameters in a file), 2 bf16 amp 1F1B steps, one 1F1B step each at 4
@@ -147,7 +160,8 @@ JOBS = {"cpu": (8, "gloo", 8), "cpu_ep": (4, "gloo", 4),
         "zero3_4": (4, "gloo", 4), "zero3_8": (4, "gloo", 4),
         "ckpt4": (4, "gloo", 4),
         "ckpt4_resume": (4, "gloo", 4), "ckpt2_reshard": (2, "gloo", 2),
-        "ckpt4_reshard": (4, "gloo", 4)}
+        "ckpt4_reshard": (4, "gloo", 4), "cpu_plan": (2, "gloo", 2),
+        "plan4": (4, "gloo", 4)}
 # the probe's collectives, point-to-point last: gloo may write a CUDA
 # pointer as host memory, which aborts the process
 GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_to_all",
@@ -193,6 +207,14 @@ PP_STEPS = 1
 PP_GPT_TINY = dict(TINY, use_flash_attention=False)
 # the card's pp legs: GPT-3 1.3B's width, 8 blocks, micro-batch 1
 PP_CARD_BLOCKS, PP_CARD_ACC, PP_CARD_STEPS = 8, 8, 2
+# the planner's legs: the plan's layout run by ShardedTrainStep(plan=,
+# lint=True) for PLAN_STEPS steps with the plan's remat; cpu_plan: the
+# tiny GPT at mp 2 in f32; plan4: GPT-3 1.3B's width (24 layers planned,
+# PLAN_CARD_LAYERS run) on 4 ranks sharing the card in bf16 amp, the
+# memory budget a quarter of PLAN_BUDGET_FRAC of the card
+PLAN_STEPS = 3
+PLAN_CARD_LAYERS = 8
+PLAN_BUDGET_FRAC = 0.8
 
 
 # ---------------------------------------------------------------------------
@@ -1155,12 +1177,16 @@ def _cpu_pp_extras(r):
     out["warned"] = [str(w.message) for w in rec
                      if "SEQUENTIAL" in str(w.message)]
     out["warned_loss"] = float(loss)
-    # the options that raise, and resilience, which trains and commits
+    # lint, resilience (trains and commits) and apply_plan
     errs = r.rec.setdefault("errors", {})
     p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed))
     p2.lint = True
-    errs["pp_lint"] = _error(lambda: p2.train_batch(
-        (x, y), SGD(parameters=p2.parameters())))
+    p2.train_batch((x, y), SGD(parameters=p2.parameters()))
+    found = p2.lint_findings
+    r.rec["pp_lint_findings"] = [f.to_dict() for f in found]
+    errs["pp_lint"] = (
+        f"linted: errors {sum(f.severity == 'error' for f in found)} "
+        f"rules {sorted({f.rule_id for f in found})}")
     p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed))
     p2.resilience = {"checkpoint_dir": os.path.join(r.out, "pp_ckpt"),
                      "save_every": 1, "preempt": False}
@@ -1169,8 +1195,14 @@ def _cpu_pp_extras(r):
     res.ckpt.drain()
     errs["pp_resilience"] = f"accepted: committed {res.ckpt.steps()}"
     res.close()
-    errs["pp_apply_plan"] = _error(lambda: PipelineParallel(
-        _pp_model("plain", 8, 1, r.seed)).apply_plan(object()))
+    from ..models.gpt import GPTConfig
+    from ..planner import plan
+    pcfg = GPTConfig(**dict(TINY, num_layers=8))
+    p2 = PipelineParallel(_pp_model("plain", 8, 1, r.seed)).apply_plan(
+        plan(pcfg, mesh_shape={"pp": 4}, verify="sharding"))
+    errs["pp_apply_plan"] = f"accepted: micro {p2._num_micro}; " + _error(
+        lambda: p2.apply_plan(plan(pcfg, mesh_shape={"pp": 2},
+                                   verify="sharding")))
     # the functional executors at pp 4 (x, y on every rank)
     rs = np.random.RandomState(r.seed + 9)
     L, D = 8, 16
@@ -1754,7 +1786,18 @@ def _pp4(r):
     for tag, sizes, vpp, amp_on, acc, steps, clip in PP_CARD_RUNS:
         r.mesh(**sizes)
         m = _pp_pipe(r, cfg, vpp)
-        pipe = PipelineParallel(m, strategy=_strategy(acc))
+        if tag == "1f1b":
+            # the schedule from the planner's pp 4 plan: 2 pp micro-batches
+            budget = plan_budget(torch.cuda.get_device_properties(
+                r.dev).total_memory)
+            pipe = PipelineParallel(m).apply_plan(
+                card_plan(cfg, budget, pp=4))
+            if pipe._num_micro != acc:
+                raise AssertionError(f"pp4: the plan's schedule runs "
+                                     f"{pipe._num_micro} micro-batches, "
+                                     f"the leg {acc}")
+        else:
+            pipe = PipelineParallel(m, strategy=_strategy(acc))
         opt = SGD(learning_rate=SGD_LR, parameters=m.parameters(),
                   grad_clip=ClipGradByNorm(PP_CARD_CLIP) if clip else None)
         if clip:
@@ -2321,6 +2364,168 @@ def _ckpt_card_reshard(r):
     _ckpt_reshard(r, cfg0, _card_batch_fn(cfg0), _ckpt_root(r), CKPT_CARD,
                   mesh, zero, "ckpt_reshard")
 
+# ---------------------------------------------------------------------------
+# the planner's layout on the ranks
+# ---------------------------------------------------------------------------
+
+def plan_card_config(num_layers=24):
+    """GPT-3 1.3B at seq CARD_SEQ: all 24 layers for the plan, fewer to
+    run."""
+    from ..models.gpt import GPTConfig
+    return GPTConfig.gpt3_1_3b(num_layers=num_layers, max_seq_len=CARD_SEQ,
+                               dropout=0.0)
+
+
+def plan_budget(total_bytes, ranks=4):
+    """The per-rank memory budget of ranks sharing one card."""
+    return int(PLAN_BUDGET_FRAC * total_bytes / ranks)
+
+
+def card_plan(cfg, budget, pp=1, verify="sharding", **kw):
+    """The planner's choice for `cfg` on 4 H100s with `pp` fixed."""
+    from ..planner import plan
+    return plan(cfg, n_chips=4, mesh_shape={"pp": pp}, chip="h100",
+                hbm_budget=budget, verify=verify, **kw)
+
+
+def _planned(r, cfg, p, steps, amp_on=False, weights=None, retag=False):
+    """`steps` ShardedTrainStep(plan=p, lint=True) steps of
+    GPTForPretraining(cfg) (the plan's remat; weights from `weights`,
+    else the seed) on the mesh `p.build_mesh()` installs, over the dp
+    rows the layout takes; `retag` first re-tags the model from the
+    plan's rules (overwrite: every tag rewritten, its groups kept). ->
+    the leg's record (losses, launches, ms and peak bytes a step, the
+    lint's findings, the qkv tag)."""
+    torch = r.torch
+    from .. import amp
+    from ..convert import shard_jax_params
+    from ..distributed import ShardedTrainStep
+    from ..models.gpt import GPTForPretraining
+    from ..ops.kernel_registry import reset_launches
+    from ..optimizer import AdamW
+    from ..planner.rules import apply_partition_rules
+    p.build_mesh()
+    cfg = type(cfg)(**{**vars(cfg), "remat": p.layout.remat})
+    model = GPTForPretraining(cfg, device=r.dev, seed=r.seed)
+    if weights is not None:
+        shard_jax_params(model, weights)
+    if retag:
+        apply_partition_rules(model, p.rules, overwrite=True)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+
+    def loss_fn(i, l):
+        with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
+            return model.loss(i, l)
+    _reset_step(r)
+    step = ShardedTrainStep(model, loss_fn, opt, plan=p, lint=True)
+    rows = p.layout.dp * p.layout.micro_batch
+    ids, lbl = tiny_batch(r.seed, rows, cfg.max_seq_len, cfg.vocab_size)
+    batch = [torch.from_numpy(a).to(r.dev) for a in (ids, lbl)]
+    per = []
+    for k in range(steps):
+        r.coll.barrier()
+        r.sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = float(step(*batch))
+        r.sync()
+        per.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": _launch_counts(),
+                    "peak_bytes": torch.cuda.max_memory_allocated()
+                    if r.dev.type == "cuda" else 0})
+    rec = {"layout": p.layout.to_dict(), "losses": [d["loss"] for d in per],
+           "steps": per, "zero_stage": step.zero_stage,
+           "lint": [f.to_dict() for f in step.lint_findings],
+           "qkv_tag": [list(model.gpt.blocks[0].attn.mesh_axes[
+               "qkv_proj.weight"][0]),
+               model.gpt.blocks[0].attn.mesh_axes["qkv_proj.weight"][1]]}
+    del step, model, opt
+    _release(r)
+    return rec
+
+
+def _one_process_loss(r, cfg, rows, steps, amp_on, weights=None):
+    """The same seeded model's jit.TrainStep on this rank alone (no
+    mesh): -> its losses."""
+    torch = r.torch
+    from .. import amp
+    from ..convert import shard_jax_params
+    from ..jit import TrainStep
+    from ..models.gpt import GPTForPretraining
+    from ..optimizer import AdamW
+    r.env.set_mesh(None)
+    model = GPTForPretraining(cfg, device=r.dev, seed=r.seed)
+    if weights is not None:
+        shard_jax_params(model, weights)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+
+    def loss_fn(i, l):
+        with amp.auto_cast(enable=amp_on, dtype="bfloat16"):
+            return model.loss(i, l)
+    step = TrainStep(model, loss_fn, opt)
+    ids, lbl = tiny_batch(r.seed, rows, cfg.max_seq_len, cfg.vocab_size)
+    batch = [torch.from_numpy(a).to(r.dev) for a in (ids, lbl)]
+    out = [float(step(*batch)) for _ in range(steps)]
+    del step, model, opt
+    _release(r)
+    return out
+
+
+def _cpu_plan(r):
+    """The tiny GPT on the plan for 2 ranks at mp 2, re-tagged from the
+    plan's rules (the qkv's 3 groups must survive), f32: the planned
+    step's losses beside the one-process step's (rank 0)."""
+    from ..models.gpt import GPTConfig
+    from ..planner import plan
+    cfg = GPTConfig(**TINY)
+    p = plan(cfg, mesh_shape={"mp": 2}, verify="sharding")
+    weights = numpy_weights(cfg, r.seed)
+    if r.rank == 0:
+        r.rec["plan/reference"] = _one_process_loss(
+            r, type(cfg)(**{**vars(cfg), "remat": p.layout.remat}),
+            p.layout.dp * p.layout.micro_batch, PLAN_STEPS, False, weights)
+    r.coll.barrier()
+    r.rec["plan"] = _planned(r, cfg, p, PLAN_STEPS, weights=weights,
+                             retag=True)
+
+
+def _plan4(r):
+    """GPT-3 1.3B's width on the planner's 4-card choice (24 layers
+    planned, PLAN_CARD_LAYERS run), bf16 amp, AdamW, PLAN_STEPS steps:
+    rank 0 first runs the one-process step of the same seeded model;
+    each rank then keeps its peak beside the plan's projection at the
+    run depth, and the plan record at that depth calibrated by the
+    measured peak (which ledger_check's drift rule then judges)."""
+    torch = r.torch
+    from ..planner import evaluate_layout, plan
+    total = torch.cuda.get_device_properties(r.dev).total_memory
+    budget = plan_budget(total)
+    p = card_plan(plan_card_config(), budget)
+    cfg = plan_card_config(PLAN_CARD_LAYERS)
+    rows = p.layout.dp * p.layout.micro_batch
+    if r.rank == 0:
+        r.rec["plan4/reference"] = _one_process_loss(
+            r, type(cfg)(**{**vars(cfg), "remat": p.layout.remat}), rows, 1,
+            True)
+    r.coll.barrier()
+    rec = _planned(r, cfg, p, PLAN_STEPS, amp_on=True)
+    cand = evaluate_layout(cfg, p.layout, chip="h100", hbm_budget=budget)
+    peak = max(d["peak_bytes"] for d in rec["steps"])
+    cal = [{"kind": "compile", "hbm": {"total_bytes": peak},
+            "hbm_projected_bytes": cand.projected_hbm_bytes}]
+    fixed = plan(cfg, mesh_shape=p.layout.mesh_shape(), chip="h100",
+                 hbm_budget=budget, zero_stages=(p.layout.zero_stage,),
+                 verify="sharding", calibration=cal)
+    rec.update(projected_bytes=cand.projected_hbm_bytes, peak_bytes=peak,
+               budget=budget, total_memory=total,
+               calibration=fixed.calibration,
+               calibrated_projection=fixed.projected_hbm_bytes,
+               record=fixed.to_record(rank=r.rank, measured_hbm_bytes=peak))
+    r.rec["plan4"] = rec
+
+
 CASES = {"cpu": (_cpu_hybrid, _cpu_fused_ce, _cpu_ops, _cpu_mp_layers,
                  _cpu_collectives, _cpu_topology, _cpu_data_parallel,
                  _cpu_timeout),
@@ -2334,7 +2539,8 @@ CASES = {"cpu": (_cpu_hybrid, _cpu_fused_ce, _cpu_ops, _cpu_mp_layers,
          "ckpt4": (_ckpt4,),
          "ckpt4_resume": (_ckpt4_resume,),
          "ckpt2_reshard": (_ckpt_card_reshard,),
-         "ckpt4_reshard": (_ckpt_card_reshard,)}
+         "ckpt4_reshard": (_ckpt_card_reshard,), "cpu_plan": (_cpu_plan,),
+         "plan4": (_plan4,)}
 
 
 def worker(job, out, seed):

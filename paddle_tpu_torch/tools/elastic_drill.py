@@ -13,13 +13,14 @@ loses host 1 to SIGKILL, and the survivor walks the elastic protocol:
            polled at every step boundary and, while the step's
            checkpoint commits, every 0.15 s (the JAX drill's steps are
            short; a 125M-width commit takes seconds);
-  replan   for the surviving chip count through the drill's `plan_fn`
-           ({"dp": n}: a stand-in until the planner is ported, ROADMAP
-           Queue 1 item 3);
+  replan   for the surviving chip count through the planner
+           (`ElasticCoordinator(model_cfg=)`: `planner.plan()` of the
+           drill's model on the surviving H100s, verify="sharding");
   drain    a final checkpoint through `ResilienceManager`
            (`save_every=1`, stamped with the pod's layout {"dp": 2}),
            then exit ELASTIC_EXIT_CODE (101);
-  reshard  a relaunched process with layout {"dp": 1} auto-resumes:
+  reshard  a relaunched process with the plan's one-card layout
+           (`relaunch_layout`: dp 1, ZeRO-1) auto-resumes:
            the stored layout differs from the live one, so `resume()`
            takes the reshard route; its parameters, AdamW slots and RNG
            must equal the drained ones (digests);
@@ -138,10 +139,13 @@ def state_digests(model, optimizer):
     return h["model"].hexdigest(), h["opt"].hexdigest()
 
 
-def plan_fn(n_chips):
-    """The replan's stand-in for the planner: data parallel over the
-    surviving chips."""
-    return {"dp": int(n_chips)}
+def relaunch_layout(args, n_chips=1):
+    """The planner's layout for `n_chips` cards of the drill's model —
+    the one the coordinator's replan chose — for the relaunch's
+    ResilienceManager."""
+    from ..planner import plan
+    return plan(_config(args), n_chips=n_chips, chip="h100",
+                verify="sharding").layout
 
 
 def _launches():
@@ -214,7 +218,8 @@ def run_host(args):
         layout={"dp": 2}, rank=0,
         retry=RetryPolicy(max_attempts=4, base_delay_s=0.01,
                           max_delay_s=0.05))
-    coord = ElasticCoordinator(em, plan_fn=plan_fn,
+    coord = ElasticCoordinator(em, model_cfg=_config(args),
+                               chip="h100",
                                miss_threshold=MISS_THRESHOLD).attach(res)
     step = TrainStep(model, loss_fn, opt, resilience=res)
     em.register()
@@ -253,7 +258,7 @@ def run_relaunch(args):
     dev = next(model.parameters()).device
     res = ResilienceManager(
         args.dir, model=model, optimizer=opt, save_every=1, preempt=False,
-        sink=args.telemetry or None, layout=plan_fn(1), rank=0,
+        sink=args.telemetry or None, layout=relaunch_layout(args), rank=0,
         retry=RetryPolicy(max_attempts=4, base_delay_s=0.01,
                           max_delay_s=0.05))
     step = TrainStep(model, loss_fn, opt, resilience=res)

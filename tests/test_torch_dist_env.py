@@ -23,6 +23,7 @@ import time
 
 import numpy as np
 import pytest
+from types import SimpleNamespace
 import torch
 
 import jax.numpy as jnp
@@ -182,22 +183,34 @@ def test_shard_model_without_a_mesh_cuts_nothing():
     shapes = {n: p.shape for n, p in tm.named_parameters()}
     shard_model(tm)
     assert {n: p.shape for n, p in tm.named_parameters()} == shapes
-    with pytest.raises(NotImplementedError, match="planner"):
-        shard_model(tm, rules=[("qkv", (None, "mp"))])
+    # rules= tags first (existing tags win, a new tag takes groups 1),
+    # then cuts: nothing without a mesh
+    tm.gpt.blocks[0].ln1.mesh_axes = {}
+    shard_model(tm, rules=[(r"ln1\.weight$", ("mp",)), (".*", ())])
+    assert {n: p.shape for n, p in tm.named_parameters()} == shapes
+    assert tm.gpt.blocks[0].ln1.mesh_axes == {"weight": (("mp",), 1)}
+    assert tm.gpt.blocks[0].attn.mesh_axes["qkv_proj.weight"] == \
+        ((None, "mp"), 3)
 
 
 # ---- the step's unported options ---------------------------------------------------
 
+def _stub_plan():
+    from paddle_tpu_torch.planner import Layout, gpt_partition_rules
+    return SimpleNamespace(layout=Layout(), rules=gpt_partition_rules())
+
+
 @pytest.mark.parametrize("kw,what", [
     (dict(zero_stage=3), "ZeRO-3"), (dict(offload=True), "offload"),
-    (dict(plan=object()), "planner"), (dict(lint=True), "planner"),
+    (dict(plan=_stub_plan()), "planner"), (dict(lint=True), "planner"),
     (dict(health=True), "runtime"), (dict(resilience=object()), "elastic"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, what):
     m = torch.nn.Linear(2, 2)
-    if what in ("ZeRO-3", "offload", "elastic", "runtime"):
-        # ported since: ZeRO-3, offload=, resilience= and health= raise
-        # nothing of their own; without a mesh the step refuses
+    if what in ("ZeRO-3", "offload", "elastic", "runtime", "planner"):
+        # ported since: ZeRO-3, offload=, resilience=, health=, plan= and
+        # lint= raise nothing of their own; without a mesh the step
+        # refuses
         with pytest.raises(ValueError, match="needs a mesh"):
             ShardedTrainStep(m, lambda x: x,
                              AdamW(parameters=m.parameters()), **kw)

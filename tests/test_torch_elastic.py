@@ -312,9 +312,13 @@ def test_coordinator_gauges_and_counters(tmp_path):
 
 
 def test_coordinator_model_cfg_waits_for_the_planner(tmp_path):
+    # the planner is ported: model_cfg= replans through planner.plan()
+    from paddle_tpu_torch.models.gpt import GPTConfig
     m = elastic.ElasticManager(str(tmp_path), np=1)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        elastic.ElasticCoordinator(m, model_cfg=object())
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                    num_heads=4, max_seq_len=64)
+    coord = elastic.ElasticCoordinator(m, model_cfg=cfg)
+    assert coord.plan_fn(2).layout.n_chips == 2
     with pytest.raises(ValueError, match="miss_threshold"):
         elastic.ElasticCoordinator(m, miss_threshold=0)
 

@@ -454,7 +454,26 @@ def test_unported_options_raise(run, case, item):
         # ported since: a checkpoint directory trains and commits a step
         assert msg == "accepted: committed [1]"
         return
-    assert msg.startswith("NotImplementedError") and f"item {item}" in msg
+    # ported since (item 6.4): the lint runs the batch and keeps its
+    # findings; apply_plan raises the micro-batches to 2 pp and refuses a
+    # plan whose pp is not the mesh's. The first batch of a shape sends
+    # the boundary activation's shape from stage 0 through the host
+    # (broadcast_object_list): its receivers' PT102 host syncs are the
+    # only errors the lint finds
+    for rank in range(_RANKS):
+        msg = _rec(run, rank)["errors"][case]
+        if case == "pp_lint":
+            errs = [f for f in _rec(run, rank)["pp_lint_findings"]
+                    if f["severity"] == "error"]
+            assert msg.startswith(f"linted: errors {len(errs)} "), msg
+            assert len(errs) == (0 if rank == 0 else 3), errs
+            assert all(f["rule_id"] == "PT102" and "pipeline.py" in
+                       f["location"] and "_local_scalar_dense" in
+                       f["message"] for f in errs), errs
+        else:
+            assert msg.startswith("accepted: micro 8; ValueError: plan "
+                                  "pp2 zero1 mb1 wants pp=2 but the process "
+                                  "mesh has pp=4"), msg
 
 
 # ---- the functional executors --------------------------------------------------------
